@@ -2,33 +2,48 @@
 
     python3 chip_smoke.py
 
-Drives prosper_tpu_torch's main path — the wavefront path tracer — at
-1920x1080 with 3 bounces on the 2048-cluster plate scene (262,144
-triangles), through the hand-written CUDA trace kernels. Phases:
+Drives prosper_tpu_torch's two ported paths at 1920x1080 on the
+2048-cluster plate scene (262,144 triangles) through the hand-written
+CUDA kernels: the wavefront path tracer (3 bounces) and the deferred
+renderer (G-buffer, 1024 scattered point lights, clustered tile
+shading), the latter without and with two-phase meshlet culling.
+Phases:
 
 1. device: CUDA, nvcc and the card's name and power limit;
-2. build: compile csrc/trace_bvh.cu for sm_90a (timed);
-3. kernels: each of the three kernels against its plain PyTorch version
-   on the card, on the whole wavefronts of one frame (every primary ray,
-   the first bounce set, the first shadow set) of the 64x64 test scene
-   and of the 1080p plate scene, with kernel and plain times;
-4. slice: the frame call of prosper_tpu_torch/entry.py (sample,
-   accumulate, tone map), 2 warm-up + 8 timed frames, launch counts and
-   memory; the CUDA frame against the CPU frame on the 64x64 test scene;
-   the 1080p frame with the plain versions on the card, held against
-   the kernels' frame of the same index.
+2. build: compile csrc/trace_bvh.cu and csrc/shade_tiles.cu for sm_90a,
+   one nvcc each, in parallel (timed);
+3. kernels: each kernel against its plain PyTorch version on the card,
+   on the whole inputs of one frame, with kernel and plain times and
+   the bound (the least time an H100 could take for the same work):
+   K1 on every primary ray of the path tracer and on every pixel of the
+   G-buffer, K2 on the first bounce set, K3 on the first shadow set, K4
+   on both culling phases of a culled G-buffer, K5 on the G-buffer of a
+   deferred frame;
+4. pt: the path tracer's frame call (sample, accumulate, tone map), 2
+   warm-up + 8 timed frames, launch counts, memory, a profile of one
+   frame; the CUDA frame against the CPU frame on the 64x64 test scene;
+   the 1080p frame with the plain versions against the kernels' frame;
+5. deferred: the deferred frame call without and with culling, each 2
+   warm-up + 8 timed frames with launch counts, drawn meshlets, memory
+   and a profile of one frame; the culled G-buffer against the unculled
+   one; each 1080p frame with the plain versions against the kernels'
+   frame; 64x64 CUDA frames against CPU frames.
 
-Any failed phase exits non-zero. The last line is the result object, the
+Every launch count is set to 0 just before a path is driven and read
+just after; a kernel of the path that never launched fails the run. Any
+failed phase exits non-zero. The last line is the result object, the
 line before it the per-kernel record. Needs no network and one card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import torch
 
@@ -36,19 +51,57 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 W, H, BOUNCES = 1920, 1080, 3
 N_CLUSTERS = 2048
+N_LIGHTS = 1024  # bench.py's deferred stage: 1024 scattered point lights
 WARMUP, TIMED = 2, 8
 PLAIN_FRAME_BUDGET_S = 120.0
-SOURCE = "prosper_tpu_torch/csrc/trace_bvh.cu"
-TRACE_KERNEL_SYMBOLS = ("primary_kernel", "closest_kernel", "any_kernel")
-REPLACES = {
-    "trace_primary_bvh_full": "prosper_tpu/ops/trace_bvh.py:1431",
-    "trace_closest_bvh": "prosper_tpu/ops/trace_bvh.py:1050",
-    "trace_any_bvh": "prosper_tpu/ops/trace_bvh.py:1768",
+SOURCES = {
+    "trace_bvh": "prosper_tpu_torch/csrc/trace_bvh.cu",
+    "shade_tiles": "prosper_tpu_torch/csrc/shade_tiles.cu",
 }
-# kernel vs plain: hit/miss and occlusion equal; tri equal unless the two
-# t agree within 1e-6 relative (an exact tie); t within rtol 1e-5 / atol
-# 1e-6; interpolated attributes (and u, v) within 1e-4
+# kernel -> (source, the Pallas kernel it replaces)
+KERNELS = {
+    "trace_primary_bvh_full": ("trace_bvh",
+                               "prosper_tpu/ops/trace_bvh.py:1431"),
+    "trace_closest_bvh": ("trace_bvh", "prosper_tpu/ops/trace_bvh.py:1050"),
+    "trace_any_bvh": ("trace_bvh", "prosper_tpu/ops/trace_bvh.py:1768"),
+    "trace_closest_bvh_full": ("trace_bvh",
+                               "prosper_tpu/ops/trace_bvh.py:1211"),
+    "shade_clustered_tiles": ("shade_tiles",
+                              "prosper_tpu/ops/shade_tiles.py:351"),
+}
+PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
+DEFERRED_PATH = {False: ("trace_primary_bvh_full", "shade_clustered_tiles"),
+                 True: ("trace_closest_bvh_full", "shade_clustered_tiles")}
+PORT_KERNEL_SYMBOLS = ("primary_kernel", "closest_kernel", "any_kernel",
+                       "closest_full_kernel", "shade_kernel")
+# trace kernel vs plain: hit/miss and occlusion equal; tri equal unless
+# the two t agree within 1e-6 relative (an exact tie); t within rtol 1e-5
+# / atol 1e-6; interpolated attributes (and u, v) within 1e-4
 T_RTOL, T_ATOL, TIE_RTOL, ATTR_TOL = 1e-5, 1e-6, 1e-6, 1e-4
+# shading kernel vs plain: every channel within rtol 1e-5 / atol 1e-6.
+# Both evaluate the same float32 operations in the same order (the
+# kernel is built with --fmad=false) over the same ascending light list,
+# so they differ only where logf/expf/sqrtf and PyTorch's log/exp/sqrt
+# round differently, by an ulp, and a sum of up to 128 + 128 lights
+# carries that to a few ulps.
+K5_RTOL, K5_ATOL = 1e-5, 1e-6
+
+# The bound: the larger of the bytes the function must move (each input
+# read once, each output written once) over the H100's 3.35 TB/s, and
+# its float32 operations over the 67 TFLOP/s outside the tensor cores
+# (NVIDIA's data sheet, SXM, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float32 operations, counted in the CUDA sources: one ray-triangle test
+# (csrc/trace_bvh.cu moller: the two cross products, three dot products,
+# the reciprocal and the six range tests); per point light of a pixel's
+# list up to its 128th visible one, the z-slab test and the running
+# count (later tests cannot change the color); one shaded point light
+# (attenuation, light_contrib, accumulation); one spot light.
+MOLLER_OPS = 53
+LIST_LIGHT_OPS = 6
+POINT_LIGHT_OPS = 109
+SPOT_LIGHT_OPS = 112
 
 
 def phase(name: str) -> None:
@@ -92,6 +145,74 @@ def timed_call(fn):
     return out[0], ms
 
 
+@contextlib.contextmanager
+def patched(*swaps):
+    """Swap attributes of modules, (module, name, replacement) each, for
+    the duration of a with block."""
+    with contextlib.ExitStack() as stack:
+        for module, name, value in swaps:
+            stack.enter_context(mock.patch.object(module, name, value))
+        yield
+
+
+def all_kernels():
+    from prosper_tpu_torch.ops import shade_tiles as tst
+    from prosper_tpu_torch.ops import trace_bvh as tb
+
+    return tb.KERNELS + tst.KERNELS
+
+
+def reset_counts() -> None:
+    for f in all_kernels():
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    return {f.__name__: f.launches for f in all_kernels()}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def bound(n_bytes: int, n_ops: int) -> dict:
+    """The least time on an H100 for moving n_bytes and doing n_ops."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": n_ops}
+
+
+def entered_pairs(scene, o, d, t_lim, live=None) -> int:
+    """(ray, cluster) pairs whose AABB the ray enters before t_lim, with
+    the plain versions' slab test; live (C,) drops masked clusters."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
+
+    slabs = scene["geom"]["packed_full"]
+    cmin, cmax = tb._leaf_boxes(scene["frame"]["bvh_bounds"],
+                                scene["frame"]["bvh_meta"], slabs.shape[0])
+    inv = tb.safe_inv_dir(d)
+    n = 0
+    for r0 in range(0, o.shape[0], 16384):
+        r1 = min(o.shape[0], r0 + 16384)
+        enter, exit_ = tb.slab_enter_exit(o[r0:r1, None], inv[r0:r1, None],
+                                          cmin[None], cmax[None])
+        ok = (enter <= exit_) & (enter < t_lim[r0:r1, None])
+        if live is not None:
+            ok = ok & live[None, :]
+        n += int(ok.sum())
+    return n
+
+
+def closest_ops(scene, o, d, rows, t_max, live=None) -> int:
+    """Möller tests the closest hit needs: all 128 triangles of every
+    cluster whose AABB the ray enters before its final hit t."""
+    t_lim = torch.where(rows[:, 1] >= 0, rows[:, 0], t_max)
+    return MOLLER_OPS * 128 * entered_pairs(scene, o, d, t_lim, live)
+
+
 def compare_rows(got, want, attr_cols):
     """Kernel vs plain hit rows ((R, 8) or (R, 16)) -> (ok, mismatch
     counts, max abs error over t and attr_cols where both hit)."""
@@ -133,46 +254,54 @@ def capture_wavefronts(pt, fn, scene, cam):
             return real(slabs, bounds, meta, o, d, t_min, t_max)
         return rec
 
-    real = pt.trace_any_bvh, pt.trace_closest_bvh
-    pt.trace_any_bvh = recorder("any", real[0])
-    pt.trace_closest_bvh = recorder("closest", real[1])
-    try:
+    with patched((pt, "trace_any_bvh", recorder("any", pt.trace_any_bvh)),
+                 (pt, "trace_closest_bvh",
+                  recorder("closest", pt.trace_closest_bvh))):
         fn(scene, cam, 0)
-    finally:
-        pt.trace_any_bvh, pt.trace_closest_bvh = real
     torch.cuda.synchronize()
     return captured
 
 
-def check_kernels(label, fn, scene, cam, width, height):
-    """Phase 3 on one scene: each kernel against its plain version on the
-    whole wavefront the frame gives it (K1 every pixel, K2 the first
-    bounce set, K3 the first shadow set), with both times. Returns (ok,
-    per-kernel records, primary coverage)."""
+def check_primary(label, scene, cols, cam_vec, frame_index, t_min):
+    """K1 against its plain version on every lane of `cols`."""
     from prosper_tpu_torch.ops import trace_bvh as tb
-    from prosper_tpu_torch.render import pt
 
     geom, frame = scene["geom"], scene["frame"]
     dev = geom["packed_full"].device
-    bounds, meta = frame["bvh_bounds"], frame["bvh_meta"]
-    ok_all, records = True, {}
-
-    _, _, cols, _ = pt._pixel_layouts(width, height, str(dev))
-    cam_vec = tb.primary_cam_vec(cam, width, height, device=dev)
-    slabs40 = geom["packed_full"]
-    args1 = (slabs40, bounds, meta, cols, cam_vec, 0, pt.BOUNCE_T_MIN)
-    want, plain_ms = timed_call(lambda: tb.trace_primary_bvh_full_plain(*args1))
-    got = tb.trace_primary_bvh_full(*args1)
+    args = (geom["packed_full"], frame["bvh_bounds"], frame["bvh_meta"],
+            cols, cam_vec, frame_index, t_min)
+    want, plain_ms = timed_call(lambda: tb.trace_primary_bvh_full_plain(*args))
+    got = tb.trace_primary_bvh_full(*args)
     tb.check_stack_overflow(dev)
     ok, counts, err = compare_rows(got, want, list(range(2, 13)))
+    print(f"K1 {label}: ok={ok} {counts}")
+    o, d, tmax = tb.raygen_plain(cols, cam_vec, frame_index)
+    rec = {"max_abs_err": err, "rays": int(got.shape[0]),
+           "ms": device_ms(lambda: tb.trace_primary_bvh_full(*args), 5),
+           "plain_ms": plain_ms,
+           **bound(nbytes(*args[:5], got),
+                   closest_ops(scene, o.contiguous(), d, want, tmax))}
+    return ok, rec, want
+
+
+def check_pt_kernels(label, fn, scene, cam, width, height):
+    """The path tracer's kernels against their plain versions on the
+    whole wavefront the frame gives each (K1 every pixel, K2 the first
+    bounce set, K3 the first shadow set), with both times and the
+    bounds. Returns (ok, per-kernel records, primary coverage)."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
+    from prosper_tpu_torch.render import pt
+
+    frame = scene["frame"]
+    dev = scene["geom"]["packed_full"].device
+    bounds, meta = frame["bvh_bounds"], frame["bvh_meta"]
+    _, _, cols, _ = pt._pixel_layouts(width, height, str(dev))
+    cam_vec = tb.primary_cam_vec(cam, width, height, device=dev)
+    ok_all, rec, want = check_primary(f"{label} (path tracer form)", scene,
+                                      cols, cam_vec, 0, pt.BOUNCE_T_MIN)
+    records = {"trace_primary_bvh_full": rec}
     cover = float((want[: width * height, 1] >= 0).float().mean())
-    print(f"K1 {label}: ok={ok} primary_coverage={cover:.4f} {counts}")
-    ok_all &= ok
-    records["trace_primary_bvh_full"] = {
-        "max_abs_err": err, "rays": int(cols.shape[0] * cols.shape[2]),
-        "ms": device_ms(lambda: tb.trace_primary_bvh_full(*args1), 5),
-        "plain_ms": plain_ms,
-    }
+    print(f"primary_coverage={cover:.4f}")
 
     captured = capture_wavefronts(pt, fn, scene, cam)
     for key, tag in (("closest", "K2"), ("any", "K3")):
@@ -186,76 +315,118 @@ def check_kernels(label, fn, scene, cam, width, height):
         want, plain_ms = timed_call(lambda: plain(*args))
         got = kern(*args)
         tb.check_stack_overflow(dev)
-        rec = {}
+        extra = {}
         if key == "closest":
             ok, counts, err = compare_rows(got, want, [2, 3])
+            ops = closest_ops(scene, o, d, want, t_max)
         else:
             mism = int((got != want).sum())
             ok = mism == 0
             err = float((got.float() - want.float()).abs().max())
             counts = {"rays": int(got.shape[0]), "occluded": int(want.sum()),
                       "occlusion_mismatch": mism}
-            rec["occlusion_mismatch"] = mism
+            extra["occlusion_mismatch"] = mism
+            # an occluded ray needs one cluster's tests at least; a free
+            # one every cluster it enters before t_max
+            free = ~want
+            ops = MOLLER_OPS * 128 * (int(want.sum()) + entered_pairs(
+                scene, o[free], d[free], t_max[free]))
         print(f"{tag} {label}: ok={ok} {live} live rays; {counts}")
         ok_all &= ok
         records[kern.__name__] = {
-            "max_abs_err": err, **rec, "rays": int(got.shape[0]),
+            "max_abs_err": err, **extra, "rays": int(got.shape[0]),
             "live_rays": live, "ms": device_ms(lambda: kern(*args), 5),
-            "plain_ms": plain_ms,
+            "plain_ms": plain_ms, **bound(nbytes(*args, got), ops),
         }
     tb.check_stack_overflow(dev)
     return ok_all, records, cover
 
 
 def frames_agree(label, a, b):
-    """Two frames' (image, ray count): equal ray counts and at most 1% of
-    pixels off by more than 1e-3."""
+    """Two frames' (image, stat): equal stats (ray counts or drawn
+    meshlets) and at most 1% of pixels off by more than 1e-3."""
     (img_a, n_a), (img_b, n_b) = a, b
     diff = (img_a.cpu() - img_b.cpu()).abs()
     off = float((diff > 1e-3).any(dim=-1).float().mean())
-    print(f"{label}: rays {int(n_a)} vs {int(n_b)}, max abs diff "
+    print(f"{label}: stat {int(n_a)} vs {int(n_b)}, max abs diff "
           f"{float(diff.max()):.3e}, share of pixels off by > 1e-3 {off:.5f}")
     if int(n_a) != int(n_b) or off > 0.01:
         raise RuntimeError(f"{label}: the frames disagree")
 
 
-def breakdown(fn, scene, cam, frame_index, top=12):
-    """One frame under torch.profiler: device time by kernel, the trace
-    kernels' share, and the device's idle share of the frame's wall time
-    (profiling adds host overhead, so the idle share is an upper bound)."""
+def breakdown(fn, scene, cam, frame_index, state=None, top=12):
+    """One frame under torch.profiler: device time by kernel, the port's
+    CUDA kernels' share, and the device's idle share of the frame's wall
+    time (profiling adds host overhead, so the idle share is an upper
+    bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = elapsed_ms(lambda: fn(scene, cam, frame_index))
+        wall = elapsed_ms(lambda: fn(scene, cam, frame_index, state))
     rows = sorted(
         ((e.key, e.device_time_total / 1e3, e.count)
          for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
         key=lambda r: -r[1],
     )
     busy = sum(r[1] for r in rows)
-    trace = sum(r[1] for r in rows
-                if any(k in r[0] for k in TRACE_KERNEL_SYMBOLS))
+    ours = sum(r[1] for r in rows
+               if any(k in r[0] for k in PORT_KERNEL_SYMBOLS))
     print(f"profile of one frame: wall {wall:.3f} ms, device busy "
           f"{busy:.3f} ms (idle share {max(0.0, 1 - busy / wall):.3f}), "
-          f"trace kernels {trace:.3f} ms, other kernels {busy - trace:.3f} ms "
+          f"port kernels {ours:.3f} ms, other kernels {busy - ours:.3f} ms "
           f"in {sum(r[2] for r in rows)} launches")
     for name, ms, count in rows[:top]:
         print(f"  {ms:9.3f} ms {count:5d}x {name[:90]}")
 
 
-def run(smi):
-    """Phases 3 and 4 on the card; returns the per-kernel records."""
+def drive(fn, scene, cam, path, label, smi):
+    """The main path of one mode: counts to 0, 2 warm-up + 8 timed
+    frames, counts read. Returns (ms/frame, launches, last image, last
+    state, per-frame stats)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state = None
+    for i in range(WARMUP):
+        img, state, _ = fn(scene, cam, i, state)
+    out, stats = [img, state], []
+
+    def frames():
+        for i in range(WARMUP, WARMUP + TIMED):
+            out[0], out[1], stat = fn(scene, cam, i, out[1])
+            stats.append(stat)
+
+    ms_frame = elapsed_ms(frames) / TIMED
+    launches = read_counts()
+    img = out[0]
+    print(f"{label}: ms/frame {ms_frame:.3f}; launches {launches} over "
+          f"{WARMUP + TIMED} frames")
+    print(f"{label}: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes; card: {smi}")
+    finite = bool(torch.isfinite(img).all())
+    print(f"{label}: image {tuple(img.shape)} finite={finite} "
+          f"mean={float(img.mean()):.5f}")
+    if not (finite and bool((img > 0).any()) and tuple(img.shape) == (H, W, 3)):
+        raise RuntimeError(f"{label}: the image is not finite and non-zero")
+    missing = [k for k in path if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"{label}: kernels of the path never launched: "
+                           f"{missing}")
+    return ms_frame, {k: launches[k] for k in path}, img, out[1], stats
+
+
+def run_pt(smi, dev):
+    """Phase 3 for K1-K3 and phase 4; returns (records, launches)."""
     from prosper_tpu_torch import entry as port_entry
     from prosper_tpu_torch.ops import trace_bvh as tb
     from prosper_tpu_torch.render import pt
 
-    dev = torch.device("cuda")
-    phase("kernels")
+    phase("kernels: path tracer")
     fn64, (scene64, cam64, _) = port_entry.entry(
         dev, scene="test", n_clusters=4, width=64, height=64, max_bounces=2
     )
-    ok64, _, _ = check_kernels("test 64x64", fn64, scene64, cam64, 64, 64)
+    ok64, _, _ = check_pt_kernels("test 64x64", fn64, scene64, cam64, 64, 64)
     fn, (scene, cam, _) = port_entry.entry(
         dev, scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
         max_bounces=BOUNCES,
@@ -263,47 +434,23 @@ def run(smi):
     C = scene["geom"]["packed_full"].shape[0]
     print(f"plate scene: {C} clusters, {C * 128} triangles, "
           f"{scene['frame']['bvh_bounds'].shape[0]} BVH nodes")
-    ok, records, cover = check_kernels(f"plate {W}x{H}", fn, scene, cam, W, H)
-    print("kernel and plain times on the whole wavefronts: " + ", ".join(
-        f"{k} {r['ms']:.3f} vs {r['plain_ms']:.1f} ms"
+    ok, records, cover = check_pt_kernels(f"plate {W}x{H}", fn, scene, cam,
+                                          W, H)
+    print("kernel, plain and bound times on the whole wavefronts: " + ", ".join(
+        f"{k} {r['ms']:.3f} vs {r['plain_ms']:.1f} ms, bound "
+        f"{r['bound_ms']:.3f} ms ({r['bound_by']})"
         for k, r in records.items()) + f"; card: {smi}")
     if not (ok and ok64):
         raise RuntimeError("a kernel disagrees with its plain version")
 
-    phase("slice")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    state, rays = None, []
-    tb.reset_launch_counts()
-    for i in range(WARMUP):
-        img, state, _ = fn(scene, cam, i, state)
-    out = [img, state]
-
-    def frames():
-        for i in range(WARMUP, WARMUP + TIMED):
-            out[0], out[1], n_rays = fn(scene, cam, i, out[1])
-            rays.append(n_rays)
-
-    ms_frame = elapsed_ms(frames) / TIMED
-    img, state = out
-    launches = {f.__name__: f.launches for f in tb.KERNELS}
+    phase("pt")
+    ms_frame, launches, img, state, rays = drive(
+        fn, scene, cam, PT_PATH, f"pt {W}x{H} bounces={BOUNCES}", smi)
     rays_frame = sum(int(r) for r in rays) / TIMED
-    print(f"frame {W}x{H} bounces={BOUNCES}: ms/frame {ms_frame:.3f} "
+    print(f"pt frame {W}x{H} bounces={BOUNCES}: ms/frame {ms_frame:.3f} "
           f"rays/frame {rays_frame:.0f} Mrays/s "
-          f"{rays_frame / ms_frame / 1e3:.3f} primary_coverage {cover:.4f}")
-    print(f"launches {launches} over {WARMUP + TIMED} frames")
-    print(f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; "
-          f"card: {smi}")
-    finite = bool(torch.isfinite(img).all())
-    nonzero = bool((img > 0).any())
-    print(f"image {tuple(img.shape)} finite={finite} nonzero={nonzero} "
-          f"mean={float(img.mean()):.5f} accumulated_samples="
-          f"{float(state[1][0, 0]):.0f}")
-    if not (finite and nonzero and tuple(img.shape) == (H, W, 3)):
-        raise RuntimeError("the image is not finite and non-zero")
-    if min(launches.values()) <= 0:
-        raise RuntimeError(f"a kernel of the path never launched: {launches}")
-
+          f"{rays_frame / ms_frame / 1e3:.3f} primary_coverage {cover:.4f} "
+          f"accumulated_samples={float(state[1][0, 0]):.0f}")
     breakdown(fn, scene, cam, WARMUP + TIMED)
 
     # the frame on the card against the CPU frame (plain versions)
@@ -312,40 +459,275 @@ def run(smi):
     )
     img_d, _, n_d = fn64(scene64, cam64, 3)
     img_c, _, n_c = fn_c(scene_c, cam_c, 3)
-    frames_agree("test 64x64 frame cuda vs cpu", (img_d, n_d), (img_c, n_c))
+    frames_agree("pt test 64x64 frame cuda vs cpu", (img_d, n_d),
+                 (img_c, n_c))
 
     # the same 1080p frame with the three plain versions on the card,
     # against the kernels' frame of the same index
-    k1, k2, k3 = (records[f.__name__] for f in tb.KERNELS)
+    k1, k2, k3 = (records[k] for k in PT_PATH)
     est_s = 1e-3 * (k1["plain_ms"] + (BOUNCES - 1) * k2["plain_ms"]
                     + BOUNCES * k3["plain_ms"])
     if est_s < PLAIN_FRAME_BUDGET_S:
-        saved = (pt.trace_primary_bvh_full, pt.trace_closest_bvh,
-                 pt.trace_any_bvh)
-        pt.trace_primary_bvh_full = tb.trace_primary_bvh_full_plain
-        pt.trace_closest_bvh = tb.trace_closest_bvh_plain
-        pt.trace_any_bvh = tb.trace_any_bvh_plain
         plain = []
-        try:
+        with patched(
+            (pt, "trace_primary_bvh_full", tb.trace_primary_bvh_full_plain),
+            (pt, "trace_closest_bvh", tb.trace_closest_bvh_plain),
+            (pt, "trace_any_bvh", tb.trace_any_bvh_plain),
+        ):
             plain_frame_ms = elapsed_ms(
                 lambda: plain.append(fn(scene, cam, WARMUP)))
-        finally:
-            (pt.trace_primary_bvh_full, pt.trace_closest_bvh,
-             pt.trace_any_bvh) = saved
-        print(f"frame with the plain versions: ms/frame {plain_frame_ms:.1f} "
-              f"(with the kernels {ms_frame:.3f}); card: {smi}")
+        print(f"pt frame with the plain versions: ms/frame "
+              f"{plain_frame_ms:.1f} (with the kernels {ms_frame:.3f}); "
+              f"card: {smi}")
         img_k, _, n_k = fn(scene, cam, WARMUP)
-        frames_agree(f"{W}x{H} frame {WARMUP} kernels vs plain versions",
+        frames_agree(f"pt {W}x{H} frame {WARMUP} kernels vs plain versions",
                      (img_k, n_k), (plain[0][0], plain[0][2]))
     else:
-        print(f"frame with the plain versions: skipped (estimated "
+        print(f"pt frame with the plain versions: skipped (estimated "
               f"{est_s:.0f} s > {PLAIN_FRAME_BUDGET_S:.0f} s)")
+    return records, launches
 
-    return [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name], **rec}
-        for name, rec in records.items()
-    ]
+
+def plain_k4(slabs, bounds, meta, o, d, t_min, t_max, skip_mask=None):
+    """K4's plain version behind the wrapper's signature."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
+
+    t_max = tb._tmax(t_max, o.shape[0], o.device)
+    return tb.trace_closest_bvh_full_plain(slabs, bounds, meta, o, d,
+                                           float(t_min), t_max, skip_mask)
+
+
+def plain_paths():
+    """The deferred frame's kernels swapped for their plain versions."""
+    from prosper_tpu_torch.ops import shade_tiles as tst
+    from prosper_tpu_torch.ops import trace_bvh as tb
+    from prosper_tpu_torch.render import deferred, gbuffer
+
+    return patched(
+        (gbuffer, "trace_primary_bvh_full", tb.trace_primary_bvh_full_plain),
+        (gbuffer, "trace_closest_bvh_full", plain_k4),
+        (deferred, "shade_clustered_tiles", tst.shade_clustered_tiles_plain),
+    )
+
+
+def culled_phases(run):
+    """Call run() with K4 recorded -> (its result, the inputs of each
+    culling phase as (o, d, t_min, t_max, skip_mask))."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
+    from prosper_tpu_torch.render import gbuffer
+
+    seen = []
+
+    def record_k4(slabs, bounds, meta, o, d, t_min, t_max, skip_mask=None):
+        seen.append((o.clone(), d.clone(), t_min,
+                     tb._tmax(t_max, o.shape[0], o.device),
+                     skip_mask.clone()))
+        return tb.trace_closest_bvh_full(slabs, bounds, meta, o, d, t_min,
+                                         t_max, skip_mask=skip_mask)
+
+    with patched((gbuffer, "trace_closest_bvh_full", record_k4)):
+        out = run()
+    if len(seen) != 2:
+        raise RuntimeError(f"a culled frame traced {len(seen)} phases, not 2")
+    return out, seen
+
+
+def check_k4_phases(label, scene, seen):
+    """K4 against its plain version on each culling phase's rays and
+    mask -> (ok, record over both phases)."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
+
+    geom, frame = scene["geom"], scene["frame"]
+    dev = geom["packed_full"].device
+    ok_all = True
+    k4 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "rays": 0,
+          "bound_bytes": 0, "bound_ops": 0, "live_clusters": []}
+    for i, (o, d, t_min, t_max, mask) in enumerate(seen, 1):
+        args = (geom["packed_full"], frame["bvh_bounds"], frame["bvh_meta"],
+                o, d, t_min, t_max)
+        want, plain_ms = timed_call(
+            lambda: tb.trace_closest_bvh_full_plain(*args, skip_mask=mask))
+        got = tb.trace_closest_bvh_full(*args, skip_mask=mask)
+        tb.check_stack_overflow(dev)
+        ok, counts, err = compare_rows(got, want, list(range(2, 13)))
+        print(f"K4 {label}, phase {i}: ok={ok} live clusters "
+              f"{int(mask.sum())} of {mask.shape[0]}; {counts}")
+        ok_all &= ok
+        b = bound(nbytes(*args, mask, got),
+                  closest_ops(scene, o, d, want, t_max, mask))
+        k4["max_abs_err"] = max(k4["max_abs_err"], err)
+        k4["ms"] += device_ms(
+            lambda: tb.trace_closest_bvh_full(*args, skip_mask=mask), 5)
+        k4["plain_ms"] += plain_ms
+        k4["rays"] += int(got.shape[0])
+        k4["bound_bytes"] += b["bound_bytes"]
+        k4["bound_ops"] += b["bound_ops"]
+        k4["live_clusters"].append(int(mask.sum()))
+    k4.update(bound(k4.pop("bound_bytes"), k4.pop("bound_ops")))
+    return ok_all, k4
+
+
+def check_deferred_kernels(fns, scene, cam):
+    """Phase 3 for the deferred path: K1 in its G-buffer form on every
+    pixel; K4 on both culling phases of frame 1 (culled against frame
+    0's HiZ), and on both phases of a G-buffer culled against an
+    all-near previous HiZ, which must equal the unculled G-buffer; K5 on
+    an unculled frame's G-buffer. Returns (ok, records)."""
+    from prosper_tpu_torch.ops import hiz
+    from prosper_tpu_torch.ops import shade_tiles as tst
+    from prosper_tpu_torch.ops import trace_bvh as tb
+    from prosper_tpu_torch.render import deferred, gbuffer
+
+    dev = scene["geom"]["packed_full"].device
+    cols = gbuffer._row_pixels(W, H, str(dev))
+    cam_vec = tb.primary_cam_vec(cam, W, H, pixel_jitter=cam["current_jitter"],
+                                 device=dev)
+    ok_all, k1, _ = check_primary(f"plate {W}x{H} (G-buffer form)", scene,
+                                  cols, cam_vec, 0, gbuffer.GBUFFER_T_MIN)
+    records = {"trace_primary_bvh_full": k1}
+
+    # K4: both phases of a culled frame of the main path
+    _, state, _ = fns[True](scene, cam, 0)
+    _, seen = culled_phases(lambda: fns[True](scene, cam, 1, state))
+    ok, k4 = check_k4_phases("frame 1", scene, seen)
+    ok_all &= ok
+
+    # the occlusion half: an all-near previous HiZ (tests/test_two_phase.py's
+    # adversarial case) hides every cluster in phase 1, so phase 2 traces
+    # the clusters that the fresh HiZ frees, and the min-t merge decides
+    near = hiz.build_hiz(torch.full((H, W), 0.999, device=dev), W, H)
+    culled, seen = culled_phases(lambda: gbuffer.render_gbuffer(
+        scene, cam, W, H, use_culling=True, prev_hiz=near))
+    ok, k4_near = check_k4_phases("all-near previous HiZ", scene, seen)
+    base = gbuffer.render_gbuffer(scene, cam, W, H)
+    valid_eq = bool(torch.equal(base["valid"], culled["valid"]))
+    depth_err = float((base["depth"] - culled["depth"]).abs().max())
+    live2 = k4_near["live_clusters"][1]
+    print(f"G-buffer culled against the all-near HiZ vs unculled: valid "
+          f"equal {valid_eq}, max depth diff {depth_err:.3e}, phase-2 live "
+          f"clusters {live2}")
+    if live2 == 0:
+        raise RuntimeError("the all-near HiZ left phase 2 nothing to trace")
+    ok_all &= ok and valid_eq and depth_err <= 1e-6
+    k4["max_abs_err"] = max(k4["max_abs_err"], k4_near["max_abs_err"])
+    k4["near_hiz_live_clusters"] = k4_near["live_clusters"]
+    records["trace_closest_bvh_full"] = k4
+
+    # K5 on the frame's G-buffer
+    seen_k5 = []
+
+    def record_k5(inp, width, height):
+        seen_k5.append(inp)
+        return tst.shade_clustered_tiles(inp, width, height)
+
+    with patched((deferred, "shade_clustered_tiles", record_k5)):
+        fns[False](scene, cam, 0)
+    inp = seen_k5[0]
+    (want, cnt, needed), plain_ms = timed_call(
+        lambda: tst.shade_clustered_tiles_plain(inp, W, H, return_counts=True))
+    got = tst.shade_clustered_tiles(inp, W, H)
+    diff = (got - want).abs()
+    out_of_tol = int((diff > K5_ATOL + K5_RTOL * want.abs()).sum())
+    valid = inp["chan"][12] > 0
+    # the z-slab tests the color needs: up to each pixel's 128th visible
+    # light (the kernel may walk on; that is not counted)
+    listed = int(needed[valid].long().sum())
+    shaded = int(torch.clamp_max(cnt, tst.MAX_FROXEL_LIGHTS)[valid].sum())
+    spots = int(inp["ints"][1]) * int(valid.sum())
+    ops = (LIST_LIGHT_OPS * listed + POINT_LIGHT_OPS * shaded
+           + SPOT_LIGHT_OPS * spots)
+    ok = out_of_tol == 0
+    print(f"K5 plate {W}x{H}: ok={ok} pixels {W * H} with a surface "
+          f"{int(valid.sum())}; lights per tile {int(inp['counts'].min())}-"
+          f"{int(inp['counts'].max())}; needed z-slab tests {listed}, shaded "
+          f"point lights {shaded}, spot evaluations {spots}; channels out of "
+          f"tolerance {out_of_tol}; max abs err {float(diff.max()):.3e}")
+    ok_all &= ok
+    records["shade_clustered_tiles"] = {
+        "max_abs_err": float(diff.max()), "pixels": W * H,
+        "ms": device_ms(lambda: tst.shade_clustered_tiles(inp, W, H), 5),
+        "plain_ms": plain_ms,
+        **bound(nbytes(*inp.values(), got), ops),
+    }
+    return ok_all, records
+
+
+def run_deferred(smi, dev):
+    """Phase 3 for K1 (G-buffer form), K4 and K5, and phase 5; returns
+    (records, launches per kernel summed over both modes)."""
+    from prosper_tpu_torch import entry as port_entry
+    from prosper_tpu_torch.render import gbuffer
+
+    phase("kernels: deferred")
+    fns, args = {}, None
+    for cull in (False, True):
+        fns[cull], args = port_entry.entry(
+            dev, scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
+            mode="deferred", use_culling=cull, scatter_lights=N_LIGHTS)
+    scene, cam, _ = args
+    print(f"deferred scene: plate {N_CLUSTERS} clusters, "
+          f"{int(scene['frame']['lights']['point_count'])} point lights")
+    ok, records = check_deferred_kernels(fns, scene, cam)
+    print("kernel, plain and bound times on one frame's inputs: " + ", ".join(
+        f"{k} {r['ms']:.3f} vs {r['plain_ms']:.1f} ms, bound "
+        f"{r['bound_ms']:.3f} ms ({r['bound_by']})"
+        for k, r in records.items()) + f"; card: {smi}")
+    if not ok:
+        raise RuntimeError("a kernel disagrees with its plain version")
+
+    phase("deferred")
+    launches, results = {}, {}
+    for cull in (False, True):
+        label = f"deferred {W}x{H} lights={N_LIGHTS} culling={cull}"
+        ms_frame, counts, img, state, drawn = drive(
+            fns[cull], scene, cam, DEFERRED_PATH[cull], label, smi)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        drawn = [int(x) for x in drawn]
+        print(f"{label}: drawn meshlets per timed frame {min(drawn)}-"
+              f"{max(drawn)} of {N_CLUSTERS}")
+        breakdown(fns[cull], scene, cam, WARMUP + TIMED, state)
+        results[cull] = (ms_frame, img, state, drawn[-1])
+
+    # culling is conservative: the culled G-buffer equals the unculled one
+    base = gbuffer.render_gbuffer(scene, cam, W, H)
+    culled = gbuffer.render_gbuffer(scene, cam, W, H, use_culling=True,
+                                    prev_hiz=results[True][2]["hiz"])
+    valid_eq = bool(torch.equal(base["valid"], culled["valid"]))
+    depth_err = float((base["depth"] - culled["depth"]).abs().max())
+    img_err = float((results[True][1] - results[False][1]).abs().max())
+    print(f"culled vs unculled G-buffer: valid equal {valid_eq}, max depth "
+          f"diff {depth_err:.3e}, max image diff {img_err:.3e}")
+    if not (valid_eq and depth_err <= 1e-6):
+        raise RuntimeError("the culled G-buffer differs from the unculled")
+
+    # each 1080p frame with the plain versions against the kernels' frame
+    for cull in (False, True):
+        state = results[cull][2] if cull else None
+        img_k, _, n_k = fns[cull](scene, cam, WARMUP, state)
+        with plain_paths():
+            out = []
+            plain_ms = elapsed_ms(
+                lambda: out.append(fns[cull](scene, cam, WARMUP, state)))
+        print(f"deferred culling={cull} frame with the plain versions: "
+              f"ms/frame {plain_ms:.1f} (with the kernels "
+              f"{results[cull][0]:.3f}); card: {smi}")
+        frames_agree(f"deferred culling={cull} {W}x{H} kernels vs plain "
+                     "versions", (img_k, n_k), (out[0][0], out[0][2]))
+
+    # 64x64 frames on the card against the CPU, two frames each
+    for cull in (False, True):
+        got = []
+        for d in (dev, "cpu"):
+            fn, (sc, cm, _) = port_entry.entry(
+                d, scene="plate", n_clusters=64, width=64, height=64,
+                mode="deferred", use_culling=cull, scatter_lights=100)
+            _, st, _ = fn(sc, cm, 0)
+            img, _, n = fn(sc, cm, 1, st)
+            got.append((img, n))
+        frames_agree(f"deferred culling={cull} plate-64 64x64 cuda vs cpu",
+                     *got)
+    return records, launches
 
 
 def main() -> int:
@@ -363,11 +745,37 @@ def main() -> int:
 
     phase("build")
     t0 = time.perf_counter()
-    cuda_build.load("trace_bvh")
-    print(f"build_s {time.perf_counter() - t0:.2f}")
-    print(cuda_build.build_log("trace_bvh").strip())
+    each = cuda_build.build_all()
+    print(f"build_s {time.perf_counter() - t0:.2f} (" + ", ".join(
+        f"{k} {s:.2f}" for k, s in each.items()) + ")")
+    for name in cuda_build.SOURCES:
+        print(cuda_build.build_log(name).strip())
 
-    kernels = run(smi)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    pt_records, pt_launches = run_pt(smi, dev)
+    print(f"pt phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    records, launches = run_deferred(smi, dev)
+    print(f"deferred phases: {time.perf_counter() - t0:.1f} s")
+
+    # K1 serves both paths: its path tracer form leads its record
+    k1 = records.pop("trace_primary_bvh_full")
+    pt_records["trace_primary_bvh_full"].update(
+        {f"gbuffer_{k}": v for k, v in k1.items()})
+    pt_records["trace_primary_bvh_full"]["max_abs_err"] = max(
+        k1["max_abs_err"], pt_records["trace_primary_bvh_full"]["max_abs_err"])
+    records = {**pt_records, **records}
+    for k, n in pt_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    kernels = []
+    for name, rec in records.items():
+        source, replaces = KERNELS[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[source],
+            "replaces": replaces, "launches": launches[name],
+            "library_ms": None, **rec,
+        })
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

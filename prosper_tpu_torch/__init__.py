@@ -6,8 +6,13 @@ found by path. Plain tensor code is PyTorch; every Pallas TPU kernel on a
 ported path is a hand-written CUDA kernel under csrc/, launched by a
 wrapper that runs the kernel's plain PyTorch version only for CPU tensors.
 
-The package never imports JAX. From prosper_tpu it imports only the
-numpy modules `accel.bvh` and `scene.lights`.
+The package imports neither JAX nor anything of prosper_tpu, not even
+its numpy-only modules: it keeps its own copies (accel/bvh.py,
+scene/lights.py, scene/camera.py, testing.py). tests/test_torch_scene.py
+checks this in a subprocess. Two render modes are ported: the path
+tracer (render/pt.py) and the deferred renderer (render/deferred.py:
+G-buffer with optional two-phase meshlet culling, clustered shading);
+entry.py returns the frame call of either.
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,18 @@
-// BVH2 ray-trace kernels for Hopper (sm_90a): the port of the three
-// Pallas TPU kernels on the path tracer's main path.
+// BVH2 ray-trace kernels for Hopper (sm_90a): the port of the four
+// Pallas TPU kernels on the path tracer's and the deferred renderer's
+// main paths.
 //
 //   trace_primary_bvh_full  replaces prosper_tpu/ops/trace_bvh.py
 //                           trace_primary_bvh_full (:1431): in-kernel
-//                           jittered pinhole raygen + closest hit +
-//                           attribute interpolation at the final hit.
+//                           pinhole raygen (PT pcg jitter or G-buffer
+//                           TAA offset) + closest hit + attribute
+//                           interpolation at the final hit.
 //   trace_closest_bvh       replaces trace_bvh.py trace_closest_bvh
 //                           (:1050): closest hit, (R, 8) rows.
+//   trace_closest_bvh_full  replaces trace_bvh.py trace_closest_bvh_full
+//                           (:1211): closest hit of given rays with an
+//                           optional per-cluster skip mask (the culled
+//                           G-buffer's draw list) + attributes, (R, 16).
 //   trace_any_bvh           replaces trace_bvh.py trace_any_bvh (:1768):
 //                           any hit with early exit, (R,) occlusion.
 //
@@ -111,13 +117,15 @@ struct Hit {
     int tri;
 };
 
-// Near-first ordered BVH2 walk. ANY=true stops at the first hit.
-// Returns false on stack overflow.
+// Near-first ordered BVH2 walk. ANY=true stops at the first hit. A leaf
+// whose cluster has live[cluster] == 0 is skipped without touching its
+// slab (live == nullptr: every cluster is live). Returns false on stack
+// overflow.
 template <bool ANY>
 __device__ bool walk(const float* __restrict__ slabs, int rows,
                      const float* __restrict__ bounds,
                      const int* __restrict__ meta, const Ray& r, float t_min,
-                     Hit& h) {
+                     const uint8_t* __restrict__ live, Hit& h) {
     int stack_node[STACK_CAP];
     float stack_enter[STACK_CAP];
     int sp = 0;
@@ -133,6 +141,7 @@ __device__ bool walk(const float* __restrict__ slabs, int rows,
         if (stack_enter[sp] >= h.t) continue;  // pruned by a closer hit
         int leaf = __ldg(meta + 3 * i + 2);
         if (leaf >= 0) {
+            if (live != nullptr && __ldg(live + leaf) == 0) continue;
             const float* s = slabs + (size_t)leaf * rows * LANES;
             for (int j = 0; j < LANES; ++j) {
                 float t, u, v;
@@ -171,6 +180,44 @@ __device__ bool walk(const float* __restrict__ slabs, int rows,
     return true;
 }
 
+// Full hit row (R, 16): t | tri | attributes once, at the final hit
+// (slabs.attrs_from_hit_rows): a(row) = w*row[v0] + u*row[v1] +
+// v*row[v2], w = 1 - u - v; zero attributes on a miss.
+__device__ __forceinline__ void write_full(const float* __restrict__ slabs,
+                                           int rows, const Hit& h,
+                                           float* __restrict__ o) {
+    o[0] = h.t;
+    o[1] = (float)h.tri;
+    if (h.tri < 0) {
+        for (int c = 2; c < 16; ++c) o[c] = 0.0f;
+        return;
+    }
+    const float* s = slabs + (size_t)(h.tri >> 7) * rows * LANES + (h.tri & 127);
+    float w = 1.0f - h.u - h.v;
+#define ATTR(r0, r1, r2)                                                  \
+    (w * __ldg(s + (r0) * LANES) + h.u * __ldg(s + (r1) * LANES) +        \
+     h.v * __ldg(s + (r2) * LANES))
+    for (int c = 0; c < 3; ++c) o[2 + c] = ATTR(9 + c, 12 + c, 15 + c);
+    for (int c = 0; c < 4; ++c) o[5 + c] = ATTR(18 + c, 22 + c, 26 + c);
+    for (int c = 0; c < 2; ++c) o[9 + c] = ATTR(30 + c, 32 + c, 34 + c);
+#undef ATTR
+    o[11] = __ldg(s + 36 * LANES);
+    o[12] = __ldg(s + 37 * LANES);
+    o[13] = o[14] = o[15] = 0.0f;
+}
+
+__device__ __forceinline__ void load_ray(const float* __restrict__ ray_o,
+                                         const float* __restrict__ ray_d,
+                                         int k, Ray& r) {
+    r.ox = ray_o[3 * k];
+    r.oy = ray_o[3 * k + 1];
+    r.oz = ray_o[3 * k + 2];
+    r.dx = ray_d[3 * k];
+    r.dy = ray_d[3 * k + 1];
+    r.dz = ray_d[3 * k + 2];
+    set_inv(r);
+}
+
 __global__ void closest_kernel(const float* __restrict__ slabs, int rows,
                                const float* __restrict__ bounds,
                                const int* __restrict__ meta,
@@ -182,15 +229,10 @@ __global__ void closest_kernel(const float* __restrict__ slabs, int rows,
     int k = blockIdx.x * blockDim.x + threadIdx.x;
     if (k >= R) return;
     Ray r;
-    r.ox = ray_o[3 * k];
-    r.oy = ray_o[3 * k + 1];
-    r.oz = ray_o[3 * k + 2];
-    r.dx = ray_d[3 * k];
-    r.dy = ray_d[3 * k + 1];
-    r.dz = ray_d[3 * k + 2];
-    set_inv(r);
+    load_ray(ray_o, ray_d, k, r);
     Hit h = {t_max[k], 0.0f, 0.0f, -1};
-    if (h.t > 0.0f && !walk<false>(slabs, rows, bounds, meta, r, t_min, h))
+    if (h.t > 0.0f &&
+        !walk<false>(slabs, rows, bounds, meta, r, t_min, nullptr, h))
         atomicExch(err, 1);
     float* o = out + 8 * (size_t)k;
     o[0] = h.t;
@@ -211,17 +253,35 @@ __global__ void any_kernel(const float* __restrict__ slabs, int rows,
     int k = blockIdx.x * blockDim.x + threadIdx.x;
     if (k >= R) return;
     Ray r;
-    r.ox = ray_o[3 * k];
-    r.oy = ray_o[3 * k + 1];
-    r.oz = ray_o[3 * k + 2];
-    r.dx = ray_d[3 * k];
-    r.dy = ray_d[3 * k + 1];
-    r.dz = ray_d[3 * k + 2];
-    set_inv(r);
+    load_ray(ray_o, ray_d, k, r);
     Hit h = {t_max[k], 0.0f, 0.0f, -1};
-    if (h.t > 0.0f && !walk<true>(slabs, rows, bounds, meta, r, t_min, h))
+    if (h.t > 0.0f &&
+        !walk<true>(slabs, rows, bounds, meta, r, t_min, nullptr, h))
         atomicExch(err, 1);
     occ[k] = h.tri >= 0 ? 1 : 0;
+}
+
+// K4: the closest walk of closest_kernel with the cluster skip mask, and
+// the attributes of write_full at the final hit.
+__global__ void closest_full_kernel(const float* __restrict__ slabs, int rows,
+                                    const float* __restrict__ bounds,
+                                    const int* __restrict__ meta,
+                                    const float* __restrict__ ray_o,
+                                    const float* __restrict__ ray_d,
+                                    const float* __restrict__ t_max, int R,
+                                    float t_min,
+                                    const uint8_t* __restrict__ live,
+                                    float* __restrict__ out,
+                                    int* __restrict__ err) {
+    int k = blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= R) return;
+    Ray r;
+    load_ray(ray_o, ray_d, k, r);
+    Hit h = {t_max[k], 0.0f, 0.0f, -1};
+    if (h.t > 0.0f &&
+        !walk<false>(slabs, rows, bounds, meta, r, t_min, live, h))
+        atomicExch(err, 1);
+    write_full(slabs, rows, h, out + 16 * (size_t)k);
 }
 
 // One pcg3d round of uvec3(x, y, z) (random.glsl:17-28).
@@ -241,9 +301,10 @@ __device__ __forceinline__ void pcg3d(uint32_t& x, uint32_t& y, uint32_t& z) {
 }
 
 // cam (24 f32, trace_bvh.primary_cam_vec): eye(0:3) | A(3:6) | B(6:9) |
-// C(9:12) | W H (12:14); d = normalize(ux*A + uy*B + C). The path
-// tracer's per-pixel jitter only: the layout's offx, offy, pcg_on
-// (14:17) are 0, 0, 1 and not read.
+// C(9:12) | W H (12:14) | offx offy pcg_on (14:17); d = normalize(ux*A
+// + uy*B + C), ux = (px + pcg_on*jx + offx) / W (_raygen_tile,
+// trace_bvh.py:212-214): pcg_on = 1, off = 0 is the path tracer's
+// per-pixel jitter, pcg_on = 0 the G-buffer's TAA-shifted pixel centres.
 // pix: (T, 3, 256) f32 px | py | tmax per 256-pixel tile.
 __global__ void primary_kernel(const float* __restrict__ slabs, int rows,
                                const float* __restrict__ bounds,
@@ -263,8 +324,8 @@ __global__ void primary_kernel(const float* __restrict__ slabs, int rows,
     pcg3d(x, y, z);
     float jx = __uint2float_rn(x) * 2.3283064365386963e-10f;
     float jy = __uint2float_rn(y) * 2.3283064365386963e-10f;
-    float ux = (px + jx) / cam[12];
-    float uy = (py + jy) / cam[13];
+    float ux = (px + cam[16] * jx + cam[14]) / cam[12];
+    float uy = (py + cam[16] * jy + cam[15]) / cam[13];
     Ray r;
     r.dx = ux * cam[3] + uy * cam[6] + cam[9];
     r.dy = ux * cam[4] + uy * cam[7] + cam[10];
@@ -278,29 +339,10 @@ __global__ void primary_kernel(const float* __restrict__ slabs, int rows,
     r.oz = cam[2];
     set_inv(r);
     Hit h = {tmax, 0.0f, 0.0f, -1};
-    if (h.t > 0.0f && !walk<false>(slabs, rows, bounds, meta, r, t_min, h))
+    if (h.t > 0.0f &&
+        !walk<false>(slabs, rows, bounds, meta, r, t_min, nullptr, h))
         atomicExch(err, 1);
-    float* o = out + 16 * (size_t)k;
-    o[0] = h.t;
-    o[1] = (float)h.tri;
-    if (h.tri < 0) {
-        for (int c = 2; c < 16; ++c) o[c] = 0.0f;
-        return;
-    }
-    // attributes once, at the final hit (slabs.attrs_from_hit_rows):
-    // a(row) = w*row[v0] + u*row[v1] + v*row[v2], w = 1 - u - v
-    const float* s = slabs + (size_t)(h.tri >> 7) * rows * LANES + (h.tri & 127);
-    float w = 1.0f - h.u - h.v;
-#define ATTR(r0, r1, r2)                                                  \
-    (w * __ldg(s + (r0) * LANES) + h.u * __ldg(s + (r1) * LANES) +        \
-     h.v * __ldg(s + (r2) * LANES))
-    for (int c = 0; c < 3; ++c) o[2 + c] = ATTR(9 + c, 12 + c, 15 + c);
-    for (int c = 0; c < 4; ++c) o[5 + c] = ATTR(18 + c, 22 + c, 26 + c);
-    for (int c = 0; c < 2; ++c) o[9 + c] = ATTR(30 + c, 32 + c, 34 + c);
-#undef ATTR
-    o[11] = __ldg(s + 36 * LANES);
-    o[12] = __ldg(s + 37 * LANES);
-    o[13] = o[14] = o[15] = 0.0f;
+    write_full(slabs, rows, h, out + 16 * (size_t)k);
 }
 
 inline int blocks(int n) { return (n + BLOCK - 1) / BLOCK; }
@@ -331,6 +373,19 @@ extern "C" int trace_any_bvh(const float* slabs, int rows, const float* bounds,
     if (R > 0)
         any_kernel<<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
             slabs, rows, bounds, meta, ray_o, ray_d, t_max, R, t_min, occ, err);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int trace_closest_bvh_full(const float* slabs, int rows,
+                                      const float* bounds, const int* meta,
+                                      const float* ray_o, const float* ray_d,
+                                      const float* t_max, int R, float t_min,
+                                      const uint8_t* live, float* out,
+                                      int* err, void* stream) {
+    if (R > 0)
+        closest_full_kernel<<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
+            slabs, rows, bounds, meta, ray_o, ray_d, t_max, R, t_min, live,
+            out, err);
     return (int)cudaGetLastError();
 }
 

@@ -1,14 +1,23 @@
-"""The port's entry point: a path-traced frame call on a procedural scene.
+"""The port's entry point: a frame call on a procedural scene.
 
 Counterpart of __graft_entry__.py `entry` (:43), which compiles
 prosper_tpu's path tracer on make_test_scene at 64x64 with 2 bounces.
-`entry` builds the scene on `device`, the camera and the pixel layouts,
-and returns the frame call: render one sample, accumulate, tone map.
+`entry` builds the scene on `device` (the card unless the caller asks
+for the CPU) and the camera, and returns the frame call of one mode:
 
-    fn, args = entry("cuda", scene="plate", n_clusters=2048,
-                     width=1920, height=1080, max_bounces=3)
+- "pt": render one sample, accumulate, tone map;
+- "deferred": G-buffer (with two-phase culling when use_culling),
+  clustered shading, tone map; the state threads the HiZ pyramid.
+
+    fn, args = entry(scene="plate", n_clusters=2048, width=1920,
+                     height=1080, max_bounces=3)
     img, state, n_rays = fn(*args)            # frame 0
     img, state, n_rays = fn(args[0], args[1], 1, state)
+
+    fn, args = entry(scene="plate", n_clusters=2048, width=1920,
+                     height=1080, mode="deferred", use_culling=True,
+                     scatter_lights=1024)
+    img, state, drawn_meshlets = fn(*args)
 """
 
 from __future__ import annotations
@@ -16,30 +25,54 @@ from __future__ import annotations
 import torch
 
 from .ops.tonemap import pack_lut_quads, synthetic_lut
-from .render.pt import camera_tensors, pt_entry
-from .scene.convert import from_numpy_scene
+from .render.deferred import deferred_entry
+from .render.pt import pt_entry
+from .scene.convert import camera_tensors, from_numpy_scene
 from .testing import make_plate_scene, make_test_scene
 
 SCENES = {"test": make_test_scene, "plate": make_plate_scene}
 
 
-def entry(device, scene: str = "test", n_clusters: int = 4,
+def entry(device="cuda", scene: str = "test", n_clusters: int = 4,
           width: int = 64, height: int = 64, max_bounces: int = 2,
-          seed: int = 0):
+          seed: int = 0, mode: str = "pt", use_culling: bool = False,
+          scatter_lights: int = 0):
     """Returns (fn, example_args) with fn(scene, cam, frame_index,
-    state=None) -> (image (H, W, 3), (color, count), ray count) and
-    example_args = (scene tensors, camera tensors, 0)."""
-    static, frame, arena, cam_fn = SCENES[scene](n_clusters, seed)
+    state=None) -> (image (H, W, 3), state, stat) and example_args =
+    (scene tensors, camera tensors, 0). stat is the ray count in "pt"
+    mode and the number of drawn meshlets in "deferred" mode (every
+    cluster without culling). scatter_lights > 0 (plate scene only)
+    scatters that many point lights (testing.make_plate_scene)."""
+    if mode not in ("pt", "deferred"):
+        raise ValueError(f"unknown mode {mode!r}")
+    extra = ()
+    if scatter_lights:
+        if scene != "plate":
+            raise ValueError("scatter_lights needs the plate scene")
+        extra = (scatter_lights,)
+    static, frame, arena, cam_fn = SCENES[scene](n_clusters, seed, *extra)
     scene_t = from_numpy_scene(static, frame, arena, device)
     cam = camera_tensors(cam_fn(width, height), device)
     # the display LUT of the reference is not in the repo: a synthetic one
     lut = torch.as_tensor(pack_lut_quads(synthetic_lut()), device=device)
 
-    def fn(scene_t, cam, frame_index, state=None):
-        return pt_entry(
-            scene=scene_t, cam=cam, lut=lut, width=width, height=height,
-            device=device, max_bounces=max_bounces, frame_index=frame_index,
-            state=state, return_stats=True,
-        )
+    if mode == "pt":
+        def fn(scene_t, cam, frame_index, state=None):
+            return pt_entry(
+                scene=scene_t, cam=cam, lut=lut, width=width, height=height,
+                device=device, max_bounces=max_bounces,
+                frame_index=frame_index, state=state, return_stats=True,
+            )
+    else:
+        n_all = torch.tensor(scene_t["geom"]["packed_full"].shape[0])
+
+        def fn(scene_t, cam, frame_index, state=None):
+            img, state = deferred_entry(
+                scene=scene_t, cam=cam, lut=lut, width=width, height=height,
+                device=device, state=state, use_culling=use_culling,
+                frame_index=frame_index,
+            )
+            return img, state, state["draw_stats"].get("drawn_meshlets",
+                                                       n_all)
 
     return fn, (scene_t, cam, 0)

@@ -7,7 +7,8 @@ hash of the source and the flags. The library is loaded with ctypes.
 
 Several processes may build at once (pytest-xdist workers on a machine
 with a card): the build runs under a file lock and the finished library
-is renamed into place atomically.
+is renamed into place atomically. `build_all` starts one nvcc for every
+source at once.
 """
 
 from __future__ import annotations
@@ -18,10 +19,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("trace_bvh", "shade_tiles")  # csrc/<name>.cu
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # --fmad=false: no a*b+c contraction, so the kernels round every
 # operation as the plain PyTorch versions do and agree with them bit for
@@ -79,6 +83,18 @@ def _build(name: str) -> Path:
             return lib
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def build_all() -> dict[str, float]:
+    """Build every source of SOURCES in parallel, one nvcc each; returns
+    the wall seconds each build took (about 0 when it was cached)."""
+    def timed(name):
+        t0 = time.perf_counter()
+        _build(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        return dict(zip(SOURCES, pool.map(timed, SOURCES)))
 
 
 def build_log(name: str) -> str:

@@ -1,13 +1,17 @@
 """BVH2 trace kernels: wrappers, plain PyTorch versions, camera uniforms.
 
-Counterpart of prosper_tpu/ops/trace_bvh.py. Three kernels, each a
+Counterpart of prosper_tpu/ops/trace_bvh.py. Four kernels, each a
 hand-written CUDA kernel in csrc/trace_bvh.cu with a plain PyTorch twin:
 
 - `trace_primary_bvh_full` (K1, replaces the Pallas kernel of the same
-  name, trace_bvh.py:1431): jittered pinhole primary rays generated from
-  pixel layouts + `primary_cam_vec` uniforms, closest hit, attributes at
-  the final hit -> (T*256, 16) rows.
+  name, trace_bvh.py:1431): pinhole primary rays generated from pixel
+  layouts + `primary_cam_vec` uniforms — the path tracer's per-pixel pcg
+  jitter or the G-buffer's pixel centres shifted by the TAA jitter —
+  closest hit, attributes at the final hit -> (T*256, 16) rows.
 - `trace_closest_bvh` (K2, trace_bvh.py:1050): closest hit -> (R, 8) rows.
+- `trace_closest_bvh_full` (K4, trace_bvh.py:1211): closest hit of given
+  rays with an optional per-cluster `skip_mask` (the two-phase meshlet
+  cull's draw list) and attributes at the final hit -> (R, 16) rows.
 - `trace_any_bvh` (K3, trace_bvh.py:1768): any hit -> (R,) bool.
 
 Dispatch: a wrapper runs the plain version only because its tensors lie
@@ -22,10 +26,11 @@ any-hit, trace_bvh.py:675/:1633); these kernels and plain versions
 honour it, as the XLA tracer in prosper_tpu/ops/trace.py does.
 
 The plain versions are brute force over the cluster slabs, chunked by
-rays: a per-ray slab test against every cluster's AABB (the BVH's leaf
-boxes) picks (ray, cluster) pairs, Möller runs on all 128 triangles of
-each pair, and a per-ray reduction keeps the nearest hit (lowest tri id
-among exact ties). They share no traversal with the kernels.
+rays: a per-ray slab test against every live cluster's AABB (the BVH's
+leaf boxes; K4 drops the masked clusters first) picks (ray, cluster)
+pairs, Möller runs on all 128 triangles of each pair, and a per-ray
+reduction keeps the nearest hit (lowest tri id among exact ties). They
+share no traversal with the kernels.
 """
 
 from __future__ import annotations
@@ -73,42 +78,61 @@ def pack_pixels_np(px, py, tile: int = TILE):
     return cols, R0
 
 
-def primary_cam_vec(cam: dict, width, height, device=None) -> torch.Tensor:
+def primary_cam_vec(cam: dict, width, height, pixel_jitter=None,
+                    device=None) -> torch.Tensor:
     """(1, 24) f32 camera uniforms of the primary kernel: eye | A | B | C
     | W H offx offy pcg_on | pad, with d = normalize(ux*A + uy*B + C) the
-    affine per-pixel form of rays.pinhole_rays (trace_bvh.py:1388). The
-    layout is the JAX package's; the port fills the path tracer's values
-    (per-pixel pcg jitter: offx = offy = 0, pcg_on = 1), which the kernel
-    and raygen_plain assume."""
+    affine per-pixel form of rays.pinhole_rays and ux = (px + pcg_on*jx
+    + offx) / W, uy likewise (trace_bvh.py:1388-1427, :212-214).
+
+    pixel_jitter=None: the path tracer's per-pixel pcg jitter (offx =
+    offy = 0, pcg_on = 1). A (2,) NDC jitter (cam["current_jitter"]):
+    the G-buffer's pixel centres shifted by the per-frame TAA jitter
+    (offx = 0.5 + 0.5*jx*W, offy = 0.5 - 0.5*jy*H, pcg_on = 0). Built on
+    the camera's device without a host-to-device copy (each such copy
+    waits for the device) when cam holds its tensors."""
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
     c2c = f32(cam["camera_to_clip"])
+    dev = c2c.device
+
+    def const(v):
+        return torch.full((), float(v), dtype=torch.float32, device=dev)
+
     w2c = f32(cam["world_to_camera"])
     aspect = c2c[1, 1] / c2c[0, 0]
     thfy = 1.0 / c2c[1, 1]
     rt = w2c[0, :3] * thfy * aspect
     up2 = w2c[1, :3] * thfy
     fwd = -w2c[2, :3]
-    tail = f32([width, height, 0.0, 0.0, 1.0] + [0.0] * 7)
+    w, h = const(width), const(height)
+    if pixel_jitter is None:
+        offx, offy, pcg_on = const(0.0), const(0.0), const(1.0)
+    else:
+        j = f32(pixel_jitter)
+        offx = 0.5 + 0.5 * j[0] * w
+        offy = 0.5 - 0.5 * j[1] * h
+        pcg_on = const(0.0)
+    tail = torch.cat([torch.stack([w, h, offx, offy, pcg_on]),
+                      torch.zeros(7, dtype=torch.float32, device=dev)])
     return torch.cat(
         [f32(cam["eye"]), 2.0 * rt, 2.0 * up2, fwd - rt - up2, tail]
     ).reshape(1, 24)
 
 
-def raygen_plain(pix_cols: torch.Tensor, cam_vec: torch.Tensor,
-                 frame_index: int):
-    """The primary kernel's ray generation in PyTorch (_raygen_tile,
-    trace_bvh.py:186-226): returns (o, d, t_max), each per lane of the
-    (T, 3, 256) pixel layout flattened to T*256 rays."""
+def _pixel_rays(pix_cols: torch.Tensor, cam_vec: torch.Tensor, jitter):
+    """(o, d, t_max) per lane of the (T, 3, 256) pixel layout, with ux =
+    (px + pcg_on*jx + offx) / W (jitter None: no jitter term)."""
     px = pix_cols[:, 0, :].reshape(-1)
     py = pix_cols[:, 1, :].reshape(-1)
     tmax = pix_cols[:, 2, :].reshape(-1)
-    st = prng.make_state(px.to(torch.int64), py.to(torch.int64), frame_index)
-    _, jitter = prng.rnd2d01(st)
     c = cam_vec[0]
-    ux = (px + jitter[:, 0]) / c[12]
-    uy = (py + jitter[:, 1]) / c[13]
+    if jitter is not None:
+        px = px + c[16] * jitter[:, 0]
+        py = py + c[16] * jitter[:, 1]
+    ux = (px + c[14]) / c[12]
+    uy = (py + c[15]) / c[13]
     d = ux[:, None] * c[3:6] + uy[:, None] * c[6:9] + c[9:12]
     inv_n = 1.0 / torch.sqrt(
         d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
@@ -116,6 +140,33 @@ def raygen_plain(pix_cols: torch.Tensor, cam_vec: torch.Tensor,
     d = d * inv_n[:, None]
     o = c[0:3].expand(d.shape)
     return o, d, tmax
+
+
+def raygen_plain(pix_cols: torch.Tensor, cam_vec: torch.Tensor,
+                 frame_index: int):
+    """The primary kernel's ray generation in PyTorch (_raygen_tile,
+    trace_bvh.py:186-226), for uniforms of either form: returns (o, d,
+    t_max), each per lane of the (T, 3, 256) pixel layout flattened to
+    T*256 rays."""
+    px = pix_cols[:, 0, :].reshape(-1)
+    py = pix_cols[:, 1, :].reshape(-1)
+    st = prng.make_state(px.to(torch.int64), py.to(torch.int64),
+                         frame_index)
+    _, jitter = prng.rnd2d01(st)
+    return _pixel_rays(pix_cols, cam_vec, jitter)
+
+
+def gbuffer_rays(cam: dict, width: int, height: int,
+                 pix_cols: torch.Tensor, device=None):
+    """The G-buffer form's uniforms (pcg_on = 0, the TAA-shifted pixel
+    centres of cam["current_jitter"]) and the rays K1 traces with them:
+    returns (cam_vec, o, d, t_max). The rays equal raygen_plain's for
+    these uniforms bit for bit (pcg_on * jitter is 0, and px + 0 is px)
+    without the cost of the jitter's hash."""
+    cam_vec = primary_cam_vec(cam, width, height,
+                              pixel_jitter=cam["current_jitter"],
+                              device=device)
+    return (cam_vec, *_pixel_rays(pix_cols, cam_vec, None))
 
 
 # ---------------------------------------------------------------------------
@@ -137,10 +188,12 @@ def _chunks(device: torch.device):
     return (4096, 4096) if device.type == "cpu" else (16384, 32768)
 
 
-def _brute(slabs, bounds, meta, ray_o, ray_d, t_min, t_max, any_hit):
+def _brute(slabs, bounds, meta, ray_o, ray_d, t_min, t_max, any_hit,
+           live=None):
     """Shared brute force: returns (best_t, best_tri, best_u, best_v)
     per ray, best_t = +inf and tri = -1 without a hit (t_min < t < t_max).
-    any_hit=True skips the argmin bookkeeping."""
+    any_hit=True skips the argmin bookkeeping. live (C,) bool drops the
+    clusters it marks False before the AABB cull."""
     dev = ray_o.device
     R = ray_o.shape[0]
     C = slabs.shape[0]
@@ -159,6 +212,8 @@ def _brute(slabs, bounds, meta, ray_o, ray_d, t_min, t_max, any_hit):
             ray_o[r0:r1, None, :], inv[r0:r1, None, :], cmin[None], cmax[None]
         )
         ok = (enter <= exit_) & (enter < t_max[r0:r1, None])
+        if live is not None:
+            ok = ok & live[None, :]
         ri, ci = torch.nonzero(ok, as_tuple=True)  # ri local to the chunk
         bt = best_t[r0:r1]
         btri = best_tri[r0:r1]
@@ -200,10 +255,11 @@ def _brute(slabs, bounds, meta, ray_o, ray_d, t_min, t_max, any_hit):
     return best_t, best_tri, best_u, best_v
 
 
-def trace_closest_bvh_plain(slabs, bounds, meta, ray_o, ray_d, t_min, t_max):
-    """Plain closest hit -> (R, 8) rows t | tri | u | v | 0 0 0 0."""
+def _closest_rows(slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
+                  live=None):
+    """(R, 8) closest-hit rows t | tri | u | v | 0 0 0 0."""
     best_t, tri, u, v = _brute(
-        slabs, bounds, meta, ray_o, ray_d, t_min, t_max, any_hit=False
+        slabs, bounds, meta, ray_o, ray_d, t_min, t_max, False, live
     )
     hit = tri >= 0
     out = torch.zeros((ray_o.shape[0], 8), dtype=torch.float32,
@@ -213,6 +269,42 @@ def trace_closest_bvh_plain(slabs, bounds, meta, ray_o, ray_d, t_min, t_max):
     out[:, 2] = torch.where(hit, u, 0.0)
     out[:, 3] = torch.where(hit, v, 0.0)
     return out
+
+
+def _full_rows(slabs, h8):
+    """(R, 8) closest-hit rows -> (R, 16) full rows: the attributes of
+    the hit triangle, interpolated as the kernels' write_full does
+    (slabs.attrs_from_hit_rows); zero attributes on a miss."""
+    tri = h8[:, 1].to(torch.int64)
+    miss = tri < 0
+    tri = torch.clamp_min(tri, 0)
+    a = slabs[tri // CLUSTER_PAD, ROWS_PLAIN:38, tri % CLUSTER_PAD]  # (R, 29)
+    u = h8[:, 2:3]
+    v = h8[:, 3:4]
+    w = 1.0 - u - v
+    normal = w * a[:, 0:3] + u * a[:, 3:6] + v * a[:, 6:9]
+    tangent = w * a[:, 9:13] + u * a[:, 13:17] + v * a[:, 17:21]
+    uv = w * a[:, 21:23] + u * a[:, 23:25] + v * a[:, 25:27]
+    attrs = torch.cat([normal, tangent, uv, a[:, 27:29]], dim=1)
+    out = torch.zeros((h8.shape[0], 16), dtype=torch.float32,
+                      device=h8.device)
+    out[:, 0:2] = h8[:, 0:2]
+    out[:, 2:13] = torch.where(miss[:, None], 0.0, attrs)
+    return out
+
+
+def trace_closest_bvh_plain(slabs, bounds, meta, ray_o, ray_d, t_min, t_max):
+    """Plain closest hit -> (R, 8) rows t | tri | u | v | 0 0 0 0."""
+    return _closest_rows(slabs, bounds, meta, ray_o, ray_d, t_min, t_max)
+
+
+def trace_closest_bvh_full_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
+                                 t_max, skip_mask=None):
+    """Plain closest hit with attributes -> (R, 16) full rows; clusters
+    whose skip_mask entry is False are never tested."""
+    live = None if skip_mask is None else skip_mask.to(torch.bool)
+    return _full_rows(slabs, _closest_rows(
+        slabs, bounds, meta, ray_o, ray_d, t_min, t_max, live))
 
 
 def trace_any_bvh_plain(slabs, bounds, meta, ray_o, ray_d, t_min, t_max):
@@ -227,23 +319,8 @@ def trace_primary_bvh_full_plain(slabs, bounds, meta, pix_cols, cam_vec,
                                  frame_index, t_min):
     """Plain primary trace -> (T*256, 16) full hit rows."""
     o, d, tmax = raygen_plain(pix_cols, cam_vec, frame_index)
-    h8 = trace_closest_bvh_plain(slabs, bounds, meta, o.contiguous(), d,
-                                 t_min, tmax)
-    tri = h8[:, 1].to(torch.int64)
-    miss = tri < 0
-    tri = torch.clamp_min(tri, 0)
-    a = slabs[tri // CLUSTER_PAD, ROWS_PLAIN:38, tri % CLUSTER_PAD]  # (R, 29)
-    u = h8[:, 2:3]
-    v = h8[:, 3:4]
-    w = 1.0 - u - v
-    normal = w * a[:, 0:3] + u * a[:, 3:6] + v * a[:, 6:9]
-    tangent = w * a[:, 9:13] + u * a[:, 13:17] + v * a[:, 17:21]
-    uv = w * a[:, 21:23] + u * a[:, 23:25] + v * a[:, 25:27]
-    attrs = torch.cat([normal, tangent, uv, a[:, 27:29]], dim=1)
-    out = torch.zeros((o.shape[0], 16), dtype=torch.float32, device=o.device)
-    out[:, 0:2] = h8[:, 0:2]
-    out[:, 2:13] = torch.where(miss[:, None], 0.0, attrs)
-    return out
+    return _full_rows(slabs, _closest_rows(
+        slabs, bounds, meta, o.contiguous(), d, t_min, tmax))
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +334,8 @@ _ARGTYPES = {
                       ctypes.c_float, _P, _P, _P],
     "trace_primary_bvh_full": [_P, ctypes.c_int, _P, _P, _P, ctypes.c_int,
                                _P, ctypes.c_int, ctypes.c_float, _P, _P, _P],
+    "trace_closest_bvh_full": [_P, ctypes.c_int, _P, _P, _P, _P, _P,
+                               ctypes.c_int, ctypes.c_float, _P, _P, _P, _P],
 }
 
 
@@ -292,9 +371,12 @@ def _check_scene(slabs, bounds, meta, device, min_rows=ROWS_PLAIN):
 
 
 def _tmax(t_max, R: int, device) -> torch.Tensor:
-    return torch.as_tensor(t_max, dtype=torch.float32, device=device).expand(
-        R
-    ).contiguous()
+    """t_max as (R,) f32 on device; a Python scalar is filled in place,
+    with no host-to-device copy."""
+    if not isinstance(t_max, torch.Tensor):
+        return torch.full((R,), float(t_max), dtype=torch.float32,
+                          device=device)
+    return t_max.to(device, torch.float32).expand(R).contiguous()
 
 
 _OVERFLOW: dict[int, torch.Tensor] = {}  # CUDA device index -> int32 flag
@@ -387,14 +469,50 @@ def trace_any_bvh(slabs, bounds, meta, ray_o, ray_d, t_min, t_max):
     return occ
 
 
+def trace_closest_bvh_full(slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
+                           skip_mask=None):
+    """Closest hit of R rays with attributes -> (R, 16) full rows t | tri
+    | normal3 | tangent4 | uv2 | material | tri_lod | pad3; a miss row
+    has t = t_max, tri = -1 and zero attributes.
+
+    slabs (C, 40, 128) f32; ray_o, ray_d (R, 3) f32; t_max scalar or
+    (R,); skip_mask (C,) bool or None: a cluster marked False is never
+    tested (its leaf is skipped in the walk)."""
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    t_max = _tmax(t_max, R, dev)
+    if dev.type == "cpu":
+        return trace_closest_bvh_full_plain(slabs, bounds, meta, ray_o,
+                                            ray_d, float(t_min), t_max,
+                                            skip_mask)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_closest_bvh_full: unsupported device {dev}")
+    _check_scene(slabs, bounds, meta, dev, min_rows=ROWS_FULL - 2)
+    _expect(ray_o, "ray_o", torch.float32, dev, (R, 3))
+    _expect(ray_d, "ray_d", torch.float32, dev, (R, 3))
+    live = 0
+    if skip_mask is not None:
+        _expect(skip_mask, "skip_mask", torch.bool, dev, (slabs.shape[0],))
+        live = skip_mask.data_ptr()
+    out = torch.empty((R, 16), dtype=torch.float32, device=dev)
+    _launch("trace_closest_bvh_full", dev, (
+        slabs.data_ptr(), slabs.shape[1], bounds.data_ptr(), meta.data_ptr(),
+        ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(), R,
+        float(t_min), live, out.data_ptr(),
+    ))
+    trace_closest_bvh_full.launches += 1
+    return out
+
+
 def trace_primary_bvh_full(slabs, bounds, meta, pix_cols, cam_vec,
                            frame_index: int, t_min: float):
-    """Closest hit of in-kernel generated jittered pinhole primary rays
-    -> (T*256, 16) full rows (pad lanes come back as misses with t = 0).
+    """Closest hit of in-kernel generated pinhole primary rays -> (T*256,
+    16) full rows (pad lanes come back as misses with t = 0).
 
     slabs (C, 40, 128); pix_cols (T, 3, 256) from pack_pixels_np;
-    cam_vec (1, 24) from primary_cam_vec. The jitter equals
-    mathx.rng.rnd2d01(make_state(px, py, frame_index)) bit for bit."""
+    cam_vec (1, 24) from primary_cam_vec. With pcg_on = 1 the jitter
+    equals mathx.rng.rnd2d01(make_state(px, py, frame_index)) bit for
+    bit; the rays equal raygen_plain's."""
     dev = pix_cols.device
     T = pix_cols.shape[0]
     if dev.type == "cpu":
@@ -421,7 +539,9 @@ def trace_primary_bvh_full(slabs, bounds, meta, pix_cols, cam_vec,
 trace_closest_bvh.launches = 0
 trace_any_bvh.launches = 0
 trace_primary_bvh_full.launches = 0
-KERNELS = (trace_primary_bvh_full, trace_closest_bvh, trace_any_bvh)
+trace_closest_bvh_full.launches = 0
+KERNELS = (trace_primary_bvh_full, trace_closest_bvh, trace_any_bvh,
+           trace_closest_bvh_full)
 
 
 def reset_launch_counts() -> None:

@@ -52,6 +52,7 @@ from ..ops.trace_bvh import (
     trace_closest_bvh,
     trace_primary_bvh_full,
 )
+from ..scene.convert import camera_tensors, check_device
 from .shading import sample_light
 from .surface import evaluate_surface_from_attrs
 
@@ -76,30 +77,12 @@ def _pixel_layouts(width: int, height: int, device: str):
     )
 
 
-def camera_tensors(cam: dict, device) -> dict:
-    """Camera uniforms (numpy or tensors) -> float32 tensors on device."""
-    return {
-        k: torch.as_tensor(np.asarray(v, np.float32), device=device)
-        if not isinstance(v, torch.Tensor) else v.to(device, torch.float32)
-        for k, v in cam.items()
-    }
-
-
-def _check_device(scene: dict, device) -> torch.device:
-    device = torch.device(device)
-    got = scene["geom"]["packed_full"].device
-    if got.type != device.type or (
-        device.index is not None and got.index != device.index
-    ):
-        raise ValueError(f"scene lives on {got}, not on {device}")
-    return got
-
-
 def _unsupported(use_dof, env, alpha_rounds):
     if use_dof:
         raise NotImplementedError(
-            "use_dof=True needs trace_closest_bvh_full (K4) and thin-lens "
-            "rays: ROADMAP.md queue 1, item 'PT options'"
+            "use_dof=True needs thin-lens rays (ops/rays.thin_lens_rays) "
+            "traced with trace_closest_bvh_full: ROADMAP.md queue 1, item "
+            "'PT options'"
         )
     if env is not None:
         raise NotImplementedError(
@@ -290,7 +273,7 @@ def pt_render_sample(scene: dict, cam: dict, width: int, height: int,
     scene: scene/convert.from_numpy_scene output on `device`; cam:
     camera uniforms (numpy or tensors). width must be a multiple of 16."""
     _unsupported(use_dof, env, alpha_rounds)
-    dev = _check_device(scene, device)
+    dev = check_device(scene, device)
     px, py, cols, inv16 = _pixel_layouts(width, height, str(dev))
     color, n_rays = pt_trace_pixels(
         scene, camera_tensors(cam, dev), px, py, cols, width, height,

@@ -1,6 +1,7 @@
-"""Light sampling over surface batches.
+"""Light evaluation and sampling over surface batches.
 
-Counterpart of prosper_tpu/render/shading.py: `sample_light` (:128) on
+Counterpart of prosper_tpu/render/shading.py: `eval_directional_light`
+(:21), which deferred shading calls; `sample_light` (:128) on
 its packed-row path `sample_light_packed` (:90), the path PT takes, and
 `point_light_irradiance` (:34) and `spot_light_irradiance` (:50), which
 the JAX forward and clustered shading call on light dicts
@@ -12,9 +13,21 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.brdf import eval_brdf_times_nol
+
 
 def _norm(v):
     return v / torch.clamp_min((v * v).sum(-1, keepdim=True).sqrt(), 1e-20)
+
+
+def eval_directional_light(surface: dict, lights: dict):
+    """Sun irradiance times the BRDF (evalDirectionalLight,
+    lighting.glsl:8-12); unshadowed, as the raster modes shade it."""
+    l = -_norm(lights["dir_direction"]).expand(surface["position_ws"].shape)
+    return lights["dir_irradiance"] * eval_brdf_times_nol(
+        l, surface["inv_view_ray"], surface["normal_ws"], surface["albedo"],
+        surface["roughness"], surface["metallic"],
+    )
 
 
 def point_light_irradiance(lights: dict, idx, pos_ws):

@@ -1,8 +1,16 @@
 """Hit -> visible surface on the kernel path.
 
 Counterpart of prosper_tpu/render/surface.py `evaluate_surface_from_attrs`
-(:72) and `mapped_normal` (:20): surfaces from the trace kernels'
-interpolated world-space attributes, sampled at the base mip.
+(:72), `mapped_normal` (:20) and `pixel_cone_alpha` (:28): surfaces from
+the trace kernels' interpolated world-space attributes, sampled at the
+base mip.
+
+The G-buffer passes a ray cone (texture LOD from the pixel footprint).
+The port has the base mip only (ROADMAP.md queue 1, "Scene path without
+JAX"), and the base mip is what the cone selects exactly when every
+texture of the arena has one mip, as in every procedural scene: the JAX
+trilinear tap clamps its LOD to [0, n_mips - 1]. On an arena with more
+mips a cone raises instead of sampling mip 0 silently.
 """
 
 from __future__ import annotations
@@ -24,9 +32,35 @@ def mapped_normal(normal_ts, n, t, sgn):
     )
 
 
-def evaluate_surface_from_attrs(arena: dict, ray_o, ray_d, hit: dict) -> dict:
+def pixel_cone_alpha(cam: dict, height: int):
+    """Per-pixel ray-cone spread angle: 2 * tan(fov / 2) / height."""
+    return 2.0 / (cam["camera_to_clip"][1, 1].abs() * height)
+
+
+def _check_cone(arena: dict, cone: dict) -> None:
+    """Refuse a cone the base-mip path cannot honour exactly."""
+    if int(cone.get("aniso_taps", 1)) > 1:
+        raise NotImplementedError(
+            "aniso_taps > 1 needs the anisotropic taps: ROADMAP.md queue "
+            "1, item 'Scene path without JAX'"
+        )
+    # n_mips stays on the host (scene/convert.py): no device wait here
+    if int(arena["n_mips"].max()) > 1:
+        raise NotImplementedError(
+            "ray-cone LOD on a multi-mip texture arena needs trilinear "
+            "taps: ROADMAP.md queue 1, item 'Scene path without JAX'"
+        )
+
+
+def evaluate_surface_from_attrs(arena: dict, ray_o, ray_d, hit: dict,
+                                cone: dict | None = None) -> dict:
     """VisibleSurface dict from a full hit dict (normal, tangent, uv,
-    material, t, tri): position, shading normal, material terms, NoV."""
+    material, t, tri): position, shading normal, material terms, NoV.
+
+    cone ({"alpha", "bias", "aniso_taps"}, as the JAX G-buffer passes
+    it) is accepted on one-mip arenas, where it selects the base mip."""
+    if cone is not None:
+        _check_cone(arena, cone)
     n_ws = _normalize(hit["normal"])
     t_ws = _normalize(hit["tangent"][..., :3])
     t_sign = hit["tangent"][..., 3]

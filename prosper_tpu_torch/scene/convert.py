@@ -4,7 +4,7 @@ The state the path tracer carries across frames is the scene. This
 module puts it on the device once, as prosper_tpu/ops/trace.py
 `prepare_geometry` (:82-112) does for the JAX package: the slabs, the
 attribute rows, the packed material tables, the light uniforms and the
-BVH arrays from prosper_tpu/accel/bvh.py.
+BVH arrays from accel/bvh.py.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ def from_numpy_scene(static: dict, frame: dict, arena: dict, device) -> dict:
 
     geom: "tris", "packed9" (C, 9, 128), "packed_full" (C, 40, 128),
     "attr_rows" (C*128, 32); frame["bvh_bounds"] (N, 6) f32 and
-    frame["bvh_meta"] (N, 3) i32; arena gains "mat_f32" / "mat_i32"."""
+    frame["bvh_meta"] (N, 3) i32; arena gains "mat_f32" / "mat_i32", and
+    its "n_mips" stays on the CPU."""
     device = torch.device(device)
     static_t = {
         k: _tensor(v, device) for k, v in static.items() if k != "materials"
@@ -45,6 +46,8 @@ def from_numpy_scene(static: dict, frame: dict, arena: dict, device) -> dict:
         for k, v in frame.items()
     }
     arena_t = {k: _tensor(v, device) for k, v in arena.items()}
+    # read on the host by render/surface.py; it never feeds a kernel
+    arena_t["n_mips"] = _tensor(arena["n_mips"], "cpu")
     mat_f32, mat_i32 = pack_material_tables(static["materials"], arena)
     arena_t["mat_f32"] = _tensor(mat_f32, device)
     arena_t["mat_i32"] = _tensor(mat_i32, device)
@@ -54,3 +57,23 @@ def from_numpy_scene(static: dict, frame: dict, arena: dict, device) -> dict:
         "arena": arena_t,
         "geom": prepare_geometry(static_t, frame_t),
     }
+
+
+def camera_tensors(cam: dict, device) -> dict:
+    """Camera uniforms (numpy or tensors) -> float32 tensors on device."""
+    return {
+        k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+        if not isinstance(v, torch.Tensor) else v.to(device, torch.float32)
+        for k, v in cam.items()
+    }
+
+
+def check_device(scene: dict, device) -> torch.device:
+    """The device the scene lives on; raises unless it is `device`."""
+    device = torch.device(device)
+    got = scene["geom"]["packed_full"].device
+    if got.type != device.type or (
+        device.index is not None and got.index != device.index
+    ):
+        raise ValueError(f"scene lives on {got}, not on {device}")
+    return got

@@ -12,10 +12,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from prosper_tpu.accel.bvh import build_bvh, pack_nodes
-from prosper_tpu.scene.lights import LightArrays, light_uniforms
-
+from .accel.bvh import build_bvh, pack_nodes
 from .scene.camera import Camera, CameraParameters, CameraTransform
+from .scene.lights import MAX_POINT_LIGHTS, LightArrays, light_uniforms
 
 CLUSTER_TRI_PAD = 128  # triangles per cluster slab (scene/meshlets.py)
 
@@ -163,7 +162,8 @@ def make_test_scene(n_boxes: int = 4, seed: int = 0):
     return static, frame, _white_arena(), cam_fn
 
 
-def make_plate_scene(n_clusters: int = 2048, seed: int = 0):
+def make_plate_scene(n_clusters: int = 2048, seed: int = 0,
+                     scatter_lights: int = 0):
     """The geometry of prosper_tpu.testing.make_stress_scene completed
     into a full scene: n_clusters plates of 128 triangles (8x8 quad
     grids), randomly rotated in a 3D grid of 1.5 spacing — 262,144
@@ -174,7 +174,13 @@ def make_plate_scene(n_clusters: int = 2048, seed: int = 0):
     `wt_aidx`), cluster data, two materials (a rough dielectric and a
     metal, alternating by cluster), the default sun plus one point light
     above the grid, the 1-px white arena, and a camera outside the grid
-    aimed at its centre."""
+    aimed at its centre.
+
+    scatter_lights > 0 replaces the point light by that many (at most
+    1024) scattered ones, the CLI's many-light recipe
+    (prosper_tpu/app/cli.py:340-351, bench.py:246-256): default_rng(0),
+    positions uniform in the scene bounds, radiance U(0.05, 0.5) per
+    channel, radius the bounds' diagonal."""
     rng = np.random.default_rng(seed)
     pad = CLUSTER_TRI_PAD
     g = 8  # 8x8 quads -> 128 tris, a full cluster
@@ -269,6 +275,13 @@ def make_plate_scene(n_clusters: int = 2048, seed: int = 0):
     lights.point_radiance[0] = np.array([1.0, 0.9, 0.8]) * ext * ext
     lights.point_radius[0] = 4.0 * ext
     lights.point_count = 1
+    if scatter_lights > 0:
+        lrng = np.random.default_rng(0)
+        n = min(scatter_lights, MAX_POINT_LIGHTS)
+        lights.point_position[:n] = lrng.uniform(lo, hi, (n, 3))
+        lights.point_radiance[:n] = lrng.uniform(0.05, 0.5, (n, 3))
+        lights.point_radius[:n] = float(np.linalg.norm(hi - lo))
+        lights.point_count = n
 
     bounds, meta = pack_nodes(build_bvh(wc_min, wc_max, max_leaf_size=1))
     frame = {

@@ -1,19 +1,28 @@
-"""The CUDA trace kernels against their plain PyTorch versions, on the
-card. Skipped where torch sees no GPU. The card's machine has no JAX,
-which tests/conftest.py imports, so there run
+"""The CUDA kernels against their plain PyTorch versions, and the
+frames on the card against the CPU frames. Skipped where torch sees no
+GPU. The card's machine has no JAX, which tests/conftest.py imports, so
+there run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances as chip_smoke.py states them: hit/miss and occlusion equal,
-tri equal except exact t ties, t within rtol 1e-5, attributes 1e-4."""
+tri equal except exact t ties, t within rtol 1e-5, attributes 1e-4; the
+shading kernel within rtol 1e-5 / atol 1e-6 of its plain version."""
 
 import numpy as np
 import pytest
 import torch
 
 from prosper_tpu_torch.entry import entry
+from prosper_tpu_torch.ops import shade_tiles as tst
 from prosper_tpu_torch.ops import trace_bvh as tb
-from prosper_tpu_torch.render import pt
+from prosper_tpu_torch.render import deferred, gbuffer, pt
+from prosper_tpu_torch.scene.camera import (
+    Camera,
+    CameraParameters,
+    CameraTransform,
+)
+from prosper_tpu_torch.scene.convert import camera_tensors
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -74,7 +83,93 @@ def test_kernels_match_plain_on_card(cuda, scene, n):
                                   t_max)
     assert torch.equal(occ, want)
     tb.check_stack_overflow(cuda)
-    assert [f.launches for f in tb.KERNELS] == [1, 1, 1]
+    assert [f.launches for f in tb.KERNELS] == [1, 1, 1, 0]
+
+
+def _random_rays(cam, R, seed, device):
+    """R rays from around the camera in random directions."""
+    rng = np.random.default_rng(seed)
+    o = cam["eye"].expand(R, 3) + torch.as_tensor(
+        rng.normal(size=(R, 3)), dtype=torch.float32, device=device)
+    d = torch.as_tensor(rng.normal(size=(R, 3)), dtype=torch.float32,
+                        device=device)
+    return o.contiguous(), (d / d.norm(dim=1, keepdim=True)).contiguous()
+
+
+def test_closest_full_matches_plain_on_card(cuda):
+    """K4 with and without a cluster skip mask; no hit on a masked
+    cluster."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32)
+    geom, frame = sc["geom"], sc["frame"]
+    args = (geom["packed_full"], frame["bvh_bounds"], frame["bvh_meta"])
+    o, d = _random_rays(cam, 5000, 11, cuda)
+    t_max = torch.full((5000,), float("inf"), device=cuda)
+    t_max[::9] = 0.0
+    mask = torch.as_tensor(np.random.default_rng(1).random(64) > 0.4,
+                           device=cuda)
+    tb.reset_launch_counts()
+    for m in (None, mask):
+        got = tb.trace_closest_bvh_full(*args, o, d, 1e-4, t_max,
+                                        skip_mask=m)
+        _rows_agree(got, tb.trace_closest_bvh_full_plain(
+            *args, o, d, 1e-4, t_max, skip_mask=m))
+    tri = got[:, 1].long()
+    assert mask[tri[tri >= 0] // 128].all()
+    tb.check_stack_overflow(cuda)
+    assert tb.trace_closest_bvh_full.launches == 2
+
+
+def test_primary_gbuffer_form_matches_plain_on_card(cuda):
+    """K1 with a TAA-jittered camera (pcg_on = 0, pixel offsets)."""
+    fn, (sc, _, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                           height=32)
+    c = Camera((96, 64), CameraParameters(),
+               CameraTransform(eye=np.array([12.0, 9.0, 14.0], np.float32),
+                               target=np.array([2.0, 2.0, 2.0], np.float32)),
+               apply_jitter=True)
+    c._jitter_index = 3
+    c.update()
+    cam = camera_tensors(c.uniforms(), cuda)
+    cols = gbuffer._row_pixels(96, 64, str(cuda))
+    vec = tb.primary_cam_vec(cam, 96, 64, pixel_jitter=cam["current_jitter"],
+                             device=cuda)
+    args = (sc["geom"]["packed_full"], sc["frame"]["bvh_bounds"],
+            sc["frame"]["bvh_meta"], cols, vec, 0, 1e-4)
+    got = tb.trace_primary_bvh_full(*args)
+    _rows_agree(got, tb.trace_primary_bvh_full_plain(*args))
+    assert (got[:, 1] >= 0).any()
+    tb.check_stack_overflow(cuda)
+
+
+@pytest.mark.parametrize("use_culling", [False, True])
+def test_shade_tiles_match_plain_on_card(cuda, monkeypatch, use_culling):
+    """K5 on the G-buffer of a deferred frame with ragged froxel tiles
+    (80x56) and 200 scattered lights, against its plain version."""
+    W, H = 80, 56
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=W,
+                             height=H, mode="deferred",
+                             use_culling=use_culling, scatter_lights=200)
+    real, seen = deferred.shade_clustered_tiles, []
+
+    def record(inp, width, height):
+        seen.append(inp)
+        return real(inp, width, height)
+
+    monkeypatch.setattr(deferred, "shade_clustered_tiles", record)
+    tst.shade_clustered_tiles.launches = 0
+    tb.reset_launch_counts()
+    img, state, drawn = fn(sc, cam, 0)
+    assert tst.shade_clustered_tiles.launches == 1
+    k4 = tb.trace_closest_bvh_full.launches
+    assert (k4, tb.trace_primary_bvh_full.launches) == (
+        (2, 0) if use_culling else (0, 1))
+    inp = seen[0]
+    assert int(inp["counts"].max()) == 200
+    got = tst.shade_clustered_tiles(inp, W, H)
+    want = tst.shade_clustered_tiles_plain(inp, W, H)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert (got > 0).any() and bool(torch.isfinite(img).all())
 
 
 def test_stack_overflow_raises_on_card(cuda):
@@ -109,6 +204,25 @@ def test_frame_on_card_matches_cpu(cuda):
     img_c, _, n_c = fn_c(*args_c)
     assert int(n_g) == int(n_c)
     off = ((img_g.cpu() - img_c).abs() > 1e-3).any(dim=-1).float().mean()
+    assert float(off) <= 0.01
+
+
+@pytest.mark.parametrize("use_culling", [False, True])
+def test_deferred_frame_on_card_matches_cpu(cuda, use_culling):
+    """Two deferred frames (the second culls against the first's HiZ) on
+    the card against the CPU: at most 1% of pixels off by more than
+    1e-3, equal drawn-meshlet counts."""
+    kw = dict(scene="plate", n_clusters=64, width=64, height=64,
+              mode="deferred", use_culling=use_culling, scatter_lights=100)
+    out = []
+    for dev in (cuda, "cpu"):
+        fn, (sc, cam, _) = entry(dev, **kw)
+        _, state, _ = fn(sc, cam, 0)
+        img, _, drawn = fn(sc, cam, 1, state)
+        out.append((img.cpu(), int(drawn)))
+    (img_g, n_g), (img_c, n_c) = out
+    assert n_g == n_c
+    off = ((img_g - img_c).abs() > 1e-3).any(dim=-1).float().mean()
     assert float(off) <= 0.01
 
 

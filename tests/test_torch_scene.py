@@ -1,7 +1,7 @@
 """Scene inputs and slab contracts of prosper_tpu_torch against
 prosper_tpu: scene functions, camera uniforms, pack_tris, pack_tris_full,
 attr_rows_from_packed and primary_cam_vec; and a check that the port
-never imports JAX."""
+never imports JAX or the JAX package."""
 
 import os
 import subprocess
@@ -146,16 +146,26 @@ def test_hit_row_round_trip_equals_jax():
 
 
 def test_port_never_imports_jax():
-    """Importing the port and rendering a CPU frame pulls in no JAX."""
+    """Importing every module of the port and rendering a CPU path-traced
+    and a CPU deferred frame pulls in no JAX and nothing of prosper_tpu."""
     code = (
-        "import sys, torch\n"
+        "import importlib, pkgutil, sys, torch\n"
         "torch.set_num_threads(2)\n"
-        "import prosper_tpu_torch\n"
+        "import prosper_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'prosper_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "from prosper_tpu_torch.entry import entry\n"
         "fn, args = entry('cpu', width=32, height=32, max_bounces=2)\n"
         "img, _, n = fn(*args)\n"
         "assert img.shape == (32, 32, 3) and int(n) > 0\n"
-        "print('jax' in sys.modules, any(m.startswith('jax') for m in sys.modules))\n"
+        "fn, args = entry('cpu', scene='plate', n_clusters=8, width=32,\n"
+        "                 height=32, mode='deferred', use_culling=True,\n"
+        "                 scatter_lights=16)\n"
+        "img, state, drawn = fn(*args)\n"
+        "assert img.shape == (32, 32, 3) and int(drawn) > 0\n"
+        "bad = sorted(m for m in sys.modules if m.startswith('jax')\n"
+        "             or m == 'prosper_tpu' or m.startswith('prosper_tpu.'))\n"
+        "print(len(sys.modules), bad)\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -163,4 +173,5 @@ def test_port_never_imports_jax():
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["False", "False"]
+    n_modules, bad = out.stdout.split(maxsplit=1)
+    assert int(n_modules) > 100 and bad.strip() == "[]", out.stdout

@@ -190,8 +190,11 @@ def test_wrappers_dispatch_by_device():
                           0.0, float("inf"))
     ttb.trace_any_bvh(_t(packed), _t(bounds), _t(meta), _t(o), _t(d), 0.1,
                       5.0)
-    assert [f.launches for f in ttb.KERNELS] == [0, 0, 0]
+    assert [f.launches for f in ttb.KERNELS] == [0] * len(ttb.KERNELS)
     meta_o = torch.empty((64, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ttb.trace_closest_bvh(_t(packed), _t(bounds), _t(meta), meta_o,
                               meta_o, 0.0, float("inf"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ttb.trace_closest_bvh_full(_t(packed), _t(bounds), _t(meta), meta_o,
+                                   meta_o, 1e-4, float("inf"))
