@@ -2,16 +2,16 @@
 
     python3 chip_smoke.py
 
-Drives prosper_tpu_torch's two ported paths at 1920x1080 on the
+Drives prosper_tpu_torch's three ported paths at 1920x1080 on the
 2048-cluster plate scene (262,144 triangles) through the hand-written
-CUDA kernels: the wavefront path tracer (3 bounces) and the deferred
+CUDA kernels: the wavefront path tracer (3 bounces), the deferred
 renderer (G-buffer, 1024 scattered point lights, clustered tile
-shading), the latter without and with two-phase meshlet culling.
-Phases:
+shading), without and with two-phase meshlet culling, and the forward
+renderer with its transparent pass and alpha-mask discard. Phases:
 
 1. device: CUDA, nvcc and the card's name and power limit;
-2. build: compile csrc/trace_bvh.cu and csrc/shade_tiles.cu for sm_90a,
-   one nvcc each, in parallel (timed);
+2. build: compile csrc/trace_bvh.cu, csrc/shade_tiles.cu and
+   csrc/trace_flat.cu for sm_90a, one nvcc each, in parallel (timed);
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the whole inputs of one frame, with kernel and plain times and
    the bound (the least time an H100 could take for the same work):
@@ -27,7 +27,21 @@ Phases:
    warm-up + 8 timed frames with launch counts, drawn meshlets, memory
    and a profile of one frame; the culled G-buffer against the unculled
    one; each 1080p frame with the plain versions against the kernels'
-   frame; 64x64 CUDA frames against CPU frames.
+   frame; 64x64 CUDA frames against CPU frames;
+6. kernels: flat: K6 on the opaque pass's rays of a forward frame of
+   the blend/mask scene (make_plate_scene(..., blend_every=8,
+   mask_every=8): masked AABBs) and on its first alpha retrace, against
+   its plain version; K6 over the unmasked AABBs against K2 on the same
+   rays; K8 on the G-buffer rays of a frame without BVH arrays,
+   unculled (against its plain version and K1) and in both culling
+   phases (against its plain version and K4 with the same masks);
+7. forward: (a) forward on the opaque scene, (b) forward on the
+   blend/mask scene (transparent pass, two alpha-discard rounds, the
+   CLI's flags), (c) the culled deferred frame of the blend/mask scene
+   without BVH arrays; each 2 warm-up + 8 timed frames with launch
+   counts, memory and a profile of one frame, the 1080p frame with the
+   plain versions against the kernels' frame, and 64x64 CUDA frames
+   against CPU frames.
 
 Every launch count is set to 0 just before a path is driven and read
 just after; a kernel of the path that never launched fails the run. Any
@@ -57,6 +71,7 @@ PLAIN_FRAME_BUDGET_S = 120.0
 SOURCES = {
     "trace_bvh": "prosper_tpu_torch/csrc/trace_bvh.cu",
     "shade_tiles": "prosper_tpu_torch/csrc/shade_tiles.cu",
+    "trace_flat": "prosper_tpu_torch/csrc/trace_flat.cu",
 }
 # kernel -> (source, the Pallas kernel it replaces)
 KERNELS = {
@@ -68,12 +83,30 @@ KERNELS = {
                                "prosper_tpu/ops/trace_bvh.py:1211"),
     "shade_clustered_tiles": ("shade_tiles",
                               "prosper_tpu/ops/shade_tiles.py:351"),
+    "trace_closest_flat": ("trace_flat",
+                           "prosper_tpu/ops/trace_pallas.py:272"),
+    "trace_closest_flat_full": ("trace_flat",
+                                "prosper_tpu/ops/trace_pallas_full.py:255"),
 }
 PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
 DEFERRED_PATH = {False: ("trace_primary_bvh_full", "shade_clustered_tiles"),
                  True: ("trace_closest_bvh_full", "shade_clustered_tiles")}
+# the blend and mask plates; with them entry() sets the CLI's flags:
+# use_transparent and two alpha-discard rounds
+ALPHA = {"blend_every": 8, "mask_every": 8}
+# label -> (entry options, the kernels the frame runs)
+FORWARD_CELLS = {
+    "forward opaque": ({"mode": "forward"},
+                       ("trace_closest_bvh", "shade_clustered_tiles")),
+    "forward blend/mask": ({"mode": "forward", **ALPHA},
+                           ("trace_closest_flat", "trace_closest_bvh_full",
+                            "shade_clustered_tiles")),
+    "deferred culled blend/mask bvh=False": (
+        {"mode": "deferred", "use_culling": True, "bvh": False, **ALPHA},
+        ("trace_closest_flat_full", "shade_clustered_tiles")),
+}
 PORT_KERNEL_SYMBOLS = ("primary_kernel", "closest_kernel", "any_kernel",
-                       "closest_full_kernel", "shade_kernel")
+                       "closest_full_kernel", "shade_kernel", "flat_kernel")
 # trace kernel vs plain: hit/miss and occlusion equal; tri equal unless
 # the two t agree within 1e-6 relative (an exact tie); t within rtol 1e-5
 # / atol 1e-6; interpolated attributes (and u, v) within 1e-4
@@ -158,8 +191,9 @@ def patched(*swaps):
 def all_kernels():
     from prosper_tpu_torch.ops import shade_tiles as tst
     from prosper_tpu_torch.ops import trace_bvh as tb
+    from prosper_tpu_torch.ops import trace_flat as tf
 
-    return tb.KERNELS + tst.KERNELS
+    return tb.KERNELS + tst.KERNELS + tf.KERNELS
 
 
 def reset_counts() -> None:
@@ -185,32 +219,40 @@ def bound(n_bytes: int, n_ops: int) -> dict:
             "bound_bytes": n_bytes, "bound_ops": n_ops}
 
 
-def entered_pairs(scene, o, d, t_lim, live=None) -> int:
-    """(ray, cluster) pairs whose AABB the ray enters before t_lim, with
-    the plain versions' slab test; live (C,) drops masked clusters."""
+def leaf_boxes(scene):
+    """The cluster AABBs of the BVH's leaves, (C, 3) x 2."""
     from prosper_tpu_torch.ops import trace_bvh as tb
 
-    slabs = scene["geom"]["packed_full"]
-    cmin, cmax = tb._leaf_boxes(scene["frame"]["bvh_bounds"],
-                                scene["frame"]["bvh_meta"], slabs.shape[0])
+    return tb._leaf_boxes(scene["frame"]["bvh_bounds"],
+                          scene["frame"]["bvh_meta"],
+                          scene["geom"]["packed_full"].shape[0])
+
+
+def entered_pairs(boxes, o, d, t_lim, live=None) -> int:
+    """(ray, cluster) pairs whose AABB (boxes = (cmin, cmax)) the ray
+    enters before t_lim, with the plain versions' slab test; live (C,)
+    drops masked clusters. Inverted (masked) boxes never count."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
+
+    cmin, cmax = boxes
+    valid = ~(cmin > cmax).any(dim=-1)
+    live = valid if live is None else live & valid
     inv = tb.safe_inv_dir(d)
     n = 0
     for r0 in range(0, o.shape[0], 16384):
         r1 = min(o.shape[0], r0 + 16384)
         enter, exit_ = tb.slab_enter_exit(o[r0:r1, None], inv[r0:r1, None],
                                           cmin[None], cmax[None])
-        ok = (enter <= exit_) & (enter < t_lim[r0:r1, None])
-        if live is not None:
-            ok = ok & live[None, :]
+        ok = (enter <= exit_) & (enter < t_lim[r0:r1, None]) & live[None, :]
         n += int(ok.sum())
     return n
 
 
-def closest_ops(scene, o, d, rows, t_max, live=None) -> int:
+def closest_ops(boxes, o, d, rows, t_max, live=None) -> int:
     """Möller tests the closest hit needs: all 128 triangles of every
     cluster whose AABB the ray enters before its final hit t."""
     t_lim = torch.where(rows[:, 1] >= 0, rows[:, 0], t_max)
-    return MOLLER_OPS * 128 * entered_pairs(scene, o, d, t_lim, live)
+    return MOLLER_OPS * 128 * entered_pairs(boxes, o, d, t_lim, live)
 
 
 def compare_rows(got, want, attr_cols):
@@ -280,7 +322,8 @@ def check_primary(label, scene, cols, cam_vec, frame_index, t_min):
            "ms": device_ms(lambda: tb.trace_primary_bvh_full(*args), 5),
            "plain_ms": plain_ms,
            **bound(nbytes(*args[:5], got),
-                   closest_ops(scene, o.contiguous(), d, want, tmax))}
+                   closest_ops(leaf_boxes(scene), o.contiguous(), d, want,
+                               tmax))}
     return ok, rec, want
 
 
@@ -318,7 +361,7 @@ def check_pt_kernels(label, fn, scene, cam, width, height):
         extra = {}
         if key == "closest":
             ok, counts, err = compare_rows(got, want, [2, 3])
-            ops = closest_ops(scene, o, d, want, t_max)
+            ops = closest_ops(leaf_boxes(scene), o, d, want, t_max)
         else:
             mism = int((got != want).sum())
             ok = mism == 0
@@ -330,7 +373,7 @@ def check_pt_kernels(label, fn, scene, cam, width, height):
             # one every cluster it enters before t_max
             free = ~want
             ops = MOLLER_OPS * 128 * (int(want.sum()) + entered_pairs(
-                scene, o[free], d[free], t_max[free]))
+                leaf_boxes(scene), o[free], d[free], t_max[free]))
         print(f"{tag} {label}: ok={ok} {live} live rays; {counts}")
         ok_all &= ok
         records[kern.__name__] = {
@@ -488,26 +531,52 @@ def run_pt(smi, dev):
     return records, launches
 
 
-def plain_k4(slabs, bounds, meta, o, d, t_min, t_max, skip_mask=None):
-    """K4's plain version behind the wrapper's signature."""
+def as_plain(plain):
+    """A trace kernel's plain version behind its wrapper's signature
+    (..., o, d, t_min, t_max scalar or per ray, keyword options)."""
     from prosper_tpu_torch.ops import trace_bvh as tb
 
-    t_max = tb._tmax(t_max, o.shape[0], o.device)
-    return tb.trace_closest_bvh_full_plain(slabs, bounds, meta, o, d,
-                                           float(t_min), t_max, skip_mask)
+    def fn(*args, **kw):
+        *head, o, d, t_min, t_max = args
+        return plain(*head, o, d, float(t_min),
+                     tb._tmax(t_max, o.shape[0], o.device), **kw)
+    return fn
 
 
 def plain_paths():
-    """The deferred frame's kernels swapped for their plain versions."""
+    """The deferred and forward frames' kernels swapped for their plain
+    versions, wherever the frames look them up."""
     from prosper_tpu_torch.ops import shade_tiles as tst
     from prosper_tpu_torch.ops import trace_bvh as tb
-    from prosper_tpu_torch.render import deferred, gbuffer
+    from prosper_tpu_torch.ops import trace_flat as tf
+    from prosper_tpu_torch.render import gbuffer, shading
 
     return patched(
         (gbuffer, "trace_primary_bvh_full", tb.trace_primary_bvh_full_plain),
-        (gbuffer, "trace_closest_bvh_full", plain_k4),
-        (deferred, "shade_clustered_tiles", tst.shade_clustered_tiles_plain),
+        (gbuffer, "trace_closest_bvh_full",
+         as_plain(tb.trace_closest_bvh_full_plain)),
+        (gbuffer, "trace_closest_flat_full",
+         as_plain(tf.trace_closest_flat_full_plain)),
+        (tb, "trace_closest_bvh", as_plain(tb.trace_closest_bvh_plain)),
+        (tf, "trace_closest_flat", as_plain(tf.trace_closest_flat_plain)),
+        (shading, "shade_clustered_tiles", tst.shade_clustered_tiles_plain),
     )
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """Keep (args, kwargs) of every call of module.name made inside the
+    with block, uncopied: the G-buffer, transparent and shading code
+    recorded here never change their rays, masks or inputs in place."""
+    real = getattr(module, name)
+    calls = []
+
+    def rec(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    with mock.patch.object(module, name, rec):
+        yield calls
 
 
 def culled_phases(run):
@@ -516,20 +585,13 @@ def culled_phases(run):
     from prosper_tpu_torch.ops import trace_bvh as tb
     from prosper_tpu_torch.render import gbuffer
 
-    seen = []
-
-    def record_k4(slabs, bounds, meta, o, d, t_min, t_max, skip_mask=None):
-        seen.append((o.clone(), d.clone(), t_min,
-                     tb._tmax(t_max, o.shape[0], o.device),
-                     skip_mask.clone()))
-        return tb.trace_closest_bvh_full(slabs, bounds, meta, o, d, t_min,
-                                         t_max, skip_mask=skip_mask)
-
-    with patched((gbuffer, "trace_closest_bvh_full", record_k4)):
+    with recording(gbuffer, "trace_closest_bvh_full") as calls:
         out = run()
-    if len(seen) != 2:
-        raise RuntimeError(f"a culled frame traced {len(seen)} phases, not 2")
-    return out, seen
+    if len(calls) != 2:
+        raise RuntimeError(f"a culled frame traced {len(calls)} phases, not 2")
+    return out, [(o, d, t_min, tb._tmax(t_max, o.shape[0], o.device),
+                  kw["skip_mask"])
+                 for (_, _, _, o, d, t_min, t_max), kw in calls]
 
 
 def check_k4_phases(label, scene, seen):
@@ -554,7 +616,7 @@ def check_k4_phases(label, scene, seen):
               f"{int(mask.sum())} of {mask.shape[0]}; {counts}")
         ok_all &= ok
         b = bound(nbytes(*args, mask, got),
-                  closest_ops(scene, o, d, want, t_max, mask))
+                  closest_ops(leaf_boxes(scene), o, d, want, t_max, mask))
         k4["max_abs_err"] = max(k4["max_abs_err"], err)
         k4["ms"] += device_ms(
             lambda: tb.trace_closest_bvh_full(*args, skip_mask=mask), 5)
@@ -576,7 +638,7 @@ def check_deferred_kernels(fns, scene, cam):
     from prosper_tpu_torch.ops import hiz
     from prosper_tpu_torch.ops import shade_tiles as tst
     from prosper_tpu_torch.ops import trace_bvh as tb
-    from prosper_tpu_torch.render import deferred, gbuffer
+    from prosper_tpu_torch.render import gbuffer, shading
 
     dev = scene["geom"]["packed_full"].device
     cols = gbuffer._row_pixels(W, H, str(dev))
@@ -614,15 +676,9 @@ def check_deferred_kernels(fns, scene, cam):
     records["trace_closest_bvh_full"] = k4
 
     # K5 on the frame's G-buffer
-    seen_k5 = []
-
-    def record_k5(inp, width, height):
-        seen_k5.append(inp)
-        return tst.shade_clustered_tiles(inp, width, height)
-
-    with patched((deferred, "shade_clustered_tiles", record_k5)):
+    with recording(shading, "shade_clustered_tiles") as calls:
         fns[False](scene, cam, 0)
-    inp = seen_k5[0]
+    (inp, _, _), _ = calls[0]
     (want, cnt, needed), plain_ms = timed_call(
         lambda: tst.shade_clustered_tiles_plain(inp, W, H, return_counts=True))
     got = tst.shade_clustered_tiles(inp, W, H)
@@ -730,6 +786,239 @@ def run_deferred(smi, dev):
     return records, launches
 
 
+@contextlib.contextmanager
+def recording_closest(module):
+    """Keep the whole arguments of every call of the closest-hit fns that
+    module.make_tracer returns (partials of a wrapper, which counts its
+    launches under its own module's name, so the wrapper stays as it is)."""
+    real = module.make_tracer
+    calls = []
+
+    def make_tracer(*args, **kw):
+        closest, any_fn = real(*args, **kw)
+
+        def rec(*a):
+            calls.append(closest.args + a)
+            return closest(*a)
+        return rec, any_fn
+
+    with mock.patch.object(module, "make_tracer", make_tracer):
+        yield calls
+
+
+def check_flat_call(label, kern, plain, args, attr_cols):
+    """One flat-kernel call (slabs, wc_min, wc_max, o, d, t_min, t_max)
+    against its plain version -> (ok, record, kernel rows)."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
+
+    slabs, mn, mx, o, d, t_min, t_max = args
+    args = (slabs, mn, mx, o, d, float(t_min),
+            tb._tmax(t_max, o.shape[0], o.device))
+    t_max = args[-1]
+    want, plain_ms = timed_call(lambda: plain(*args))
+    got = kern(*args)
+    ok, counts, err = compare_rows(got, want, attr_cols)
+    live_rays = int((t_max > t_min).sum())
+    live_clusters = int((~(mn > mx).any(dim=-1)).sum())
+    print(f"{label}: ok={ok} live rays {live_rays}, live clusters "
+          f"{live_clusters} of {mn.shape[0]}; {counts}")
+    rec = {"max_abs_err": err, "rays": int(got.shape[0]),
+           "live_rays": live_rays, "live_clusters": live_clusters,
+           "ms": device_ms(lambda: kern(*args), 5), "plain_ms": plain_ms,
+           **bound(nbytes(*args, got),
+                   closest_ops((mn, mx), o, d, want, t_max))}
+    return ok, rec, got
+
+
+def check_flat_kernels(dev):
+    """Phase 6: K6 on the opaque pass and first alpha retrace of a
+    forward frame of the blend/mask scene, and over the unmasked AABBs
+    against K2; K8 on every call of a culled deferred frame of that
+    scene without BVH arrays and on its unculled G-buffer, each against
+    its plain version and K4 with the same live clusters, the unculled
+    one against K1 too. Returns (ok, records)."""
+    from prosper_tpu_torch import entry as port_entry
+    from prosper_tpu_torch.ops import trace as ttrace
+    from prosper_tpu_torch.ops import trace_bvh as tb
+    from prosper_tpu_torch.ops import trace_flat as tf
+    from prosper_tpu_torch.render import forward, gbuffer
+
+    fn, (scene, cam, _) = port_entry.entry(
+        dev, scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
+        mode="forward", scatter_lights=N_LIGHTS, **ALPHA)
+    with recording_closest(forward) as calls:
+        fn(scene, cam, 0)
+    torch.cuda.synchronize()
+    if len(calls) != 3:  # the opaque pass and two alpha retrace rounds
+        raise RuntimeError(f"the forward frame made {len(calls)} K6 calls")
+    ok_all, k6, _ = check_flat_call(
+        f"K6 forward {W}x{H} opaque pass (blend plates masked)",
+        tf.trace_closest_flat, tf.trace_closest_flat_plain, calls[0], [2, 3])
+    ok, retrace, _ = check_flat_call(
+        "K6 first alpha retrace", tf.trace_closest_flat,
+        tf.trace_closest_flat_plain, calls[1], [2, 3])
+    ok_all &= ok
+    k6["max_abs_err"] = max(k6["max_abs_err"], retrace["max_abs_err"])
+    k6["retrace"] = {k: retrace[k] for k in (
+        "live_rays", "ms", "plain_ms", "bound_ms", "bound_by")}
+
+    # the flat cull against the BVH walk on the same rays and clusters
+    frame = scene["frame"]
+    slabs, _, _, o, d, t_min, t_max = calls[0]
+    bvh = (frame["bvh_bounds"], frame["bvh_meta"])
+    flat_args = (slabs, frame["wc_aabb_min_w"], frame["wc_aabb_max_w"], o, d,
+                 t_min, t_max)
+    bvh_args = (slabs, *bvh, o, d, t_min, t_max)
+    got = tf.trace_closest_flat(*flat_args)
+    ref = tb.trace_closest_bvh(*bvh_args)
+    tb.check_stack_overflow(dev)
+    ok, counts, err = compare_rows(got, ref, [2, 3])
+    ok_all &= ok
+    k6.update(unmasked_ms=device_ms(lambda: tf.trace_closest_flat(*flat_args),
+                                    5),
+              k2_same_rays_ms=device_ms(
+                  lambda: tb.trace_closest_bvh(*bvh_args), 5),
+              vs_k2_max_abs_err=err)
+    print(f"K6 over the unmasked AABBs vs K2 on the same rays: ok={ok} "
+          f"{counts}; K6 {k6['unmasked_ms']:.3f} ms, K2 "
+          f"{k6['k2_same_rays_ms']:.3f} ms")
+
+    # K8: the same scene without BVH arrays, culled deferred frames
+    fn_c, (scene_c, cam_c, _) = port_entry.entry(
+        dev, scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
+        mode="deferred", use_culling=True, bvh=False,
+        scatter_lights=N_LIGHTS, **ALPHA)
+    with recording(gbuffer, "trace_closest_flat_full") as unculled:
+        gbuffer.render_gbuffer(scene_c, cam_c, W, H)
+    _, state, _ = fn_c(scene_c, cam_c, 0)
+    with recording(gbuffer, "trace_closest_flat_full") as culled:
+        fn_c(scene_c, cam_c, 1, state)
+    torch.cuda.synchronize()
+    names = ("phase 1", "phase 2", "alpha retrace 1", "alpha retrace 2",
+             "transparent pass")
+    if len(unculled) != 1 or len(culled) != len(names):
+        raise RuntimeError(f"K8 calls: {len(unculled)} unculled, "
+                           f"{len(culled)} culled")
+    k8, k8_rows = None, None
+    attr_cols = list(range(2, 13))
+    for name, (args, _) in (("unculled G-buffer", unculled[0]),
+                            *zip(names, culled)):
+        ok, rec, got = check_flat_call(
+            f"K8 {name}", tf.trace_closest_flat_full,
+            tf.trace_closest_flat_full_plain, args, attr_cols)
+        ok_all &= ok
+        # K4 over the same live clusters and rays
+        slabs, mn, mx, o, d, t_min, t_max = args
+        live = ~(mn > mx).any(dim=-1)
+        ref = tb.trace_closest_bvh_full(slabs, *bvh, o, d, t_min, t_max,
+                                        skip_mask=None if bool(live.all())
+                                        else live)
+        tb.check_stack_overflow(dev)
+        ok, counts, err = compare_rows(got, ref, attr_cols)
+        print(f"K8 {name} vs K4: ok={ok} {counts}")
+        ok_all &= ok
+        if k8 is None:
+            k8, k8_rows = rec, got
+            k8["calls_of_a_culled_frame"] = {}
+        else:
+            k8["max_abs_err"] = max(k8["max_abs_err"], rec["max_abs_err"])
+            k8["calls_of_a_culled_frame"][name] = {k: rec[k] for k in (
+                "live_rays", "live_clusters", "ms", "plain_ms", "bound_ms",
+                "bound_by")}
+
+    # the unculled G-buffer's K8 rows against K1's (row-major pixels)
+    cols = gbuffer._row_pixels(W, H, str(dev))
+    cam_vec = tb.primary_cam_vec(cam_c, W, H,
+                                 pixel_jitter=cam_c["current_jitter"],
+                                 device=dev)
+    k1 = tb.trace_primary_bvh_full(slabs, *bvh, cols, cam_vec, 0,
+                                   gbuffer.GBUFFER_T_MIN)[: W * H]
+    tb.check_stack_overflow(dev)
+    _, inverse = ttrace.block_order(W, H, str(dev))
+    ok, counts, err = compare_rows(k8_rows[inverse], k1, attr_cols)
+    print(f"K8 unculled G-buffer vs K1: ok={ok} {counts}")
+    ok_all &= ok
+    return ok_all, {"trace_closest_flat": k6, "trace_closest_flat_full": k8}
+
+
+def plain_frame_estimate_s(label, records) -> float:
+    """Seconds a 1080p frame of FORWARD_CELLS[label] would take with the
+    plain versions: each kernel call at its plain time on a full frame."""
+    calls = {
+        "forward opaque": {"trace_closest_bvh": 1, "shade_clustered_tiles": 1},
+        "forward blend/mask": {"trace_closest_flat": 3,
+                               "trace_closest_bvh_full": 1,
+                               "shade_clustered_tiles": 2},
+        "deferred culled blend/mask bvh=False": {
+            "trace_closest_flat_full": 5, "shade_clustered_tiles": 2},
+    }[label]
+    return 1e-3 * sum(n * records[k]["plain_ms"] for k, n in calls.items())
+
+
+def run_forward(smi, dev, records):
+    """Phases 6 and 7; records holds the earlier phases' kernel records
+    (for the plain-frame estimates). Returns (records of K6 and K8,
+    launches per kernel summed over the three frames)."""
+    from prosper_tpu_torch import entry as port_entry
+
+    phase("kernels: flat")
+    ok, flat = check_flat_kernels(dev)
+    print("kernel, plain and bound times on one frame's inputs: " + ", ".join(
+        f"{k} {r['ms']:.3f} vs {r['plain_ms']:.1f} ms, bound "
+        f"{r['bound_ms']:.3f} ms ({r['bound_by']})"
+        for k, r in flat.items()) + f"; card: {smi}")
+    if not ok:
+        raise RuntimeError("a flat kernel disagrees with its plain version "
+                           "or with the BVH kernels")
+    records = {**records, **flat}
+
+    phase("forward")
+    launches = {}
+    for cell, (kw, path) in FORWARD_CELLS.items():
+        label = f"{cell} {W}x{H} lights={N_LIGHTS}"
+        fn, (scene, cam, _) = port_entry.entry(
+            dev, scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
+            scatter_lights=N_LIGHTS, **kw)
+        ms_frame, counts, img, state, stats = drive(fn, scene, cam, path,
+                                                    label, smi)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        stats = [int(x) for x in stats]
+        what = ("drawn meshlets" if kw["mode"] == "deferred"
+                else "pixels with an opaque surface")
+        print(f"{label}: {what} per timed frame {min(stats)}-{max(stats)}")
+        breakdown(fn, scene, cam, WARMUP + TIMED, state)
+
+        # the 1080p frame with the plain versions against the kernels'
+        est_s = plain_frame_estimate_s(cell, records)
+        if est_s < PLAIN_FRAME_BUDGET_S:
+            img_k, _, n_k = fn(scene, cam, WARMUP, state)
+            out = []
+            with plain_paths():
+                plain_ms = elapsed_ms(
+                    lambda: out.append(fn(scene, cam, WARMUP, state)))
+            print(f"{label} frame with the plain versions: ms/frame "
+                  f"{plain_ms:.1f} (with the kernels {ms_frame:.3f}); "
+                  f"card: {smi}")
+            frames_agree(f"{label} kernels vs plain versions", (img_k, n_k),
+                         (out[0][0], out[0][2]))
+        else:
+            print(f"{label} frame with the plain versions: skipped "
+                  f"(estimated {est_s:.0f} s > {PLAIN_FRAME_BUDGET_S:.0f} s)")
+
+        # 64x64 frames on the card against the CPU, two frames each
+        got = []
+        for d in (dev, "cpu"):
+            fn64, (sc, cm, _) = port_entry.entry(
+                d, scene="plate", n_clusters=64, width=64, height=64,
+                scatter_lights=100, **kw)
+            _, st, _ = fn64(sc, cm, 0)
+            img64, _, n = fn64(sc, cm, 1, st)
+            got.append((img64, n))
+        frames_agree(f"{cell} plate-64 64x64 cuda vs cpu", *got)
+    return flat, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: no GPU")
@@ -766,8 +1055,13 @@ def main() -> int:
     pt_records["trace_primary_bvh_full"]["max_abs_err"] = max(
         k1["max_abs_err"], pt_records["trace_primary_bvh_full"]["max_abs_err"])
     records = {**pt_records, **records}
-    for k, n in pt_launches.items():
-        launches[k] = launches.get(k, 0) + n
+    t0 = time.perf_counter()
+    flat_records, fwd_launches = run_forward(smi, dev, records)
+    print(f"forward phases: {time.perf_counter() - t0:.1f} s")
+    records.update(flat_records)
+    for counts in (pt_launches, fwd_launches):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
     kernels = []
     for name, rec in records.items():
         source, replaces = KERNELS[name]

@@ -7,7 +7,14 @@ for the CPU) and the camera, and returns the frame call of one mode:
 
 - "pt": render one sample, accumulate, tone map;
 - "deferred": G-buffer (with two-phase culling when use_culling),
-  clustered shading, tone map; the state threads the HiZ pyramid.
+  clustered shading, the transparent pass, tone map; the state threads
+  the HiZ pyramid;
+- "forward": primary visibility, forward shading, the transparent pass,
+  tone map, or a debug AOV (draw_type).
+
+use_transparent and alpha_rounds default as the JAX package's CLI sets
+them (prosper_tpu/app/cli.py:471, :478): the transparent pass when a
+material blends, two alpha-discard rounds when one is not opaque.
 
     fn, args = entry(scene="plate", n_clusters=2048, width=1920,
                      height=1080, max_bounces=3)
@@ -18,6 +25,11 @@ for the CPU) and the camera, and returns the frame call of one mode:
                      height=1080, mode="deferred", use_culling=True,
                      scatter_lights=1024)
     img, state, drawn_meshlets = fn(*args)
+
+    fn, args = entry(scene="plate", n_clusters=2048, width=1920,
+                     height=1080, mode="forward", scatter_lights=1024,
+                     blend_every=8, mask_every=8)
+    img, state, covered_pixels = fn(*args)
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import torch
 
 from .ops.tonemap import pack_lut_quads, synthetic_lut
 from .render.deferred import deferred_entry
+from .render.forward import forward_entry
 from .render.pt import pt_entry
 from .scene.convert import camera_tensors, from_numpy_scene
 from .testing import make_plate_scene, make_test_scene
@@ -36,21 +49,43 @@ SCENES = {"test": make_test_scene, "plate": make_plate_scene}
 def entry(device="cuda", scene: str = "test", n_clusters: int = 4,
           width: int = 64, height: int = 64, max_bounces: int = 2,
           seed: int = 0, mode: str = "pt", use_culling: bool = False,
-          scatter_lights: int = 0):
+          scatter_lights: int = 0, blend_every: int = 0,
+          mask_every: int = 0, bvh: bool = True,
+          use_transparent: bool | None = None,
+          alpha_rounds: int | None = None, draw_type: int = 0):
     """Returns (fn, example_args) with fn(scene, cam, frame_index,
     state=None) -> (image (H, W, 3), state, stat) and example_args =
     (scene tensors, camera tensors, 0). stat is the ray count in "pt"
-    mode and the number of drawn meshlets in "deferred" mode (every
-    cluster without culling). scatter_lights > 0 (plate scene only)
-    scatters that many point lights (testing.make_plate_scene)."""
-    if mode not in ("pt", "deferred"):
+    mode, the number of drawn meshlets in "deferred" mode (every cluster
+    without culling) and the number of pixels with an opaque surface in
+    "forward" mode.
+
+    Plate scene only: scatter_lights > 0 scatters that many point
+    lights, blend_every and mask_every give plates blend and mask
+    materials (testing.make_plate_scene). bvh=False leaves the BVH node
+    arrays out of the frame, so every trace takes the flat kernels."""
+    if mode not in ("pt", "deferred", "forward"):
         raise ValueError(f"unknown mode {mode!r}")
-    extra = ()
-    if scatter_lights:
+    if mode == "pt" and not bvh:
+        raise NotImplementedError(
+            "the path tracer without BVH arrays needs the flat any-hit "
+            "kernel K7: ROADMAP.md queue 2, K7")
+    extra = {}
+    if scatter_lights or blend_every or mask_every:
         if scene != "plate":
-            raise ValueError("scatter_lights needs the plate scene")
-        extra = (scatter_lights,)
-    static, frame, arena, cam_fn = SCENES[scene](n_clusters, seed, *extra)
+            raise ValueError("scatter_lights, blend_every and mask_every "
+                             "need the plate scene")
+        extra = {"scatter_lights": scatter_lights,
+                 "blend_every": blend_every, "mask_every": mask_every}
+    static, frame, arena, cam_fn = SCENES[scene](n_clusters, seed, **extra)
+    if not bvh:
+        frame = {k: v for k, v in frame.items()
+                 if k not in ("bvh_bounds", "bvh_meta")}
+    alpha_mode = static["materials"]["alpha_mode"]
+    if use_transparent is None:
+        use_transparent = bool((alpha_mode == 2).any())
+    if alpha_rounds is None:
+        alpha_rounds = 2 if bool((alpha_mode != 0).any()) else 0
     scene_t = from_numpy_scene(static, frame, arena, device)
     cam = camera_tensors(cam_fn(width, height), device)
     # the display LUT of the reference is not in the repo: a synthetic one
@@ -62,17 +97,28 @@ def entry(device="cuda", scene: str = "test", n_clusters: int = 4,
                 scene=scene_t, cam=cam, lut=lut, width=width, height=height,
                 device=device, max_bounces=max_bounces,
                 frame_index=frame_index, state=state, return_stats=True,
+                alpha_rounds=alpha_rounds,
             )
-    else:
+    elif mode == "deferred":
         n_all = torch.tensor(scene_t["geom"]["packed_full"].shape[0])
 
         def fn(scene_t, cam, frame_index, state=None):
             img, state = deferred_entry(
                 scene=scene_t, cam=cam, lut=lut, width=width, height=height,
                 device=device, state=state, use_culling=use_culling,
+                use_transparent=use_transparent, alpha_rounds=alpha_rounds,
                 frame_index=frame_index,
             )
             return img, state, state["draw_stats"].get("drawn_meshlets",
                                                        n_all)
+    else:
+        def fn(scene_t, cam, frame_index, state=None):
+            img, state = forward_entry(
+                scene=scene_t, cam=cam, lut=lut, width=width, height=height,
+                device=device, state=state, draw_type=draw_type,
+                use_transparent=use_transparent, alpha_rounds=alpha_rounds,
+                frame_index=frame_index,
+            )
+            return img, state, state["covered_pixels"]
 
     return fn, (scene_t, cam, 0)

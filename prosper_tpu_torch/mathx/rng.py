@@ -1,7 +1,7 @@
 """PCG hashes and the stateful PT sample stream.
 
 Counterpart of prosper_tpu/mathx/rng.py (`pcg`, `pcg3d`, `rng_to01`,
-`make_state`, `rnd01`, `rnd2d01`), bit-exact with it.
+`make_state`, `rnd01`, `rnd2d01`, `uint_to_color`), bit-exact with it.
 
 torch has no usable uint32 arithmetic on the CPU (`+`, `>>` and `<<`
 raise), so u32 words are carried as int64 tensors holding values in
@@ -76,3 +76,12 @@ def rnd01(state: torch.Tensor):
 def rnd2d01(state: torch.Tensor):
     state = pcg3d(state)
     return state, rng_to01(state[..., :2])
+
+
+def uint_to_color(x) -> torch.Tensor:
+    """Pastel debug hash color of u32 words (random.glsl:30-40): three
+    10-bit fields of pcg(x), each over 1023."""
+    xr = pcg(x)
+    rgb = torch.stack([(xr >> 20) & 0x3FF, (xr >> 10) & 0x3FF, xr & 0x3FF],
+                      dim=-1)
+    return rgb.to(torch.float32) / 1023.0

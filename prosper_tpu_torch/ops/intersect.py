@@ -2,8 +2,11 @@
 
 Counterpart of prosper_tpu/ops/intersect.py `moller_trumbore`, written
 operation for operation as the Pallas block `trace_pallas._moller_block`
-(trace_pallas.py:76-116) and as the CUDA kernels in csrc/trace_bvh.cu,
-so the plain tracers and the kernels round alike. No backface culling.
+(trace_pallas.py:76-116) and as the CUDA kernels in csrc/trace_bvh.cu
+and csrc/trace_flat.cu, so the plain tracers and the kernels round
+alike. No backface culling. Also `packet_aabb_enter_exit` (:55-96), the
+ray-packet cull of the flat tracers, written as csrc/trace_flat.cu
+`packet_enter_exit` evaluates it.
 """
 
 from __future__ import annotations
@@ -74,3 +77,42 @@ def slab_enter_exit(o, inv_d, bmin, bmax):
     )
     exit_ = torch.minimum(torch.minimum(tf[..., 0], tf[..., 1]), tf[..., 2])
     return enter, exit_
+
+
+BIG = 3e38  # the entry / exit of a box no packet overlaps
+
+
+def packet_aabb_enter_exit(o_lo, o_hi, d_lo, d_hi, bmin, bmax):
+    """Conservative interval-arithmetic slab entry and exit distances of
+    a ray packet (origins in [o_lo, o_hi], directions in [d_lo, d_hi],
+    (..., 3) each) against AABBs broadcast against them. An axis whose
+    direction interval holds 0 does not restrict. An inverted box (some
+    bmin > bmax: a masked-out cluster, render/gbuffer._masked_aabbs)
+    gets enter = 3e38 > exit = -3e38: the min / max of the interval
+    products would otherwise turn it into a box holding everything.
+    Returns (enter, exit)."""
+    uniform = (d_lo > 0.0) | (d_hi < 0.0)
+    inv_a = torch.where(uniform, 1.0 / torch.where(uniform, d_hi, 1.0), 0.0)
+    inv_b = torch.where(uniform, 1.0 / torch.where(uniform, d_lo, 1.0), 0.0)
+    lo0, hi0 = bmin - o_hi, bmin - o_lo
+    lo1, hi1 = bmax - o_hi, bmax - o_lo
+
+    def imul_min(alo, ahi):
+        return torch.minimum(torch.minimum(alo * inv_a, alo * inv_b),
+                             torch.minimum(ahi * inv_a, ahi * inv_b))
+
+    def imul_max(alo, ahi):
+        return torch.maximum(torch.maximum(alo * inv_a, alo * inv_b),
+                             torch.maximum(ahi * inv_a, ahi * inv_b))
+
+    enter_ax = torch.where(
+        uniform, torch.minimum(imul_min(lo0, hi0), imul_min(lo1, hi1)), -BIG)
+    exit_ax = torch.where(
+        uniform, torch.maximum(imul_max(lo0, hi0), imul_max(lo1, hi1)), BIG)
+    enter = torch.maximum(torch.maximum(enter_ax[..., 0], enter_ax[..., 1]),
+                          enter_ax[..., 2])
+    exit_ = torch.minimum(torch.minimum(exit_ax[..., 0], exit_ax[..., 1]),
+                          exit_ax[..., 2])
+    invalid = (bmin > bmax).any(dim=-1)
+    return (torch.where(invalid, BIG, enter),
+            torch.where(invalid, -BIG, exit_))

@@ -2,8 +2,9 @@
 
 Counterpart of prosper_tpu/ops/texture.py: `pack_material_tables`
 (:126), `sample_material_packed` (:157) on the base-mip path (lod=None,
-aniso_taps=1) that the path tracer takes with bounce_tap_mip=0, and the
-bilinear taps it calls (`_decode4`, `_wrap_coord`, `_bilinear_entry`).
+aniso_taps=1) that the path tracer takes with bounce_tap_mip=0,
+`sample_alpha_packed` (:236) and the bilinear taps they call
+(`_decode4`, `_wrap_coord`, `_bilinear_entry`).
 
 Arena: `data` (N, 4) u32 bilinear quads — texel (x, y) and its +x, +y,
 +xy REPEAT neighbours — held as int64 here; `table` (T, 13, 4) i32 mip
@@ -130,3 +131,20 @@ def sample_material_packed(arena: dict, mat_idx: torch.Tensor, uv):
         "metallic": metallic,
         "normal_ts": normal_ts,
     }
+
+
+def sample_alpha_packed(arena: dict, mat_idx: torch.Tensor, uv):
+    """sampleAlpha over the packed tables at the base mip
+    (materials.glsl:123-147): one quad gather. Returns -1 for an opaque
+    material, 0 where a mask material fails its cutoff, else the base
+    color's alpha."""
+    idx = mat_idx.long()
+    f32 = arena["mat_f32"][idx]
+    i32 = arena["mat_i32"][idx]
+    a = _bilinear_entry(arena, i32[..., 4:8], uv)[..., 3] * f32[..., 3]
+    alpha_mode = i32[..., 0]
+    return torch.where(
+        alpha_mode == 2,
+        a,
+        torch.where((alpha_mode == 1) & (a < f32[..., 6]), 0.0, -1.0),
+    )

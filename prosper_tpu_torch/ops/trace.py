@@ -1,14 +1,16 @@
-"""Geometry prep and pixel order for the trace kernels.
+"""Geometry prep, the tracer policy and pixel order for the trace
+kernels.
 
 Counterpart of prosper_tpu/ops/trace.py: `world_triangles` (:383),
-`prepare_geometry` (:82), `block_pixel_order` (:227), `block_inverse16`
-(:343) and `permute16` (:355). The pixel orders are numpy and cached per
-resolution, as render/pt.py `_packed_pixels` caches them.
+`prepare_geometry` (:82), `make_tracer` (:33), `frame_bvh` (:220),
+`block_pixel_order` (:227), `block_inverse16` (:343) and `permute16`
+(:355). The pixel orders are numpy and cached per resolution, as
+render/pt.py `_packed_pixels` caches them.
 """
 
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -51,6 +53,42 @@ def prepare_geometry(static_scene: dict, frame: dict) -> dict:
         "packed_full": packed_full,
         "attr_rows": attr_rows_from_packed(packed_full),
     }
+
+
+def frame_bvh(frame: dict):
+    """(bounds, meta) of a frame's BVH2 node arrays, or None when the
+    frame carries none."""
+    if "bvh_bounds" in frame and "bvh_meta" in frame:
+        return frame["bvh_bounds"], frame["bvh_meta"]
+    return None
+
+
+def _no_flat_any_hit(*_args, **_kw):
+    raise NotImplementedError(
+        "any-hit rays on a frame without BVH arrays need K7 "
+        "(prosper_tpu/ops/trace_pallas.py trace_any_pallas): ROADMAP.md "
+        "queue 2, K7"
+    )
+
+
+def make_tracer(slabs, wc_min, wc_max, bvh=None):
+    """The one tracer policy: (closest_fn, any_fn), each called as
+    fn(o, d, t_min, t_max); closest_fn returns (R, 8) rows t | tri | u |
+    v | pad, any_fn (R,) bool.
+
+    With `bvh` = (bounds, meta): the BVH2 kernels, K2 closest and K3 any
+    hit (the JAX package's default "stack" any-tracer; its "dense" one is
+    K10, not ported). Without: the flat cull-list kernel K6 over the
+    cluster AABBs (wc_min, wc_max), inverted where a cluster is masked;
+    the flat any-hit kernel K7 is not ported and its any_fn raises."""
+    from . import trace_bvh, trace_flat
+
+    if bvh is not None:
+        bounds, meta = bvh
+        return (partial(trace_bvh.trace_closest_bvh, slabs, bounds, meta),
+                partial(trace_bvh.trace_any_bvh, slabs, bounds, meta))
+    return (partial(trace_flat.trace_closest_flat, slabs, wc_min, wc_max),
+            _no_flat_any_hit)
 
 
 def block_pixel_order(width: int, height: int, block: int = 16):
@@ -105,3 +143,27 @@ def pixel_layouts_np(width: int, height: int):
     px, py, _ = block_pixel_order(width, height)
     cols, _r0 = pack_pixels_np(px, py)
     return px, py, cols, block_inverse16(width, height)
+
+
+@lru_cache(maxsize=8)
+def block_order(width: int, height: int, device: str):
+    """(order, inverse) (R,) int64 on device for the 16x16-block pixel
+    order: block-order ray i is row-major pixel order[i], and row_major
+    = blocked[inverse]."""
+    px, py, inverse = block_pixel_order(width, height)
+    order = py.astype(np.int64) * width + px.astype(np.int64)
+    return (torch.as_tensor(order, device=device),
+            torch.as_tensor(inverse, device=device))
+
+
+def traced_in_blocks(trace_fn, width: int, height: int):
+    """trace_fn(o, d, t_min, t_max) -> rows for the row-major rays of a
+    whole width x height frame, traced in 16x16 pixel blocks: the flat
+    kernels cull per 256-ray tile, and a tile of one block is far
+    narrower than a 256x1 row strip. Both orders give the same rows."""
+    def run(o, d, t_min, t_max):
+        order, inverse = block_order(width, height, str(o.device))
+        if isinstance(t_max, torch.Tensor) and t_max.dim() > 0:
+            t_max = t_max[order]
+        return trace_fn(o[order], d[order], t_min, t_max)[inverse]
+    return run

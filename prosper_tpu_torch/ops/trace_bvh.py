@@ -188,16 +188,16 @@ def _chunks(device: torch.device):
     return (4096, 4096) if device.type == "cpu" else (16384, 32768)
 
 
-def _brute(slabs, bounds, meta, ray_o, ray_d, t_min, t_max, any_hit,
-           live=None):
-    """Shared brute force: returns (best_t, best_tri, best_u, best_v)
-    per ray, best_t = +inf and tri = -1 without a hit (t_min < t < t_max).
-    any_hit=True skips the argmin bookkeeping. live (C,) bool drops the
-    clusters it marks False before the AABB cull."""
+def _brute(slabs, cmin, cmax, ray_o, ray_d, t_min, t_max, any_hit,
+           live=None, tile_ok=None):
+    """Shared brute force over the cluster boxes (cmin, cmax) (C, 3):
+    returns (best_t, best_tri, best_u, best_v) per ray, best_t = +inf and
+    tri = -1 without a hit (t_min < t < t_max). any_hit=True skips the
+    argmin bookkeeping. live (C,) bool drops the clusters it marks False
+    before the AABB cull; tile_ok (T, C) bool, with ray r in tile r //
+    256, drops the clusters a ray's tile does not list."""
     dev = ray_o.device
     R = ray_o.shape[0]
-    C = slabs.shape[0]
-    cmin, cmax = _leaf_boxes(bounds, meta, C)
     inv = safe_inv_dir(ray_d)
     best_t = torch.full((R,), float("inf"), dtype=torch.float32, device=dev)
     best_tri = torch.full((R,), -1, dtype=torch.int64, device=dev)
@@ -214,6 +214,8 @@ def _brute(slabs, bounds, meta, ray_o, ray_d, t_min, t_max, any_hit,
         ok = (enter <= exit_) & (enter < t_max[r0:r1, None])
         if live is not None:
             ok = ok & live[None, :]
+        if tile_ok is not None:
+            ok = ok & tile_ok[torch.arange(r0, r1, device=dev) // TILE]
         ri, ci = torch.nonzero(ok, as_tuple=True)  # ri local to the chunk
         bt = best_t[r0:r1]
         btri = best_tri[r0:r1]
@@ -255,11 +257,12 @@ def _brute(slabs, bounds, meta, ray_o, ray_d, t_min, t_max, any_hit,
     return best_t, best_tri, best_u, best_v
 
 
-def _closest_rows(slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
-                  live=None):
-    """(R, 8) closest-hit rows t | tri | u | v | 0 0 0 0."""
+def _closest_rows(slabs, cmin, cmax, ray_o, ray_d, t_min, t_max,
+                  live=None, tile_ok=None):
+    """(R, 8) closest-hit rows t | tri | u | v | 0 0 0 0 over the cluster
+    boxes (cmin, cmax)."""
     best_t, tri, u, v = _brute(
-        slabs, bounds, meta, ray_o, ray_d, t_min, t_max, False, live
+        slabs, cmin, cmax, ray_o, ray_d, t_min, t_max, False, live, tile_ok
     )
     hit = tri >= 0
     out = torch.zeros((ray_o.shape[0], 8), dtype=torch.float32,
@@ -295,7 +298,8 @@ def _full_rows(slabs, h8):
 
 def trace_closest_bvh_plain(slabs, bounds, meta, ray_o, ray_d, t_min, t_max):
     """Plain closest hit -> (R, 8) rows t | tri | u | v | 0 0 0 0."""
-    return _closest_rows(slabs, bounds, meta, ray_o, ray_d, t_min, t_max)
+    return _closest_rows(slabs, *_leaf_boxes(bounds, meta, slabs.shape[0]),
+                         ray_o, ray_d, t_min, t_max)
 
 
 def trace_closest_bvh_full_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
@@ -304,13 +308,15 @@ def trace_closest_bvh_full_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
     whose skip_mask entry is False are never tested."""
     live = None if skip_mask is None else skip_mask.to(torch.bool)
     return _full_rows(slabs, _closest_rows(
-        slabs, bounds, meta, ray_o, ray_d, t_min, t_max, live))
+        slabs, *_leaf_boxes(bounds, meta, slabs.shape[0]), ray_o, ray_d,
+        t_min, t_max, live))
 
 
 def trace_any_bvh_plain(slabs, bounds, meta, ray_o, ray_d, t_min, t_max):
     """Plain any hit -> (R,) bool occlusion."""
     best_t, _, _, _ = _brute(
-        slabs, bounds, meta, ray_o, ray_d, t_min, t_max, any_hit=True
+        slabs, *_leaf_boxes(bounds, meta, slabs.shape[0]), ray_o, ray_d,
+        t_min, t_max, any_hit=True
     )
     return torch.isfinite(best_t)
 
@@ -320,7 +326,8 @@ def trace_primary_bvh_full_plain(slabs, bounds, meta, pix_cols, cam_vec,
     """Plain primary trace -> (T*256, 16) full hit rows."""
     o, d, tmax = raygen_plain(pix_cols, cam_vec, frame_index)
     return _full_rows(slabs, _closest_rows(
-        slabs, bounds, meta, o.contiguous(), d, t_min, tmax))
+        slabs, *_leaf_boxes(bounds, meta, slabs.shape[0]), o.contiguous(), d,
+        t_min, tmax))
 
 
 # ---------------------------------------------------------------------------

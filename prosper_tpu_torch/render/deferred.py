@@ -4,13 +4,13 @@ Counterpart of prosper_tpu/render/deferred.py `shade_deferred` (:22),
 `render_deferred` (:108) and `deferred_entry` (:287),
 deferred_shading.comp of the reference: decode the G-buffer as
 loadFromGbuffer does, the directional light, then clustered point and
-spot lights through the tile kernel (K5, ops/shade_tiles.py), then the
+spot lights through the tile kernel (K5, ops/shade_tiles.py), the
+transparent pass (render/transparent.py) when use_transparent, then the
 tone map. The state threads the HiZ pyramid of the culled G-buffer from
 frame to frame, as the reference preserve()s it.
 
-Not ported: the post chain (TAA, bloom, DoF, particles), the transparent
-pass and image-based lighting raise NotImplementedError naming their
-ROADMAP.md items.
+Not ported: the post chain (TAA, bloom, DoF, particles) and image-based
+lighting raise NotImplementedError naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -18,15 +18,15 @@ from __future__ import annotations
 import torch
 
 from ..mathx.packing import signed_oct_decode
-from ..ops.shade_tiles import shade_clustered_tiles, tile_inputs
 from ..ops.tonemap import tone_map
 from ..scene.convert import camera_tensors, check_device
 from .gbuffer import render_gbuffer
-from .shading import eval_directional_light
+from .shading import shade_direct
+from .transparent import transparent_pass
 
 
 def _unsupported(ibl_data=None, use_taa=False, use_bloom=False,
-                 use_dof=False, use_particles=False, use_transparent=False):
+                 use_dof=False, use_particles=False):
     post = [name for name, on in (
         ("use_taa", use_taa), ("use_bloom", use_bloom), ("use_dof", use_dof),
         ("use_particles", use_particles)) if on]
@@ -34,11 +34,6 @@ def _unsupported(ibl_data=None, use_taa=False, use_bloom=False,
         raise NotImplementedError(
             f"{', '.join(post)}: the post chain is ROADMAP.md queue 1, item "
             "'Post chain'"
-        )
-    if use_transparent:
-        raise NotImplementedError(
-            "use_transparent needs render/transparent.py: ROADMAP.md queue "
-            "1, item 'Deferred'"
         )
     if ibl_data is not None:
         raise NotImplementedError(
@@ -64,26 +59,26 @@ def shade_deferred(gbuf: dict, lights: dict, cam: dict, width: int,
         "roughness": gbuf["albedo_roughness"][:, 3],
         "metallic": gbuf["normal_metallic"][:, 3],
     }
-    color = eval_directional_light(surface, lights)
-    color = color + shade_clustered_tiles(
-        tile_inputs(surface, lights, cam, gbuf["z_cam"], gbuf["valid"], width,
-                    height),
-        width, height,
-    )
-    return torch.where(gbuf["valid"][:, None], color, 0.0)
+    return shade_direct(surface, lights, cam, gbuf["z_cam"], gbuf["valid"],
+                        width, height)
 
 
 def render_deferred(scene: dict, cam: dict, lut, width: int, height: int,
                     exposure: float = 1.0, contrast: float = 1.0,
                     use_culling: bool = False, prev_hiz: list | None = None,
-                    alpha_rounds: int = 0, aniso_taps: int = 1):
+                    alpha_rounds: int = 0, aniso_taps: int = 1,
+                    use_transparent: bool = False):
     """One deferred frame -> (display image (H, W, 3), aux dict: depth
     (H, W), the fresh hiz, draw_stats). The post chain is off."""
     gbuf = render_gbuffer(scene, cam, width, height, use_culling=use_culling,
                           prev_hiz=prev_hiz, alpha_rounds=alpha_rounds,
                           aniso_taps=aniso_taps)
     color = shade_deferred(gbuf, scene["frame"]["lights"], cam, width, height)
-    img = tone_map(color.reshape(height, width, 3), lut, exposure, contrast)
+    hdr = color.reshape(height, width, 3)
+    if use_transparent:
+        # ForwardRenderer::recordTransparent's slot (Renderer.cpp:494-500)
+        hdr = transparent_pass(scene, cam, hdr, gbuf["z_cam"], width, height)
+    img = tone_map(hdr, lut, exposure, contrast)
     aux = {
         "depth": gbuf["depth"].reshape(height, width),
         "hiz": gbuf["hiz"],
@@ -104,8 +99,7 @@ def deferred_entry(*, scene, cam, lut, width, height, device="cuda",
     the HiZ pyramid that the next frame's phase-1 cull tests against,
     and the frame's draw stats. frame_index is accepted for the mode
     table's uniform call; the deferred frame does not read it."""
-    _unsupported(ibl_data, use_taa, use_bloom, use_dof, use_particles,
-                 use_transparent)
+    _unsupported(ibl_data, use_taa, use_bloom, use_dof, use_particles)
     dev = check_device(scene, device)
     state = dict(state) if state else {}
     lut = torch.as_tensor(lut, dtype=torch.float32, device=dev)
@@ -113,6 +107,7 @@ def deferred_entry(*, scene, cam, lut, width, height, device="cuda",
         scene, camera_tensors(cam, dev), lut, width, height, exposure,
         contrast, use_culling=use_culling, prev_hiz=state.get("hiz"),
         alpha_rounds=alpha_rounds, aniso_taps=aniso_taps,
+        use_transparent=use_transparent,
     )
     state.update(aux)
     return img, state

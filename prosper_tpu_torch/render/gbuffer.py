@@ -17,14 +17,20 @@ depth-culled clusters that the fresh HiZ no longer hides; the hits merge
 by min t. Both paths trace the same rays, so the culled G-buffer equals
 the unculled one wherever culling is conservative.
 
-The pixels are in row-major order throughout: the TPU package's
-block16 order, its tile compaction (`tile_apply`), primary tile mask and
-band y_offset serve its packets and are not carried.
+A frame without BVH arrays traces the same rays with the flat kernel K8
+(ops/trace_flat.py) in 16x16 pixel blocks: over the cluster AABBs, and
+over masked (inverted) AABBs in the culling phases. With alpha_rounds >
+0 the alpha-mask discard (`mask_discard_retrace`) re-traces the hits
+whose mask test fails, with K4 or K8 over every cluster.
+
+The outputs are in row-major order: the TPU package's block16 output
+order, its tile compaction (`tile_apply`), primary tile mask and band
+y_offset serve its packets and are not carried.
 """
 
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -36,7 +42,10 @@ from ..ops.culling import (
     transform_cluster_bounds,
 )
 from ..ops.hiz import build_hiz
+from ..ops.intersect import BIG
 from ..ops.slabs import unpack_hit16
+from ..ops.texture import sample_alpha_packed
+from ..ops.trace import frame_bvh, traced_in_blocks
 from ..ops.trace_bvh import (
     check_stack_overflow,
     gbuffer_rays,
@@ -44,9 +53,78 @@ from ..ops.trace_bvh import (
     trace_closest_bvh_full,
     trace_primary_bvh_full,
 )
+from ..ops.trace_flat import trace_closest_flat_full
 from .surface import evaluate_surface_from_attrs, pixel_cone_alpha
 
 GBUFFER_T_MIN = 1e-4  # the t_min render/gbuffer.py passes (:252, :273)
+
+
+def _masked_aabbs(wc_min, wc_max, mask):
+    """Inverted (empty) AABBs for the clusters `mask` marks False: the
+    flat kernels' packet cull never lists them (the draw list's
+    analog)."""
+    return (torch.where(mask[:, None], wc_min, BIG),
+            torch.where(mask[:, None], wc_max, -BIG))
+
+
+def _material_uv(static: dict, rows: torch.Tensor):
+    """Material id and uv of each hit row: read from (R, 16) full rows,
+    interpolated from a_packed for (R, 8) rows t | tri | u | v."""
+    if rows.shape[1] == 16:
+        return rows[:, 11].long(), rows[:, 9:11]
+    tri = torch.clamp_min(rows[:, 1], 0).long()
+    aidx = static["wt_aidx"][tri].long()
+    ap = static["a_packed"]
+    u, v = rows[:, 2:3], rows[:, 3:4]
+    uv = ((1.0 - u - v) * ap[aidx[:, 0], 7:9] + u * ap[aidx[:, 1], 7:9]
+          + v * ap[aidx[:, 2], 7:9])
+    return static["wt_material"][tri], uv
+
+
+def mask_discard_retrace(arena: dict, static: dict, trace_fn, o, d, rows,
+                         rounds: int):
+    """Alpha-mask discard of the raster paths (gbuffer.frag:61-63,
+    forward.frag:56-58): a hit on an alpha-masked material whose alpha
+    fails its cutoff is ignored, and its ray re-traced from just past
+    it, up to `rounds` layers (render/gbuffer.py:25-107).
+
+    rows: (R, 8) or (R, 16) hit rows of the rays (o, d), the form
+    trace_fn(o, d, t_min, t_max) returns. Dense: every round re-traces
+    all rays, with t_max = 0 (no hit) for those not ignored; the JAX
+    package's tile compaction is a TPU device. Returns the rows with t
+    measured from the original origins."""
+    t_off = torch.zeros_like(rows[:, 0])
+    for _ in range(rounds):
+        mat, uv = _material_uv(static, rows)
+        ignore = (rows[:, 1] >= 0) & (sample_alpha_packed(arena, mat, uv)
+                                      == 0.0)
+        adv = torch.where(ignore, rows[:, 0] * (1.0 + 1e-4) + 1e-5, 0.0)
+        o = o + d * adv[:, None]
+        t_off = t_off + adv
+        again = trace_fn(o, d, 0.0, torch.where(ignore, float("inf"), 0.0))
+        rows = torch.where(ignore[:, None], again, rows)
+    return torch.cat([(rows[:, 0] + t_off)[:, None], rows[:, 1:]], dim=1)
+
+
+def full_tracer(scene: dict, width: int, height: int):
+    """mask -> fn(o, d, t_min, t_max) -> (R, 16) full rows for the
+    row-major rays of a whole frame, over the clusters `mask` (C,) bool
+    keeps (None: all): K4 with the mask as its skip mask on a frame with
+    BVH arrays, else K8 over the masked AABBs in 16x16 pixel blocks."""
+    slabs, frame = scene["geom"]["packed_full"], scene["frame"]
+    bvh = frame_bvh(frame)
+
+    def tracer(mask=None):
+        if bvh is not None:
+            return partial(trace_closest_bvh_full, slabs, *bvh,
+                           skip_mask=mask)
+        mn, mx = frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]
+        if mask is not None:
+            mn, mx = _masked_aabbs(mn, mx, mask)
+        return traced_in_blocks(partial(trace_closest_flat_full, slabs, mn,
+                                        mx), width, height)
+
+    return tracer
 
 
 @lru_cache(maxsize=4)
@@ -68,15 +146,12 @@ def _project(m, p):
     return clip[:, :3] / torch.clamp_min(w.abs(), 1e-20) * torch.sign(w)
 
 
-def _cull_and_trace(scene, cam, o, d, width, height, prev_hiz):
+def _cull_and_trace(scene, cam, o, d, width, height, prev_hiz, tracer):
     """Two-phase culled trace -> ((R, 16) full rows, fresh HiZ, stats)."""
-    static, frame, geom = scene["static"], scene["frame"], scene["geom"]
-    bounds, meta = frame["bvh_bounds"], frame["bvh_meta"]
+    static, frame = scene["static"], scene["frame"]
 
     def trace(mask):
-        return trace_closest_bvh_full(geom["packed_full"], bounds, meta, o, d,
-                                      GBUFFER_T_MIN, float("inf"),
-                                      skip_mask=mask)
+        return tracer(mask)(o, d, GBUFFER_T_MIN, float("inf"))
 
     uniform_scales = torch.sqrt(
         (frame["transforms"][:, :, :3] ** 2).sum(dim=1)).amax(dim=-1)
@@ -114,12 +189,6 @@ def render_gbuffer(scene: dict, cam: dict, width: int, height: int,
     (R, 2), depth, z_cam (-inf without a surface), position_ws, valid,
     the shading `surface`, the fresh `hiz` (culling only, else None) and
     `draw_stats`. Raises if a trace kernel overflowed its node stack."""
-    if alpha_rounds:
-        raise NotImplementedError(
-            "alpha_rounds > 0 needs the alpha-mask discard retrace "
-            "(render/gbuffer.py mask_discard_retrace): ROADMAP.md queue 1, "
-            "item 'Deferred'"
-        )
     geom, frame = scene["geom"], scene["frame"]
     dev = geom["packed_full"].device
     R = width * height
@@ -127,15 +196,21 @@ def render_gbuffer(scene: dict, cam: dict, width: int, height: int,
     cam_vec, o, d, _ = gbuffer_rays(cam, width, height, cols, device=dev)
     o, d = o[:R].contiguous(), d[:R]
 
+    tracer = full_tracer(scene, width, height)
     hiz, stats = None, {}
     if use_culling:
         h16, hiz, stats = _cull_and_trace(scene, cam, o, d, width, height,
-                                          prev_hiz)
-    else:
+                                          prev_hiz, tracer)
+    elif frame_bvh(frame) is not None:
         h16 = trace_primary_bvh_full(
             geom["packed_full"], frame["bvh_bounds"], frame["bvh_meta"],
             cols, cam_vec, 0, GBUFFER_T_MIN,
         )[:R]
+    else:
+        h16 = tracer()(o, d, GBUFFER_T_MIN, float("inf"))
+    if alpha_rounds:
+        h16 = mask_discard_retrace(scene["arena"], scene["static"], tracer(),
+                                   o, d, h16, alpha_rounds)
     check_stack_overflow(dev)
 
     hit = unpack_hit16(h16)

@@ -6,7 +6,9 @@ its packed-row path `sample_light_packed` (:90), the path PT takes, and
 `point_light_irradiance` (:34) and `spot_light_irradiance` (:50), which
 the JAX forward and clustered shading call on light dicts
 (render/forward.py:43, ops/clustering.py:187) — lighting.glsl:14-88 of
-the reference.
+the reference. Also `shade_direct`, the sun plus the clustered tile
+kernel (K5), which the raster modes' opaque and transparent shading
+share.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.brdf import eval_brdf_times_nol
+from ..ops.shade_tiles import shade_clustered_tiles, tile_inputs
 
 
 def _norm(v):
@@ -28,6 +31,19 @@ def eval_directional_light(surface: dict, lights: dict):
         l, surface["inv_view_ray"], surface["normal_ws"], surface["albedo"],
         surface["roughness"], surface["metallic"],
     )
+
+
+def shade_direct(surface: dict, lights: dict, cam: dict, z_cam, valid,
+                 width: int, height: int):
+    """The sun and the clustered point and spot lights (K5, per 32x32
+    froxel tile) at each pixel's surface -> (R, 3) linear color, zero
+    where valid is False."""
+    color = eval_directional_light(surface, lights)
+    if lights["point_position"].shape[0] or lights["spot_position"].shape[0]:
+        color = color + shade_clustered_tiles(
+            tile_inputs(surface, lights, cam, z_cam, valid, width, height),
+            width, height)
+    return torch.where(valid[:, None], color, 0.0)
 
 
 def point_light_irradiance(lights: dict, idx, pos_ws):

@@ -31,8 +31,10 @@ def from_numpy_scene(static: dict, frame: dict, arena: dict, device) -> dict:
 
     geom: "tris", "packed9" (C, 9, 128), "packed_full" (C, 40, 128),
     "attr_rows" (C*128, 32); frame["bvh_bounds"] (N, 6) f32 and
-    frame["bvh_meta"] (N, 3) i32; arena gains "mat_f32" / "mat_i32", and
-    its "n_mips" stays on the CPU."""
+    frame["bvh_meta"] (N, 3) i32 where the frame carries them (a frame
+    without them traces with the flat kernels, ops/trace.make_tracer);
+    arena gains "mat_f32" / "mat_i32", and its "n_mips" stays on the
+    CPU."""
     device = torch.device(device)
     static_t = {
         k: _tensor(v, device) for k, v in static.items() if k != "materials"

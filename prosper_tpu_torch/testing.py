@@ -5,7 +5,8 @@ Counterpart of prosper_tpu/testing.py. Both scene functions return
 `prosper_tpu.testing.make_test_scene`, so either package can consume
 them: `static` holds the object-space triangle arena and materials,
 `frame` the per-frame AABBs, BVH2 node arrays and light uniforms,
-`arena` a 1-px white texture arena, and `cam_fn(w, h)` camera uniforms.
+`arena` a 1-px white texture arena (plus an alpha checker where a plate
+scene has alpha-masked plates), and `cam_fn(w, h)` camera uniforms.
 """
 
 from __future__ import annotations
@@ -26,6 +27,37 @@ def _white_arena() -> dict:
         "table": np.zeros((1, 13, 4), np.int32)
         + np.array([0, 1, 1, 0], np.int32)[None, None, :],
         "n_mips": np.ones(1, np.int32),
+    }
+
+
+def _rgba8_quads(img: np.ndarray) -> np.ndarray:
+    """(H, W, 4) u8 -> (H*W, 4) u32 bilinear quads: texel (x, y) and its
+    +x, +y, +xy REPEAT neighbours (prosper_tpu/scene/textures.py
+    pack_rgba8_quads)."""
+    i = img.astype(np.uint32)
+    grid = i[..., 0] | (i[..., 1] << 8) | (i[..., 2] << 16) | (i[..., 3] << 24)
+    xr = np.roll(grid, -1, axis=1)
+    yr = np.roll(grid, -1, axis=0)
+    xyr = np.roll(xr, -1, axis=0)
+    return np.stack([grid.reshape(-1), xr.reshape(-1), yr.reshape(-1),
+                     xyr.reshape(-1)], axis=1)
+
+
+def _checker_arena(n: int = 4) -> dict:
+    """The white arena plus texture 1: an n x n white sRGB texture whose
+    alpha is a checker of 255 and 0, one mip, REPEAT wrap. Bilinear taps
+    blend the cells, so an alpha cutoff of 0.5 keeps about half of it."""
+    arena = _white_arena()
+    img = np.full((n, n, 4), 255, np.uint8)
+    y, x = np.mgrid[0:n, 0:n]
+    img[..., 3] = np.where((x + y) % 2 == 0, 255, 0)
+    table = np.concatenate(
+        [arena["table"], np.zeros((1, 13, 4), np.int32)
+         + np.array([1, n, n, 1], np.int32)[None, None, :]])
+    return {
+        "data": np.concatenate([arena["data"], _rgba8_quads(img)]),
+        "table": table,
+        "n_mips": np.ones(2, np.int32),
     }
 
 
@@ -163,7 +195,8 @@ def make_test_scene(n_boxes: int = 4, seed: int = 0):
 
 
 def make_plate_scene(n_clusters: int = 2048, seed: int = 0,
-                     scatter_lights: int = 0):
+                     scatter_lights: int = 0, blend_every: int = 0,
+                     mask_every: int = 0):
     """The geometry of prosper_tpu.testing.make_stress_scene completed
     into a full scene: n_clusters plates of 128 triangles (8x8 quad
     grids), randomly rotated in a 3D grid of 1.5 spacing — 262,144
@@ -180,7 +213,15 @@ def make_plate_scene(n_clusters: int = 2048, seed: int = 0,
     1024) scattered ones, the CLI's many-light recipe
     (prosper_tpu/app/cli.py:340-351, bench.py:246-256): default_rng(0),
     positions uniform in the scene bounds, radiance U(0.05, 0.5) per
-    channel, radius the bounds' diagonal."""
+    channel, radius the bounds' diagonal.
+
+    blend_every = k > 0 gives every k-th cluster (ci % k == k - 1) a
+    third material, alpha-blended (alpha_mode 2) with base alpha 0.5;
+    mask_every = k > 0 gives the clusters at ci % k == k // 2 a fourth,
+    alpha-masked (alpha_mode 1, cutoff 0.5) through a 4x4 alpha checker
+    texture, so the mask discards part of each such plate (the mask wins
+    where both rules pick a cluster). With either option both materials
+    and the checker texture are in the scene."""
     rng = np.random.default_rng(seed)
     pad = CLUSTER_TRI_PAD
     g = 8  # 8x8 quads -> 128 tris, a full cluster
@@ -233,19 +274,29 @@ def make_plate_scene(n_clusters: int = 2048, seed: int = 0,
     aidx = (
         tris_local[None, :, :] + (np.arange(n_clusters) * nv)[:, None, None]
     ).reshape(S, 3).astype(np.int32)
-    cluster_mat = (np.arange(n_clusters) % 2).astype(np.int32)
+    ci = np.arange(n_clusters)
+    cluster_mat = (ci % 2).astype(np.int32)
+    # opaque rough dielectric, opaque metal, then blend and mask
     materials = {
         "base_color_factor": np.array(
-            [[0.8, 0.8, 0.75, 1.0], [0.95, 0.64, 0.54, 1.0]], np.float32
+            [[0.8, 0.8, 0.75, 1.0], [0.95, 0.64, 0.54, 1.0],
+             [0.25, 0.45, 0.95, 0.5], [0.35, 0.75, 0.4, 1.0]], np.float32
         ),
-        "metallic_factor": np.array([0.0, 1.0], np.float32),
-        "roughness_factor": np.array([0.6, 0.35], np.float32),
-        "alpha_cutoff": np.array([0.5, 0.5], np.float32),
-        "alpha_mode": np.array([0, 0], np.int32),
-        "base_color_tex": np.array([0, 0], np.int32),
-        "metallic_roughness_tex": np.array([0, 0], np.int32),
-        "normal_tex": np.array([0, 0], np.int32),
+        "metallic_factor": np.array([0.0, 1.0, 0.0, 0.0], np.float32),
+        "roughness_factor": np.array([0.6, 0.35, 0.3, 0.5], np.float32),
+        "alpha_cutoff": np.full(4, 0.5, np.float32),
+        "alpha_mode": np.array([0, 0, 2, 1], np.int32),
+        "base_color_tex": np.array([0, 0, 0, 1], np.int32),
+        "metallic_roughness_tex": np.zeros(4, np.int32),
+        "normal_tex": np.zeros(4, np.int32),
     }
+    if blend_every > 0:
+        cluster_mat[ci % blend_every == blend_every - 1] = 2
+    if mask_every > 0:
+        cluster_mat[ci % mask_every == mask_every // 2] = 3
+    alpha = blend_every > 0 or mask_every > 0
+    if not alpha:
+        materials = {k: v[:2] for k, v in materials.items()}
     wc_center = (wc_min + wc_max) / 2
     wc_radius = np.linalg.norm(wc_max - wc_center, axis=1).astype(np.float32)
     static = {
@@ -295,4 +346,5 @@ def make_plate_scene(n_clusters: int = 2048, seed: int = 0,
     }
     view = np.array([1.0, 0.7, 1.2])
     eye = center + view / np.linalg.norm(view) * 0.9 * ext
-    return static, frame, _white_arena(), _cam_fn(eye, center)
+    arena = _checker_arena() if alpha else _white_arena()
+    return static, frame, arena, _cam_fn(eye, center)

@@ -16,7 +16,8 @@ import torch
 from prosper_tpu_torch.entry import entry
 from prosper_tpu_torch.ops import shade_tiles as tst
 from prosper_tpu_torch.ops import trace_bvh as tb
-from prosper_tpu_torch.render import deferred, gbuffer, pt
+from prosper_tpu_torch.ops import trace_flat as tf
+from prosper_tpu_torch.render import forward, gbuffer, pt, shading
 from prosper_tpu_torch.scene.camera import (
     Camera,
     CameraParameters,
@@ -150,13 +151,13 @@ def test_shade_tiles_match_plain_on_card(cuda, monkeypatch, use_culling):
     fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=W,
                              height=H, mode="deferred",
                              use_culling=use_culling, scatter_lights=200)
-    real, seen = deferred.shade_clustered_tiles, []
+    real, seen = shading.shade_clustered_tiles, []
 
     def record(inp, width, height):
         seen.append(inp)
         return real(inp, width, height)
 
-    monkeypatch.setattr(deferred, "shade_clustered_tiles", record)
+    monkeypatch.setattr(shading, "shade_clustered_tiles", record)
     tst.shade_clustered_tiles.launches = 0
     tb.reset_launch_counts()
     img, state, drawn = fn(sc, cam, 0)
@@ -236,3 +237,118 @@ def test_wrapper_checks_inputs_on_card(cuda):
     with pytest.raises(ValueError):
         tb.trace_any_bvh(geom["packed9"], frame["bvh_bounds"],
                          frame["bvh_meta"], o, o.cpu(), 0.1, 1.0)
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["K6", "K8"])
+def test_flat_kernels_match_plain_on_card(cuda, full):
+    """K6 and K8 against their plain versions on a 200x120 block-order
+    wavefront (a short last tile) and on random rays with t_max = 0
+    lanes: over the cluster AABBs, over masked AABBs (no hit on a masked
+    cluster) and with every cluster masked (every ray misses)."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32, blend_every=8, mask_every=8)
+    slabs = sc["geom"]["packed_full" if full else "packed9"]
+    kern, plain = ((tf.trace_closest_flat_full, tf.trace_closest_flat_full_plain)
+                   if full else (tf.trace_closest_flat, tf.trace_closest_flat_plain))
+    frame = sc["frame"]
+    mn, mx = frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]
+    mask = torch.as_tensor(np.random.default_rng(2).random(64) > 0.3,
+                           device=cuda)
+    boxes = {"all": (mn, mx), "masked": gbuffer._masked_aabbs(mn, mx, mask),
+             "none": gbuffer._masked_aabbs(mn, mx, torch.zeros_like(mask))}
+    o_b, d_b = forward.pixel_center_rays(cam, 200, 120, cuda)
+    o_r, d_r = _random_rays(cam, 5000, 3, cuda)
+    t_r = torch.full((5000,), float("inf"), device=cuda)
+    t_r[::9] = 0.0
+    t_r[:256] = 0.0  # a whole tile of disabled lanes
+    kern.launches = 0
+    for name, (bmin, bmax) in boxes.items():
+        for o, d, t_min, t_max in ((o_b, d_b, 1e-4, float("inf")),
+                                   (o_r, d_r, 0.0, t_r)):
+            got = kern(slabs, bmin, bmax, o, d, t_min, t_max)
+            torch.cuda.synchronize()
+            _rows_agree(got, plain(slabs, bmin, bmax, o, d, t_min, t_max))
+            tri = got[:, 1].long()
+            if name == "none":
+                assert (tri < 0).all()
+            else:
+                assert (tri >= 0).any()
+            if name == "masked":
+                assert mask[tri[tri >= 0] // 128].all()
+            assert got.shape[1] == (16 if full else 8)
+    assert kern.launches == 6
+
+
+def test_flat_closest_matches_bvh_on_card(cuda):
+    """K6 over the unmasked AABBs and K2 over the BVH give the same hits
+    on the forward rays, and K8 the same rows as K4."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32)
+    geom, frame = sc["geom"], sc["frame"]
+    o, d = forward.pixel_center_rays(cam, 160, 96, cuda)
+    mn, mx = frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]
+    bvh = (frame["bvh_bounds"], frame["bvh_meta"])
+    got = tf.trace_closest_flat(geom["packed9"], mn, mx, o, d, 1e-4,
+                                float("inf"))
+    want = tb.trace_closest_bvh(geom["packed9"], *bvh, o, d, 1e-4,
+                                float("inf"))
+    _rows_agree(got, want)
+    assert (got[:, 1] >= 0).any()
+    got = tf.trace_closest_flat_full(geom["packed_full"], mn, mx, o, d, 1e-4,
+                                     float("inf"))
+    want = tb.trace_closest_bvh_full(geom["packed_full"], *bvh, o, d, 1e-4,
+                                     float("inf"))
+    _rows_agree(got, want)
+    tb.check_stack_overflow(cuda)
+
+
+def test_flat_wrapper_refuses_too_many_clusters(cuda):
+    """A cull list larger than a block's shared memory raises instead of
+    dropping clusters."""
+    n = 40000
+    slabs = torch.zeros((n, 9, 128), device=cuda)
+    box = torch.zeros((n, 3), device=cuda)
+    o = torch.zeros((4, 3), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        tf.trace_closest_flat(slabs, box, box, o, o + 1.0, 0.0, 1.0)
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"blend_every": 8, "mask_every": 8},
+    {"blend_every": 8, "mask_every": 8, "bvh": False},
+    {"blend_every": 8, "mask_every": 8, "draw_type": 6},
+], ids=["opaque", "blend_mask", "blend_mask_no_bvh", "debug_normal"])
+def test_forward_frame_on_card_matches_cpu(cuda, kw):
+    """Forward frames on the card against the CPU: equal covered-pixel
+    counts, at most 1% of pixels off by more than 1e-3."""
+    out = []
+    for dev in (cuda, "cpu"):
+        fn, (sc, cam, _) = entry(dev, scene="plate", n_clusters=64, width=64,
+                                 height=64, mode="forward",
+                                 scatter_lights=100, **kw)
+        img, _, n = fn(sc, cam, 0)
+        out.append((img.cpu(), int(n)))
+    (img_g, n_g), (img_c, n_c) = out
+    assert n_g == n_c > 0
+    off = ((img_g - img_c).abs() > 1e-3).any(dim=-1).float().mean()
+    assert float(off) <= 0.01
+
+
+def test_transparent_deferred_without_bvh_on_card_matches_cpu(cuda):
+    """The culled deferred frame with the transparent pass and alpha
+    discard on a frame without BVH arrays (K8 throughout) against the
+    CPU."""
+    kw = dict(scene="plate", n_clusters=64, width=64, height=64,
+              mode="deferred", use_culling=True, scatter_lights=100,
+              blend_every=8, mask_every=8, bvh=False)
+    out = []
+    for dev in (cuda, "cpu"):
+        fn, (sc, cam, _) = entry(dev, **kw)
+        _, state, _ = fn(sc, cam, 0)
+        img, _, drawn = fn(sc, cam, 1, state)
+        out.append((img.cpu(), int(drawn)))
+    (img_g, n_g), (img_c, n_c) = out
+    assert n_g == n_c
+    off = ((img_g - img_c).abs() > 1e-3).any(dim=-1).float().mean()
+    assert float(off) <= 0.01

@@ -273,8 +273,7 @@ def test_unported_options_raise(case):
     scene, tcam = case[3]
     lut = pack_lut_quads(synthetic_lut())
     for kw in ({"use_taa": True}, {"use_bloom": True}, {"use_dof": True},
-               {"use_particles": True}, {"use_transparent": True},
-               {"ibl_data": {}}, {"alpha_rounds": 1}):
+               {"use_particles": True}, {"ibl_data": {}}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             deferred_entry(scene=scene, cam=tcam, lut=lut, width=W, height=H,
                            device="cpu", **kw)

@@ -158,5 +158,6 @@ def test_light_uniforms_copy_equals_jax():
 
 def test_render_modes():
     modes = tframe.render_modes()
-    assert sorted(modes) == ["deferred", "pt"]
+    assert sorted(modes) == ["deferred", "forward", "pt"]
     assert modes["deferred"].__name__ == "deferred_entry"
+    assert modes["forward"].__name__ == "forward_entry"

@@ -73,6 +73,39 @@ def test_plate_scene_geometry_equals_stress_scene():
     assert cam_fn(32, 16)["eye"].shape == (3,)
 
 
+def test_plate_scene_alpha_options():
+    """blend_every / mask_every change materials and the arena only: the
+    geometry and frame stay those of the plain plate scene, clusters get
+    the blend (2) and mask (3) materials by their rules, and the checker
+    texture is packed as prosper_tpu.scene.textures packs quads."""
+    from prosper_tpu.scene.textures import pack_rgba8_quads
+
+    base = ttesting.make_plate_scene(24, 1)
+    static, frame, arena, _ = ttesting.make_plate_scene(24, 1, blend_every=8,
+                                                        mask_every=8)
+    _assert_tree_equal(frame, base[1])
+    for k in ("wt_p0", "wt_p1", "wt_p2", "a_packed", "wt_aidx"):
+        np.testing.assert_array_equal(static[k], base[0][k], err_msg=k)
+    ci = np.arange(24)
+    want = np.where(ci % 8 == 4, 3, np.where(ci % 8 == 7, 2, ci % 2))
+    np.testing.assert_array_equal(static["wc_material"], want)
+    np.testing.assert_array_equal(static["wt_material"],
+                                  np.repeat(want, 128))
+    mats = static["materials"]
+    np.testing.assert_array_equal(mats["alpha_mode"], [0, 0, 2, 1])
+    assert mats["base_color_factor"][2, 3] == 0.5
+    assert mats["alpha_cutoff"][3] == 0.5 and mats["base_color_tex"][3] == 1
+    off, w, h, _ = arena["table"][1, 0]
+    img = np.full((h, w, 4), 255, np.uint8)
+    img[..., 3] = np.where(np.add.outer(np.arange(h), np.arange(w)) % 2 == 0,
+                           255, 0)
+    np.testing.assert_array_equal(arena["data"][off:off + w * h],
+                                  pack_rgba8_quads(img))
+    np.testing.assert_array_equal(arena["n_mips"], [1, 1])
+    # without the options the scene keeps its two opaque materials
+    assert len(base[0]["materials"]["alpha_mode"]) == 2
+
+
 @pytest.mark.parametrize("jitter", [False, True])
 def test_camera_uniforms_equal_jax(jitter):
     """Exact: the same numpy math on the same inputs."""
@@ -146,8 +179,10 @@ def test_hit_row_round_trip_equals_jax():
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port and rendering a CPU path-traced
-    and a CPU deferred frame pulls in no JAX and nothing of prosper_tpu."""
+    """Importing every module of the port and rendering a CPU path-traced,
+    a CPU deferred and a CPU forward frame (the transparent pass and alpha
+    discard on a frame without BVH arrays) pulls in no JAX and nothing of
+    prosper_tpu."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "torch.set_num_threads(2)\n"
@@ -163,7 +198,13 @@ def test_port_never_imports_jax():
         "                 scatter_lights=16)\n"
         "img, state, drawn = fn(*args)\n"
         "assert img.shape == (32, 32, 3) and int(drawn) > 0\n"
-        "bad = sorted(m for m in sys.modules if m.startswith('jax')\n"
+        "fn, args = entry('cpu', scene='plate', n_clusters=16, width=32,\n"
+        "                 height=32, mode='forward', scatter_lights=16,\n"
+        "                 blend_every=8, mask_every=8, bvh=False)\n"
+        "img, state, covered = fn(*args)\n"
+        "assert 'bvh_bounds' not in args[0]['frame']\n"
+        "assert img.shape == (32, 32, 3) and int(covered) > 0\n"
+        "bad =sorted(m for m in sys.modules if m.startswith('jax')\n"
         "             or m == 'prosper_tpu' or m.startswith('prosper_tpu.'))\n"
         "print(len(sys.modules), bad)\n"
     )
