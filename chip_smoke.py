@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Drives prosper_tpu_torch's three ported paths at 1920x1080 on the
+Drives prosper_tpu_torch's four ported paths at 1920x1080 on the
 2048-cluster plate scene (262,144 triangles) through the hand-written
-CUDA kernels: the wavefront path tracer (3 bounces), the deferred
-renderer (G-buffer, 1024 scattered point lights, clustered tile
-shading), without and with two-phase meshlet culling, and the forward
-renderer with its transparent pass and alpha-mask discard. Phases:
+CUDA kernels: the wavefront path tracer (3 bounces), with and without
+BVH arrays, the deferred renderer (G-buffer, 1024 scattered point
+lights, clustered tile shading), without and with two-phase meshlet
+culling, the forward renderer with its transparent pass and alpha-mask
+discard, and ReSTIR DI under its three tracer configurations. Phases:
 
 1. device: CUDA, nvcc and the card's name and power limit;
 2. build: compile csrc/trace_bvh.cu, csrc/shade_tiles.cu and
@@ -41,7 +42,21 @@ renderer with its transparent pass and alpha-mask discard. Phases:
    without BVH arrays; each 2 warm-up + 8 timed frames with launch
    counts, memory and a profile of one frame, the 1080p frame with the
    plain versions against the kernels' frame, and 64x64 CUDA frames
-   against CPU frames.
+   against CPU frames;
+8. kernels: any hit: the shadow rays of one ReSTIR frame with BVH arrays
+   (plate-2048 + 1024 lights) and of one without; K10 on the first
+   against its plain version and K3, K7 on the second against its plain
+   version and K3, K3 on both;
+9. restir: ReSTIR DI with BVH arrays under config.policy.any_tracer
+   "stack" (K1, K3) and "dense" (K1, K10), and without BVH arrays (K8,
+   K7); each 2 warm-up + 8 timed frames with launch counts, shadow-ray
+   counts, memory and a profile of one frame, the 1080p frame with the
+   plain versions against the kernels' frame, and 64x64 CUDA frames
+   against CPU frames;
+10. pt bvh=False: the path tracer without BVH arrays (K8 primary and
+   bounce rays, K7 shadow rays): K8 on its first bounce set and K7 on
+   its first shadow set against their plain versions, then checked as
+   phase 4 checks its frame.
 
 Every launch count is set to 0 just before a path is driven and read
 just after; a kernel of the path that never launched fails the run. Any
@@ -87,6 +102,9 @@ KERNELS = {
                            "prosper_tpu/ops/trace_pallas.py:272"),
     "trace_closest_flat_full": ("trace_flat",
                                 "prosper_tpu/ops/trace_pallas_full.py:255"),
+    "trace_any_flat": ("trace_flat", "prosper_tpu/ops/trace_pallas.py:396"),
+    "trace_any_bvh_dense": ("trace_bvh",
+                            "prosper_tpu/ops/trace_bvh.py:1809"),
 }
 PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
 DEFERRED_PATH = {False: ("trace_primary_bvh_full", "shade_clustered_tiles"),
@@ -105,8 +123,20 @@ FORWARD_CELLS = {
         {"mode": "deferred", "use_culling": True, "bvh": False, **ALPHA},
         ("trace_closest_flat_full", "shade_clustered_tiles")),
 }
+# label -> (entry options, config.policy.any_tracer, the kernels the
+# frame runs)
+RESTIR_CELLS = {
+    "restir bvh stack": ({}, "stack",
+                         ("trace_primary_bvh_full", "trace_any_bvh")),
+    "restir bvh dense": ({}, "dense",
+                         ("trace_primary_bvh_full", "trace_any_bvh_dense")),
+    "restir bvh=False": ({"bvh": False}, "stack",
+                         ("trace_closest_flat_full", "trace_any_flat")),
+}
+PT_FLAT_PATH = ("trace_closest_flat_full", "trace_any_flat")
 PORT_KERNEL_SYMBOLS = ("primary_kernel", "closest_kernel", "any_kernel",
-                       "closest_full_kernel", "shade_kernel", "flat_kernel")
+                       "closest_full_kernel", "shade_kernel", "flat_kernel",
+                       "flat_any_kernel", "dense_any_kernel")
 # trace kernel vs plain: hit/miss and occlusion equal; tri equal unless
 # the two t agree within 1e-6 relative (an exact tie); t within rtol 1e-5
 # / atol 1e-6; interpolated attributes (and u, v) within 1e-4
@@ -288,19 +318,18 @@ def capture_wavefronts(pt, fn, scene, cam):
     as the path tracer hands them to the kernels."""
     captured = {}
 
-    def recorder(key, real):
-        def rec(slabs, bounds, meta, o, d, t_min, t_max):
-            captured.setdefault(
-                key, (slabs, o.clone(), d.clone(), t_min, t_max.clone())
-            )
-            return real(slabs, bounds, meta, o, d, t_min, t_max)
-        return rec
+    def rec(slabs, bounds, meta, o, d, t_min, t_max):
+        captured.setdefault(
+            "closest", (slabs, o.clone(), d.clone(), t_min, t_max.clone()))
+        return real(slabs, bounds, meta, o, d, t_min, t_max)
 
-    with patched((pt, "trace_any_bvh", recorder("any", pt.trace_any_bvh)),
-                 (pt, "trace_closest_bvh",
-                  recorder("closest", pt.trace_closest_bvh))):
+    real = pt.trace_closest_bvh
+    with recording_tracer(pt, 1) as any_calls, patched(
+            (pt, "trace_closest_bvh", rec)):
         fn(scene, cam, 0)
     torch.cuda.synchronize()
+    slabs, _, _, o, d, t_min, t_max = any_calls[0][1]
+    captured["any"] = (slabs, o, d, t_min, t_max)
     return captured
 
 
@@ -515,7 +544,7 @@ def run_pt(smi, dev):
         with patched(
             (pt, "trace_primary_bvh_full", tb.trace_primary_bvh_full_plain),
             (pt, "trace_closest_bvh", tb.trace_closest_bvh_plain),
-            (pt, "trace_any_bvh", tb.trace_any_bvh_plain),
+            (tb, "trace_any_bvh", as_plain(tb.trace_any_bvh_plain)),
         ):
             plain_frame_ms = elapsed_ms(
                 lambda: plain.append(fn(scene, cam, WARMUP)))
@@ -544,12 +573,14 @@ def as_plain(plain):
 
 
 def plain_paths():
-    """The deferred and forward frames' kernels swapped for their plain
-    versions, wherever the frames look them up."""
+    """The deferred, forward, ReSTIR and path tracer frames' kernels
+    swapped for their plain versions, wherever the frames look them up
+    (ops/trace.make_tracer reads the wrappers of ops/trace_bvh.py and
+    ops/trace_flat.py at each call)."""
     from prosper_tpu_torch.ops import shade_tiles as tst
     from prosper_tpu_torch.ops import trace_bvh as tb
     from prosper_tpu_torch.ops import trace_flat as tf
-    from prosper_tpu_torch.render import gbuffer, shading
+    from prosper_tpu_torch.render import gbuffer, pt, shading
 
     return patched(
         (gbuffer, "trace_primary_bvh_full", tb.trace_primary_bvh_full_plain),
@@ -557,8 +588,13 @@ def plain_paths():
          as_plain(tb.trace_closest_bvh_full_plain)),
         (gbuffer, "trace_closest_flat_full",
          as_plain(tf.trace_closest_flat_full_plain)),
+        (pt, "trace_closest_flat_full",
+         as_plain(tf.trace_closest_flat_full_plain)),
         (tb, "trace_closest_bvh", as_plain(tb.trace_closest_bvh_plain)),
         (tf, "trace_closest_flat", as_plain(tf.trace_closest_flat_plain)),
+        (tb, "trace_any_bvh", as_plain(tb.trace_any_bvh_plain)),
+        (tb, "trace_any_bvh_dense", as_plain(tb.trace_any_bvh_dense_plain)),
+        (tf, "trace_any_flat", as_plain(tf.trace_any_flat_plain)),
         (shading, "shade_clustered_tiles", tst.shade_clustered_tiles_plain),
     )
 
@@ -787,20 +823,23 @@ def run_deferred(smi, dev):
 
 
 @contextlib.contextmanager
-def recording_closest(module):
-    """Keep the whole arguments of every call of the closest-hit fns that
-    module.make_tracer returns (partials of a wrapper, which counts its
-    launches under its own module's name, so the wrapper stays as it is)."""
+def recording_tracer(module, which):
+    """Keep (wrapper, whole arguments) of every call of the closest-hit
+    (which=0) or any-hit (which=1) fns that module.make_tracer returns
+    (partials of a wrapper, which counts its launches under its own
+    module's name, so the wrapper stays as it is)."""
     real = module.make_tracer
     calls = []
 
     def make_tracer(*args, **kw):
-        closest, any_fn = real(*args, **kw)
+        fns = list(real(*args, **kw))
+        fn = fns[which]
 
         def rec(*a):
-            calls.append(closest.args + a)
-            return closest(*a)
-        return rec, any_fn
+            calls.append((fn.func, fn.args + a))
+            return fn(*a)
+        fns[which] = rec
+        return tuple(fns)
 
     with mock.patch.object(module, "make_tracer", make_tracer):
         yield calls
@@ -846,9 +885,10 @@ def check_flat_kernels(dev):
     fn, (scene, cam, _) = port_entry.entry(
         dev, scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
         mode="forward", scatter_lights=N_LIGHTS, **ALPHA)
-    with recording_closest(forward) as calls:
+    with recording_tracer(forward, 0) as calls:
         fn(scene, cam, 0)
     torch.cuda.synchronize()
+    calls = [args for _, args in calls]
     if len(calls) != 3:  # the opaque pass and two alpha retrace rounds
         raise RuntimeError(f"the forward frame made {len(calls)} K6 calls")
     ok_all, k6, _ = check_flat_call(
@@ -1019,6 +1059,274 @@ def run_forward(smi, dev, records):
     return flat, launches
 
 
+@contextlib.contextmanager
+def any_policy(name):
+    """config.policy.any_tracer set to name for a with block."""
+    from prosper_tpu_torch import config
+
+    with mock.patch.object(config.policy, "any_tracer", name):
+        yield
+
+
+def capture_shadow_rays(fn, scene, cam):
+    """Run one ReSTIR frame; keep the wrapper and whole arguments of its
+    one any-hit call, as the frame hands them to the kernel (16x16-block
+    order)."""
+    from prosper_tpu_torch.render import restir
+
+    with recording_tracer(restir, 1) as calls:
+        fn(scene, cam, 0)
+    torch.cuda.synchronize()
+    if len(calls) != 1:
+        raise RuntimeError(f"a ReSTIR frame made {len(calls)} any-hit calls")
+    return calls[0]
+
+
+def check_any_call(label, kern, plain, args, boxes, k3_args=None):
+    """An any-hit kernel on one whole shadow set (args = scene arrays, o,
+    d, t_min, t_max) against its plain version and, given k3_args (K3's
+    slabs, bounds, meta), against K3 on the same rays -> (ok, record)."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
+
+    *head, o, d, t_min, t_max = args
+    t_min = float(t_min)
+    t_max = tb._tmax(t_max, o.shape[0], o.device)
+    args = (*head, o, d, t_min, t_max)
+    want, plain_ms = timed_call(lambda: plain(*args))
+    got = kern(*args)
+    mism = int((got != want).sum())
+    ok = mism == 0
+    rec = {"max_abs_err": float((got.float() - want.float()).abs().max()),
+           "occlusion_mismatch": mism, "rays": int(got.shape[0]),
+           "live_rays": int((t_max > t_min).sum()),
+           "occluded": int(want.sum())}
+    if k3_args is not None:
+        k3 = (lambda: tb.trace_any_bvh(*k3_args, o, d, t_min, t_max))
+        rec["vs_k3_mismatch"] = int((got != k3()).sum())
+        tb.check_stack_overflow(o.device)
+        rec["k3_same_rays_ms"] = device_ms(k3, 5)
+        ok &= rec["vs_k3_mismatch"] == 0
+    # an occluded ray needs one cluster's tests at least; a free one every
+    # cluster it enters before t_max
+    free = ~want
+    ops = MOLLER_OPS * 128 * (int(want.sum()) + entered_pairs(
+        boxes, o[free], d[free], t_max[free]))
+    rec.update(ms=device_ms(lambda: kern(*args), 5), plain_ms=plain_ms,
+               **bound(nbytes(*args, got), ops))
+    print(f"{label}: ok={ok} {rec}")
+    return ok, rec
+
+
+def endpoint_order(o, d, t_max):
+    """A ray order by the Morton code of each live ray's end point (the
+    light it is cast to; dead rays last): the coherence sort of the JAX
+    package's ReSTIR (restir.py:283-309), on positions the kernel sees."""
+    end = o + d * t_max[:, None]
+    live = t_max > 0
+    lo = torch.where(live[:, None], end, float("inf")).amin(0)
+    hi = torch.where(live[:, None], end, float("-inf")).amax(0)
+    q = ((end - lo) / torch.clamp_min(hi - lo, 1e-9) * 63.0).clamp(0, 63)
+    q = q.to(torch.int64)
+    key = torch.zeros_like(q[:, 0])
+    for b in range(6):
+        for a in range(3):
+            key |= ((q[:, a] >> b) & 1) << (3 * b + a)
+    return torch.argsort(torch.where(live, key, 1 << 20))
+
+
+def check_restir_kernels(fns):
+    """Phase 8: the shadow rays of one ReSTIR frame with BVH arrays and
+    of one without; K10 (and K3) on the first, K7 on the second, each
+    against its plain version and K3. Returns (ok, records)."""
+    from prosper_tpu_torch.ops import trace as ttrace
+    from prosper_tpu_torch.ops import trace_bvh as tb
+    from prosper_tpu_torch.ops import trace_flat as tf
+
+    fn_b, scene_b, cam_b = fns[True]
+    fn_f, scene_f, cam_f = fns[False]
+    frame = scene_b["frame"]
+    k3_args = (scene_b["geom"]["packed9"], frame["bvh_bounds"],
+               frame["bvh_meta"])
+    with any_policy("stack"):
+        func, args_b = capture_shadow_rays(fn_b, scene_b, cam_b)
+    if func is not tb.trace_any_bvh:
+        raise RuntimeError(f"the BVH frame's shadow rays went to {func}")
+    *_, o, d, t_min, t_max = args_b
+    ok_all, k10 = check_any_call(
+        "K10 ReSTIR shadow rays, BVH frame", tb.trace_any_bvh_dense,
+        tb.trace_any_bvh_dense_plain, (*k3_args, o, d, t_min, t_max),
+        leaf_boxes(scene_b), k3_args)
+    ok, k3 = check_any_call(
+        "K3 ReSTIR shadow rays, BVH frame", tb.trace_any_bvh,
+        tb.trace_any_bvh_plain, args_b, leaf_boxes(scene_b))
+    ok_all &= ok
+
+    func, args_f = capture_shadow_rays(fn_f, scene_f, cam_f)
+    if func is not tf.trace_any_flat:
+        raise RuntimeError(f"the no-BVH frame's shadow rays went to {func}")
+    slabs, mn, mx, o, d, t_min, t_max = args_f
+    ok, k7 = check_any_call(
+        "K7 ReSTIR shadow rays, no-BVH frame", tf.trace_any_flat,
+        tf.trace_any_flat_plain, args_f, (mn, mx), k3_args)
+    ok_all &= ok
+    # the same rays in two other orders: row-major pixels, and sorted by
+    # the end point as the JAX package sorts them; the mask must not move
+    _, inverse = ttrace.block_order(W, H, str(o.device))
+    for name, perm in (("row_major", inverse),
+                       ("endpoint_sorted", endpoint_order(o, d, t_max))):
+        po, pd, pt_ = o[perm].contiguous(), d[perm].contiguous(), t_max[perm]
+        got = tf.trace_any_flat(slabs, mn, mx, po, pd, t_min, pt_)
+        want = tf.trace_any_flat(slabs, mn, mx, o, d, t_min, t_max)[perm]
+        mism = int((got != want).sum())
+        k7[f"{name}_mismatch"] = mism
+        k7[f"{name}_ms"] = device_ms(
+            lambda: tf.trace_any_flat(slabs, mn, mx, po, pd, t_min, pt_), 5)
+        print(f"K7 in {name} order: {k7[f'{name}_ms']:.3f} ms, mask "
+              f"mismatches {mism}")
+        ok_all &= mism == 0
+    return ok_all, {"trace_any_flat": k7, "trace_any_bvh_dense": k10,
+                    "trace_any_bvh": k3}
+
+
+def run_restir(smi, dev):
+    """Phases 8 and 9; returns (records of K7 and K10, K3's ReSTIR
+    record, launches per kernel summed over the three configurations)."""
+    from prosper_tpu_torch import entry as port_entry
+
+    phase("kernels: any hit")
+    fns = {}
+    for bvh in (True, False):
+        fn, (scene, cam, _) = port_entry.entry(
+            dev, scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
+            mode="restir", scatter_lights=N_LIGHTS, bvh=bvh)
+        fns[bvh] = (fn, scene, cam)
+    ok, records = check_restir_kernels(fns)
+    print("kernel, plain and bound times on one frame's shadow rays: "
+          + ", ".join(f"{k} {r['ms']:.3f} vs {r['plain_ms']:.1f} ms, bound "
+                      f"{r['bound_ms']:.3f} ms ({r['bound_by']})"
+                      for k, r in records.items()) + f"; card: {smi}")
+    if not ok:
+        raise RuntimeError("an any-hit kernel disagrees with its plain "
+                           "version or with K3")
+
+    phase("restir")
+    launches = {}
+    for cell, (kw, policy, path) in RESTIR_CELLS.items():
+        label = f"{cell} {W}x{H} lights={N_LIGHTS}"
+        fn, scene, cam = fns[kw.get("bvh", True)]
+        with any_policy(policy):
+            ms_frame, counts, img, state, stats = drive(fn, scene, cam, path,
+                                                        label, smi)
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+            stats = [int(x) for x in stats]
+            print(f"{label}: shadow rays per timed frame {min(stats)}-"
+                  f"{max(stats)} of {W * H} pixels; accumulated samples "
+                  f"{float(state[1][0, 0]):.0f}")
+            breakdown(fn, scene, cam, WARMUP + TIMED, state)
+            img_k, _, n_k = fn(scene, cam, WARMUP)
+            out = []
+            with plain_paths():
+                plain_ms = elapsed_ms(
+                    lambda: out.append(fn(scene, cam, WARMUP)))
+            print(f"{label} frame with the plain versions: ms/frame "
+                  f"{plain_ms:.1f} (with the kernels {ms_frame:.3f}); "
+                  f"card: {smi}")
+            frames_agree(f"{label} kernels vs plain versions", (img_k, n_k),
+                         (out[0][0], out[0][2]))
+            got = []
+            for d in (dev, "cpu"):
+                fn64, (sc, cm, _) = port_entry.entry(
+                    d, scene="plate", n_clusters=64, width=64, height=64,
+                    mode="restir", scatter_lights=100, **kw)
+                _, st, _ = fn64(sc, cm, 0)
+                img64, _, n = fn64(sc, cm, 1, st)
+                got.append((img64, n))
+            frames_agree(f"{cell} plate-64 64x64 cuda vs cpu", *got)
+    k3 = records.pop("trace_any_bvh")
+    return records, k3, launches
+
+
+def check_pt_flat_kernels(fn, scene, cam):
+    """K8 on the first bounce set and K7 on the first shadow set of a
+    path-traced frame without BVH arrays, each against its plain version
+    -> (ok, {kernel: record of that set})."""
+    from prosper_tpu_torch.ops import trace_flat as tf
+    from prosper_tpu_torch.render import pt
+
+    bounces = []
+    real = pt.trace_closest_flat_full
+
+    def rec(*args):
+        if isinstance(args[-1], torch.Tensor):  # a bounce set, not primary
+            bounces.append(args)
+        return real(*args)
+
+    with recording_tracer(pt, 1) as any_calls, patched(
+            (pt, "trace_closest_flat_full", rec)):
+        fn(scene, cam, 0)
+    torch.cuda.synchronize()
+    ok, k8, _ = check_flat_call(
+        "K8 pt bvh=False first bounce set", tf.trace_closest_flat_full,
+        tf.trace_closest_flat_full_plain, bounces[0], list(range(2, 13)))
+    frame = scene["frame"]
+    ok7, k7 = check_any_call(
+        "K7 pt bvh=False first shadow set", tf.trace_any_flat,
+        tf.trace_any_flat_plain, any_calls[0][1],
+        (frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]))
+    keep = ("live_rays", "ms", "plain_ms", "bound_ms", "bound_by")
+    return ok and ok7, {"trace_closest_flat_full": {k: k8[k] for k in keep},
+                        "trace_any_flat": {k: k7[k] for k in keep}}
+
+
+def run_pt_flat(smi, dev, records):
+    """Phase 10: the path tracer without BVH arrays. Adds its wavefronts'
+    K8 and K7 records to records; returns its launches per kernel."""
+    from prosper_tpu_torch import entry as port_entry
+
+    phase("pt bvh=False")
+    fn, (scene, cam, _) = port_entry.entry(
+        dev, scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
+        max_bounces=BOUNCES, bvh=False)
+    ok, sets = check_pt_flat_kernels(fn, scene, cam)
+    if not ok:
+        raise RuntimeError("a flat kernel disagrees with its plain version "
+                           "on the path tracer's wavefronts")
+    for name, rec in sets.items():
+        records[name]["pt_wavefront"] = rec
+    label = f"pt bvh=False {W}x{H} bounces={BOUNCES}"
+    ms_frame, launches, img, state, rays = drive(fn, scene, cam, PT_FLAT_PATH,
+                                                 label, smi)
+    rays_frame = sum(int(r) for r in rays) / TIMED
+    print(f"{label}: ms/frame {ms_frame:.3f} rays/frame {rays_frame:.0f} "
+          f"Mrays/s {rays_frame / ms_frame / 1e3:.3f}")
+    breakdown(fn, scene, cam, WARMUP + TIMED, state)
+
+    est_s = 1e-3 * BOUNCES * (records["trace_closest_flat_full"]["plain_ms"]
+                              + records["trace_any_flat"]["plain_ms"])
+    if est_s < PLAIN_FRAME_BUDGET_S:
+        img_k, _, n_k = fn(scene, cam, WARMUP)
+        out = []
+        with plain_paths():
+            plain_ms = elapsed_ms(lambda: out.append(fn(scene, cam, WARMUP)))
+        print(f"{label} frame with the plain versions: ms/frame "
+              f"{plain_ms:.1f} (with the kernels {ms_frame:.3f}); card: {smi}")
+        frames_agree(f"{label} kernels vs plain versions", (img_k, n_k),
+                     (out[0][0], out[0][2]))
+    else:
+        print(f"{label} frame with the plain versions: skipped (estimated "
+              f"{est_s:.0f} s > {PLAIN_FRAME_BUDGET_S:.0f} s)")
+    got = []
+    for d in (dev, "cpu"):
+        fn64, (sc, cm, _) = port_entry.entry(
+            d, scene="plate", n_clusters=64, width=64, height=64,
+            max_bounces=2, bvh=False)
+        img64, _, n = fn64(sc, cm, 3)
+        got.append((img64, n))
+    frames_agree("pt bvh=False plate-64 64x64 frame cuda vs cpu", *got)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: no GPU")
@@ -1059,7 +1367,18 @@ def main() -> int:
     flat_records, fwd_launches = run_forward(smi, dev, records)
     print(f"forward phases: {time.perf_counter() - t0:.1f} s")
     records.update(flat_records)
-    for counts in (pt_launches, fwd_launches):
+    t0 = time.perf_counter()
+    any_records, k3_restir, restir_launches = run_restir(smi, dev)
+    print(f"restir phases: {time.perf_counter() - t0:.1f} s")
+    records.update(any_records)
+    records["trace_any_bvh"]["restir_shadow_set"] = {k: k3_restir[k] for k in (
+        "rays", "live_rays", "occluded", "ms", "plain_ms", "bound_ms",
+        "bound_by")}
+    t0 = time.perf_counter()
+    pt_flat_launches = run_pt_flat(smi, dev, records)
+    print(f"pt bvh=False phases: {time.perf_counter() - t0:.1f} s")
+    for counts in (pt_launches, fwd_launches, restir_launches,
+                   pt_flat_launches):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     kernels = []

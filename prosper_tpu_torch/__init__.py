@@ -9,10 +9,12 @@ wrapper that runs the kernel's plain PyTorch version only for CPU tensors.
 The package imports neither JAX nor anything of prosper_tpu, not even
 its numpy-only modules: it keeps its own copies (accel/bvh.py,
 scene/lights.py, scene/camera.py, testing.py). tests/test_torch_scene.py
-checks this in a subprocess. Two render modes are ported: the path
-tracer (render/pt.py) and the deferred renderer (render/deferred.py:
-G-buffer with optional two-phase meshlet culling, clustered shading);
-entry.py returns the frame call of either.
+checks this in a subprocess. All four render modes are ported: the
+path tracer (render/pt.py), the deferred renderer (render/deferred.py:
+G-buffer with optional two-phase meshlet culling, clustered shading),
+the forward renderer (render/forward.py) and ReSTIR DI
+(render/restir.py); entry.py returns the frame call of each, and
+config.py holds the tracer policy.
 """
 
 __version__ = "0.1.0"

@@ -15,6 +15,10 @@
 //                           G-buffer's draw list) + attributes, (R, 16).
 //   trace_any_bvh           replaces trace_bvh.py trace_any_bvh (:1768):
 //                           any hit with early exit, (R,) occlusion.
+//   trace_any_bvh_dense     replaces trace_bvh.py trace_any_bvh_dense
+//                           (:1809): K3's occlusion through a dense cull
+//                           of every cluster per 128-ray packet instead of
+//                           the stack walk (see dense_any_kernel).
 //
 // Contract (prosper_tpu_torch/ops/slabs.py): cluster slabs (C, rows, 128)
 // f32 with rows 0-8 = v0|e1|e2 and, for the primary kernel, rows 9-37 =
@@ -345,6 +349,130 @@ __global__ void primary_kernel(const float* __restrict__ slabs, int rows,
     write_full(slabs, rows, h, out + 16 * (size_t)k);
 }
 
+// K10, the dense-cull any hit (trace_bvh.py _any_body(dense=True) :1617,
+// _make_descent_dense :370). One block of DENSE_TILE threads per 128
+// consecutive rays, the JAX default packet (tile=128, :1819):
+// 1. the packet's rays (origin, reciprocal direction, t_max) are staged
+//    in shared memory; a lane with t_max <= t_min, which no hit can
+//    occlude, stages t_max = 0 and takes no part;
+// 2. the dense cull: each thread takes clusters tid, tid + 128, ... and
+//    tests its leaf box (bounds[node_of[c]], the box K3's walk tests at
+//    that leaf) against the packet's rays with K3's slab test (enter <=
+//    exit, enter < t_max), stopping at the first ray that enters; the
+//    entered live clusters are compacted, in id order, into a list in
+//    shared memory (one int per cluster: 8 KB at C = 2048). Dead
+//    clusters (live[c] == 0, the skip mask) are never listed and pad
+//    clusters do not exist, so neither is ever read. JAX keeps each
+//    cluster's minimum entry over the packet to pop the nearest one
+//    first; that order only steers when a closest-hit walk may stop, and
+//    any order gives an any hit the same mask, so the list keeps no keys;
+// 3. each warp walks the list on its own: a lane still unoccluded retests
+//    the cluster's leaf box against its own ray (node_test on
+//    node_of[c], :443), and the lanes that enter it run Möller over its
+//    128 triangles (reading the same slab words at once, one broadcast
+//    per load) until their first hit. A warp stops when all its lanes are
+//    occluded or out (the any-hit exit of :371-373), with no block
+//    barrier in the walk.
+// The mask equals K3's: a ray is tested against every cluster whose leaf
+// box it enters, and the packet cull lists each of them.
+#define DENSE_TILE 128
+#define DENSE_WARPS (DENSE_TILE / 32)
+
+__global__ void __launch_bounds__(DENSE_TILE)
+dense_any_kernel(const float* __restrict__ slabs, int rows, int C,
+                 const float* __restrict__ bounds,
+                 const int* __restrict__ node_of,
+                 const uint8_t* __restrict__ live,
+                 const float* __restrict__ ray_o,
+                 const float* __restrict__ ray_d,
+                 const float* __restrict__ t_max, int R, float t_min,
+                 uint8_t* __restrict__ occ) {
+    extern __shared__ int s_list[];  // C
+    __shared__ float s_ray[7][DENSE_TILE];  // ox oy oz ix iy iz t_max
+    __shared__ int s_wcount[DENSE_WARPS];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int k = blockIdx.x * DENSE_TILE + tid;
+    const bool active = k < R;
+    Ray r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float tmax = 0.0f;
+    if (active) {
+        load_ray(ray_o, ray_d, k, r);
+        tmax = t_max[k];
+    }
+    const bool can_hit = active && tmax > t_min;
+    s_ray[0][tid] = r.ox;
+    s_ray[1][tid] = r.oy;
+    s_ray[2][tid] = r.oz;
+    s_ray[3][tid] = r.ix;
+    s_ray[4][tid] = r.iy;
+    s_ray[5][tid] = r.iz;
+    s_ray[6][tid] = can_hit ? tmax : 0.0f;  // enter >= 0 is never < 0
+    __syncthreads();
+
+    // 2. the dense cull of every cluster, compacted in id order
+    int count = 0;
+    for (int base = 0; base < C; base += DENSE_TILE) {
+        const int c = base + tid;
+        bool ok = false;
+        if (c < C && (live == nullptr || __ldg(live + c) != 0)) {
+            const float* b = bounds + 6 * __ldg(node_of + c);
+            const float b0 = __ldg(b + 0), b1 = __ldg(b + 1),
+                        b2 = __ldg(b + 2), b3 = __ldg(b + 3),
+                        b4 = __ldg(b + 4), b5 = __ldg(b + 5);
+            for (int i = 0; i < DENSE_TILE && !ok; ++i) {
+                const float ox = s_ray[0][i], oy = s_ray[1][i];
+                const float oz = s_ray[2][i], ix = s_ray[3][i];
+                const float iy = s_ray[4][i], iz = s_ray[5][i];
+                float t0x = (b0 - ox) * ix;
+                float t1x = (b3 - ox) * ix;
+                float t0y = (b1 - oy) * iy;
+                float t1y = (b4 - oy) * iy;
+                float t0z = (b2 - oz) * iz;
+                float t1z = (b5 - oz) * iz;
+                float en = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                                 fmaxf(fminf(t0z, t1z), 0.0f));
+                float ex = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                                 fmaxf(t0z, t1z));
+                ok = en <= ex && en < s_ray[6][i];
+            }
+        }
+        unsigned bal = __ballot_sync(0xffffffffu, ok);
+        if (lane == 0) s_wcount[warp] = __popc(bal);
+        __syncthreads();
+        int off = count, total = 0;
+        for (int w = 0; w < DENSE_WARPS; ++w) {
+            int n = s_wcount[w];
+            off += w < warp ? n : 0;
+            total += n;
+        }
+        if (ok) s_list[off + __popc(bal & ((1u << lane) - 1u))] = c;
+        count += total;
+        __syncthreads();  // s_wcount is rewritten by the next chunk
+    }
+
+    // 3. the walk, warp by warp
+    bool done = !can_hit, hit = false;
+    for (int i = 0; i < count; ++i) {
+        if (__all_sync(0xffffffffu, done)) break;
+        const int c = s_list[i];
+        float en;
+        const bool need =
+            !done && node_test(bounds, __ldg(node_of + c), r, tmax, en);
+        if (!__any_sync(0xffffffffu, need)) continue;
+        if (need) {
+            const float* s = slabs + (size_t)c * rows * LANES;
+            for (int j = 0; j < LANES; ++j) {
+                float t, u, v;
+                if (moller(s, j, r, t_min, tmax, t, u, v)) {
+                    hit = done = true;
+                    break;
+                }
+            }
+        }
+    }
+    if (active) occ[k] = hit ? 1 : 0;
+}
+
 inline int blocks(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 }  // namespace
@@ -373,6 +501,29 @@ extern "C" int trace_any_bvh(const float* slabs, int rows, const float* bounds,
     if (R > 0)
         any_kernel<<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
             slabs, rows, bounds, meta, ray_o, ray_d, t_max, R, t_min, occ, err);
+    return (int)cudaGetLastError();
+}
+
+// K10 needs no node stack, so it takes no overflow flag; the list's
+// shared memory is checked by the host against a block's 227 KB.
+extern "C" int trace_any_bvh_dense(const float* slabs, int rows, int C,
+                                   const float* bounds, const int* node_of,
+                                   const uint8_t* live, const float* ray_o,
+                                   const float* ray_d, const float* t_max,
+                                   int R, float t_min, uint8_t* occ,
+                                   void* stream) {
+    if (R <= 0) return 0;
+    size_t bytes = sizeof(int) * (size_t)C;
+    if (bytes > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            dense_any_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)bytes);
+        if (e != cudaSuccess) return (int)e;
+    }
+    dense_any_kernel<<<(R + DENSE_TILE - 1) / DENSE_TILE, DENSE_TILE, bytes,
+                       (cudaStream_t)stream>>>(slabs, rows, C, bounds,
+                                               node_of, live, ray_o, ray_d,
+                                               t_max, R, t_min, occ);
     return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
 // Flat cull-list ray-trace kernels for Hopper (sm_90a): the port of the
-// two Pallas TPU kernels that trace without BVH node arrays.
+// three Pallas TPU kernels that trace without BVH node arrays.
 //
 //   trace_closest_flat       replaces prosper_tpu/ops/trace_pallas.py
 //                            trace_closest_pallas (:272): closest hit over
@@ -8,6 +8,9 @@
 //                            trace_closest_full (:255): the same hit and
 //                            the winning triangle's interpolated
 //                            attributes, (R, 16) rows.
+//   trace_any_flat           replaces trace_pallas.py trace_any_pallas
+//                            (:396, kernel _any_kernel :332): any hit over
+//                            the same lists, (R,) occlusion.
 //
 // Contract (prosper_tpu_torch/ops/trace_flat.py): the closest hit of
 // each ray, t_min < t < t_max (per ray), over every cluster whose AABB
@@ -37,6 +40,14 @@
 //    lies beyond every live ray's best hit (the front-to-back exit of
 //    trace_pallas.py:165-169);
 // 5. the full kernel reads rows 9-37 of the winning triangle once.
+//
+// The any-hit kernel (K7) runs steps 1, 2 and 4 on the same lists, in id
+// order (the order is free for an any hit, so step 3 is left out), with
+// the per-ray test "enters the box before t_max", and a lane is done
+// once occluded or when its t_max is not above t_min (no hit can occlude
+// it). The walk stops when every lane of the block is done
+// (_any_kernel :371-373); counting disabled lanes as done keeps a tile
+// of lanes that trace nothing from walking its whole list.
 //
 // The list holds the next power of two above C entries (8 KB of ids and
 // 8 KB of keys at C = 2048); the host side refuses a C whose list does
@@ -182,41 +193,12 @@ __device__ __forceinline__ bool after(float ka, int ia, float kb, int ib) {
     return ka > kb || (ka == kb && ia > ib);
 }
 
-template <bool FULL>
-__global__ void __launch_bounds__(TILE)
-flat_kernel(const float* __restrict__ slabs, int rows, int C,
-            const float* __restrict__ wc_min, const float* __restrict__ wc_max,
-            const float* __restrict__ ray_o, const float* __restrict__ ray_d,
-            const float* __restrict__ t_max, int R, float t_min, int cap,
-            float* __restrict__ out) {
-    extern __shared__ float smem[];
-    float* s_slab = smem;                      // SLAB_ROWS x LANES
-    float* s_key = smem + SLAB_ROWS * LANES;   // cap
-    int* s_id = (int*)(s_key + cap);           // cap
-    __shared__ float s_red[13][WARPS];
-    __shared__ float s_pkt[13];
-    __shared__ int s_wcount[WARPS];
-
+// Step 1: the block's packet bounds, min o | max o | min d | max d | max
+// t_max, into s_pkt[13].
+__device__ __forceinline__ void packet_bounds(const Ray& r, float tmax_ray,
+                                              float (*s_red)[WARPS],
+                                              float* s_pkt) {
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int first = blockIdx.x * TILE;
-    const int k = first + tid;
-    const bool active = k < R;
-    // lanes past R take the tile's first ray, so the packet bounds are
-    // those of the tile's rays alone
-    const int src = active ? k : first;
-    Ray r;
-    r.ox = ray_o[3 * src];
-    r.oy = ray_o[3 * src + 1];
-    r.oz = ray_o[3 * src + 2];
-    r.dx = ray_d[3 * src];
-    r.dy = ray_d[3 * src + 1];
-    r.dz = ray_d[3 * src + 2];
-    r.ix = safe_inv(r.dx);
-    r.iy = safe_inv(r.dy);
-    r.iz = safe_inv(r.dz);
-    const float tmax_ray = t_max[src];
-
-    // 1. packet bounds: min o | max o | min d | max d | max t_max
     float b[13] = {r.ox, r.oy, r.oz, r.ox, r.oy, r.oz,
                    r.dx, r.dy, r.dz, r.dx, r.dy, r.dz, tmax_ray};
 #pragma unroll
@@ -241,14 +223,15 @@ flat_kernel(const float* __restrict__ slabs, int rows, int C,
         s_pkt[tid] = m;
     }
     __syncthreads();
-    const float tile_tmax = s_pkt[12];
-    if (!(tile_tmax > t_min)) {  // no lane can hit: t_min < t < t_max
-        if (active) write_row<FULL>(slabs, rows, k, tmax_ray, -1, 0.0f, 0.0f,
-                                    out);
-        return;
-    }
+}
 
-    // 2. packet cull of every cluster, compacted in id order
+// Step 2: the packet cull of every cluster, compacted in id order into
+// (s_key, s_id); returns the list's length.
+__device__ __forceinline__ int cull_clusters(
+    int C, const float* __restrict__ wc_min, const float* __restrict__ wc_max,
+    const float* s_pkt, float tile_tmax, float* s_key, int* s_id,
+    int* s_wcount) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     int count = 0;
     for (int base = 0; base < C; base += TILE) {
         const int c = base + tid;
@@ -291,6 +274,62 @@ flat_kernel(const float* __restrict__ slabs, int rows, int C,
         count += total;
         __syncthreads();  // s_wcount is rewritten by the next chunk
     }
+    return count;
+}
+
+// The block's ray: lanes past R take the tile's first ray, so the packet
+// bounds are those of the tile's rays alone.
+__device__ __forceinline__ Ray tile_ray(const float* __restrict__ ray_o,
+                                        const float* __restrict__ ray_d,
+                                        int src) {
+    Ray r;
+    r.ox = ray_o[3 * src];
+    r.oy = ray_o[3 * src + 1];
+    r.oz = ray_o[3 * src + 2];
+    r.dx = ray_d[3 * src];
+    r.dy = ray_d[3 * src + 1];
+    r.dz = ray_d[3 * src + 2];
+    r.ix = safe_inv(r.dx);
+    r.iy = safe_inv(r.dy);
+    r.iz = safe_inv(r.dz);
+    return r;
+}
+
+template <bool FULL>
+__global__ void __launch_bounds__(TILE)
+flat_kernel(const float* __restrict__ slabs, int rows, int C,
+            const float* __restrict__ wc_min, const float* __restrict__ wc_max,
+            const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+            const float* __restrict__ t_max, int R, float t_min, int cap,
+            float* __restrict__ out) {
+    extern __shared__ float smem[];
+    float* s_slab = smem;                      // SLAB_ROWS x LANES
+    float* s_key = smem + SLAB_ROWS * LANES;   // cap
+    int* s_id = (int*)(s_key + cap);           // cap
+    __shared__ float s_red[13][WARPS];
+    __shared__ float s_pkt[13];
+    __shared__ int s_wcount[WARPS];
+
+    const int tid = threadIdx.x;
+    const int first = blockIdx.x * TILE;
+    const int k = first + tid;
+    const bool active = k < R;
+    const int src = active ? k : first;
+    const Ray r = tile_ray(ray_o, ray_d, src);
+    const float tmax_ray = t_max[src];
+
+    // 1. packet bounds
+    packet_bounds(r, tmax_ray, s_red, s_pkt);
+    const float tile_tmax = s_pkt[12];
+    if (!(tile_tmax > t_min)) {  // no lane can hit: t_min < t < t_max
+        if (active) write_row<FULL>(slabs, rows, k, tmax_ray, -1, 0.0f, 0.0f,
+                                    out);
+        return;
+    }
+
+    // 2. packet cull of every cluster, compacted in id order
+    const int count = cull_clusters(C, wc_min, wc_max, s_pkt, tile_tmax,
+                                    s_key, s_id, s_wcount);
 
     // 3. bitonic sort of the list, padded to a power of two, by (key, id)
     int n2 = 1;
@@ -362,22 +401,99 @@ flat_kernel(const float* __restrict__ slabs, int rows, int C,
     if (active) write_row<FULL>(slabs, rows, k, best, best_tri, bu, bv, out);
 }
 
+// K7: the any hit over the same lists, walked in id order.
+__global__ void __launch_bounds__(TILE)
+flat_any_kernel(const float* __restrict__ slabs, int rows, int C,
+                const float* __restrict__ wc_min,
+                const float* __restrict__ wc_max,
+                const float* __restrict__ ray_o,
+                const float* __restrict__ ray_d,
+                const float* __restrict__ t_max, int R, float t_min, int cap,
+                uint8_t* __restrict__ occ) {
+    extern __shared__ float smem[];
+    float* s_slab = smem;                      // SLAB_ROWS x LANES
+    float* s_key = smem + SLAB_ROWS * LANES;   // cap
+    int* s_id = (int*)(s_key + cap);           // cap
+    __shared__ float s_red[13][WARPS];
+    __shared__ float s_pkt[13];
+    __shared__ int s_wcount[WARPS];
+
+    const int tid = threadIdx.x;
+    const int first = blockIdx.x * TILE;
+    const int k = first + tid;
+    const bool active = k < R;
+    const int src = active ? k : first;
+    const Ray r = tile_ray(ray_o, ray_d, src);
+    const float tmax_ray = t_max[src];
+
+    packet_bounds(r, tmax_ray, s_red, s_pkt);
+    const float tile_tmax = s_pkt[12];
+    if (!(tile_tmax > t_min)) {  // no lane can be occluded
+        if (active) occ[k] = 0;
+        return;
+    }
+    const int count = cull_clusters(C, wc_min, wc_max, s_pkt, tile_tmax,
+                                    s_key, s_id, s_wcount);
+
+    // the walk: a lane is done once occluded, or from the start when it
+    // has no t in (t_min, t_max) or lies past R. The barrier at the top
+    // also keeps the last staged slab until all threads have tested it.
+    bool done = !(active && tmax_ray > t_min), hit = false;
+    for (int i = 0; i < count; ++i) {
+        if (__syncthreads_and(done)) break;
+        const int c = s_id[i];
+        bool need = false;
+        if (!done) {
+            float en, ex;
+            ray_box(wc_min, wc_max, c, r, en, ex);
+            need = en <= ex && en < tmax_ray;
+        }
+        if (!__syncthreads_or(need)) continue;
+        const float* s = slabs + (size_t)c * rows * LANES;
+        for (int j = tid; j < SLAB_ROWS * LANES; j += TILE)
+            s_slab[j] = __ldg(s + j);
+        __syncthreads();
+        if (need) {
+            for (int j = 0; j < LANES; ++j) {
+                float t, u, v;
+                if (moller(s_slab, j, r, t_min, tmax_ray, t, u, v)) {
+                    hit = done = true;
+                    break;
+                }
+            }
+        }
+    }
+    if (active) occ[k] = hit ? 1 : 0;
+}
+
+// Dynamic shared memory of one block (the staged slab and the list), or
+// 0 when it exceeds a block's; sets the kernel's limit above 48 KB.
+template <typename K>
+size_t list_smem(K kernel, int C, int& cap, cudaError_t& err) {
+    cap = 1;
+    while (cap < C) cap <<= 1;
+    size_t bytes = sizeof(float) * (SLAB_ROWS * LANES + 2 * (size_t)cap);
+    err = cudaSuccess;
+    if (bytes > MAX_SHARED) {
+        err = cudaErrorInvalidConfiguration;
+        return 0;
+    }
+    if (bytes > 48 * 1024)
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    return bytes;
+}
+
 template <bool FULL>
 int launch(const float* slabs, int rows, int C, const float* wc_min,
            const float* wc_max, const float* ray_o, const float* ray_d,
            const float* t_max, int R, float t_min, float* out,
            cudaStream_t stream) {
     if (R <= 0) return 0;
-    int cap = 1;
-    while (cap < C) cap <<= 1;
-    size_t bytes = sizeof(float) * (SLAB_ROWS * LANES + 2 * (size_t)cap);
-    if (bytes > MAX_SHARED) return (int)cudaErrorInvalidConfiguration;
-    if (bytes > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            flat_kernel<FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)bytes);
-        if (e != cudaSuccess) return (int)e;
-    }
+    int cap;
+    cudaError_t e;
+    size_t bytes = list_smem(flat_kernel<FULL>, C, cap, e);
+    if (e != cudaSuccess) return (int)e;
     flat_kernel<FULL><<<(R + TILE - 1) / TILE, TILE, bytes, stream>>>(
         slabs, rows, C, wc_min, wc_max, ray_o, ray_d, t_max, R, t_min, cap,
         out);
@@ -406,4 +522,21 @@ extern "C" int trace_closest_flat_full(const float* slabs, int rows, int C,
                                        float* out, void* stream) {
     return launch<true>(slabs, rows, C, wc_min, wc_max, ray_o, ray_d, t_max,
                         R, t_min, out, (cudaStream_t)stream);
+}
+
+extern "C" int trace_any_flat(const float* slabs, int rows, int C,
+                              const float* wc_min, const float* wc_max,
+                              const float* ray_o, const float* ray_d,
+                              const float* t_max, int R, float t_min,
+                              uint8_t* occ, void* stream) {
+    if (R <= 0) return 0;
+    int cap;
+    cudaError_t e;
+    size_t bytes = list_smem(flat_any_kernel, C, cap, e);
+    if (e != cudaSuccess) return (int)e;
+    flat_any_kernel<<<(R + TILE - 1) / TILE, TILE, bytes,
+                      (cudaStream_t)stream>>>(slabs, rows, C, wc_min, wc_max,
+                                              ray_o, ray_d, t_max, R, t_min,
+                                              cap, occ);
+    return (int)cudaGetLastError();
 }

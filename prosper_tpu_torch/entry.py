@@ -10,7 +10,9 @@ for the CPU) and the camera, and returns the frame call of one mode:
   clustered shading, the transparent pass, tone map; the state threads
   the HiZ pyramid;
 - "forward": primary visibility, forward shading, the transparent pass,
-  tone map, or a debug AOV (draw_type).
+  tone map, or a debug AOV (draw_type);
+- "restir": ReSTIR DI (G-buffer, initial reservoirs, spatial reuse, one
+  shadow ray per pixel), accumulated and tone mapped.
 
 use_transparent and alpha_rounds default as the JAX package's CLI sets
 them (prosper_tpu/app/cli.py:471, :478): the transparent pass when a
@@ -30,6 +32,15 @@ material blends, two alpha-discard rounds when one is not opaque.
                      height=1080, mode="forward", scatter_lights=1024,
                      blend_every=8, mask_every=8)
     img, state, covered_pixels = fn(*args)
+
+    fn, args = entry(scene="plate", n_clusters=2048, width=1920,
+                     height=1080, mode="restir", scatter_lights=1024)
+    img, state, shadow_rays = fn(*args)       # frame 0
+    img, state, shadow_rays = fn(args[0], args[1], 1, state)
+
+The shadow rays' any-hit kernel follows config.policy.any_tracer on a
+frame with BVH arrays ("stack": K3, "dense": K10); bvh=False takes the
+flat kernels in every mode (K7 for shadow rays).
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from .ops.tonemap import pack_lut_quads, synthetic_lut
 from .render.deferred import deferred_entry
 from .render.forward import forward_entry
 from .render.pt import pt_entry
+from .render.restir import restir_entry
 from .scene.convert import camera_tensors, from_numpy_scene
 from .testing import make_plate_scene, make_test_scene
 
@@ -57,19 +69,17 @@ def entry(device="cuda", scene: str = "test", n_clusters: int = 4,
     state=None) -> (image (H, W, 3), state, stat) and example_args =
     (scene tensors, camera tensors, 0). stat is the ray count in "pt"
     mode, the number of drawn meshlets in "deferred" mode (every cluster
-    without culling) and the number of pixels with an opaque surface in
-    "forward" mode.
+    without culling), the number of pixels with an opaque surface in
+    "forward" mode, and in "restir" mode the number of pixels whose final
+    reservoir holds a light in front of their surface, one shadow ray
+    each.
 
     Plate scene only: scatter_lights > 0 scatters that many point
     lights, blend_every and mask_every give plates blend and mask
     materials (testing.make_plate_scene). bvh=False leaves the BVH node
     arrays out of the frame, so every trace takes the flat kernels."""
-    if mode not in ("pt", "deferred", "forward"):
+    if mode not in ("pt", "deferred", "forward", "restir"):
         raise ValueError(f"unknown mode {mode!r}")
-    if mode == "pt" and not bvh:
-        raise NotImplementedError(
-            "the path tracer without BVH arrays needs the flat any-hit "
-            "kernel K7: ROADMAP.md queue 2, K7")
     extra = {}
     if scatter_lights or blend_every or mask_every:
         if scene != "plate":
@@ -111,6 +121,13 @@ def entry(device="cuda", scene: str = "test", n_clusters: int = 4,
             )
             return img, state, state["draw_stats"].get("drawn_meshlets",
                                                        n_all)
+    elif mode == "restir":
+        def fn(scene_t, cam, frame_index, state=None):
+            return restir_entry(
+                scene=scene_t, cam=cam, lut=lut, width=width, height=height,
+                device=device, frame_index=frame_index, state=state,
+                alpha_rounds=alpha_rounds, return_stats=True,
+            )
     else:
         def fn(scene_t, cam, frame_index, state=None):
             img, state = forward_entry(

@@ -1,12 +1,20 @@
-"""HSV conversions for the display transform.
+"""Luminance and the HSV conversions of the display transform.
 
-Counterpart of prosper_tpu/mathx/color.py (`rgb_to_hsv`, `hsv_to_rgb`),
-math.glsl:17-78 of the reference, branchless with torch.where.
+Counterpart of prosper_tpu/mathx/color.py (`luminance`, `rgb_to_hsv`,
+`hsv_to_rgb`), math.glsl:15-78 of the reference, branchless with
+torch.where.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def luminance(c: torch.Tensor) -> torch.Tensor:
+    """Y' = dot((.299, .587, .114), rgb) (math.glsl:15); c (..., 3).
+    Scalar weights: a weight tensor made from a list would be a
+    host-to-device copy on every call."""
+    return c[..., 0] * 0.299 + c[..., 1] * 0.587 + c[..., 2] * 0.114
 
 
 def rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:

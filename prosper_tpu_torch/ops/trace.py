@@ -63,32 +63,32 @@ def frame_bvh(frame: dict):
     return None
 
 
-def _no_flat_any_hit(*_args, **_kw):
-    raise NotImplementedError(
-        "any-hit rays on a frame without BVH arrays need K7 "
-        "(prosper_tpu/ops/trace_pallas.py trace_any_pallas): ROADMAP.md "
-        "queue 2, K7"
-    )
-
-
 def make_tracer(slabs, wc_min, wc_max, bvh=None):
     """The one tracer policy: (closest_fn, any_fn), each called as
     fn(o, d, t_min, t_max); closest_fn returns (R, 8) rows t | tri | u |
     v | pad, any_fn (R,) bool.
 
-    With `bvh` = (bounds, meta): the BVH2 kernels, K2 closest and K3 any
-    hit (the JAX package's default "stack" any-tracer; its "dense" one is
-    K10, not ported). Without: the flat cull-list kernel K6 over the
-    cluster AABBs (wc_min, wc_max), inverted where a cluster is masked;
-    the flat any-hit kernel K7 is not ported and its any_fn raises."""
+    With `bvh` = (bounds, meta): K2 closest, and the any hit that
+    config.policy.any_tracer names, read at this call: "stack" K3, the
+    BVH2 walk; "dense" K10, the packet's dense cull
+    (prosper_tpu/ops/trace.py:58-69). Without: the flat cull-list kernels
+    over the cluster AABBs (wc_min, wc_max), inverted where a cluster is
+    masked: K6 closest, K7 any hit."""
+    from .. import config
     from . import trace_bvh, trace_flat
 
+    policy = config.policy.any_tracer
+    if policy not in config.ANY_TRACERS:
+        raise ValueError(f"unknown any_tracer policy {policy!r}; expected "
+                         f"one of {config.ANY_TRACERS}")
     if bvh is not None:
         bounds, meta = bvh
+        any_impl = (trace_bvh.trace_any_bvh_dense if policy == "dense"
+                    else trace_bvh.trace_any_bvh)
         return (partial(trace_bvh.trace_closest_bvh, slabs, bounds, meta),
-                partial(trace_bvh.trace_any_bvh, slabs, bounds, meta))
+                partial(any_impl, slabs, bounds, meta))
     return (partial(trace_flat.trace_closest_flat, slabs, wc_min, wc_max),
-            _no_flat_any_hit)
+            partial(trace_flat.trace_any_flat, slabs, wc_min, wc_max))
 
 
 def block_pixel_order(width: int, height: int, block: int = 16):

@@ -13,6 +13,12 @@ hand-written CUDA kernel in csrc/trace_bvh.cu with a plain PyTorch twin:
   rays with an optional per-cluster `skip_mask` (the two-phase meshlet
   cull's draw list) and attributes at the final hit -> (R, 16) rows.
 - `trace_any_bvh` (K3, trace_bvh.py:1768): any hit -> (R,) bool.
+- `trace_any_bvh_dense` (K10, trace_bvh.py:1809): K3's any hit through
+  a dense cull instead of the stack walk: each 128-ray packet tests
+  every cluster's leaf box, then each ray tests the listed clusters'
+  leaf boxes and triangles -> (R,) bool; an optional `skip_mask` as
+  K4's. The policy config.policy.any_tracer = "dense" selects it
+  (ops/trace.make_tracer).
 
 Dispatch: a wrapper runs the plain version only because its tensors lie
 on the CPU. On CUDA tensors it launches the kernel or raises; it never
@@ -173,14 +179,35 @@ def gbuffer_rays(cam: dict, width: int, height: int,
 # Plain PyTorch versions
 
 
+def dense_aux(n_clusters: int, bounds: torch.Tensor, meta: torch.Tensor,
+              skip_mask=None):
+    """The dense-cull tracer's per-cluster tables (trace_bvh.py
+    `_dense_aux`, :1104-1140) -> (node_of (C,) i32, the cluster's BVH
+    leaf node (0, the root, for a cluster no leaf holds); leaf boxes
+    cmin, cmax (C, 3); dead (C,) bool). A cluster whose skip_mask entry
+    is False is dead: never tested, as K4's skip mask (a true entry
+    keeps the cluster, :1121-1123). Dead clusters are flagged, not given
+    an inverted box, since the per-ray slab test is symmetric in min and
+    max and would accept one. Built without a host wait."""
+    dev = bounds.device
+    leaf = meta[:, 2].long()
+    idx = torch.where(leaf >= 0, leaf, n_clusters)  # non-leaves: dropped
+    node_of = torch.zeros(n_clusters + 1, dtype=torch.int32, device=dev)
+    node_of.scatter_(0, idx, torch.arange(meta.shape[0], dtype=torch.int32,
+                                          device=dev))
+    node_of = node_of[:n_clusters]
+    b = bounds[node_of.long()]
+    if skip_mask is None:
+        dead = torch.zeros(n_clusters, dtype=torch.bool, device=dev)
+    else:
+        dead = ~skip_mask.to(device=dev, dtype=torch.bool)
+    return node_of, b[:, 0:3], b[:, 3:6], dead
+
+
 def _leaf_boxes(bounds: torch.Tensor, meta: torch.Tensor, n_clusters: int):
     """Cluster AABBs (C, 3) x 2 from the BVH's leaf nodes."""
-    leaf = meta[:, 2].long()
-    is_leaf = leaf >= 0
-    node_of = torch.zeros(n_clusters, dtype=torch.long, device=bounds.device)
-    node_of[leaf[is_leaf]] = torch.nonzero(is_leaf)[:, 0]
-    b = bounds[node_of]
-    return b[:, 0:3], b[:, 3:6]
+    _, cmin, cmax, _ = dense_aux(n_clusters, bounds, meta)
+    return cmin, cmax
 
 
 def _chunks(device: torch.device):
@@ -321,6 +348,18 @@ def trace_any_bvh_plain(slabs, bounds, meta, ray_o, ray_d, t_min, t_max):
     return torch.isfinite(best_t)
 
 
+def trace_any_bvh_dense_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
+                              t_max, skip_mask=None):
+    """Plain dense any hit -> (R,) bool occlusion: K3's, over the live
+    clusters of dense_aux. The kernel's packet cull lists every cluster
+    whose leaf box some ray of the packet enters, a superset of what
+    each ray tests, so the plain version leaves it out."""
+    _, cmin, cmax, dead = dense_aux(slabs.shape[0], bounds, meta, skip_mask)
+    best_t, _, _, _ = _brute(slabs, cmin, cmax, ray_o, ray_d, t_min, t_max,
+                             any_hit=True, live=~dead)
+    return torch.isfinite(best_t)
+
+
 def trace_primary_bvh_full_plain(slabs, bounds, meta, pix_cols, cam_vec,
                                  frame_index, t_min):
     """Plain primary trace -> (T*256, 16) full hit rows."""
@@ -343,7 +382,18 @@ _ARGTYPES = {
                                _P, ctypes.c_int, ctypes.c_float, _P, _P, _P],
     "trace_closest_bvh_full": [_P, ctypes.c_int, _P, _P, _P, _P, _P,
                                ctypes.c_int, ctypes.c_float, _P, _P, _P, _P],
+    "trace_any_bvh_dense": [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+                            _P, _P, ctypes.c_int, ctypes.c_float, _P, _P],
 }
+DENSE_TILE = 128  # rays per packet of K10 (trace_bvh.py:1819, tile=128)
+MAX_SHARED = 232448  # bytes of shared memory one H100 block can have
+DENSE_STATIC_SMEM = 4 * 7 * DENSE_TILE + 4 * (DENSE_TILE // 32)
+
+
+def dense_list_bytes(n_clusters: int) -> int:
+    """Shared memory of one K10 block: the cluster list (one int per
+    cluster) and the packet's staged rays."""
+    return 4 * int(n_clusters) + DENSE_STATIC_SMEM
 
 
 def _kernel(name: str):
@@ -543,12 +593,57 @@ def trace_primary_bvh_full(slabs, bounds, meta, pix_cols, cam_vec,
     return out
 
 
+def trace_any_bvh_dense(slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
+                        skip_mask=None):
+    """Any hit of R rays through the dense cull -> (R,) bool occlusion,
+    a hit being t_min < t < t_max: the same mask as trace_any_bvh.
+
+    slabs (C, >=9, 128) f32; bounds (N, 6) f32; meta (N, 3) i32; ray_o,
+    ray_d (R, 3) f32; t_max scalar or (R,); skip_mask (C,) bool or None:
+    a cluster marked False is never tested."""
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    t_max = _tmax(t_max, R, dev)
+    if dev.type == "cpu":
+        return trace_any_bvh_dense_plain(slabs, bounds, meta, ray_o, ray_d,
+                                         float(t_min), t_max, skip_mask)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_any_bvh_dense: unsupported device {dev}")
+    _check_scene(slabs, bounds, meta, dev)
+    _expect(ray_o, "ray_o", torch.float32, dev, (R, 3))
+    _expect(ray_d, "ray_d", torch.float32, dev, (R, 3))
+    C = slabs.shape[0]
+    if dense_list_bytes(C) > MAX_SHARED:
+        raise ValueError(
+            f"trace_any_bvh_dense: the cluster list of {C} clusters needs "
+            f"{dense_list_bytes(C)} bytes of shared memory, more than a "
+            f"block has ({MAX_SHARED})")
+    live = 0
+    if skip_mask is not None:
+        _expect(skip_mask, "skip_mask", torch.bool, dev, (C,))
+        live = skip_mask.data_ptr()
+    node_of = dense_aux(C, bounds, meta)[0]
+    occ = torch.empty((R,), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _kernel("trace_any_bvh_dense")(
+            slabs.data_ptr(), slabs.shape[1], C, bounds.data_ptr(),
+            node_of.data_ptr(), live, ray_o.data_ptr(), ray_d.data_ptr(),
+            t_max.data_ptr(), R, float(t_min), occ.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"trace_any_bvh_dense: CUDA launch failed with "
+                           f"error {rc}")
+    trace_any_bvh_dense.launches += 1
+    return occ
+
+
 trace_closest_bvh.launches = 0
 trace_any_bvh.launches = 0
 trace_primary_bvh_full.launches = 0
 trace_closest_bvh_full.launches = 0
+trace_any_bvh_dense.launches = 0
 KERNELS = (trace_primary_bvh_full, trace_closest_bvh, trace_any_bvh,
-           trace_closest_bvh_full)
+           trace_closest_bvh_full, trace_any_bvh_dense)
 
 
 def reset_launch_counts() -> None:

@@ -1,23 +1,27 @@
 """Flat cull-list trace kernels: wrappers and plain PyTorch versions.
 
 Counterpart of prosper_tpu/ops/trace_pallas.py (`_cull_lists` :49,
-`_prep` :240, `trace_closest_pallas` :272) and
+`_prep` :240, `trace_closest_pallas` :272, `trace_any_pallas` :396) and
 prosper_tpu/ops/trace_pallas_full.py (`trace_closest_full` :255): the
 tracers of frames without BVH node arrays, over the cluster AABBs
-`wc_min`, `wc_max` (C, 3). Two kernels, hand-written CUDA in
+`wc_min`, `wc_max` (C, 3). Three kernels, hand-written CUDA in
 csrc/trace_flat.cu, each with a plain PyTorch twin:
 
 - `trace_closest_flat` (K6, replaces trace_closest_pallas): closest hit
   -> (R, 8) rows t | tri | u | v | pad, as K2 (ops/trace_bvh.py);
 - `trace_closest_flat_full` (K8, replaces trace_closest_full): the same
-  hit and the winning triangle's attributes -> (R, 16) rows, as K4.
+  hit and the winning triangle's attributes -> (R, 16) rows, as K4;
+- `trace_any_flat` (K7, replaces trace_any_pallas): any hit -> (R,) bool
+  occlusion, as K3.
 
 Contract: the closest hit of each ray (t_min < t < t_max, per ray) over
 every cluster whose AABB the ray enters; a masked cluster carries an
 inverted AABB (render/gbuffer._masked_aabbs) that no ray enters. A miss
 row has t = t_max, tri = -1 and zero attributes. Exact t ties go to the
-lowest triangle id. t_min is honoured (the Pallas kernels hard-code
-1e-4).
+lowest triangle id. The any hit: a ray is occluded when a triangle of a
+cluster whose AABB it enters has t_min < t < t_max, so a ray with t_max
+<= t_min never is. t_min is honoured (the Pallas kernels hard-code 1e-4
+closest and 0.1 any hit).
 
 How the clusters are found, in the kernels and in the plain versions
 alike: every 256 consecutive rays form a tile (the last one may be
@@ -28,7 +32,8 @@ into every listed cluster. The packet cull is conservative, so the tile
 decides speed, not the result; callers give rays in 16x16 pixel blocks.
 The per-tile lists of the Pallas kernels, their SMEM copies and slab DMA
 ring are TPU devices; `cull_lists` gives the order the CUDA kernels walk
-a tile's list in (front to back, as trace_pallas._cull_lists).
+a tile's list in (front to back, as trace_pallas._cull_lists; K7 walks
+it in id order, since any order gives the same mask).
 
 Dispatch: a wrapper runs the plain version only because its tensors lie
 on the CPU; on CUDA tensors it launches the kernel or raises. Each
@@ -44,10 +49,16 @@ import torch
 from .intersect import BIG, packet_aabb_enter_exit
 from .slabs import ROWS_FULL, ROWS_PLAIN
 from .trace import CLUSTER_PAD, TILE
-from .trace_bvh import _closest_rows, _expect, _full_rows, _tmax
+from .trace_bvh import (
+    MAX_SHARED,
+    _brute,
+    _closest_rows,
+    _expect,
+    _full_rows,
+    _tmax,
+)
 
 SLAB_FLOATS = ROWS_PLAIN * CLUSTER_PAD  # the staged Möller rows
-MAX_SHARED = 232448  # bytes of shared memory one H100 block can have
 TILES_PER_CHUNK = 512  # tiles per packet-cull chunk of the plain version
 
 
@@ -116,6 +127,17 @@ def trace_closest_flat_full_plain(slabs, wc_min, wc_max, ray_o, ray_d,
         slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max))
 
 
+def trace_any_flat_plain(slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max):
+    """Plain flat any hit -> (R,) bool occlusion. The packet cull only
+    adds clusters that a ray's own box test then rejects, so the mask
+    does not depend on which rays share a tile."""
+    t_max = _tmax(t_max, ray_o.shape[0], ray_o.device)
+    overlap, _ = packet_overlap(ray_o, ray_d, t_min, t_max, wc_min, wc_max)
+    best_t, _, _, _ = _brute(slabs, wc_min, wc_max, ray_o, ray_d, t_min,
+                             t_max, any_hit=True, tile_ok=overlap)
+    return torch.isfinite(best_t)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 
@@ -141,7 +163,7 @@ def list_bytes(n_clusters: int) -> int:
 
 
 def _launch(name, slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max,
-            min_rows, width):
+            min_rows, out_shape, out_dtype=torch.float32):
     dev = ray_o.device
     R = ray_o.shape[0]
     C = slabs.shape[0]
@@ -156,7 +178,7 @@ def _launch(name, slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max,
         raise ValueError(
             f"{name}: the cull list of {C} clusters needs {list_bytes(C)} "
             f"bytes of shared memory, more than a block has ({MAX_SHARED})")
-    out = torch.empty((R, width), dtype=torch.float32, device=dev)
+    out = torch.empty(out_shape, dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _kernel(name)(
@@ -181,7 +203,7 @@ def trace_closest_flat(slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max):
     if dev.type != "cuda":
         raise ValueError(f"trace_closest_flat: unsupported device {dev}")
     out = _launch("trace_closest_flat", slabs, wc_min, wc_max, ray_o, ray_d,
-                  t_min, t_max, ROWS_PLAIN, 8)
+                  t_min, t_max, ROWS_PLAIN, (ray_o.shape[0], 8))
     trace_closest_flat.launches += 1
     return out
 
@@ -200,11 +222,31 @@ def trace_closest_flat_full(slabs, wc_min, wc_max, ray_o, ray_d, t_min,
     if dev.type != "cuda":
         raise ValueError(f"trace_closest_flat_full: unsupported device {dev}")
     out = _launch("trace_closest_flat_full", slabs, wc_min, wc_max, ray_o,
-                  ray_d, t_min, t_max, ROWS_FULL - 2, 16)
+                  ray_d, t_min, t_max, ROWS_FULL - 2, (ray_o.shape[0], 16))
     trace_closest_flat_full.launches += 1
+    return out
+
+
+def trace_any_flat(slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max):
+    """Flat any hit (shadow rays) of R rays -> (R,) bool occlusion, a hit
+    being t_min < t < t_max.
+
+    slabs (C, >=9, 128) f32; wc_min, wc_max (C, 3) f32 (inverted where a
+    cluster is masked); ray_o, ray_d (R, 3) f32; t_max scalar or (R,)."""
+    dev = ray_o.device
+    t_max = _tmax(t_max, ray_o.shape[0], dev)
+    if dev.type == "cpu":
+        return trace_any_flat_plain(slabs, wc_min, wc_max, ray_o, ray_d,
+                                    float(t_min), t_max)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_any_flat: unsupported device {dev}")
+    out = _launch("trace_any_flat", slabs, wc_min, wc_max, ray_o, ray_d,
+                  t_min, t_max, ROWS_PLAIN, (ray_o.shape[0],), torch.bool)
+    trace_any_flat.launches += 1
     return out
 
 
 trace_closest_flat.launches = 0
 trace_closest_flat_full.launches = 0
-KERNELS = (trace_closest_flat, trace_closest_flat_full)
+trace_any_flat.launches = 0
+KERNELS = (trace_closest_flat, trace_closest_flat_full, trace_any_flat)

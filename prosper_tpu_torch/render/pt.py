@@ -5,10 +5,15 @@ Counterpart of prosper_tpu/render/pt.py: `pt_trace_pixels` (:86),
 main.rgen of the reference. One structure on every device: the primary
 pass runs the primary trace kernel (in-kernel raygen, (R, 16) rows ->
 `unpack_hit16`), and each bounce picks a light, traces its shadow ray
-through the any-hit kernel (t_min 0.1), samples the BRDF with Russian
-roulette, and traces the bounce ray through the closest-hit kernel
-((R, 8) rows -> `attrs_from_hit_rows`). On CUDA tensors the kernels run;
-on CPU tensors their plain versions do.
+through ops/trace.make_tracer's any-hit fn (t_min 0.1: K3, or K10 under
+config.policy.any_tracer = "dense"), samples the BRDF with Russian
+roulette, and traces the bounce ray through the closest-hit kernel K2
+((R, 8) rows -> `attrs_from_hit_rows`). On a frame without BVH arrays
+(pt.py:184-193) the primary rays are the pinhole rays, primary and
+bounce rays take the flat kernel K8 ((R, 16) rows) and shadow rays K7;
+the wavefront is already in 16x16-block order, the order the flat
+kernels cull in. On CUDA tensors the kernels run; on CPU tensors their
+plain versions do.
 
 RNG order matches pt.py:14-16 call for call: uv jitter (1 advance), then
 per bounce light pick (1, masked), bounce pick (1), bounce direction (1),
@@ -44,14 +49,14 @@ from ..ops.brdf import (
 from ..ops.rays import offset_ray, pinhole_rays
 from ..ops.slabs import attrs_from_hit_rows, unpack_hit8, unpack_hit16
 from ..ops.tonemap import tone_map
-from ..ops.trace import permute16, pixel_layouts_np
+from ..ops.trace import frame_bvh, make_tracer, permute16, pixel_layouts_np
 from ..ops.trace_bvh import (
     check_stack_overflow,
     primary_cam_vec,
-    trace_any_bvh,
     trace_closest_bvh,
     trace_primary_bvh_full,
 )
+from ..ops.trace_flat import trace_closest_flat_full
 from ..scene.convert import camera_tensors, check_device
 from .shading import sample_light
 from .surface import evaluate_surface_from_attrs
@@ -109,11 +114,11 @@ def primary_streams(cam: dict, px, py, width: int, height: int, frame_index):
 
 
 def _shade_and_bounce(scene, bounce, state, color, throughput, active,
-                      ray_o, ray_d, hit, clamp_indirect):
+                      ray_o, ray_d, hit, clamp_indirect, any_fn):
     """Shade one wavefront's hits and generate its bounce rays
-    (main.rgen:92-276; pt.py shade_and_bounce :371-545)."""
-    geom, lights = scene["geom"], scene["frame"]["lights"]
-    bounds, meta = scene["frame"]["bvh_bounds"], scene["frame"]["bvh_meta"]
+    (main.rgen:92-276; pt.py shade_and_bounce :371-545); any_fn traces
+    the shadow rays."""
+    lights = scene["frame"]["lights"]
     light_count = (
         1 + lights["point_count"] + lights["spot_count"]
     ).to(torch.float32)
@@ -139,10 +144,8 @@ def _shade_and_bounce(scene, bounce, state, color, throughput, active,
     shadow_o = torch.where(need_shadow[..., None], surface["position_ws"], ray_o)
     shadow_d = torch.where(need_shadow[..., None], l, ray_d)
     shadow_tmax = torch.where(need_shadow, dist, 0.0)
-    occluded = trace_any_bvh(
-        geom["packed9"], bounds, meta, shadow_o.contiguous(),
-        shadow_d.contiguous(), SHADOW_T_MIN, shadow_tmax,
-    )
+    occluded = any_fn(shadow_o.contiguous(), shadow_d.contiguous(),
+                      SHADOW_T_MIN, shadow_tmax)
     vis = torch.where(need_shadow & ~occluded, 1.0, 0.0)
     direct = (
         throughput
@@ -227,17 +230,25 @@ def pt_trace_pixels(scene: dict, cam: dict, px, py, pix_cols, width: int,
     (pt.py:554, :804-808). Raises if a trace kernel overflowed its node
     stack (one wait for the frame's kernels)."""
     frame, geom = scene["frame"], scene["geom"]
-    bounds, meta = frame["bvh_bounds"], frame["bvh_meta"]
+    bvh = frame_bvh(frame)
+    wc_min, wc_max = frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]
+    _, any_fn = make_tracer(geom["packed9"], wc_min, wc_max, bvh=bvh)
     R0 = px.shape[0]
-    cam_vec = primary_cam_vec(cam, width, height, device=px.device)
-    h16 = trace_primary_bvh_full(
-        geom["packed_full"], bounds, meta, pix_cols, cam_vec,
-        int(frame_index), BOUNCE_T_MIN,
-    )
-    hit = unpack_hit16(h16[:R0])
     state, ray_o, ray_d = primary_streams(
         cam, px, py, width, height, frame_index
     )
+    if bvh is not None:
+        cam_vec = primary_cam_vec(cam, width, height, device=px.device)
+        h16 = trace_primary_bvh_full(
+            geom["packed_full"], *bvh, pix_cols, cam_vec, int(frame_index),
+            BOUNCE_T_MIN,
+        )[:R0]
+    else:
+        h16 = trace_closest_flat_full(
+            geom["packed_full"], wc_min, wc_max, ray_o.contiguous(),
+            ray_d.contiguous(), BOUNCE_T_MIN, float("inf"),
+        )
+    hit = unpack_hit16(h16)
     color = torch.zeros((R0, 3), dtype=torch.float32, device=px.device)
     throughput = torch.ones_like(color)
     active = hit["tri"] >= 0
@@ -246,18 +257,24 @@ def pt_trace_pixels(scene: dict, cam: dict, px, py, pix_cols, width: int,
         (state, color, throughput, new_active, ray_o, ray_d,
          need_shadow) = _shade_and_bounce(
             scene, b, state, color, throughput, active, ray_o, ray_d, hit,
-            clamp_indirect,
+            clamp_indirect, any_fn,
         )
         n_rays = n_rays + need_shadow.sum()
         active = new_active
         if b + 1 < max_bounces:
             n_rays = n_rays + active.sum()
             tmax = torch.where(active, float("inf"), 0.0)
-            h8 = trace_closest_bvh(
-                geom["packed_full"], bounds, meta, ray_o.contiguous(),
-                ray_d.contiguous(), BOUNCE_T_MIN, tmax,
-            )
-            hit = attrs_from_hit_rows(geom["attr_rows"], unpack_hit8(h8))
+            if bvh is not None:
+                h8 = trace_closest_bvh(
+                    geom["packed_full"], *bvh, ray_o.contiguous(),
+                    ray_d.contiguous(), BOUNCE_T_MIN, tmax,
+                )
+                hit = attrs_from_hit_rows(geom["attr_rows"], unpack_hit8(h8))
+            else:
+                hit = unpack_hit16(trace_closest_flat_full(
+                    geom["packed_full"], wc_min, wc_max, ray_o.contiguous(),
+                    ray_d.contiguous(), BOUNCE_T_MIN, tmax,
+                ))
     check_stack_overflow(px.device)
     return color, n_rays
 

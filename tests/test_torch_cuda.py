@@ -84,7 +84,7 @@ def test_kernels_match_plain_on_card(cuda, scene, n):
                                   t_max)
     assert torch.equal(occ, want)
     tb.check_stack_overflow(cuda)
-    assert [f.launches for f in tb.KERNELS] == [1, 1, 1, 0]
+    assert [f.launches for f in tb.KERNELS] == [1, 1, 1, 0, 0]
 
 
 def _random_rays(cam, R, seed, device):
@@ -348,6 +348,123 @@ def test_transparent_deferred_without_bvh_on_card_matches_cpu(cuda):
         _, state, _ = fn(sc, cam, 0)
         img, _, drawn = fn(sc, cam, 1, state)
         out.append((img.cpu(), int(drawn)))
+    (img_g, n_g), (img_c, n_c) = out
+    assert n_g == n_c
+    off = ((img_g - img_c).abs() > 1e-3).any(dim=-1).float().mean()
+    assert float(off) <= 0.01
+
+
+def _shadow_segments(cam, R, seed, device, scene):
+    """R segments from around the camera to random points of the scene's
+    cluster bounds, as shadow rays: (o, d, t_max = the length); every
+    ninth lane and a whole tile disabled with t_max = 0."""
+    frame = scene["frame"]
+    lo = frame["wc_aabb_min_w"].amin(0)
+    hi = frame["wc_aabb_max_w"].amax(0)
+    rng = np.random.default_rng(seed)
+    o, _ = _random_rays(cam, R, seed, device)
+    tgt = lo + (hi - lo) * torch.as_tensor(rng.random((R, 3)),
+                                           dtype=torch.float32, device=device)
+    d = tgt - o
+    t_max = d.norm(dim=1)
+    d = (d / t_max[:, None]).contiguous()
+    t_max[::9] = 0.0
+    t_max[256:512] = 0.0
+    return o, d, t_max
+
+
+@pytest.mark.parametrize("kind", ["K7", "K7_masked", "K10", "K10_skip"])
+def test_any_kernels_match_plain_and_k3_on_card(cuda, kind):
+    """K7 and K10 against their plain versions and against K3 on shadow
+    segments and on the forward pass's block-order rays with t_max 3:
+    occlusion equal, lanes with t_max <= t_min never occluded."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32, scatter_lights=16)
+    frame, slabs = sc["frame"], sc["geom"]["packed9"]
+    bvh = (frame["bvh_bounds"], frame["bvh_meta"])
+    mask = torch.as_tensor(np.random.default_rng(5).random(64) > 0.4,
+                           device=cuda)
+    mn, mx = frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]
+    if kind == "K7_masked":
+        mn, mx = gbuffer._masked_aabbs(mn, mx, mask)
+    if kind.startswith("K7"):
+        kern, plain, args, kw = (tf.trace_any_flat, tf.trace_any_flat_plain,
+                                 (slabs, mn, mx), {})
+    else:
+        kern, plain, args = (tb.trace_any_bvh_dense,
+                             tb.trace_any_bvh_dense_plain, (slabs, *bvh))
+        kw = {"skip_mask": mask} if kind == "K10_skip" else {}
+    o_b, d_b = forward.pixel_center_rays(cam, 200, 120, cuda)
+    sets = [_shadow_segments(cam, 5000, 8, cuda, sc),
+            (o_b, d_b, torch.full((o_b.shape[0],), 3.0, device=cuda))]
+    kern.launches = 0
+    for o, d, t_max in sets:
+        got = kern(*args, o, d, 0.1, t_max, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(*args, o, d, 0.1, t_max, **kw))
+        assert not got[t_max <= 0.1].any()
+        assert got.any() and not got.all()
+        k3 = tb.trace_any_bvh(slabs, *bvh, o, d, 0.1, t_max)
+        if kind in ("K7", "K10"):
+            assert torch.equal(got, k3)
+        else:  # fewer live clusters: a subset of K3's occluders
+            assert bool((got <= k3).all())
+    tb.check_stack_overflow(cuda)
+    assert kern.launches == 2
+
+
+def test_any_wrappers_refuse_too_many_clusters(cuda):
+    """A list larger than a block's shared memory raises instead of
+    dropping clusters."""
+    n = 60000
+    slabs = torch.zeros((n, 9, 128), device=cuda)
+    box = torch.zeros((n, 3), device=cuda)
+    o = torch.zeros((4, 3), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        tf.trace_any_flat(slabs, box, box, o, o + 1.0, 0.1, 1.0)
+    bounds = torch.zeros((1, 6), device=cuda)
+    meta = torch.tensor([[-1, -1, 0]], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        tb.trace_any_bvh_dense(slabs, bounds, meta, o, o + 1.0, 0.1, 1.0)
+
+
+@pytest.mark.parametrize("tracer", ["stack", "dense", "no_bvh"])
+def test_restir_frame_on_card_matches_cpu(cuda, tracer, monkeypatch):
+    """Two ReSTIR frames (accumulated) on the card against the CPU with
+    BVH arrays under both any-hit policies and without them: equal
+    shadow-ray counts, at most 1% of pixels off by more than 1e-3."""
+    from prosper_tpu_torch import config
+
+    monkeypatch.setattr(config.policy, "any_tracer",
+                        "dense" if tracer == "dense" else "stack")
+    kw = dict(scene="plate", n_clusters=64, width=64, height=64,
+              mode="restir", scatter_lights=100, bvh=tracer != "no_bvh")
+    out = []
+    for dev in (cuda, "cpu"):
+        fn, (sc, cam, _) = entry(dev, **kw)
+        _, state, _ = fn(sc, cam, 0)
+        img, _, n = fn(sc, cam, 1, state)
+        out.append((img.cpu(), int(n)))
+    (img_g, n_g), (img_c, n_c) = out
+    assert n_g == n_c > 0
+    off = ((img_g - img_c).abs() > 1e-3).any(dim=-1).float().mean()
+    assert float(off) <= 0.01
+
+
+def test_pt_frame_without_bvh_on_card_matches_cpu(cuda):
+    """The path tracer without BVH arrays (K8, K7) on the card against
+    the CPU: equal ray counts, at most 1% of pixels off by more than
+    1e-3."""
+    out, launches = [], []
+    for dev in (cuda, "cpu"):
+        fn, (sc, cam, _) = entry(dev, scene="plate", n_clusters=64, width=64,
+                                 height=64, max_bounces=3, bvh=False)
+        tf.trace_any_flat.launches = tf.trace_closest_flat_full.launches = 0
+        img, _, n = fn(sc, cam, 1)
+        out.append((img.cpu(), int(n)))
+        launches.append((tf.trace_closest_flat_full.launches,
+                         tf.trace_any_flat.launches))
+    assert launches == [(3, 3), (0, 0)]  # K8 primary + 2 bounces, K7 x3
     (img_g, n_g), (img_c, n_c) = out
     assert n_g == n_c
     off = ((img_g - img_c).abs() > 1e-3).any(dim=-1).float().mean()

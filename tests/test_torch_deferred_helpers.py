@@ -158,6 +158,7 @@ def test_light_uniforms_copy_equals_jax():
 
 def test_render_modes():
     modes = tframe.render_modes()
-    assert sorted(modes) == ["deferred", "forward", "pt"]
+    assert sorted(modes) == ["deferred", "forward", "pt", "restir"]
     assert modes["deferred"].__name__ == "deferred_entry"
     assert modes["forward"].__name__ == "forward_entry"
+    assert modes["restir"].__name__ == "restir_entry"

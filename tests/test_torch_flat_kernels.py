@@ -207,8 +207,8 @@ def test_cull_lists_match_jax(case):
 
 
 def test_make_tracer_policy(case):
-    """BVH arrays: K2 closest and K3 any hit; none: K6 closest, and the
-    any-hit fn raises naming K7's ROADMAP item."""
+    """BVH arrays: K2 closest and K3 any hit; none: K6 closest and K7 any
+    hit, with K3's occlusion."""
     scene, o, d, keep = case
     frame, slabs = scene["frame"], scene["geom"]["packed9"]
     mn, mx = frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]
@@ -221,8 +221,11 @@ def test_make_tracer_policy(case):
     assert closest.func is trace_flat.trace_closest_flat
     got = closest(o, d, 1e-4, float("inf"))
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="K7"):
-        any_fn(o, d, 0.1, 1.0)
+    assert any_fn.func is trace_flat.trace_any_flat
+    occ = any_fn(o, d, 0.1, 5.0)
+    assert torch.equal(occ, trace_bvh.trace_any_bvh(slabs, *bvh, o, d, 0.1,
+                                                    5.0))
+    assert occ.any()
     assert ttrace.frame_bvh({"wc_aabb_min_w": mn}) is None
 
 

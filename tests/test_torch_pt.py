@@ -25,7 +25,7 @@ import torch
 
 from prosper_tpu.ops.texture import pack_material_tables
 from prosper_tpu.render.pt import pt_render_sample as jax_pt_render_sample
-from prosper_tpu_torch import testing
+from prosper_tpu_torch import config, testing
 from prosper_tpu_torch.entry import entry
 from prosper_tpu_torch.render import pt
 from prosper_tpu_torch.scene.convert import from_numpy_scene
@@ -42,9 +42,13 @@ def _jdev(tree):
 
 
 def _frames(make_scene, n, width, height, frame_index, kernel_path=False,
-            port_t_min=None, clamp_indirect=False):
-    """(jax color, jax rays, port color, port rays) for one frame."""
+            port_t_min=None, clamp_indirect=False, bvh=True):
+    """(jax color, jax rays, port color, port rays) for one frame; bvh=False
+    leaves the BVH arrays out of both packages' frames."""
     static, frame, arena, cam_fn = make_scene(n, 0)
+    if not bvh:
+        frame = {k: v for k, v in frame.items()
+                 if k not in ("bvh_bounds", "bvh_meta")}
     cam = cam_fn(width, height)
     js, jf, ja = _jdev(static), _jdev(frame), _jdev(arena)
     ja["mat_f32"], ja["mat_i32"] = pack_material_tables(js["materials"], ja)
@@ -94,6 +98,20 @@ def test_frame_matches_jax_cpu_path(frame_index, clamp):
 
 def test_plate_frame_matches_jax_cpu_path():
     jc, jn, tc, tn = _frames(testing.make_plate_scene, 16, 64, 64, 1)
+    assert tn == jn
+    assert (jc.sum(axis=-1) > 0).mean() > 0.05
+    assert _off_share(tc, jc) <= 0.005
+
+
+@pytest.mark.parametrize("tracer", ["no_bvh", "bvh_dense"])
+def test_plate_frame_tracers_match_jax_cpu_path(tracer, monkeypatch):
+    """The frame without BVH arrays (K8 primary and bounce rays, K7
+    shadow rays) and with the dense any-hit policy (K10 shadow rays)
+    against the JAX CPU frame of the same scene."""
+    monkeypatch.setattr(config.policy, "any_tracer",
+                        "dense" if tracer == "bvh_dense" else "stack")
+    jc, jn, tc, tn = _frames(testing.make_plate_scene, 16, 64, 64, 1,
+                             bvh=tracer != "no_bvh")
     assert tn == jn
     assert (jc.sum(axis=-1) > 0).mean() > 0.05
     assert _off_share(tc, jc) <= 0.005

@@ -181,7 +181,8 @@ def test_hit_row_round_trip_equals_jax():
 def test_port_never_imports_jax():
     """Importing every module of the port and rendering a CPU path-traced,
     a CPU deferred and a CPU forward frame (the transparent pass and alpha
-    discard on a frame without BVH arrays) pulls in no JAX and nothing of
+    discard on a frame without BVH arrays), two CPU ReSTIR frames and a
+    path-traced frame without BVH arrays pulls in no JAX and nothing of
     prosper_tpu."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
@@ -204,6 +205,15 @@ def test_port_never_imports_jax():
         "img, state, covered = fn(*args)\n"
         "assert 'bvh_bounds' not in args[0]['frame']\n"
         "assert img.shape == (32, 32, 3) and int(covered) > 0\n"
+        "fn, args = entry('cpu', scene='plate', n_clusters=16, width=32,\n"
+        "                 height=32, mode='restir', scatter_lights=16)\n"
+        "img, state, n_shadow = fn(*args)\n"
+        "img, state, n_shadow = fn(args[0], args[1], 1, state)\n"
+        "assert img.shape == (32, 32, 3) and float(state[1].max()) == 2.0\n"
+        "fn, args = entry('cpu', scene='plate', n_clusters=16, width=32,\n"
+        "                 height=32, mode='pt', bvh=False)\n"
+        "img, _, n = fn(*args)\n"
+        "assert img.shape == (32, 32, 3) and int(n) > 32 * 32\n"
         "bad =sorted(m for m in sys.modules if m.startswith('jax')\n"
         "             or m == 'prosper_tpu' or m.startswith('prosper_tpu.'))\n"
         "print(len(sys.modules), bad)\n"
