@@ -8,11 +8,13 @@ CUDA kernels: the wavefront path tracer (3 bounces), with and without
 BVH arrays, the deferred renderer (G-buffer, 1024 scattered point
 lights, clustered tile shading), without and with two-phase meshlet
 culling, the forward renderer with its transparent pass and alpha-mask
-discard, and ReSTIR DI under its three tracer configurations. Phases:
+discard, ReSTIR DI under its three tracer configurations, and the path
+tracer and ReSTIR under the leaf-major bounce tracer. Phases:
 
 1. device: CUDA, nvcc and the card's name and power limit;
-2. build: compile csrc/trace_bvh.cu, csrc/shade_tiles.cu and
-   csrc/trace_flat.cu for sm_90a, one nvcc each, in parallel (timed);
+2. build: compile csrc/trace_bvh.cu, csrc/shade_tiles.cu,
+   csrc/trace_flat.cu and csrc/trace_leafmajor.cu for sm_90a, one nvcc
+   each, in parallel (timed);
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the whole inputs of one frame, with kernel and plain times and
    the bound (the least time an H100 could take for the same work):
@@ -56,7 +58,19 @@ discard, and ReSTIR DI under its three tracer configurations. Phases:
 10. pt bvh=False: the path tracer without BVH arrays (K8 primary and
    bounce rays, K7 shadow rays): K8 on its first bounce set and K7 on
    its first shadow set against their plain versions, then checked as
-   phase 4 checks its frame.
+   phase 4 checks its frame;
+11. kernels: leaf-major: the first bounce and shadow sets of a
+   path-traced frame and the shadow set of a ReSTIR frame, as the frames
+   hand them to the hybrid under config.policy.bounce_tracer =
+   "leafmajor": their heavy shares, tiles over VIS_CAP, valid pairs and
+   blocks; K14 against its plain version on the hybrid's pair blocks and
+   on the blocks of every ray's first 8 candidates (closest hit on the
+   bounce set, any hit on the shadow sets); the hybrid against K2 or K3
+   on the same rays; K9 on the bounce set against its plain version and
+   K2, without and with a random skip mask;
+12. leafmajor: the path tracer (K1, K14, K2, K3) and ReSTIR (K1, K14,
+   K3) under "leafmajor", each checked as phase 9 checks its frames; the
+   policy is restored after the phase.
 
 Every launch count is set to 0 just before a path is driven and read
 just after; a kernel of the path that never launched fails the run. Any
@@ -87,6 +101,7 @@ SOURCES = {
     "trace_bvh": "prosper_tpu_torch/csrc/trace_bvh.cu",
     "shade_tiles": "prosper_tpu_torch/csrc/shade_tiles.cu",
     "trace_flat": "prosper_tpu_torch/csrc/trace_flat.cu",
+    "trace_leafmajor": "prosper_tpu_torch/csrc/trace_leafmajor.cu",
 }
 # kernel -> (source, the Pallas kernel it replaces)
 KERNELS = {
@@ -105,6 +120,10 @@ KERNELS = {
     "trace_any_flat": ("trace_flat", "prosper_tpu/ops/trace_pallas.py:396"),
     "trace_any_bvh_dense": ("trace_bvh",
                             "prosper_tpu/ops/trace_bvh.py:1809"),
+    "trace_closest_bvh_dense": ("trace_bvh",
+                                "prosper_tpu/ops/trace_bvh.py:1144"),
+    "run_pairs": ("trace_leafmajor",
+                  "prosper_tpu/ops/trace_leafmajor.py:397"),
 }
 PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
 DEFERRED_PATH = {False: ("trace_primary_bvh_full", "shade_clustered_tiles"),
@@ -134,9 +153,20 @@ RESTIR_CELLS = {
                          ("trace_closest_flat_full", "trace_any_flat")),
 }
 PT_FLAT_PATH = ("trace_closest_flat_full", "trace_any_flat")
+# label -> (entry options, the kernels the frame runs) under
+# config.policy.bounce_tracer = "leafmajor"
+LEAFMAJOR_CELLS = {
+    "pt leafmajor": ({"max_bounces": BOUNCES},
+                     ("trace_primary_bvh_full", "run_pairs",
+                      "trace_closest_bvh", "trace_any_bvh")),
+    "restir leafmajor": ({"mode": "restir", "scatter_lights": N_LIGHTS},
+                         ("trace_primary_bvh_full", "run_pairs",
+                          "trace_any_bvh")),
+}
 PORT_KERNEL_SYMBOLS = ("primary_kernel", "closest_kernel", "any_kernel",
                        "closest_full_kernel", "shade_kernel", "flat_kernel",
-                       "flat_any_kernel", "dense_any_kernel")
+                       "flat_any_kernel", "dense_any_kernel",
+                       "dense_closest_kernel", "pairs_kernel")
 # trace kernel vs plain: hit/miss and occlusion equal; tri equal unless
 # the two t agree within 1e-6 relative (an exact tie); t within rtol 1e-5
 # / atol 1e-6; interpolated attributes (and u, v) within 1e-4
@@ -162,6 +192,7 @@ FP32_OPS_PER_S = 67e12
 # count (later tests cannot change the color); one shaded point light
 # (attenuation, light_contrib, accumulation); one spot light.
 MOLLER_OPS = 53
+LANES = 128  # triangles per cluster slab
 LIST_LIGHT_OPS = 6
 POINT_LIGHT_OPS = 109
 SPOT_LIGHT_OPS = 112
@@ -222,8 +253,9 @@ def all_kernels():
     from prosper_tpu_torch.ops import shade_tiles as tst
     from prosper_tpu_torch.ops import trace_bvh as tb
     from prosper_tpu_torch.ops import trace_flat as tf
+    from prosper_tpu_torch.ops import trace_leafmajor as lm
 
-    return tb.KERNELS + tst.KERNELS + tf.KERNELS
+    return tb.KERNELS + tst.KERNELS + tf.KERNELS + lm.KERNELS
 
 
 def reset_counts() -> None:
@@ -576,14 +608,18 @@ def plain_paths():
     """The deferred, forward, ReSTIR and path tracer frames' kernels
     swapped for their plain versions, wherever the frames look them up
     (ops/trace.make_tracer reads the wrappers of ops/trace_bvh.py and
-    ops/trace_flat.py at each call)."""
+    ops/trace_flat.py at each call, the leaf-major hybrid those of
+    ops/trace_leafmajor.py and ops/trace_bvh.py)."""
     from prosper_tpu_torch.ops import shade_tiles as tst
     from prosper_tpu_torch.ops import trace_bvh as tb
     from prosper_tpu_torch.ops import trace_flat as tf
+    from prosper_tpu_torch.ops import trace_leafmajor as lm
     from prosper_tpu_torch.render import gbuffer, pt, shading
 
     return patched(
         (gbuffer, "trace_primary_bvh_full", tb.trace_primary_bvh_full_plain),
+        (pt, "trace_primary_bvh_full", tb.trace_primary_bvh_full_plain),
+        (lm, "run_pairs", lm.run_pairs_plain),
         (gbuffer, "trace_closest_bvh_full",
          as_plain(tb.trace_closest_bvh_full_plain)),
         (gbuffer, "trace_closest_flat_full",
@@ -1060,11 +1096,11 @@ def run_forward(smi, dev, records):
 
 
 @contextlib.contextmanager
-def any_policy(name):
-    """config.policy.any_tracer set to name for a with block."""
+def policy(field, name):
+    """config.policy.<field> set to name for a with block."""
     from prosper_tpu_torch import config
 
-    with mock.patch.object(config.policy, "any_tracer", name):
+    with mock.patch.object(config.policy, field, name):
         yield
 
 
@@ -1147,7 +1183,7 @@ def check_restir_kernels(fns):
     frame = scene_b["frame"]
     k3_args = (scene_b["geom"]["packed9"], frame["bvh_bounds"],
                frame["bvh_meta"])
-    with any_policy("stack"):
+    with policy("any_tracer", "stack"):
         func, args_b = capture_shadow_rays(fn_b, scene_b, cam_b)
     if func is not tb.trace_any_bvh:
         raise RuntimeError(f"the BVH frame's shadow rays went to {func}")
@@ -1211,10 +1247,10 @@ def run_restir(smi, dev):
 
     phase("restir")
     launches = {}
-    for cell, (kw, policy, path) in RESTIR_CELLS.items():
+    for cell, (kw, any_tracer, path) in RESTIR_CELLS.items():
         label = f"{cell} {W}x{H} lights={N_LIGHTS}"
         fn, scene, cam = fns[kw.get("bvh", True)]
-        with any_policy(policy):
+        with policy("any_tracer", any_tracer):
             ms_frame, counts, img, state, stats = drive(fn, scene, cam, path,
                                                         label, smi)
             for k, n in counts.items():
@@ -1327,6 +1363,304 @@ def run_pt_flat(smi, dev, records):
     return launches
 
 
+@contextlib.contextmanager
+def recording_bounce(module):
+    """Keep the whole arguments of every call of the "any" and
+    "closest_full" fns that module.make_bounce_tracer returns, the rays
+    copied (the path tracer reuses its ray buffers)."""
+    real = module.make_bounce_tracer
+    calls = {"any": [], "closest_full": []}
+
+    def make_bounce_tracer(*args, **kw):
+        tr = real(*args, **kw)
+        if tr is None:
+            return None
+        out = {}
+        for key, fn in tr.items():
+            def rec(*a, fn=fn, key=key):
+                calls[key].append(fn.args + tuple(
+                    x.clone() if isinstance(x, torch.Tensor) else x
+                    for x in a))
+                return fn(*a)
+            out[key] = None if fn is None else rec
+        return out
+
+    with mock.patch.object(module, "make_bounce_tracer", make_bounce_tracer):
+        yield calls
+
+
+def tiles_over_cap(mn, mx, o, d, t_max) -> tuple[int, int]:
+    """(tiles whose level-1 cull passes more than VIS_CAP clusters,
+    tiles) of ops/trace_leafmajor.candidate_lists on these rays, with its
+    padding rule."""
+    from prosper_tpu_torch.ops import trace_leafmajor as lm
+    from prosper_tpu_torch.ops.intersect import packet_aabb_overlap_2d
+
+    pad = (-o.shape[0]) % lm.ENUM_TILE
+    o = torch.cat([o, o[:1].expand(pad, 3)]).reshape(-1, lm.ENUM_TILE, 3)
+    d = torch.cat([d, torch.zeros_like(d[:pad])]).reshape(-1, lm.ENUM_TILE, 3)
+    t_max = torch.cat([t_max, torch.zeros_like(t_max[:pad])])
+    over = packet_aabb_overlap_2d(
+        o.amin(1), o.amax(1), d.amin(1), d.amax(1), mn, mx,
+        t_max.reshape(-1, lm.ENUM_TILE).amax(1)).sum(1) > lm.VIS_CAP
+    return int(over.sum()), int(over.shape[0])
+
+
+def check_run_pairs(label, slabs, blocks, o, d, t_min, t_max, any_hit):
+    """K14 on one set of pair blocks against its plain version -> (ok,
+    record). Bound: 53 operations x 128 triangles per valid slot (any
+    hit: one test for a slot that hits); the bytes the function must
+    move on this data: block_leaf, the slot arrays of the non-empty
+    blocks, each slotted ray's origin, direction and t_max and each
+    listed leaf's 9 Möller rows once, and the whole output."""
+    from prosper_tpu_torch.ops import trace_leafmajor as lm
+
+    args = (slabs, *blocks, o, d, t_min, t_max, any_hit)
+    want, plain_ms = timed_call(lambda: lm.run_pairs_plain(*args))
+    got = lm.run_pairs(*args)
+    block_leaf, slot_ray, _ = blocks
+    live_blocks = block_leaf >= 0
+    valid = blocks[2] & live_blocks[:, None]
+    n_valid = int(valid.sum())
+    n_bytes = (nbytes(block_leaf, got)
+               + int(live_blocks.sum()) * lm.BLOCK * 5
+               + torch.unique(slot_ray[valid]).numel() * 28
+               + torch.unique(block_leaf[live_blocks]).numel() * 9 * LANES * 4)
+    if any_hit:
+        mism = int(((got != want) & valid).sum())
+        err = float(((got.float() - want.float()).abs() * valid).max())
+        hits = int((want & valid).sum())
+        tests = LANES * (n_valid - hits) + hits
+    else:
+        g, w = got.transpose(1, 2)[valid], want.transpose(1, 2)[valid]
+        mism = int(((g[:, 1] != w[:, 1])
+                    | ((g[:, 0] - w[:, 0]).abs() > T_ATOL + T_RTOL
+                       * w[:, 0].abs())).sum())
+        err = float((g - w).abs().amax()) if n_valid else 0.0
+        hits = int((w[:, 1] >= 0).sum())
+        tests = LANES * n_valid
+    rec = {"max_abs_err": err, "mismatch": mism, "valid_pairs": n_valid,
+           "blocks": int((blocks[0] >= 0).sum()),
+           "block_capacity": int(blocks[0].shape[0]), "slot_hits": hits,
+           "ms": device_ms(lambda: lm.run_pairs(*args), 5),
+           "plain_ms": plain_ms, **bound(n_bytes, MOLLER_OPS * tests)}
+    print(f"K14 {label}: ok={mism == 0} {rec}")
+    return mism == 0, rec
+
+
+def check_trace_set(label, args, any_hit):
+    """One incoherent trace set (slabs, bounds, meta, wc_min, wc_max, o, d,
+    t_min, t_max) as a frame hands it to the leaf-major hybrid: its heavy,
+    pair and block counts; K14 against its plain version on the hybrid's
+    blocks (any_hit as the set) and on the blocks of every ray's first 8
+    candidates; the hybrid against K2 or K3 on the same rays. Returns
+    (ok, record of K14 on the hybrid's blocks, summary)."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
+    from prosper_tpu_torch.ops import trace_leafmajor as lm
+
+    slabs, bounds, meta, mn, mx, o, d, t_min, t_max = args
+    t_min = float(t_min)
+    t_max = tb._tmax(t_max, o.shape[0], o.device)
+    C = mn.shape[0]
+    heavy, pairs, _ = lm.light_pairs(mn, mx, o, d, t_min, t_max)
+    live = t_max > t_min
+    over, tiles = tiles_over_cap(mn, mx, o, d, t_max)
+    summary = {"rays": int(o.shape[0]), "live_rays": int(live.sum()),
+               "heavy_live_rays": int((heavy & live).sum()),
+               "heavy_share_of_live": float((heavy & live).sum())
+               / max(1, int(live.sum())),
+               "tiles_over_vis_cap": over, "tiles": tiles}
+    ok, rec = check_run_pairs(f"{label}, hybrid blocks", slabs,
+                              lm.build_blocks(*pairs, C)[:3], o, d, t_min,
+                              t_max, any_hit)
+    full = lm.enumerate_pairs_tiled(mn, mx, o, d, t_min, t_max)[:3]
+    ok_f, rec_f = check_run_pairs(f"{label}, every ray's first 8 candidates",
+                                  slabs, lm.build_blocks(*full, C)[:3], o, d,
+                                  t_min, t_max, any_hit)
+    ok &= ok_f
+    rec["first_8_candidates"] = {k: rec_f[k] for k in (
+        "valid_pairs", "blocks", "ms", "plain_ms", "bound_ms", "bound_by")}
+
+    # the hybrid against the packet kernel on the same rays
+    scene = (slabs, bounds, meta, mn, mx)
+    if any_hit:
+        def hybrid():
+            return lm.trace_any_leafmajor_safe(*scene, o, d, t_min, t_max)
+
+        def packet():
+            return tb.trace_any_bvh(slabs, bounds, meta, o, d, t_min, t_max)
+        mism = int((hybrid() != packet()).sum())
+        ok_h = mism == 0
+        counts = {"occlusion_mismatch": mism}
+    else:
+        def hybrid():
+            return lm.trace_closest_leafmajor_safe(*scene, o, d, t_min, t_max)
+
+        def packet():
+            return tb.trace_closest_bvh(slabs, bounds, meta, o, d, t_min,
+                                        t_max)
+        h = hybrid()
+        rows = torch.stack([torch.where(h["tri"] >= 0, h["t"], t_max),
+                            h["tri"].float(), h["u"], h["v"]], dim=1)
+        ok_h, counts, _ = compare_rows(rows, packet()[:, :4], [2, 3])
+    tb.check_stack_overflow(o.device)
+    summary.update(hybrid_ms=device_ms(hybrid, 3),
+                   packet_same_rays_ms=device_ms(packet, 3),
+                   hybrid_vs_packet=counts)
+    print(f"{label}: hybrid vs {'K3' if any_hit else 'K2'} ok={ok_h} "
+          f"{summary}")
+    return ok and ok_h, rec, summary
+
+
+def check_k9(o, d, t_min, t_max, scene):
+    """K9 on the path tracer's first bounce set against its plain version
+    and K2, without and with a random skip mask -> (ok, record)."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
+
+    frame, slabs = scene["frame"], scene["geom"]["packed9"]
+    args = (slabs, frame["bvh_bounds"], frame["bvh_meta"], o, d, t_min, t_max)
+    k2 = tb.trace_closest_bvh(*args)
+    tb.check_stack_overflow(o.device)
+    C = slabs.shape[0]
+    gen = torch.Generator().manual_seed(5)
+    rand = (torch.rand(C, generator=gen) > 0.3).to(o.device)
+    ok_all, rec = True, None
+    for name, mask in (("unmasked", None), ("random skip_mask", rand)):
+        want, plain_ms = timed_call(
+            lambda: tb.trace_closest_bvh_dense_plain(*args, skip_mask=mask))
+        got = tb.trace_closest_bvh_dense(*args, skip_mask=mask)
+        ok, counts, err = compare_rows(got, want, [2, 3])
+        tri = got[:, 1].long()
+        if mask is None:
+            ok_k2, vs_k2, _ = compare_rows(got, k2, [2, 3])
+        else:
+            # the masked clusters never hit; a ray whose K2 hit lies in a
+            # kept cluster keeps it
+            in_masked = int(((tri >= 0) & ~mask[tri.clamp_min(0) // LANES])
+                            .sum())
+            k2_tri = k2[:, 1].long()
+            kept = (k2_tri >= 0) & mask[k2_tri.clamp_min(0) // LANES]
+            ok_k2, vs_k2, _ = compare_rows(got[kept], k2[kept], [2, 3])
+            vs_k2["hits_in_masked_clusters"] = in_masked
+            ok_k2 &= in_masked == 0
+        print(f"K9 PT first bounce set, {name}: ok={ok} {counts}; vs K2 "
+              f"ok={ok_k2} {vs_k2}")
+        ok_all &= ok and ok_k2
+        r = {"max_abs_err": err, "rays": int(got.shape[0]),
+             "live_clusters": C if mask is None else int(mask.sum()),
+             "ms": device_ms(
+                 lambda: tb.trace_closest_bvh_dense(*args, skip_mask=mask), 5),
+             "plain_ms": plain_ms,
+             **bound(nbytes(*args, mask, got),
+                     closest_ops(leaf_boxes(scene), o, d, want, t_max, mask))}
+        if rec is None:
+            rec = {**r, "k2_same_rays_ms": device_ms(
+                lambda: tb.trace_closest_bvh(*args), 5)}
+        else:
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["skip_mask"] = {k: r[k] for k in (
+                "live_clusters", "ms", "plain_ms", "bound_ms", "bound_by")}
+    return ok_all, rec
+
+
+def check_leafmajor_kernels(dev):
+    """Phase 11: the first bounce and shadow sets of a path-traced frame
+    and the shadow set of a ReSTIR frame under leafmajor (check_trace_set
+    each), and K9 on the bounce set. Returns (ok, records, summaries)."""
+    from prosper_tpu_torch import entry as port_entry
+    from prosper_tpu_torch.render import pt, restir
+
+    fn, (scene, cam, _) = port_entry.entry(
+        dev, scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
+        max_bounces=BOUNCES)
+    with policy("bounce_tracer", "leafmajor"), \
+            recording_bounce(pt) as pt_calls:
+        fn(scene, cam, 0)
+    fn_r, (scene_r, cam_r, _) = port_entry.entry(
+        dev, scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
+        mode="restir", scatter_lights=N_LIGHTS)
+    with policy("bounce_tracer", "leafmajor"), \
+            recording_bounce(restir) as r_calls:
+        fn_r(scene_r, cam_r, 0)
+    torch.cuda.synchronize()
+    if not (pt_calls["closest_full"] and pt_calls["any"]
+            and len(r_calls["any"]) == 1):
+        raise RuntimeError("the leafmajor frames did not take the hybrid")
+    ok_all, summaries = True, {}
+    ok, k14, summaries["pt_first_bounce_set"] = check_trace_set(
+        "PT first bounce set", pt_calls["closest_full"][0], False)
+    ok_all &= ok
+    for key, args in (("pt_first_shadow_set", pt_calls["any"][0]),
+                      ("restir_shadow_set", r_calls["any"][0])):
+        ok, rec, summaries[key] = check_trace_set(key.replace("_", " "), args,
+                                                  True)
+        ok_all &= ok
+        k14[key] = {k: rec[k] for k in (
+            "valid_pairs", "blocks", "ms", "plain_ms", "bound_ms",
+            "bound_by")}
+        k14["max_abs_err"] = max(k14["max_abs_err"], rec["max_abs_err"])
+    *_, o, d, t_min, t_max = pt_calls["closest_full"][0]
+    ok, k9 = check_k9(o, d, float(t_min), t_max, scene)
+    return (ok_all and ok, {"run_pairs": k14, "trace_closest_bvh_dense": k9},
+            summaries)
+
+
+def run_leafmajor(smi, dev):
+    """Phases 11 and 12; returns (records of K14 and K9, launches per
+    kernel summed over the two leafmajor frames)."""
+    from prosper_tpu_torch import entry as port_entry
+
+    phase("kernels: leaf-major")
+    ok, records, summaries = check_leafmajor_kernels(dev)
+    print("leaf-major trace sets: " + json.dumps(summaries))
+    print("kernel, plain and bound times: " + ", ".join(
+        f"{k} {r['ms']:.3f} vs {r['plain_ms']:.1f} ms, bound "
+        f"{r['bound_ms']:.3f} ms ({r['bound_by']})"
+        for k, r in records.items()) + f"; card: {smi}")
+    if not ok:
+        raise RuntimeError("a leaf-major kernel disagrees with its plain "
+                           "version, or the hybrid with K2/K3")
+
+    phase("leafmajor")
+    launches = {}
+    for cell, (kw, path) in LEAFMAJOR_CELLS.items():
+        label = f"{cell} {W}x{H}"
+        fn, (scene, cam, _) = port_entry.entry(
+            dev, scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
+            **kw)
+        with policy("bounce_tracer", "leafmajor"):
+            ms_frame, counts, img, state, stats = drive(fn, scene, cam, path,
+                                                        label, smi)
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+            stats = [int(x) for x in stats]
+            print(f"{label}: stat per timed frame {min(stats)}-{max(stats)} "
+                  f"(rays, or shadow rays of {W * H} pixels)")
+            breakdown(fn, scene, cam, WARMUP + TIMED, state)
+            img_k, _, n_k = fn(scene, cam, WARMUP)
+            out = []
+            with plain_paths():
+                plain_ms = elapsed_ms(lambda: out.append(fn(scene, cam,
+                                                            WARMUP)))
+            print(f"{label} frame with the plain versions: ms/frame "
+                  f"{plain_ms:.1f} (with the kernels {ms_frame:.3f}); "
+                  f"card: {smi}")
+            frames_agree(f"{label} kernels vs plain versions", (img_k, n_k),
+                         (out[0][0], out[0][2]))
+            got = []
+            for d in (dev, "cpu"):
+                kw64 = {**kw, "scatter_lights": 100} if kw.get(
+                    "mode") == "restir" else {**kw, "max_bounces": 2}
+                fn64, (sc, cm, _) = port_entry.entry(
+                    d, scene="plate", n_clusters=64, width=64, height=64,
+                    **kw64)
+                _, st, _ = fn64(sc, cm, 0)
+                img64, _, n = fn64(sc, cm, 1, st)
+                got.append((img64, n))
+            frames_agree(f"{cell} plate-64 64x64 cuda vs cpu", *got)
+    return records, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: no GPU")
@@ -1377,8 +1711,12 @@ def main() -> int:
     t0 = time.perf_counter()
     pt_flat_launches = run_pt_flat(smi, dev, records)
     print(f"pt bvh=False phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_records, lm_launches = run_leafmajor(smi, dev)
+    print(f"leafmajor phases: {time.perf_counter() - t0:.1f} s")
+    records.update(lm_records)
     for counts in (pt_launches, fwd_launches, restir_launches,
-                   pt_flat_launches):
+                   pt_flat_launches, lm_launches):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     kernels = []
@@ -1386,7 +1724,7 @@ def main() -> int:
         source, replaces = KERNELS[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[source],
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches.get(name, 0),
             "library_ms": None, **rec,
         })
     print(f"card: {smi}")

@@ -1,13 +1,15 @@
 """The runtime policy of the kernel variants.
 
-Counterpart of prosper_tpu/config.py `KernelPolicy` (:22-33) and its
+Counterpart of prosper_tpu/config.py `KernelPolicy` (:22-42) and its
 module-level `policy` (:67), with only the knobs whose kernels the port
 has. The JAX package reads the fields when a function is traced; the
-port reads them at every call (ops/trace.make_tracer), so a field set
-between two frames takes effect at the next one.
+port reads them at every call (ops/trace.make_tracer and
+make_bounce_tracer), so a field set between two frames takes effect at
+the next one.
 
     from prosper_tpu_torch import config
     config.policy.any_tracer = "dense"
+    config.policy.bounce_tracer = "leafmajor"
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 ANY_TRACERS = ("stack", "dense")
+BOUNCE_TRACERS = ("packet", "leafmajor")
 
 
 @dataclass
@@ -25,6 +28,15 @@ class KernelPolicy:
     # (K10). The JAX package measured stack as its default on the TPU;
     # the port keeps that default.
     any_tracer: str = "stack"
+
+    # Tracer of the incoherent rays (the path tracer's bounce and shadow
+    # rays, ReSTIR's shadow rays) on frames with BVH node arrays, read by
+    # ops/trace.make_bounce_tracer: "packet", the tracers of make_tracer,
+    # or "leafmajor", the hybrid of ops/trace_leafmajor.py (exact (ray,
+    # leaf) pairs in pair blocks, K14; rays with too many candidates on
+    # K2/K3). The JAX package measured packet as its default on the TPU;
+    # the port keeps that default.
+    bounce_tracer: str = "packet"
 
 
 policy = KernelPolicy()

@@ -1,6 +1,5 @@
-// BVH2 ray-trace kernels for Hopper (sm_90a): the port of the four
-// Pallas TPU kernels on the path tracer's and the deferred renderer's
-// main paths.
+// BVH2 ray-trace kernels for Hopper (sm_90a): the port of the six
+// Pallas TPU kernels of ops/trace_bvh.py over BVH2 node arrays.
 //
 //   trace_primary_bvh_full  replaces prosper_tpu/ops/trace_bvh.py
 //                           trace_primary_bvh_full (:1431): in-kernel
@@ -19,6 +18,9 @@
 //                           (:1809): K3's occlusion through a dense cull
 //                           of every cluster per 128-ray packet instead of
 //                           the stack walk (see dense_any_kernel).
+//   trace_closest_bvh_dense replaces trace_bvh.py trace_closest_bvh_dense
+//                           (:1144): K2's rows through the same dense
+//                           cull (see dense_closest_kernel).
 //
 // Contract (prosper_tpu_torch/ops/slabs.py): cluster slabs (C, rows, 128)
 // f32 with rows 0-8 = v0|e1|e2 and, for the primary kernel, rows 9-37 =
@@ -378,28 +380,15 @@ __global__ void primary_kernel(const float* __restrict__ slabs, int rows,
 #define DENSE_TILE 128
 #define DENSE_WARPS (DENSE_TILE / 32)
 
-__global__ void __launch_bounds__(DENSE_TILE)
-dense_any_kernel(const float* __restrict__ slabs, int rows, int C,
-                 const float* __restrict__ bounds,
-                 const int* __restrict__ node_of,
-                 const uint8_t* __restrict__ live,
-                 const float* __restrict__ ray_o,
-                 const float* __restrict__ ray_d,
-                 const float* __restrict__ t_max, int R, float t_min,
-                 uint8_t* __restrict__ occ) {
-    extern __shared__ int s_list[];  // C
-    __shared__ float s_ray[7][DENSE_TILE];  // ox oy oz ix iy iz t_max
-    __shared__ int s_wcount[DENSE_WARPS];
+// Steps 1 and 2 of the dense kernels, shared by K10 and K9: stage the
+// packet's rays, cull every live cluster's leaf box against them and
+// compact the entered clusters, in id order, into s_list. Returns the
+// list's length.
+__device__ __forceinline__ int dense_cull(
+    int C, const float* __restrict__ bounds, const int* __restrict__ node_of,
+    const uint8_t* __restrict__ live, const Ray& r, bool can_hit, float tmax,
+    int* s_list, float (*s_ray)[DENSE_TILE], int* s_wcount) {
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int k = blockIdx.x * DENSE_TILE + tid;
-    const bool active = k < R;
-    Ray r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    float tmax = 0.0f;
-    if (active) {
-        load_ray(ray_o, ray_d, k, r);
-        tmax = t_max[k];
-    }
-    const bool can_hit = active && tmax > t_min;
     s_ray[0][tid] = r.ox;
     s_ray[1][tid] = r.oy;
     s_ray[2][tid] = r.oz;
@@ -449,6 +438,32 @@ dense_any_kernel(const float* __restrict__ slabs, int rows, int C,
         count += total;
         __syncthreads();  // s_wcount is rewritten by the next chunk
     }
+    return count;
+}
+
+__global__ void __launch_bounds__(DENSE_TILE)
+dense_any_kernel(const float* __restrict__ slabs, int rows, int C,
+                 const float* __restrict__ bounds,
+                 const int* __restrict__ node_of,
+                 const uint8_t* __restrict__ live,
+                 const float* __restrict__ ray_o,
+                 const float* __restrict__ ray_d,
+                 const float* __restrict__ t_max, int R, float t_min,
+                 uint8_t* __restrict__ occ) {
+    extern __shared__ int s_list[];  // C
+    __shared__ float s_ray[7][DENSE_TILE];  // ox oy oz ix iy iz t_max
+    __shared__ int s_wcount[DENSE_WARPS];
+    const int k = blockIdx.x * DENSE_TILE + threadIdx.x;
+    const bool active = k < R;
+    Ray r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float tmax = 0.0f;
+    if (active) {
+        load_ray(ray_o, ray_d, k, r);
+        tmax = t_max[k];
+    }
+    const bool can_hit = active && tmax > t_min;
+    const int count = dense_cull(C, bounds, node_of, live, r, can_hit, tmax,
+                                 s_list, s_ray, s_wcount);
 
     // 3. the walk, warp by warp
     bool done = !can_hit, hit = false;
@@ -473,7 +488,80 @@ dense_any_kernel(const float* __restrict__ slabs, int rows, int C,
     if (active) occ[k] = hit ? 1 : 0;
 }
 
+// K9, the dense-cull closest hit (trace_bvh.py trace_closest_bvh_dense
+// :1144, _closest_body(dense=True), _make_descent_dense :370): K10's
+// steps 1 and 2, then each warp walks the list in id order with no block
+// barrier; a lane retests the cluster's leaf box against its own best t
+// (node_test, the test K2 makes at that leaf) and, when it enters before
+// it, runs Möller over the 128 triangles with a strict t < best. The
+// list in id order and the lanes in order give the lowest tri among
+// exact t ties. JAX pops the clusters nearest first and stops once the
+// nearest entry lies beyond every ray's best t; the id order tests more
+// clusters and finds the same hit. Output: K2's (R, 8) rows, a miss has
+// t = t_max and tri = -1.
+__global__ void __launch_bounds__(DENSE_TILE)
+dense_closest_kernel(const float* __restrict__ slabs, int rows, int C,
+                     const float* __restrict__ bounds,
+                     const int* __restrict__ node_of,
+                     const uint8_t* __restrict__ live,
+                     const float* __restrict__ ray_o,
+                     const float* __restrict__ ray_d,
+                     const float* __restrict__ t_max, int R, float t_min,
+                     float* __restrict__ out) {
+    extern __shared__ int s_list[];  // C
+    __shared__ float s_ray[7][DENSE_TILE];  // ox oy oz ix iy iz t_max
+    __shared__ int s_wcount[DENSE_WARPS];
+    const int k = blockIdx.x * DENSE_TILE + threadIdx.x;
+    const bool active = k < R;
+    Ray r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float tmax = 0.0f;
+    if (active) {
+        load_ray(ray_o, ray_d, k, r);
+        tmax = t_max[k];
+    }
+    const bool can_hit = active && tmax > t_min;
+    const int count = dense_cull(C, bounds, node_of, live, r, can_hit, tmax,
+                                 s_list, s_ray, s_wcount);
+
+    Hit h = {tmax, 0.0f, 0.0f, -1};
+    for (int i = 0; i < count; ++i) {
+        const int c = s_list[i];
+        float en;
+        const bool need =
+            can_hit && node_test(bounds, __ldg(node_of + c), r, h.t, en);
+        if (!__any_sync(0xffffffffu, need)) continue;
+        if (need) {
+            const float* s = slabs + (size_t)c * rows * LANES;
+            for (int j = 0; j < LANES; ++j) {
+                float t, u, v;
+                if (moller(s, j, r, t_min, h.t, t, u, v)) {
+                    h.t = t;
+                    h.u = u;
+                    h.v = v;
+                    h.tri = c * LANES + j;
+                }
+            }
+        }
+    }
+    if (!active) return;
+    float* o = out + 8 * (size_t)k;
+    o[0] = h.t;
+    o[1] = (float)h.tri;
+    o[2] = h.u;
+    o[3] = h.v;
+    o[4] = o[5] = o[6] = o[7] = 0.0f;
+}
+
 inline int blocks(int n) { return (n + BLOCK - 1) / BLOCK; }
+
+// Dynamic shared memory of a dense kernel: the list, one int a cluster.
+template <typename Kernel>
+inline int dense_smem(Kernel kernel, int C, size_t& bytes) {
+    bytes = sizeof(int) * (size_t)C;
+    if (bytes <= 48 * 1024) return 0;
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
 
 }  // namespace
 
@@ -513,17 +601,34 @@ extern "C" int trace_any_bvh_dense(const float* slabs, int rows, int C,
                                    int R, float t_min, uint8_t* occ,
                                    void* stream) {
     if (R <= 0) return 0;
-    size_t bytes = sizeof(int) * (size_t)C;
-    if (bytes > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            dense_any_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)bytes);
-        if (e != cudaSuccess) return (int)e;
-    }
+    size_t bytes;
+    int e = dense_smem(dense_any_kernel, C, bytes);
+    if (e != 0) return e;
     dense_any_kernel<<<(R + DENSE_TILE - 1) / DENSE_TILE, DENSE_TILE, bytes,
                        (cudaStream_t)stream>>>(slabs, rows, C, bounds,
                                                node_of, live, ray_o, ray_d,
                                                t_max, R, t_min, occ);
+    return (int)cudaGetLastError();
+}
+
+// K9: as K10, with (R, 8) closest-hit rows.
+extern "C" int trace_closest_bvh_dense(const float* slabs, int rows, int C,
+                                       const float* bounds,
+                                       const int* node_of,
+                                       const uint8_t* live,
+                                       const float* ray_o,
+                                       const float* ray_d,
+                                       const float* t_max, int R,
+                                       float t_min, float* out,
+                                       void* stream) {
+    if (R <= 0) return 0;
+    size_t bytes;
+    int e = dense_smem(dense_closest_kernel, C, bytes);
+    if (e != 0) return e;
+    dense_closest_kernel<<<(R + DENSE_TILE - 1) / DENSE_TILE, DENSE_TILE,
+                           bytes, (cudaStream_t)stream>>>(
+        slabs, rows, C, bounds, node_of, live, ray_o, ray_d, t_max, R, t_min,
+        out);
     return (int)cudaGetLastError();
 }
 

@@ -41,6 +41,16 @@ material blends, two alpha-discard rounds when one is not opaque.
 The shadow rays' any-hit kernel follows config.policy.any_tracer on a
 frame with BVH arrays ("stack": K3, "dense": K10); bvh=False takes the
 flat kernels in every mode (K7 for shadow rays).
+config.policy.bounce_tracer = "leafmajor", read at every frame, sends
+the path tracer's shadow and bounce rays and ReSTIR's shadow rays on a
+frame with BVH arrays through the leaf-major hybrid instead: K14's pair
+blocks for rays with few candidate clusters, K3 (shadow) and K2
+(bounce) for the rest; primary rays stay on K1.
+
+    from prosper_tpu_torch import config
+    config.policy.bounce_tracer = "leafmajor"
+    fn, args = entry(scene="plate", n_clusters=2048, width=1920,
+                     height=1080, max_bounces=3)
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ operation for operation as the Pallas block `trace_pallas._moller_block`
 and csrc/trace_flat.cu, so the plain tracers and the kernels round
 alike. No backface culling. Also `packet_aabb_enter_exit` (:55-96), the
 ray-packet cull of the flat tracers, written as csrc/trace_flat.cu
-`packet_enter_exit` evaluates it.
+`packet_enter_exit` evaluates it, and `packet_aabb_overlap_2d` (:152),
+the leaf-major tracer's tile cull.
 """
 
 from __future__ import annotations
@@ -116,3 +117,44 @@ def packet_aabb_enter_exit(o_lo, o_hi, d_lo, d_hi, bmin, bmax):
     invalid = (bmin > bmax).any(dim=-1)
     return (torch.where(invalid, BIG, enter),
             torch.where(invalid, -BIG, exit_))
+
+
+def packet_aabb_overlap_2d(o_lo, o_hi, d_lo, d_hi, bmin, bmax, t_max):
+    """The (packets x AABBs) packet cull of ops/trace_leafmajor
+    candidate_lists (prosper_tpu/ops/intersect.py:152-213), as written
+    there: o_lo, o_hi, d_lo, d_hi (P, 3) packet bounds, bmin, bmax (A,
+    3), t_max (P,) -> (P, A) bool. Per axis with uniform direction sign,
+    the entry is the smaller and the exit the larger of the interval
+    products at both slab planes; an axis whose direction interval
+    holds 0 does not restrict. Overlap: every bmin <= bmax, enter <=
+    exit, exit >= 0 and enter <= t_max. No t_min. This is not
+    packet_aabb_enter_exit's test (that one drops inverted boxes by its
+    entry, this one by the explicit valid term)."""
+    P, A = o_lo.shape[0], bmin.shape[0]
+    enter = torch.full((P, A), -BIG, dtype=torch.float32, device=o_lo.device)
+    exit_ = torch.full((P, A), BIG, dtype=torch.float32, device=o_lo.device)
+    for ax in range(3):
+        dlo, dhi = d_lo[:, ax:ax + 1], d_hi[:, ax:ax + 1]
+        olo, ohi = o_lo[:, ax:ax + 1], o_hi[:, ax:ax + 1]
+        bmn, bmx = bmin[None, :, ax], bmax[None, :, ax]
+        uniform = (dlo > 0.0) | (dhi < 0.0)
+        inv_a = torch.where(uniform, 1.0 / torch.where(uniform, dhi, 1.0), 0.0)
+        inv_b = torch.where(uniform, 1.0 / torch.where(uniform, dlo, 1.0), 0.0)
+        lo0, hi0 = bmn - ohi, bmn - olo
+        lo1, hi1 = bmx - ohi, bmx - olo
+
+        def imul_min(alo, ahi):
+            return torch.minimum(torch.minimum(alo * inv_a, alo * inv_b),
+                                 torch.minimum(ahi * inv_a, ahi * inv_b))
+
+        def imul_max(alo, ahi):
+            return torch.maximum(torch.maximum(alo * inv_a, alo * inv_b),
+                                 torch.maximum(ahi * inv_a, ahi * inv_b))
+
+        en_ax = torch.minimum(imul_min(lo0, hi0), imul_min(lo1, hi1))
+        ex_ax = torch.maximum(imul_max(lo0, hi0), imul_max(lo1, hi1))
+        enter = torch.maximum(enter, torch.where(uniform, en_ax, -BIG))
+        exit_ = torch.minimum(exit_, torch.where(uniform, ex_ax, BIG))
+    valid = (bmin <= bmax).all(dim=-1)[None, :]
+    return (valid & (enter <= exit_) & (exit_ >= 0.0)
+            & (enter <= t_max[:, None]))

@@ -2,7 +2,8 @@
 kernels.
 
 Counterpart of prosper_tpu/ops/trace.py: `world_triangles` (:383),
-`prepare_geometry` (:82), `make_tracer` (:33), `frame_bvh` (:220),
+`prepare_geometry` (:82), `make_tracer` (:33), `bounce_policy` and
+`make_bounce_tracer` (:162-217), `frame_bvh` (:220),
 `block_pixel_order` (:227), `block_inverse16` (:343) and `permute16`
 (:355). The pixel orders are numpy and cached per resolution, as
 render/pt.py `_packed_pixels` caches them.
@@ -89,6 +90,49 @@ def make_tracer(slabs, wc_min, wc_max, bvh=None):
                 partial(any_impl, slabs, bounds, meta))
     return (partial(trace_flat.trace_closest_flat, slabs, wc_min, wc_max),
             partial(trace_flat.trace_any_flat, slabs, wc_min, wc_max))
+
+
+LEAFMAJOR_MAX_CLUSTERS = 4096  # the tile cull is O(tiles x C)
+
+
+def bounce_policy(n_clusters: int, bvh, prefer: str | None = None) -> bool:
+    """True when incoherent rays take the leaf-major tracer: the
+    preference (prefer, else config.policy.bounce_tracer, read at this
+    call) is "leafmajor", the frame has BVH arrays (the heavy rays need
+    K2/K3) and n_clusters <= LEAFMAJOR_MAX_CLUSTERS. An unknown name
+    raises. The JAX package also returns False on its CPU backend
+    (prosper_tpu/ops/trace.py:176); the port has one structure on every
+    device, and the CPU runs K14's plain version."""
+    from .. import config
+
+    if prefer is None:
+        prefer = config.policy.bounce_tracer
+    if prefer not in config.BOUNCE_TRACERS:
+        raise ValueError(f"unknown bounce_tracer policy {prefer!r}; expected "
+                         f"one of {config.BOUNCE_TRACERS}")
+    return (prefer == "leafmajor" and bvh is not None
+            and n_clusters <= LEAFMAJOR_MAX_CLUSTERS)
+
+
+def make_bounce_tracer(slabs, wc_min, wc_max, bvh, prefer=None):
+    """The incoherent-ray policy (prosper_tpu/ops/trace.py:182-217): None
+    when callers keep their packet path (bounce_policy is False), else
+    {"any": fn(o, d, t_min, t_max) -> (R,) bool, "closest_full": fn(o,
+    d, t_min, t_max) -> the full hit dict (t = inf on a miss), or None
+    when slabs has fewer than 38 rows}, both the exact hybrid of
+    ops/trace_leafmajor.py (K14 for light rays, K2/K3 for heavy ones)."""
+    if not bounce_policy(wc_min.shape[0], bvh, prefer):
+        return None
+    from . import trace_leafmajor as lm
+
+    bounds, meta = bvh
+    closest_full = None
+    if slabs.shape[1] >= 38:
+        closest_full = partial(lm.trace_closest_leafmajor_full_safe, slabs,
+                               bounds, meta, wc_min, wc_max)
+    return {"any": partial(lm.trace_any_leafmajor_safe, slabs, bounds, meta,
+                           wc_min, wc_max),
+            "closest_full": closest_full}
 
 
 def block_pixel_order(width: int, height: int, block: int = 16):

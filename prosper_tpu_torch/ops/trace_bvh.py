@@ -1,6 +1,6 @@
 """BVH2 trace kernels: wrappers, plain PyTorch versions, camera uniforms.
 
-Counterpart of prosper_tpu/ops/trace_bvh.py. Four kernels, each a
+Counterpart of prosper_tpu/ops/trace_bvh.py. Six kernels, each a
 hand-written CUDA kernel in csrc/trace_bvh.cu with a plain PyTorch twin:
 
 - `trace_primary_bvh_full` (K1, replaces the Pallas kernel of the same
@@ -19,6 +19,9 @@ hand-written CUDA kernel in csrc/trace_bvh.cu with a plain PyTorch twin:
   leaf boxes and triangles -> (R,) bool; an optional `skip_mask` as
   K4's. The policy config.policy.any_tracer = "dense" selects it
   (ops/trace.make_tracer).
+- `trace_closest_bvh_dense` (K9, trace_bvh.py:1144): K2's closest hit
+  through K10's dense cull -> (R, 8) rows, with K10's `skip_mask`. No
+  frame calls it, in the JAX package either; chip_smoke.py checks it.
 
 Dispatch: a wrapper runs the plain version only because its tensors lie
 on the CPU. On CUDA tensors it launches the kernel or raises; it never
@@ -360,6 +363,16 @@ def trace_any_bvh_dense_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
     return torch.isfinite(best_t)
 
 
+def trace_closest_bvh_dense_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
+                                  t_max, skip_mask=None):
+    """Plain dense closest hit -> (R, 8) rows, K2's over the live
+    clusters of dense_aux (the packet cull lists a superset of what each
+    ray tests, as in trace_any_bvh_dense_plain)."""
+    _, cmin, cmax, dead = dense_aux(slabs.shape[0], bounds, meta, skip_mask)
+    return _closest_rows(slabs, cmin, cmax, ray_o, ray_d, t_min, t_max,
+                         live=~dead)
+
+
 def trace_primary_bvh_full_plain(slabs, bounds, meta, pix_cols, cam_vec,
                                  frame_index, t_min):
     """Plain primary trace -> (T*256, 16) full hit rows."""
@@ -385,14 +398,15 @@ _ARGTYPES = {
     "trace_any_bvh_dense": [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
                             _P, _P, ctypes.c_int, ctypes.c_float, _P, _P],
 }
-DENSE_TILE = 128  # rays per packet of K10 (trace_bvh.py:1819, tile=128)
+_ARGTYPES["trace_closest_bvh_dense"] = _ARGTYPES["trace_any_bvh_dense"]
+DENSE_TILE = 128  # rays per packet of K9, K10 (trace_bvh.py:1154, :1819)
 MAX_SHARED = 232448  # bytes of shared memory one H100 block can have
 DENSE_STATIC_SMEM = 4 * 7 * DENSE_TILE + 4 * (DENSE_TILE // 32)
 
 
 def dense_list_bytes(n_clusters: int) -> int:
-    """Shared memory of one K10 block: the cluster list (one int per
-    cluster) and the packet's staged rays."""
+    """Shared memory of one K9 or K10 block: the cluster list (one int
+    per cluster) and the packet's staged rays."""
     return 4 * int(n_clusters) + DENSE_STATIC_SMEM
 
 
@@ -593,6 +607,36 @@ def trace_primary_bvh_full(slabs, bounds, meta, pix_cols, cam_vec,
     return out
 
 
+def _launch_dense(name, slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
+                  skip_mask, out):
+    """Check the inputs of K9 or K10 and launch it into out."""
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    _check_scene(slabs, bounds, meta, dev)
+    _expect(ray_o, "ray_o", torch.float32, dev, (R, 3))
+    _expect(ray_d, "ray_d", torch.float32, dev, (R, 3))
+    C = slabs.shape[0]
+    if dense_list_bytes(C) > MAX_SHARED:
+        raise ValueError(
+            f"{name}: the cluster list of {C} clusters needs "
+            f"{dense_list_bytes(C)} bytes of shared memory, more than a "
+            f"block has ({MAX_SHARED})")
+    live = 0
+    if skip_mask is not None:
+        _expect(skip_mask, "skip_mask", torch.bool, dev, (C,))
+        live = skip_mask.data_ptr()
+    node_of = dense_aux(C, bounds, meta)[0]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _kernel(name)(
+            slabs.data_ptr(), slabs.shape[1], C, bounds.data_ptr(),
+            node_of.data_ptr(), live, ray_o.data_ptr(), ray_d.data_ptr(),
+            t_max.data_ptr(), R, float(t_min), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    return out
+
+
 def trace_any_bvh_dense(slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
                         skip_mask=None):
     """Any hit of R rays through the dense cull -> (R,) bool occlusion,
@@ -609,32 +653,36 @@ def trace_any_bvh_dense(slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
                                          float(t_min), t_max, skip_mask)
     if dev.type != "cuda":
         raise ValueError(f"trace_any_bvh_dense: unsupported device {dev}")
-    _check_scene(slabs, bounds, meta, dev)
-    _expect(ray_o, "ray_o", torch.float32, dev, (R, 3))
-    _expect(ray_d, "ray_d", torch.float32, dev, (R, 3))
-    C = slabs.shape[0]
-    if dense_list_bytes(C) > MAX_SHARED:
-        raise ValueError(
-            f"trace_any_bvh_dense: the cluster list of {C} clusters needs "
-            f"{dense_list_bytes(C)} bytes of shared memory, more than a "
-            f"block has ({MAX_SHARED})")
-    live = 0
-    if skip_mask is not None:
-        _expect(skip_mask, "skip_mask", torch.bool, dev, (C,))
-        live = skip_mask.data_ptr()
-    node_of = dense_aux(C, bounds, meta)[0]
-    occ = torch.empty((R,), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel("trace_any_bvh_dense")(
-            slabs.data_ptr(), slabs.shape[1], C, bounds.data_ptr(),
-            node_of.data_ptr(), live, ray_o.data_ptr(), ray_d.data_ptr(),
-            t_max.data_ptr(), R, float(t_min), occ.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"trace_any_bvh_dense: CUDA launch failed with "
-                           f"error {rc}")
+    occ = _launch_dense("trace_any_bvh_dense", slabs, bounds, meta, ray_o,
+                        ray_d, t_min, t_max, skip_mask,
+                        torch.empty((R,), dtype=torch.bool, device=dev))
     trace_any_bvh_dense.launches += 1
     return occ
+
+
+def trace_closest_bvh_dense(slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
+                            skip_mask=None):
+    """Closest hit of R rays through the dense cull -> (R, 8) rows t | tri
+    | u | v | pad, as trace_closest_bvh: a miss row has t = t_max, tri =
+    -1; among exact t ties the lowest tri.
+
+    slabs (C, >=9, 128) f32; bounds (N, 6) f32; meta (N, 3) i32; ray_o,
+    ray_d (R, 3) f32; t_max scalar or (R,); skip_mask (C,) bool or None:
+    a cluster marked False is never tested."""
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    t_max = _tmax(t_max, R, dev)
+    if dev.type == "cpu":
+        return trace_closest_bvh_dense_plain(slabs, bounds, meta, ray_o,
+                                             ray_d, float(t_min), t_max,
+                                             skip_mask)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_closest_bvh_dense: unsupported device {dev}")
+    out = _launch_dense("trace_closest_bvh_dense", slabs, bounds, meta, ray_o,
+                        ray_d, t_min, t_max, skip_mask,
+                        torch.empty((R, 8), dtype=torch.float32, device=dev))
+    trace_closest_bvh_dense.launches += 1
+    return out
 
 
 trace_closest_bvh.launches = 0
@@ -642,8 +690,10 @@ trace_any_bvh.launches = 0
 trace_primary_bvh_full.launches = 0
 trace_closest_bvh_full.launches = 0
 trace_any_bvh_dense.launches = 0
+trace_closest_bvh_dense.launches = 0
 KERNELS = (trace_primary_bvh_full, trace_closest_bvh, trace_any_bvh,
-           trace_closest_bvh_full, trace_any_bvh_dense)
+           trace_closest_bvh_full, trace_any_bvh_dense,
+           trace_closest_bvh_dense)
 
 
 def reset_launch_counts() -> None:

@@ -12,8 +12,13 @@ roulette, and traces the bounce ray through the closest-hit kernel K2
 (pt.py:184-193) the primary rays are the pinhole rays, primary and
 bounce rays take the flat kernel K8 ((R, 16) rows) and shadow rays K7;
 the wavefront is already in 16x16-block order, the order the flat
-kernels cull in. On CUDA tensors the kernels run; on CPU tensors their
-plain versions do.
+kernels cull in. Under config.policy.bounce_tracer = "leafmajor" a frame
+with BVH arrays sends its shadow and bounce rays through the exact
+hybrid of ops/trace.make_bounce_tracer (pt.py:208-215, :439-440,
+:711-714): K14's pair blocks for light rays, K3 and K2 for heavy ones,
+bounce rays with t_min 1e-4, as the JAX package passes on that path;
+primary rays stay on K1. On CUDA tensors the kernels run; on CPU
+tensors their plain versions do.
 
 RNG order matches pt.py:14-16 call for call: uv jitter (1 advance), then
 per bounce light pick (1, masked), bounce pick (1), bounce direction (1),
@@ -49,7 +54,13 @@ from ..ops.brdf import (
 from ..ops.rays import offset_ray, pinhole_rays
 from ..ops.slabs import attrs_from_hit_rows, unpack_hit8, unpack_hit16
 from ..ops.tonemap import tone_map
-from ..ops.trace import frame_bvh, make_tracer, permute16, pixel_layouts_np
+from ..ops.trace import (
+    frame_bvh,
+    make_bounce_tracer,
+    make_tracer,
+    permute16,
+    pixel_layouts_np,
+)
 from ..ops.trace_bvh import (
     check_stack_overflow,
     primary_cam_vec,
@@ -64,6 +75,7 @@ from .surface import evaluate_surface_from_attrs
 ROULETTE_START_BOUNCE = 1  # reference UI default (RtReference.hpp)
 SHADOW_T_MIN = 0.1  # main.rgen shadow() tMin
 BOUNCE_T_MIN = 0.0  # the t_min pt.py passes for primary and bounce traces
+LEAFMAJOR_BOUNCE_T_MIN = 1e-4  # bounce t_min on the leaf-major path (:712)
 
 
 def _dot(a, b):
@@ -232,7 +244,11 @@ def pt_trace_pixels(scene: dict, cam: dict, px, py, pix_cols, width: int,
     frame, geom = scene["frame"], scene["geom"]
     bvh = frame_bvh(frame)
     wc_min, wc_max = frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]
-    _, any_fn = make_tracer(geom["packed9"], wc_min, wc_max, bvh=bvh)
+    bounce_tr = make_bounce_tracer(geom["packed_full"], wc_min, wc_max, bvh)
+    if bounce_tr is None:
+        _, any_fn = make_tracer(geom["packed9"], wc_min, wc_max, bvh=bvh)
+    else:
+        any_fn = bounce_tr["any"]
     R0 = px.shape[0]
     state, ray_o, ray_d = primary_streams(
         cam, px, py, width, height, frame_index
@@ -264,7 +280,11 @@ def pt_trace_pixels(scene: dict, cam: dict, px, py, pix_cols, width: int,
         if b + 1 < max_bounces:
             n_rays = n_rays + active.sum()
             tmax = torch.where(active, float("inf"), 0.0)
-            if bvh is not None:
+            if bounce_tr is not None:
+                hit = bounce_tr["closest_full"](
+                    ray_o.contiguous(), ray_d.contiguous(),
+                    LEAFMAJOR_BOUNCE_T_MIN, tmax)
+            elif bvh is not None:
                 h8 = trace_closest_bvh(
                     geom["packed_full"], *bvh, ray_o.contiguous(),
                     ray_d.contiguous(), BOUNCE_T_MIN, tmax,

@@ -22,13 +22,16 @@ absolute coordinates.
 
 The port runs every pass densely over the row-major frame. The JAX
 package's tile compaction (`ops/compact.tile_apply`), block16 pixel
-order and `blocks_to_rows`, the Morton light-position sort of the
-shadow rays and `make_bounce_tracer` change only the order and extent
-of work, not results (restir.py:346-351, :396-403), and are not carried;
-nor are spatial_reuse's neighbour bands of the multi-chip path.
+order and `blocks_to_rows` and the Morton light-position sort of the
+shadow rays change only the order and extent of work, not results
+(restir.py:346-351, :396-403), and are not carried; nor are
+spatial_reuse's neighbour bands of the multi-chip path.
 
-The shadow rays go through ops/trace.make_tracer's any-hit fn, in
-16x16-block order (ops/trace.traced_in_blocks): K3 or, under
+The shadow rays go, in 16x16-block order (ops/trace.traced_in_blocks),
+through the any-hit fn of ops/trace.make_bounce_tracer when
+config.policy.bounce_tracer is "leafmajor" on a frame with BVH arrays
+(restir.py:250-261, :383-393: K14 for light rays, K3 for heavy ones),
+else through ops/trace.make_tracer's: K3 or, under
 config.policy.any_tracer = "dense", K10 on frames with BVH arrays, K7
 without.
 """
@@ -45,7 +48,12 @@ from ..mathx.color import luminance
 from ..mathx.packing import signed_oct_decode
 from ..ops.brdf import eval_brdf_times_nol
 from ..ops.tonemap import tone_map
-from ..ops.trace import frame_bvh, make_tracer, traced_in_blocks
+from ..ops.trace import (
+    frame_bvh,
+    make_bounce_tracer,
+    make_tracer,
+    traced_in_blocks,
+)
 from ..ops.trace_bvh import check_stack_overflow
 from ..scene.convert import camera_tensors, check_device
 from .gbuffer import render_gbuffer
@@ -191,13 +199,19 @@ def spatial_reuse(surface: dict, lights: dict, neigh_rows, px, py,
 
 def shadow_tracer(scene: dict, width: int, height: int):
     """any_fn(o, d, t_min, t_max) -> (R,) bool for the row-major shadow
-    rays of a whole frame: ops/trace.make_tracer's any-hit fn (K3, K10 or
-    K7, as the frame and config.policy decide), traced in 16x16 pixel
-    blocks, whose packets are narrower than 256x1 row strips; the order
-    does not change the mask."""
+    rays of a whole frame: the leaf-major hybrid's any-hit fn when
+    ops/trace.make_bounce_tracer gives one, else ops/trace.make_tracer's
+    (K3, K10 or K7, as the frame and config.policy decide), traced in
+    16x16 pixel blocks, whose packets are narrower than 256x1 row strips;
+    the order does not change the mask."""
     frame = scene["frame"]
-    _, any_fn = make_tracer(scene["geom"]["packed9"], frame["wc_aabb_min_w"],
-                            frame["wc_aabb_max_w"], bvh=frame_bvh(frame))
+    args = (scene["geom"]["packed9"], frame["wc_aabb_min_w"],
+            frame["wc_aabb_max_w"])
+    bounce_tr = make_bounce_tracer(*args, frame_bvh(frame))
+    if bounce_tr is None:
+        _, any_fn = make_tracer(*args, bvh=frame_bvh(frame))
+    else:
+        any_fn = bounce_tr["any"]
     return traced_in_blocks(any_fn, width, height)
 
 

@@ -7,7 +7,8 @@ there run
 
 Tolerances as chip_smoke.py states them: hit/miss and occlusion equal,
 tri equal except exact t ties, t within rtol 1e-5, attributes 1e-4; the
-shading kernel within rtol 1e-5 / atol 1e-6 of its plain version."""
+shading kernel within rtol 1e-5 / atol 1e-6 of its plain version; the
+pair-block kernel's slots equal to its plain version's."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from prosper_tpu_torch.entry import entry
 from prosper_tpu_torch.ops import shade_tiles as tst
 from prosper_tpu_torch.ops import trace_bvh as tb
 from prosper_tpu_torch.ops import trace_flat as tf
+from prosper_tpu_torch.ops import trace_leafmajor as lm
 from prosper_tpu_torch.render import forward, gbuffer, pt, shading
 from prosper_tpu_torch.scene.camera import (
     Camera,
@@ -84,7 +86,7 @@ def test_kernels_match_plain_on_card(cuda, scene, n):
                                   t_max)
     assert torch.equal(occ, want)
     tb.check_stack_overflow(cuda)
-    assert [f.launches for f in tb.KERNELS] == [1, 1, 1, 0, 0]
+    assert [f.launches for f in tb.KERNELS] == [1, 1, 1, 0, 0, 0]
 
 
 def _random_rays(cam, R, seed, device):
@@ -467,5 +469,136 @@ def test_pt_frame_without_bvh_on_card_matches_cpu(cuda):
     assert launches == [(3, 3), (0, 0)]  # K8 primary + 2 bounces, K7 x3
     (img_g, n_g), (img_c, n_c) = out
     assert n_g == n_c
+    off = ((img_g - img_c).abs() > 1e-3).any(dim=-1).float().mean()
+    assert float(off) <= 0.01
+
+
+def _incoherent_rays(sc, R, seed, device):
+    """R rays from random points of the scene's bounds in random
+    directions, tile 0 a narrow cone from outside the grid; every ninth
+    lane disabled, every seventh with t_max 6."""
+    frame = sc["frame"]
+    lo = frame["wc_aabb_min_w"].amin(0)
+    hi = frame["wc_aabb_max_w"].amax(0)
+    rng = np.random.default_rng(seed)
+    o = lo + (hi - lo) * torch.as_tensor(rng.random((R, 3)),
+                                         dtype=torch.float32, device=device)
+    d = torch.as_tensor(rng.normal(size=(R, 3)), dtype=torch.float32,
+                        device=device)
+    o[:256] = lo - 1.0
+    axis = (hi - lo) / (hi - lo).norm()
+    d[:256] = axis + 0.02 * d[:256]
+    d = d / d.norm(dim=1, keepdim=True)
+    t_max = torch.full((R,), float("inf"), device=device)
+    t_max[::9] = 0.0
+    t_max[1::7] = 6.0
+    return o.contiguous(), d.contiguous(), t_max
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_run_pairs_matches_plain_on_card(cuda, any_hit):
+    """K14 against its plain version on the blocks of every ray's first
+    8 candidates (the non-hybrid enumeration): equal slots."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32)
+    frame, slabs = sc["frame"], sc["geom"]["packed_full"]
+    o, d, t_max = _incoherent_rays(sc, 5000, 6, cuda)
+    t_min = 0.1 if any_hit else 1e-4
+    pairs = lm.enumerate_pairs_tiled(frame["wc_aabb_min_w"],
+                                     frame["wc_aabb_max_w"], o, d, t_min,
+                                     t_max)[:3]
+    blocks = lm.build_blocks(*pairs, 64)[:3]
+    lm.run_pairs.launches = 0
+    got = lm.run_pairs(slabs, *blocks, o, d, t_min, t_max, any_hit)
+    torch.cuda.synchronize()
+    want = lm.run_pairs_plain(slabs, *blocks, o, d, t_min, t_max, any_hit)
+    assert lm.run_pairs.launches == 1
+    valid = blocks[2]
+    if any_hit:
+        assert torch.equal(got & valid, want & valid) and (got & valid).any()
+    else:
+        assert torch.equal(got[:, :2], want[:, :2])
+        torch.testing.assert_close(got[:, 2:], want[:, 2:], rtol=0,
+                                   atol=1e-6)
+        assert (got[:, 1] >= 0).any()
+
+
+def test_hybrid_matches_k2_k3_on_card(cuda):
+    """The leaf-major hybrid against K2 and K3 on the same rays of the
+    plate-160 scene (heavy tiles over VIS_CAP and one light tile); each
+    of K14, K2 and K3 launches once per trace."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=160, width=32,
+                             height=32)
+    frame, slabs = sc["frame"], sc["geom"]["packed9"]
+    bvh = (frame["bvh_bounds"], frame["bvh_meta"])
+    boxes = (frame["wc_aabb_min_w"], frame["wc_aabb_max_w"])
+    o, d, t_max = _incoherent_rays(sc, 5000, 7, cuda)
+    tb.reset_launch_counts()
+    lm.run_pairs.launches = 0
+    hit = lm.trace_closest_leafmajor_safe(slabs, *bvh, *boxes, o, d, 1e-4,
+                                          t_max)
+    occ = lm.trace_any_leafmajor_safe(slabs, *bvh, *boxes, o, d, 0.1, t_max)
+    assert (lm.run_pairs.launches, tb.trace_closest_bvh.launches,
+            tb.trace_any_bvh.launches) == (2, 1, 1)
+    k2 = tb.trace_closest_bvh(slabs, *bvh, o, d, 1e-4, t_max)
+    k3 = tb.trace_any_bvh(slabs, *bvh, o, d, 0.1, t_max)
+    tb.check_stack_overflow(cuda)
+    rows = torch.stack([torch.where(hit["tri"] >= 0, hit["t"], t_max),
+                        hit["tri"].float(), hit["u"], hit["v"]], dim=1)
+    _rows_agree(rows, k2[:, :4])
+    assert torch.equal(occ, k3) and occ.any() and not occ.all()
+
+
+@pytest.mark.parametrize("skip", [False, True], ids=["all", "skip_mask"])
+def test_dense_closest_matches_plain_on_card(cuda, skip):
+    """K9 against its plain version, and over every cluster against K2,
+    on incoherent rays; with a skip mask no hit on a masked cluster."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32)
+    frame, slabs = sc["frame"], sc["geom"]["packed9"]
+    bvh = (frame["bvh_bounds"], frame["bvh_meta"])
+    o, d, t_max = _incoherent_rays(sc, 5000, 8, cuda)
+    mask = None
+    if skip:
+        mask = torch.as_tensor(np.random.default_rng(3).random(64) > 0.4,
+                               device=cuda)
+    tb.trace_closest_bvh_dense.launches = 0
+    got = tb.trace_closest_bvh_dense(slabs, *bvh, o, d, 1e-4, t_max,
+                                     skip_mask=mask)
+    torch.cuda.synchronize()
+    _rows_agree(got, tb.trace_closest_bvh_dense_plain(
+        slabs, *bvh, o, d, 1e-4, t_max, skip_mask=mask))
+    tri = got[:, 1].long()
+    assert (tri >= 0).any()
+    if skip:
+        assert mask[tri[tri >= 0] // 128].all()
+    else:
+        _rows_agree(got, tb.trace_closest_bvh(slabs, *bvh, o, d, 1e-4, t_max))
+        tb.check_stack_overflow(cuda)
+    assert tb.trace_closest_bvh_dense.launches == 1
+
+
+@pytest.mark.parametrize("mode", ["pt", "restir"])
+def test_leafmajor_frames_on_card_match_cpu(cuda, mode, monkeypatch):
+    """Frames under config.policy.bounce_tracer = "leafmajor" on the card
+    against the CPU: equal ray or shadow-ray counts, at most 1% of pixels
+    off by more than 1e-3; K14 ran on the card."""
+    from prosper_tpu_torch import config
+
+    monkeypatch.setattr(config.policy, "bounce_tracer", "leafmajor")
+    kw = dict(scene="plate", n_clusters=64, width=64, height=64, mode=mode)
+    if mode == "pt":
+        kw["max_bounces"] = 3
+    else:
+        kw["scatter_lights"] = 100
+    out = []
+    for dev in (cuda, "cpu"):
+        fn, (sc, cam, _) = entry(dev, **kw)
+        lm.run_pairs.launches = 0
+        _, state, _ = fn(sc, cam, 0)
+        img, _, n = fn(sc, cam, 1, state)
+        out.append((img.cpu(), int(n), lm.run_pairs.launches))
+    (img_g, n_g, k_g), (img_c, n_c, k_c) = out
+    assert n_g == n_c > 0 and k_g > 0 and k_c == 0
     off = ((img_g - img_c).abs() > 1e-3).any(dim=-1).float().mean()
     assert float(off) <= 0.01

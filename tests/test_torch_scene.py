@@ -181,9 +181,9 @@ def test_hit_row_round_trip_equals_jax():
 def test_port_never_imports_jax():
     """Importing every module of the port and rendering a CPU path-traced,
     a CPU deferred and a CPU forward frame (the transparent pass and alpha
-    discard on a frame without BVH arrays), two CPU ReSTIR frames and a
-    path-traced frame without BVH arrays pulls in no JAX and nothing of
-    prosper_tpu."""
+    discard on a frame without BVH arrays), two CPU ReSTIR frames, a
+    path-traced frame without BVH arrays and one under the leaf-major
+    bounce tracer pulls in no JAX and nothing of prosper_tpu."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "torch.set_num_threads(2)\n"
@@ -212,6 +212,12 @@ def test_port_never_imports_jax():
         "assert img.shape == (32, 32, 3) and float(state[1].max()) == 2.0\n"
         "fn, args = entry('cpu', scene='plate', n_clusters=16, width=32,\n"
         "                 height=32, mode='pt', bvh=False)\n"
+        "img, _, n = fn(*args)\n"
+        "assert img.shape == (32, 32, 3) and int(n) > 32 * 32\n"
+        "from prosper_tpu_torch import config\n"
+        "config.policy.bounce_tracer = 'leafmajor'\n"
+        "fn, args = entry('cpu', scene='plate', n_clusters=16, width=32,\n"
+        "                 height=32, mode='pt')\n"
         "img, _, n = fn(*args)\n"
         "assert img.shape == (32, 32, 3) and int(n) > 32 * 32\n"
         "bad =sorted(m for m in sys.modules if m.startswith('jax')\n"
