@@ -8,8 +8,10 @@ CUDA kernels: the wavefront path tracer (3 bounces), with and without
 BVH arrays, the deferred renderer (G-buffer, 1024 scattered point
 lights, clustered tile shading), without and with two-phase meshlet
 culling, the forward renderer with its transparent pass and alpha-mask
-discard, ReSTIR DI under its three tracer configurations, and the path
-tracer and ReSTIR under the leaf-major bounce tracer. Phases:
+discard, ReSTIR DI under its three tracer configurations, the path
+tracer and ReSTIR under the leaf-major bounce tracer, and the glTF
+scene path: the plate scene written as a glTF file, loaded through
+World, rendered, and traced by the 8-wide kernels. Phases:
 
 1. device: CUDA, nvcc and the card's name and power limit;
 2. build: compile csrc/trace_bvh.cu, csrc/shade_tiles.cu,
@@ -70,7 +72,23 @@ tracer and ReSTIR under the leaf-major bounce tracer. Phases:
    K2, without and with a random skip mask;
 12. leafmajor: the path tracer (K1, K14, K2, K3) and ReSTIR (K1, K14,
    K3) under "leafmajor", each checked as phase 9 checks its frames; the
-   policy is restored after the phase.
+   policy is restored after the phase;
+13. world: testing.write_plate_gltf writes the plate scene's 262,144
+   triangles (two meshes, one instanced by 64 TRS nodes under a parent),
+   its 1024 scattered lights (KHR_lights_punctual), its camera and three
+   PNG textures into a temporary directory; scene/world.py `World` loads
+   it with the native mesh library (timed: load, texture arena,
+   frame_arrays with pack_nodes8); then the path tracer (3 bounces: K1,
+   K2, K3) and the culled deferred frame (K1/K4, K5) on it through
+   entry(scene=<path>), each checked as phase 4 checks its frame (the
+   64x64 frames on a 64-plate glTF);
+14. kernels: 8-wide: the World's 8-wide table on the rays of
+   scripts/bench_bvh8.py: K12 on the 1080p block-order pinhole rays
+   against its plain version and K4; on the cosine bounce set from
+   those hits (sorted by cluster and octant) K11 against its plain
+   version and K2, K12 against its plain version and K4, and, with t_max
+   8, K13 against its plain version and K3; each with its time, the
+   plain version's and the BVH2 kernel's on the same rays.
 
 Every launch count is set to 0 just before a path is driven and read
 just after; a kernel of the path that never launched fails the run. Any
@@ -88,6 +106,7 @@ import sys
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -124,6 +143,10 @@ KERNELS = {
                                 "prosper_tpu/ops/trace_bvh.py:1144"),
     "run_pairs": ("trace_leafmajor",
                   "prosper_tpu/ops/trace_leafmajor.py:397"),
+    "trace_closest_bvh8": ("trace_bvh", "prosper_tpu/ops/trace_bvh.py:1918"),
+    "trace_closest_bvh8_full": ("trace_bvh",
+                                "prosper_tpu/ops/trace_bvh.py:1948"),
+    "trace_any_bvh8": ("trace_bvh", "prosper_tpu/ops/trace_bvh.py:1977"),
 }
 PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
 DEFERRED_PATH = {False: ("trace_primary_bvh_full", "shade_clustered_tiles"),
@@ -166,7 +189,11 @@ LEAFMAJOR_CELLS = {
 PORT_KERNEL_SYMBOLS = ("primary_kernel", "closest_kernel", "any_kernel",
                        "closest_full_kernel", "shade_kernel", "flat_kernel",
                        "flat_any_kernel", "dense_any_kernel",
-                       "dense_closest_kernel", "pairs_kernel")
+                       "dense_closest_kernel", "pairs_kernel",
+                       "closest8_kernel", "closest8_full_kernel",
+                       "any8_kernel")
+# the glTF World scene: plate-2048's plates, the last 64 as instances
+WORLD_INSTANCED = 64
 # trace kernel vs plain: hit/miss and occlusion equal; tri equal unless
 # the two t agree within 1e-6 relative (an exact tie); t within rtol 1e-5
 # / atol 1e-6; interpolated attributes (and u, v) within 1e-4
@@ -607,7 +634,8 @@ def as_plain(plain):
 def plain_paths():
     """The deferred, forward, ReSTIR and path tracer frames' kernels
     swapped for their plain versions, wherever the frames look them up
-    (ops/trace.make_tracer reads the wrappers of ops/trace_bvh.py and
+    (render/pt.py and render/gbuffer.py import some wrappers by name;
+    ops/trace.make_tracer reads the wrappers of ops/trace_bvh.py and
     ops/trace_flat.py at each call, the leaf-major hybrid those of
     ops/trace_leafmajor.py and ops/trace_bvh.py)."""
     from prosper_tpu_torch.ops import shade_tiles as tst
@@ -619,6 +647,7 @@ def plain_paths():
     return patched(
         (gbuffer, "trace_primary_bvh_full", tb.trace_primary_bvh_full_plain),
         (pt, "trace_primary_bvh_full", tb.trace_primary_bvh_full_plain),
+        (pt, "trace_closest_bvh", as_plain(tb.trace_closest_bvh_plain)),
         (lm, "run_pairs", lm.run_pairs_plain),
         (gbuffer, "trace_closest_bvh_full",
          as_plain(tb.trace_closest_bvh_full_plain)),
@@ -1661,6 +1690,271 @@ def run_leafmajor(smi, dev):
     return records, launches
 
 
+def load_world(directory):
+    """Phase 13's scene: write the plate glTF, load it through World with
+    the native mesh library, and time each step. Returns (path, frame
+    arrays, timings)."""
+    from unittest import mock as _mock
+
+    from prosper_tpu_torch import testing
+    from prosper_tpu_torch.scene import native
+    from prosper_tpu_torch.scene import world as world_mod
+    from prosper_tpu_torch.scene.textures import build_texture_arena
+
+    times = {}
+    t0 = time.perf_counter()
+    path = testing.write_plate_gltf(directory, N_CLUSTERS,
+                                    n_instanced=WORLD_INSTANCED,
+                                    scatter_lights=N_LIGHTS)
+    times["write_gltf_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not native.available():
+        raise RuntimeError("the native asset pipeline did not load")
+    times["native_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    world = world_mod.World(path)  # a cold cache: processed and written
+    times["world_load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arena = build_texture_arena(world.doc, scene_path=path)
+    times["texture_arena_s"] = time.perf_counter() - t0
+    real = world_mod.pack_nodes8
+    packed = []
+
+    def timed_pack(bvh):
+        t = time.perf_counter()
+        out = real(bvh)
+        packed.append(time.perf_counter() - t)
+        return out
+
+    with _mock.patch.object(world_mod, "pack_nodes8", timed_pack):
+        t0 = time.perf_counter()
+        frame = world.frame_arrays(0.0)
+        times["frame_arrays_s"] = time.perf_counter() - t0
+    times["pack_nodes8_s"] = packed[0]
+    print(f"world: {len(world.meshes)} meshes, "
+          f"{len(world.draw_instances.mesh)} draw instances, "
+          f"{world.n_world_clusters} world clusters, {world.n_real_tris} "
+          f"triangles, {int(frame['lights']['point_count'])} point lights, "
+          f"texture arena {tuple(arena.data.shape)} with "
+          f"{arena.n_mips.tolist()} mips, BVH2 depth {frame['bvh_depth']}, "
+          f"{frame['bvh_nodes8'].shape[0]} 8-wide nodes; "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    return path, frame, times
+
+
+def run_world_frames(smi, dev, path, tmp):
+    """Phase 13: the path tracer and the culled deferred frame of the
+    glTF World scene, each checked as phase 4 checks its frame. Returns
+    the launches per kernel and the World scene's PT frame call (for
+    phase 14)."""
+    from prosper_tpu_torch import entry as port_entry
+    from prosper_tpu_torch import testing
+
+    small = testing.write_plate_gltf(os.path.join(tmp, "small"), 64,
+                                     n_instanced=8, scatter_lights=100)
+    cells = {"world pt": ({"max_bounces": BOUNCES}, PT_PATH),
+             "world deferred culled": ({"mode": "deferred",
+                                        "use_culling": True},
+                                       DEFERRED_PATH[True])}
+    launches, pt_call = {}, None
+    for cell, (kw, path_kernels) in cells.items():
+        label = f"{cell} {W}x{H}"
+        fn, (scene, cam, _) = port_entry.entry(dev, scene=path, width=W,
+                                               height=H, **kw)
+        if pt_call is None:
+            pt_call = (fn, scene, cam)
+        ms_frame, counts, img, state, stats = drive(fn, scene, cam,
+                                                    path_kernels, label, smi)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        stats = [int(x) for x in stats]
+        what = "rays" if "pt" in cell else "drawn meshlets"
+        print(f"{label}: {what} per timed frame {min(stats)}-{max(stats)}")
+        breakdown(fn, scene, cam, WARMUP + TIMED, state)
+        keep = state if "deferred" in cell else None
+        img_k, _, n_k = fn(scene, cam, WARMUP, keep)
+        out = []
+        with plain_paths():
+            plain_ms = elapsed_ms(
+                lambda: out.append(fn(scene, cam, WARMUP, keep)))
+        print(f"{label} frame with the plain versions: ms/frame "
+              f"{plain_ms:.1f} (with the kernels {ms_frame:.3f}); card: {smi}")
+        frames_agree(f"{label} kernels vs plain versions", (img_k, n_k),
+                     (out[0][0], out[0][2]))
+        got = []
+        for d in (dev, "cpu"):
+            kw64 = {**kw, "max_bounces": 2} if "pt" in cell else kw
+            fn64, (sc, cm, _) = port_entry.entry(d, scene=small, width=64,
+                                                 height=64, **kw64)
+            _, st, _ = fn64(sc, cm, 0)
+            img64, _, n = fn64(sc, cm, 1, st)
+            got.append((img64, n))
+        frames_agree(f"{cell} glTF plate-64 64x64 cuda vs cpu", *got)
+    return launches, pt_call
+
+
+def bounce_set(o, d, rows):
+    """scripts/bench_bvh8.py:82-128 on the port's tensors: from every hit
+    of the primary rows (R, 16), a cosine-distributed direction about its
+    normal (numpy default_rng(0)), the origin 1e-4 along the normal;
+    padded with dead rays (t_max 0) to a multiple of 2048 and sorted by
+    (cluster, octant of the direction). Returns (o, d, t_max, live)."""
+    import numpy as np
+
+    t = rows[:, 0].cpu().numpy()
+    tri = rows[:, 1].cpu().numpy().astype(np.int64)
+    n = rows[:, 2:5].cpu().numpy()
+    pos = o.cpu().numpy() + t[:, None] * d.cpu().numpy()
+    idx = np.nonzero(tri >= 0)[0]
+    rng = np.random.default_rng(0)
+    nrm = n[idx]
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-9)
+    u1, u2 = rng.random(idx.size), rng.random(idx.size)
+    r = np.sqrt(u1)
+    phi = 2 * np.pi * u2
+    tang = np.cross(nrm, np.where(np.abs(nrm[:, :1]) < 0.9, [[1.0, 0, 0]],
+                                  [[0, 1.0, 0]]))
+    tang /= np.maximum(np.linalg.norm(tang, axis=1, keepdims=True), 1e-9)
+    bit = np.cross(nrm, tang)
+    dd = (tang * (r * np.cos(phi))[:, None] + bit * (r * np.sin(phi))[:, None]
+          + nrm * np.sqrt(np.maximum(1 - u1, 0))[:, None]).astype(np.float32)
+    oo = (pos[idx] + 1e-4 * nrm).astype(np.float32)
+    cluster = tri[idx] // LANES
+    pad = (-idx.size) % 2048
+    oo = np.pad(oo, ((0, pad), (0, 0)))
+    dd = np.pad(dd, ((0, pad), (0, 0)))
+    tmax = np.pad(np.full(idx.size, np.inf, np.float32), (0, pad))
+    cl = np.pad(cluster, (0, pad))
+    ad = np.abs(dd)
+    denom = np.maximum(ad.sum(1), 1e-20)
+    ox, oy = dd[:, 0] / denom, dd[:, 1] / denom
+    fold = dd[:, 2] < 0
+    ox2 = np.where(fold, (1 - np.abs(oy)) * np.sign(ox), ox)
+    oy2 = np.where(fold, (1 - np.abs(ox)) * np.sign(oy), oy)
+    bx = np.clip(((ox2 * 0.5 + 0.5) * 8).astype(np.int32), 0, 7)
+    by = np.clip(((oy2 * 0.5 + 0.5) * 8).astype(np.int32), 0, 7)
+    perm = np.argsort(cl * 128 + (bx * 8 + by) * 2 + fold, kind="stable")
+    dev = o.device
+    return (torch.as_tensor(oo[perm], device=dev),
+            torch.as_tensor(dd[perm], device=dev),
+            torch.as_tensor(tmax[perm], device=dev), idx.size)
+
+
+def check_closest8(label, kern, plain, ref, args, ref_args, attr_cols,
+                   boxes):
+    """An 8-wide closest-hit kernel on one ray set against its plain
+    version (equal: max_abs_err 0 expected) and the BVH2 kernel `ref` on
+    the same rays (tri equal except exact t ties, t within rtol 1e-5) ->
+    (ok, record)."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
+
+    *_, o, d, t_min, t_max = args
+    want, plain_ms = timed_call(lambda: plain(*args))
+    got = kern(*args)
+    tb.check_stack_overflow(o.device)
+    ok, counts, err = compare_rows(got, want, attr_cols)
+    ref_rows = ref(*ref_args)
+    tb.check_stack_overflow(o.device)
+    ok_ref, vs_ref, _ = compare_rows(got, ref_rows, attr_cols)
+    rec = {"max_abs_err": err, "rays": int(got.shape[0]),
+           "live_rays": int((t_max > t_min).sum()),
+           "ms": device_ms(lambda: kern(*args), 5), "plain_ms": plain_ms,
+           f"{ref.__name__}_same_rays_ms": device_ms(lambda: ref(*ref_args),
+                                                     5),
+           f"vs_{ref.__name__}": vs_ref,
+           **bound(nbytes(*args, got), closest_ops(boxes, o, d, want, t_max))}
+    print(f"{label}: ok={ok} {counts}; vs {ref.__name__} ok={ok_ref}; "
+          f"{rec['ms']:.3f} ms, plain {plain_ms:.1f} ms, "
+          f"{ref.__name__} {rec[f'{ref.__name__}_same_rays_ms']:.3f} ms, "
+          f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+    return ok and ok_ref, rec
+
+
+def check_bvh8_kernels(smi, scene, cam):
+    """Phase 14 on the World scene's arrays: K12 on the block-order
+    pinhole rays, K11 and K12 on the cosine bounce set, K13 on it with
+    t_max 8, each against its plain version and its BVH2 twin. Returns
+    (ok, records)."""
+    from prosper_tpu_torch.ops import trace as ttrace
+    from prosper_tpu_torch.ops import trace_bvh as tb
+    from prosper_tpu_torch.ops.rays import pinhole_rays
+
+    geom, frame = scene["geom"], scene["frame"]
+    dev = geom["packed_full"].device
+    p40, p9, n8 = geom["packed_full"], geom["packed9"], frame["bvh_nodes8"]
+    bvh = (frame["bvh_bounds"], frame["bvh_meta"])
+    boxes = leaf_boxes(scene)
+    t_min, t_any = 1e-4, 0.1  # what the Pallas kernels hard-code
+    px, py, _ = ttrace.block_pixel_order(W, H)
+    uv = (torch.as_tensor(np.stack([px, py], -1).astype(np.float32),
+                          device=dev) + 0.5) / torch.tensor(
+        [float(W), float(H)], device=dev)
+    o, d = pinhole_rays(cam, uv)
+    o, d = o.contiguous(), d.contiguous()
+    inf = torch.full((o.shape[0],), float("inf"), device=dev)
+    full = list(range(2, 13))
+    ok_all, k12 = check_closest8(
+        f"K12 world {W}x{H} primary rays (block order)",
+        tb.trace_closest_bvh8_full, tb.trace_closest_bvh8_full_plain,
+        tb.trace_closest_bvh_full, (p40, n8, o, d, t_min, inf),
+        (p40, *bvh, o, d, t_min, inf), full, boxes)
+    primary = tb.trace_closest_bvh_full(p40, *bvh, o, d, t_min, inf)
+    ob, db, tb_max, live = bounce_set(o, d, primary)
+    print(f"bounce set: {live} live rays of {ob.shape[0]}")
+    ok, k11 = check_closest8(
+        "K11 world bounce set", tb.trace_closest_bvh8,
+        tb.trace_closest_bvh8_plain, tb.trace_closest_bvh,
+        (p9, n8, ob, db, t_min, tb_max), (p9, *bvh, ob, db, t_min, tb_max),
+        [2, 3], boxes)
+    ok_all &= ok
+    ok, k12b = check_closest8(
+        "K12 world bounce set", tb.trace_closest_bvh8_full,
+        tb.trace_closest_bvh8_full_plain, tb.trace_closest_bvh_full,
+        (p40, n8, ob, db, t_min, tb_max), (p40, *bvh, ob, db, t_min, tb_max),
+        full, boxes)
+    ok_all &= ok
+    k12["bounce_set"] = {k: v for k, v in k12b.items()
+                         if k != "vs_trace_closest_bvh_full"}
+    k12["max_abs_err"] = max(k12["max_abs_err"], k12b["max_abs_err"])
+    tm8 = torch.where(tb_max > 1, 8.0, 0.0)
+    ok, k13 = check_any_call("K13 world bounce set, t_max 8",
+                             tb.trace_any_bvh8, tb.trace_any_bvh8_plain,
+                             (p9, n8, ob, db, t_any, tm8), boxes,
+                             (p9, *bvh))
+    ok_all &= ok
+    print("8-wide against BVH2 on the same rays: K12/K4 primary "
+          f"{k12['ms']:.3f}/{k12['trace_closest_bvh_full_same_rays_ms']:.3f}"
+          f" ms, K11/K2 bounce {k11['ms']:.3f}/"
+          f"{k11['trace_closest_bvh_same_rays_ms']:.3f} ms, K12/K4 bounce "
+          f"{k12b['ms']:.3f}/{k12b['trace_closest_bvh_full_same_rays_ms']:.3f}"
+          f" ms, K13/K3 bounce t_max 8 {k13['ms']:.3f}/"
+          f"{k13['k3_same_rays_ms']:.3f} ms; card: {smi}")
+    return ok_all, {"trace_closest_bvh8": k11, "trace_closest_bvh8_full": k12,
+                    "trace_any_bvh8": k13}
+
+
+def run_world(smi, dev):
+    """Phases 13 and 14; returns (records of K11-K13, launches per kernel
+    over the two World frames, the World's load timings)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    try:
+        phase("world")
+        path, _, times = load_world(tmp)
+        launches, (fn, scene, cam) = run_world_frames(smi, dev, path, tmp)
+        phase("kernels: 8-wide")
+        ok, records = check_bvh8_kernels(smi, scene, cam)
+        if not ok:
+            raise RuntimeError("an 8-wide kernel disagrees with its plain "
+                               "version or with its BVH2 twin")
+        records["trace_closest_bvh8"]["world_load"] = times
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return records, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: no GPU")
@@ -1715,8 +2009,12 @@ def main() -> int:
     lm_records, lm_launches = run_leafmajor(smi, dev)
     print(f"leafmajor phases: {time.perf_counter() - t0:.1f} s")
     records.update(lm_records)
+    t0 = time.perf_counter()
+    world_records, world_launches = run_world(smi, dev)
+    print(f"world phases: {time.perf_counter() - t0:.1f} s")
+    records.update(world_records)
     for counts in (pt_launches, fwd_launches, restir_launches,
-                   pt_flat_launches, lm_launches):
+                   pt_flat_launches, lm_launches, world_launches):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     kernels = []

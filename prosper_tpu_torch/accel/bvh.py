@@ -1,11 +1,12 @@
 """BVH construction over cluster AABBs (host side, numpy).
 
-A copy of prosper_tpu/accel/bvh.py `Bvh`, `build_bvh`, `_sah_split` and
-`pack_nodes` (:31-203): binned-SAH BVH2 over cluster AABBs, packed into
-the kernel-facing node arrays bounds (N, 6) f32 [min | max] and meta
-(N, 3) i32 [left, right, leaf_cluster (-1 internal)] that
-ops/trace_bvh.py walks. The port keeps its own copy so that it imports
-nothing of the JAX package.
+A copy of prosper_tpu/accel/bvh.py `Bvh`, `build_bvh`, `_sah_split`,
+`pack_nodes`, `pack_nodes8` and `transform_aabbs` (:31-289): binned-SAH
+BVH2 over cluster AABBs, packed into the kernel-facing node arrays
+bounds (N, 6) f32 [min | max] and meta (N, 3) i32 [left, right,
+leaf_cluster (-1 internal)] that ops/trace_bvh.py walks, and into the
+(N8, 8, 8) 8-wide table of its 8-wide kernels. The port keeps its own
+copy so that it imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -187,3 +188,91 @@ def pack_nodes(bvh: Bvh) -> tuple[np.ndarray, np.ndarray]:
         np.int32
     )
     return bounds, meta
+
+
+def pack_nodes8(bvh: Bvh) -> np.ndarray:
+    """Collapse a max_leaf_size=1 BVH2 into an 8-wide node table.
+
+    Each 8-wide node is built by repeatedly expanding the largest-area
+    internal slot of {node} until 8 slots are filled (the classic
+    wide-BVH collapse). Returns (N8, 8, 8) f32: node n, child slot c holds
+    [min.xyz | max.xyz | enc | 0] where enc >= 0 is an internal child's
+    8-wide node index and enc < 0 encodes leaf cluster -(cluster+1).
+    Empty slots carry NaN bounds and enc 0 (0 is the root, which no slot
+    points at): a slab test written with min/max that return the non-NaN
+    operand would let such a slot through, so the walks skip it by its
+    NaN explicitly."""
+    assert bvh.nodes_count.max() <= 1
+    is_leaf = bvh.nodes_count > 0
+    ext = np.maximum(bvh.nodes_max - bvh.nodes_min, 0.0)
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+
+    blocks: list[np.ndarray] = []
+    # each work item: (8-wide index, slot, BVH2 internal node to emit)
+    patch: list[tuple[int, int, int]] = []
+
+    def collect_slots(n2: int) -> list[int]:
+        slots = [n2]
+        while len(slots) < 8:
+            best, best_a = -1, -1.0
+            for si, s in enumerate(slots):
+                if not is_leaf[s] and area[s] > best_a:
+                    best_a, best = float(area[s]), si
+            if best < 0:
+                break
+            s = slots.pop(best)
+            slots.append(int(bvh.nodes_left[s]))
+            slots.append(int(bvh.nodes_right[s]))
+        return slots
+
+    def emit(n2: int) -> int:
+        my = len(blocks)
+        blk = np.zeros((8, 8), np.float32)
+        blk[:, 0:6] = np.nan
+        blocks.append(blk)
+        slots = [n2] if is_leaf[n2] else collect_slots(n2)
+        for j, s in enumerate(slots):
+            blk[j, 0:3] = bvh.nodes_min[s]
+            blk[j, 3:6] = bvh.nodes_max[s]
+            if is_leaf[s]:
+                blk[j, 6] = -(float(bvh.order[bvh.nodes_first[s]]) + 1.0)
+            else:
+                patch.append((my, j, s))
+        return my
+
+    # iterative emission (the patch queue doubles as the work list)
+    emit(0)
+    qi = 0
+    while qi < len(patch):
+        my, j, s = patch[qi]
+        qi += 1
+        blocks[my][j, 6] = float(emit(s))
+    return np.stack(blocks).astype(np.float32)
+
+
+def nodes8_depth(nodes8: np.ndarray) -> int:
+    """Levels of 8-wide nodes on the longest root-to-leaf path of a
+    pack_nodes8 table (1 when the root's slots are all leaves). A walk
+    that pushes every entered child holds at most 7 entries per level
+    above the node it expands, plus that node's 8: 7 * depth + 1."""
+    enc = nodes8[:, :, 6]
+    real = ~np.isnan(nodes8[:, :, 0])
+    depth, level = 0, [0]
+    while level:
+        depth += 1
+        e = enc[level]
+        level = e[real[level] & (e > 0)].astype(np.int64).tolist()
+    return depth
+
+
+def transform_aabbs(
+    aabb_min: np.ndarray, aabb_max: np.ndarray, m: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """Conservative AABB transform by a 4x4 (TLAS instance transform):
+    the |R| trick, new_extent = |M3x3| @ extent."""
+    c = (aabb_min + aabb_max) * 0.5
+    e = (aabb_max - aabb_min) * 0.5
+    r = m[:3, :3]
+    new_c = c @ r.T + m[:3, 3]
+    new_e = e @ np.abs(r).T
+    return (new_c - new_e).astype(np.float32), (new_c + new_e).astype(np.float32)

@@ -10,6 +10,7 @@ the next one.
     from prosper_tpu_torch import config
     config.policy.any_tracer = "dense"
     config.policy.bounce_tracer = "leafmajor"
+    config.policy.bounce_tap_mip = 4
 """
 
 from __future__ import annotations
@@ -37,6 +38,12 @@ class KernelPolicy:
     # K2/K3). The JAX package measured packet as its default on the TPU;
     # the port keeps that default.
     bounce_tracer: str = "packet"
+
+    # Texture mip of the path tracer's secondary-bounce surface taps
+    # (render/pt.py): 0 samples the base mip, as the reference's
+    # derivative-free texture() does; k > 0 samples every texture at mip
+    # min(k, n_mips - 1). The JAX package keeps 0 as its default.
+    bounce_tap_mip: int = 0
 
 
 policy = KernelPolicy()

@@ -1,5 +1,7 @@
-// BVH2 ray-trace kernels for Hopper (sm_90a): the port of the six
-// Pallas TPU kernels of ops/trace_bvh.py over BVH2 node arrays.
+// BVH ray-trace kernels for Hopper (sm_90a): the port of the six Pallas
+// TPU kernels of ops/trace_bvh.py over BVH2 node arrays and of its three
+// over 8-wide node tables (trace_closest_bvh8, trace_closest_bvh8_full,
+// trace_any_bvh8, at walk8 below).
 //
 //   trace_primary_bvh_full  replaces prosper_tpu/ops/trace_bvh.py
 //                           trace_primary_bvh_full (:1431): in-kernel
@@ -25,7 +27,8 @@
 // Contract (prosper_tpu_torch/ops/slabs.py): cluster slabs (C, rows, 128)
 // f32 with rows 0-8 = v0|e1|e2 and, for the primary kernel, rows 9-37 =
 // attributes; BVH2 nodes bounds (N, 6) f32 [min | max] and meta (N, 3)
-// i32 [left, right, leaf_cluster (-1 internal)]; one cluster per leaf.
+// i32 [left, right, leaf_cluster (-1 internal)]; one cluster per leaf;
+// 8-wide tables as accel/bvh.py pack_nodes8 packs them.
 //
 // t_min: the Pallas kernels discard their t_min argument and hard-code
 // 1e-4 (closest) and 0.1 (any). These kernels honour the argument, as
@@ -552,6 +555,199 @@ dense_closest_kernel(const float* __restrict__ slabs, int rows, int C,
     o[4] = o[5] = o[6] = o[7] = 0.0f;
 }
 
+// ---------------------------------------------------------------------------
+// K11-K13: the 8-wide walks over pack_nodes8 tables (trace_bvh.py
+// trace_closest_bvh8 :1918, trace_closest_bvh8_full :1948, trace_any_bvh8
+// :1977). nodes8 (N8, 8, 8) f32: node n, slot c = [min.xyz | max.xyz | enc
+// | 0], enc >= 0 an internal child's node, enc < 0 leaf cluster -(enc+1),
+// an empty slot NaN bounds and enc 0. The Pallas kernels test the 8 slots
+// against 128 rays in one (8, 128) op and sort key frames; here one thread
+// walks one ray: it loads a node's 8 slots (256 B, as float4s), slab-tests
+// each against its current best t, skips an empty slot by its NaN (fminf
+// and fmaxf return the non-NaN operand, so an empty slot's entry is 0, as
+// a box the ray starts in; only its NaN exit keeps the slab test from
+// entering it, and the walk would re-enter the root at enc 0), orders the
+// entered children near-first with a 19-comparator network in registers
+// and pushes them farthest first. A leaf runs Möller over the cluster's
+// 128 lanes. The closest walks keep the lexicographic minimum of (t, tri):
+// a node whose entry equals the best t is still visited and a tie goes to
+// the lower tri id, so the result is the plain brute force's, whatever the
+// visit order. Bound as K2-K4: divergent walks and scattered slab reads.
+#define STACK8_CAP 128  // >= 7 * (8-wide depth) + 1 (trace_bvh.STACK8_CAP)
+#define NO_CHILD (-2147483647 - 1)
+
+// Slab test of one slot (a = min.xyz | max.x, b = max.yz | enc | 0)
+// against the ray's best t: node_test's arithmetic, with the closest
+// walks also keeping an entry equal to a best t that is a hit.
+template <bool ANY>
+__device__ __forceinline__ bool slot_test(const float4& a, const float4& b,
+                                          const Ray& r, const Hit& h,
+                                          float& enter) {
+    float t0x = (a.x - r.ox) * r.ix;
+    float t1x = (a.w - r.ox) * r.ix;
+    float t0y = (a.y - r.oy) * r.iy;
+    float t1y = (b.x - r.oy) * r.iy;
+    float t0z = (a.z - r.oz) * r.iz;
+    float t1z = (b.y - r.oz) * r.iz;
+    float en = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                     fmaxf(fminf(t0z, t1z), 0.0f));
+    float ex = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                     fmaxf(t0z, t1z));
+    enter = en;
+    return en <= ex && (en < h.t || (!ANY && h.tri >= 0 && en == h.t));
+}
+
+// enc rides as f32: the sign first, then a rounding cast of |enc|.
+__device__ __forceinline__ int slot_enc(float e) {
+    return e < 0.0f ? -__float2int_rn(-e) : __float2int_rn(e);
+}
+
+#define CE(i, j)                                                      \
+    if (key[j] < key[i]) {                                            \
+        float tk = key[i];                                            \
+        key[i] = key[j];                                              \
+        key[j] = tk;                                                  \
+        int tv = val[i];                                              \
+        val[i] = val[j];                                              \
+        val[j] = tv;                                                  \
+    }
+
+// The 8-wide walk. ANY=true stops at the first hit. Returns false on
+// stack overflow.
+template <bool ANY>
+__device__ bool walk8(const float* __restrict__ slabs, int rows,
+                      const float4* __restrict__ nodes8, const Ray& r,
+                      float t_min, Hit& h) {
+    int stack_enc[STACK8_CAP];
+    float stack_enter[STACK8_CAP];
+    stack_enc[0] = 0;  // the root node: its slots carry the boxes
+    stack_enter[0] = 0.0f;
+    int sp = 1;
+    while (sp > 0) {
+        --sp;
+        const int enc = stack_enc[sp];
+        const float en0 = stack_enter[sp];
+        // pruned by a closer hit (an equal one may still lose a tie)
+        if (!(en0 < h.t || (!ANY && h.tri >= 0 && en0 == h.t))) continue;
+        if (enc < 0) {
+            const int leaf = -enc - 1;
+            const float* s = slabs + (size_t)leaf * rows * LANES;
+            for (int j = 0; j < LANES; ++j) {
+                float t, u, v;
+                if (ANY) {
+                    if (moller(s, j, r, t_min, h.t, t, u, v)) {
+                        h.tri = leaf * LANES + j;
+                        return true;
+                    }
+                } else if (moller(s, j, r, t_min, INF, t, u, v)) {
+                    const int tri = leaf * LANES + j;
+                    if (t < h.t || (t == h.t && h.tri >= 0 && tri < h.tri)) {
+                        h.t = t;
+                        h.u = u;
+                        h.v = v;
+                        h.tri = tri;
+                    }
+                }
+            }
+            continue;
+        }
+        const float4* nd = nodes8 + (size_t)enc * 16;
+        float key[8];
+        int val[8];
+        int n = 0;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+            const float4 a = __ldg(nd + 2 * c);
+            const float4 b = __ldg(nd + 2 * c + 1);
+            float en;
+            const bool in = !isnan(a.x) && slot_test<ANY>(a, b, r, h, en);
+            key[c] = in ? en : INF;
+            val[c] = in ? slot_enc(b.z) : NO_CHILD;
+            n += in ? 1 : 0;
+        }
+        if (n == 0) continue;
+        if (sp + n > STACK8_CAP) return false;
+        // near first: ascending entry t
+        CE(0, 2) CE(1, 3) CE(4, 6) CE(5, 7)
+        CE(0, 4) CE(1, 5) CE(2, 6) CE(3, 7)
+        CE(0, 1) CE(2, 3) CE(4, 5) CE(6, 7)
+        CE(2, 4) CE(3, 5)
+        CE(1, 4) CE(3, 6)
+        CE(1, 2) CE(3, 4) CE(5, 6)
+        // push the farthest first so the nearest pops next
+#pragma unroll
+        for (int c = 7; c >= 0; --c) {
+            if (val[c] != NO_CHILD) {
+                stack_enc[sp] = val[c];
+                stack_enter[sp] = key[c];
+                ++sp;
+            }
+        }
+    }
+    return true;
+}
+#undef CE
+
+// K11: (R, 8) rows t | tri | u | v | pad; a miss has t = t_max, tri = -1.
+__global__ void closest8_kernel(const float* __restrict__ slabs, int rows,
+                                const float4* __restrict__ nodes8,
+                                const float* __restrict__ ray_o,
+                                const float* __restrict__ ray_d,
+                                const float* __restrict__ t_max, int R,
+                                float t_min, float* __restrict__ out,
+                                int* __restrict__ err) {
+    int k = blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= R) return;
+    Ray r;
+    load_ray(ray_o, ray_d, k, r);
+    Hit h = {t_max[k], 0.0f, 0.0f, -1};
+    if (h.t > 0.0f && !walk8<false>(slabs, rows, nodes8, r, t_min, h))
+        atomicExch(err, 1);
+    float* o = out + 8 * (size_t)k;
+    o[0] = h.t;
+    o[1] = (float)h.tri;
+    o[2] = h.u;
+    o[3] = h.v;
+    o[4] = o[5] = o[6] = o[7] = 0.0f;
+}
+
+// K12: K11's walk and write_full's (R, 16) rows (K4's, without a mask).
+__global__ void closest8_full_kernel(const float* __restrict__ slabs,
+                                     int rows,
+                                     const float4* __restrict__ nodes8,
+                                     const float* __restrict__ ray_o,
+                                     const float* __restrict__ ray_d,
+                                     const float* __restrict__ t_max, int R,
+                                     float t_min, float* __restrict__ out,
+                                     int* __restrict__ err) {
+    int k = blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= R) return;
+    Ray r;
+    load_ray(ray_o, ray_d, k, r);
+    Hit h = {t_max[k], 0.0f, 0.0f, -1};
+    if (h.t > 0.0f && !walk8<false>(slabs, rows, nodes8, r, t_min, h))
+        atomicExch(err, 1);
+    write_full(slabs, rows, h, out + 16 * (size_t)k);
+}
+
+// K13: (R,) occlusion, a hit being t_min < t < t_max.
+__global__ void any8_kernel(const float* __restrict__ slabs, int rows,
+                            const float4* __restrict__ nodes8,
+                            const float* __restrict__ ray_o,
+                            const float* __restrict__ ray_d,
+                            const float* __restrict__ t_max, int R,
+                            float t_min, uint8_t* __restrict__ occ,
+                            int* __restrict__ err) {
+    int k = blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= R) return;
+    Ray r;
+    load_ray(ray_o, ray_d, k, r);
+    Hit h = {t_max[k], 0.0f, 0.0f, -1};
+    if (h.t > 0.0f && !walk8<true>(slabs, rows, nodes8, r, t_min, h))
+        atomicExch(err, 1);
+    occ[k] = h.tri >= 0 ? 1 : 0;
+}
+
 inline int blocks(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 // Dynamic shared memory of a dense kernel: the list, one int a cluster.
@@ -642,6 +838,43 @@ extern "C" int trace_closest_bvh_full(const float* slabs, int rows,
         closest_full_kernel<<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
             slabs, rows, bounds, meta, ray_o, ray_d, t_max, R, t_min, live,
             out, err);
+    return (int)cudaGetLastError();
+}
+
+// K11-K13 (nodes8 16-byte aligned, checked by the host).
+extern "C" int trace_closest_bvh8(const float* slabs, int rows,
+                                  const float* nodes8, const float* ray_o,
+                                  const float* ray_d, const float* t_max,
+                                  int R, float t_min, float* out, int* err,
+                                  void* stream) {
+    if (R > 0)
+        closest8_kernel<<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
+            slabs, rows, (const float4*)nodes8, ray_o, ray_d, t_max, R,
+            t_min, out, err);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int trace_closest_bvh8_full(const float* slabs, int rows,
+                                       const float* nodes8,
+                                       const float* ray_o, const float* ray_d,
+                                       const float* t_max, int R, float t_min,
+                                       float* out, int* err, void* stream) {
+    if (R > 0)
+        closest8_full_kernel<<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
+            slabs, rows, (const float4*)nodes8, ray_o, ray_d, t_max, R,
+            t_min, out, err);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int trace_any_bvh8(const float* slabs, int rows,
+                              const float* nodes8, const float* ray_o,
+                              const float* ray_d, const float* t_max, int R,
+                              float t_min, uint8_t* occ, int* err,
+                              void* stream) {
+    if (R > 0)
+        any8_kernel<<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
+            slabs, rows, (const float4*)nodes8, ray_o, ray_d, t_max, R,
+            t_min, occ, err);
     return (int)cudaGetLastError();
 }
 

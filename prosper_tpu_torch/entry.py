@@ -1,9 +1,11 @@
-"""The port's entry point: a frame call on a procedural scene.
+"""The port's entry point: a frame call on a procedural or glTF scene.
 
 Counterpart of __graft_entry__.py `entry` (:43), which compiles
-prosper_tpu's path tracer on make_test_scene at 64x64 with 2 bounces.
-`entry` builds the scene on `device` (the card unless the caller asks
-for the CPU) and the camera, and returns the frame call of one mode:
+prosper_tpu's path tracer on make_test_scene at 64x64 with 2 bounces,
+and of the scene setup of prosper_tpu/app/cli.py (:231-268: World ->
+texture arena -> static arrays -> material tables -> camera). `entry`
+builds the scene on `device` (the card unless the caller asks for the
+CPU) and the camera, and returns the frame call of one mode:
 
 - "pt": render one sample, accumulate, tone map;
 - "deferred": G-buffer (with two-phase culling when use_culling),
@@ -22,6 +24,15 @@ material blends, two alpha-discard rounds when one is not opaque.
                      height=1080, max_bounces=3)
     img, state, n_rays = fn(*args)            # frame 0
     img, state, n_rays = fn(args[0], args[1], 1, state)
+
+    fn, args = entry(scene="scenes/helmet.gltf", width=1920, height=1080,
+                     mode="deferred", use_culling=True)
+
+A scene given as a path to a .gltf or .glb file is loaded through
+scene/world.py `World` (its caches next to the file) at time 0, its images
+mipped into the texture arena (scene/textures.py, at most 2048 texels a
+side, as the JAX CLI's default), with the scene's first camera (else
+the default camera) and its KHR_lights_punctual lights.
 
     fn, args = entry(scene="plate", n_clusters=2048, width=1920,
                      height=1080, mode="deferred", use_culling=True,
@@ -66,6 +77,25 @@ from .scene.convert import camera_tensors, from_numpy_scene
 from .testing import make_plate_scene, make_test_scene
 
 SCENES = {"test": make_test_scene, "plate": make_plate_scene}
+MAX_TEXTURE_DIM = 2048  # prosper_tpu/app/cli.py --max-texture-dim
+
+
+def gltf_scene(path: str, use_cache: bool = True):
+    """(static, frame, arena, cam_fn) of a glTF file through World: the
+    numpy dicts from_numpy_scene takes, as the procedural scenes give
+    them."""
+    from .scene.textures import build_texture_arena
+    from .scene.world import World
+
+    world = World(path, use_cache=use_cache)
+    arena = build_texture_arena(world.doc, max_dim=MAX_TEXTURE_DIM,
+                                scene_path=path if use_cache else None)
+
+    def cam_fn(width: int, height: int) -> dict:
+        return world.make_camera((width, height)).uniforms()
+
+    return (world.static_scene_arrays(), world.frame_arrays(0.0),
+            arena.uniforms(), cam_fn)
 
 
 def entry(device="cuda", scene: str = "test", n_clusters: int = 4,
@@ -84,10 +114,12 @@ def entry(device="cuda", scene: str = "test", n_clusters: int = 4,
     reservoir holds a light in front of their surface, one shadow ray
     each.
 
-    Plate scene only: scatter_lights > 0 scatters that many point
-    lights, blend_every and mask_every give plates blend and mask
-    materials (testing.make_plate_scene). bvh=False leaves the BVH node
-    arrays out of the frame, so every trace takes the flat kernels."""
+    scene: "test", "plate", or the path of a .gltf or .glb file (then
+    n_clusters and seed are not read). Plate scene only: scatter_lights
+    > 0 scatters that many point lights, blend_every and mask_every give
+    plates blend and mask materials (testing.make_plate_scene).
+    bvh=False leaves the BVH node arrays out of the frame, so every trace
+    takes the flat kernels."""
     if mode not in ("pt", "deferred", "forward", "restir"):
         raise ValueError(f"unknown mode {mode!r}")
     extra = {}
@@ -97,10 +129,14 @@ def entry(device="cuda", scene: str = "test", n_clusters: int = 4,
                              "need the plate scene")
         extra = {"scatter_lights": scatter_lights,
                  "blend_every": blend_every, "mask_every": mask_every}
-    static, frame, arena, cam_fn = SCENES[scene](n_clusters, seed, **extra)
+    if scene.endswith((".gltf", ".glb")):
+        static, frame, arena, cam_fn = gltf_scene(scene)
+    else:
+        static, frame, arena, cam_fn = SCENES[scene](n_clusters, seed,
+                                                     **extra)
     if not bvh:
         frame = {k: v for k, v in frame.items()
-                 if k not in ("bvh_bounds", "bvh_meta")}
+                 if k not in ("bvh_bounds", "bvh_meta", "bvh_nodes8")}
     alpha_mode = static["materials"]["alpha_mode"]
     if use_transparent is None:
         use_transparent = bool((alpha_mode == 2).any())

@@ -1,10 +1,12 @@
-"""Material sampling over the quad-packed texture arena, base mip.
+"""Material sampling over the quad-packed texture arena with mips.
 
 Counterpart of prosper_tpu/ops/texture.py: `pack_material_tables`
-(:126), `sample_material_packed` (:157) on the base-mip path (lod=None,
-aniso_taps=1) that the path tracer takes with bounce_tap_mip=0,
-`sample_alpha_packed` (:236) and the bilinear taps they call
-(`_decode4`, `_wrap_coord`, `_bilinear_entry`).
+(:126), `sample_material_packed` (:157) with its base-mip, ray-cone LOD
+(trilinear, and anisotropic with duv_major) and fixed-mip paths,
+`sample_alpha_packed` (:236), and the taps they call (`_decode4`,
+`_wrap_coord`, `_bilinear_entry`, `sample_bilinear`, `sample_trilinear`,
+`sample_aniso`, :22-123). sRGB decodes per texel before the filter, as
+an sRGB view does.
 
 Arena: `data` (N, 4) u32 bilinear quads — texel (x, y) and its +x, +y,
 +xy REPEAT neighbours — held as int64 here; `table` (T, 13, 4) i32 mip
@@ -72,6 +74,43 @@ def _bilinear_entry(arena: dict, entry, uv, assume_linear=False):
     )
 
 
+def sample_bilinear(arena: dict, tex, uv, mip, assume_linear=False):
+    """Bilinear sample at integer mip; tex (R,) texture ids, uv (R, 2)."""
+    entry = arena["table"][tex.long(), mip.long()]
+    return _bilinear_entry(arena, entry, uv, assume_linear)
+
+
+def sample_trilinear(arena: dict, tex, uv, lod, assume_linear=False):
+    """Trilinear sample at fractional lod, clamped to each texture's
+    [0, n_mips - 1]."""
+    n_mips = arena["n_mips"][tex.long()].to(torch.float32)
+    lod = torch.minimum(torch.clamp_min(lod, 0.0), n_mips - 1.0)
+    m0 = torch.floor(lod).to(torch.int64)
+    m1 = torch.minimum(m0 + 1, (n_mips - 1.0).to(torch.int64))
+    f = (lod - m0.to(torch.float32))[..., None]
+    s0 = sample_bilinear(arena, tex, uv, m0, assume_linear)
+    s1 = sample_bilinear(arena, tex, uv, m1, assume_linear)
+    return s0 * (1 - f) + s1 * f
+
+
+def sample_aniso(arena: dict, tex, uv, duv_major, lod_minor, taps: int,
+                 assume_linear=False):
+    """Software anisotropic filter (the reference samples materials with
+    maxAnisotropy 16, WorldData.cpp:693-714): `taps` trilinear samples
+    spread along the uv-space major footprint axis duv_major (R, 2) at
+    the minor axis' lod, averaged."""
+    assert taps >= 1
+    if taps == 1:
+        return sample_trilinear(arena, tex, uv, lod_minor, assume_linear)
+    acc = None
+    for i in range(taps):
+        f = (i + 0.5) / taps - 0.5
+        s = sample_trilinear(arena, tex, uv + f * duv_major, lod_minor,
+                             assume_linear)
+        acc = s if acc is None else acc + s
+    return acc / taps
+
+
 def pack_material_tables(materials: dict, arena: dict):
     """Material SoA + the three textures' mip-0 entries of the numpy
     arena -> numpy
@@ -97,19 +136,45 @@ def pack_material_tables(materials: dict, arena: dict):
     return f32, i32
 
 
-def sample_material_packed(arena: dict, mat_idx: torch.Tensor, uv):
-    """sampleMaterial over the packed tables at the base mip (the RT
-    shaders' derivative-free texture()). Returns albedo (R, 3), alpha
+def sample_material_packed(arena: dict, mat_idx: torch.Tensor, uv, lod=None,
+                           duv_major=None, aniso_taps: int = 1,
+                           fixed_mip: int | None = None):
+    """sampleMaterial over the packed tables. Returns albedo (R, 3), alpha
     (-1 opaque, 0 failed mask, else blend alpha), roughness, metallic,
-    and normal_ts (x == -2 without a normal map)."""
+    and normal_ts (x == -2 without a normal map).
+
+    lod=None: the base mip (the RT shaders' derivative-free texture()).
+    lod given: the per-ray log2 footprint of a unit texture, to which
+    each texture adds log2 of its base size (ray-cone mip selection);
+    trilinear taps, or with duv_major and aniso_taps > 1 that many along
+    the major axis at the minor axis' lod. fixed_mip: every texture at
+    one clamped integer mip (config.policy.bounce_tap_mip for secondary
+    surfaces)."""
     idx = mat_idx.long()
     f32 = arena["mat_f32"][idx]
     i32 = arena["mat_i32"][idx]
 
-    def tex_sample(entry0, linear=False):
-        return _bilinear_entry(arena, entry0, uv, assume_linear=linear)
+    if fixed_mip is not None:
+        def tex_sample(tex_ids, entry0, linear=False):
+            mip = torch.clamp_max(arena["n_mips"][tex_ids.long()] - 1,
+                                  int(fixed_mip))
+            return sample_bilinear(arena, tex_ids, uv, mip,
+                                   assume_linear=linear)
+    elif lod is None:
+        def tex_sample(tex_ids, entry0, linear=False):
+            return _bilinear_entry(arena, entry0, uv, assume_linear=linear)
+    else:
+        def tex_sample(tex_ids, entry0, linear=False):
+            size = torch.maximum(entry0[..., 1], entry0[..., 2]).to(
+                torch.float32)
+            lod_t = lod + torch.log2(torch.clamp_min(size, 1.0))
+            if aniso_taps > 1 and duv_major is not None:
+                return sample_aniso(arena, tex_ids, uv, duv_major, lod_t,
+                                    aniso_taps, assume_linear=linear)
+            return sample_trilinear(arena, tex_ids, uv, lod_t,
+                                    assume_linear=linear)
 
-    base = tex_sample(i32[..., 4:8]) * f32[..., 0:4]
+    base = tex_sample(i32[..., 1], i32[..., 4:8]) * f32[..., 0:4]
     alpha_mode = i32[..., 0]
     cutoff = f32[..., 6]
     alpha = torch.where(
@@ -117,10 +182,11 @@ def sample_material_packed(arena: dict, mat_idx: torch.Tensor, uv):
         base[..., 3],
         torch.where((alpha_mode == 1) & (base[..., 3] < cutoff), 0.0, -1.0),
     )
-    mr = tex_sample(i32[..., 8:12], linear=True)
+    # glTF: metallicRoughness and normal maps are always linear
+    mr = tex_sample(i32[..., 2], i32[..., 8:12], linear=True)
     roughness = torch.clamp_min(mr[..., 1] * f32[..., 5], 0.05)
     metallic = mr[..., 2] * f32[..., 4]
-    nrm = tex_sample(i32[..., 12:16], linear=True)
+    nrm = tex_sample(i32[..., 3], i32[..., 12:16], linear=True)
     normal_ts = torch.where(
         (i32[..., 3] > 0)[..., None], nrm[..., :3] * 2.0 - 1.0, -2.0
     )

@@ -1,6 +1,6 @@
-"""BVH2 trace kernels: wrappers, plain PyTorch versions, camera uniforms.
+"""BVH trace kernels: wrappers, plain PyTorch versions, camera uniforms.
 
-Counterpart of prosper_tpu/ops/trace_bvh.py. Six kernels, each a
+Counterpart of prosper_tpu/ops/trace_bvh.py. Nine kernels, each a
 hand-written CUDA kernel in csrc/trace_bvh.cu with a plain PyTorch twin:
 
 - `trace_primary_bvh_full` (K1, replaces the Pallas kernel of the same
@@ -55,6 +55,9 @@ from .slabs import ROWS_FULL, ROWS_PLAIN
 from .trace import CLUSTER_PAD, TILE
 
 STACK_CAP = 64  # per-ray node stack of the CUDA kernels (trace_bvh.py:52)
+# per-ray stack of the 8-wide kernels: 7 entries per level plus one
+# (accel/bvh.nodes8_depth), so 8-wide depths up to 18
+STACK8_CAP = 128
 TILES_PER_STEP = 8  # pixel-layout padding unit of pack_pixels_np
 
 
@@ -373,6 +376,44 @@ def trace_closest_bvh_dense_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
                          live=~dead)
 
 
+def nodes8_leaf_boxes(nodes8: torch.Tensor, n_clusters: int):
+    """Cluster AABBs (C, 3) x 2 from the leaf slots of an 8-wide table
+    (enc < 0 holds cluster -(enc + 1)); NaN, never entered, for a
+    cluster no slot holds."""
+    slots = nodes8.reshape(-1, 8)
+    enc = slots[:, 6]
+    leaf = enc < 0
+    c = (-enc[leaf]).round().long() - 1
+    cmin = torch.full((n_clusters, 3), float("nan"), dtype=torch.float32,
+                      device=nodes8.device)
+    cmax = cmin.clone()
+    cmin[c] = slots[leaf, 0:3]
+    cmax[c] = slots[leaf, 3:6]
+    return cmin, cmax
+
+
+def trace_closest_bvh8_plain(slabs, nodes8, ray_o, ray_d, t_min, t_max):
+    """Plain 8-wide closest hit -> (R, 8) rows, K2's plain version over
+    the table's leaf boxes."""
+    return _closest_rows(slabs, *nodes8_leaf_boxes(nodes8, slabs.shape[0]),
+                         ray_o, ray_d, t_min, t_max)
+
+
+def trace_closest_bvh8_full_plain(slabs, nodes8, ray_o, ray_d, t_min,
+                                  t_max):
+    """Plain 8-wide closest hit with attributes -> (R, 16) full rows."""
+    return _full_rows(slabs, trace_closest_bvh8_plain(
+        slabs, nodes8, ray_o, ray_d, t_min, t_max))
+
+
+def trace_any_bvh8_plain(slabs, nodes8, ray_o, ray_d, t_min, t_max):
+    """Plain 8-wide any hit -> (R,) bool occlusion."""
+    best_t, _, _, _ = _brute(
+        slabs, *nodes8_leaf_boxes(nodes8, slabs.shape[0]), ray_o, ray_d,
+        t_min, t_max, any_hit=True)
+    return torch.isfinite(best_t)
+
+
 def trace_primary_bvh_full_plain(slabs, bounds, meta, pix_cols, cam_vec,
                                  frame_index, t_min):
     """Plain primary trace -> (T*256, 16) full hit rows."""
@@ -399,6 +440,10 @@ _ARGTYPES = {
                             _P, _P, ctypes.c_int, ctypes.c_float, _P, _P],
 }
 _ARGTYPES["trace_closest_bvh_dense"] = _ARGTYPES["trace_any_bvh_dense"]
+_ARGTYPES["trace_closest_bvh8"] = [_P, ctypes.c_int, _P, _P, _P, _P,
+                                   ctypes.c_int, ctypes.c_float, _P, _P, _P]
+_ARGTYPES["trace_closest_bvh8_full"] = _ARGTYPES["trace_closest_bvh8"]
+_ARGTYPES["trace_any_bvh8"] = _ARGTYPES["trace_closest_bvh8"]
 DENSE_TILE = 128  # rays per packet of K9, K10 (trace_bvh.py:1154, :1819)
 MAX_SHARED = 232448  # bytes of shared memory one H100 block can have
 DENSE_STATIC_SMEM = 4 * 7 * DENSE_TILE + 4 * (DENSE_TILE // 32)
@@ -466,10 +511,11 @@ def _overflow_flag(device: torch.device) -> torch.Tensor:
 
 def check_stack_overflow(device) -> None:
     """Raise if a trace kernel launched on `device` since the last check
-    overflowed its node stack (BVH depth > STACK_CAP - 2), and clear the
-    flag. Waits for those kernels; does nothing for the CPU, whose plain
-    versions keep no stack. pt_trace_pixels calls it once per frame;
-    callers of the wrappers call it after their launches."""
+    overflowed its node stack (BVH2 depth > STACK_CAP - 2, or an 8-wide
+    walk needing more than STACK8_CAP entries), and clear the flag. Waits
+    for those kernels; does nothing for the CPU, whose plain versions
+    keep no stack. pt_trace_pixels calls it once per frame; callers of
+    the wrappers call it after their launches."""
     device = torch.device(device)
     if device.type != "cuda":
         return
@@ -477,7 +523,8 @@ def check_stack_overflow(device) -> None:
     if int(flag.item()) != 0:
         flag.zero_()
         raise RuntimeError(
-            f"BVH stack overflow in a trace kernel (depth > {STACK_CAP - 2})"
+            f"BVH stack overflow in a trace kernel (BVH2 depth > "
+            f"{STACK_CAP - 2} or 8-wide stack > {STACK8_CAP})"
         )
 
 
@@ -685,15 +732,99 @@ def trace_closest_bvh_dense(slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
     return out
 
 
+def _launch8(name, slabs, nodes8, ray_o, ray_d, t_min, t_max, out,
+             min_rows=ROWS_PLAIN):
+    """Check the inputs of K11, K12 or K13 and launch it into out."""
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    _expect(slabs, "slabs", torch.float32, dev, (None, None, CLUSTER_PAD))
+    if slabs.shape[1] < min_rows:
+        raise ValueError(f"slabs need >= {min_rows} rows, got {slabs.shape[1]}")
+    _expect(nodes8, "nodes8", torch.float32, dev, (None, 8, 8))
+    if nodes8.data_ptr() % 16:
+        raise ValueError("nodes8 must be 16-byte aligned (float4 loads)")
+    _expect(ray_o, "ray_o", torch.float32, dev, (R, 3))
+    _expect(ray_d, "ray_d", torch.float32, dev, (R, 3))
+    _launch(name, dev, (
+        slabs.data_ptr(), slabs.shape[1], nodes8.data_ptr(),
+        ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(), R,
+        float(t_min), out.data_ptr(),
+    ))
+    return out
+
+
+def trace_closest_bvh8(slabs, nodes8, ray_o, ray_d, t_min, t_max):
+    """Closest hit of R rays by the 8-wide walk -> (R, 8) rows t | tri |
+    u | v | pad, as trace_closest_bvh: a miss row has t = t_max, tri =
+    -1; among exact t ties the lowest tri.
+
+    slabs (C, >=9, 128) f32; nodes8 (N8, 8, 8) f32 from
+    accel/bvh.pack_nodes8; ray_o, ray_d (R, 3) f32; t_max scalar or (R,)."""
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    t_max = _tmax(t_max, R, dev)
+    if dev.type == "cpu":
+        return trace_closest_bvh8_plain(slabs, nodes8, ray_o, ray_d,
+                                        float(t_min), t_max)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_closest_bvh8: unsupported device {dev}")
+    out = _launch8("trace_closest_bvh8", slabs, nodes8, ray_o, ray_d, t_min,
+                   t_max, torch.empty((R, 8), dtype=torch.float32, device=dev))
+    trace_closest_bvh8.launches += 1
+    return out
+
+
+def trace_closest_bvh8_full(slabs, nodes8, ray_o, ray_d, t_min, t_max):
+    """Closest hit of R rays by the 8-wide walk with attributes -> (R, 16)
+    full rows, as trace_closest_bvh_full without a skip mask.
+
+    slabs (C, 40, 128) f32; the rest as trace_closest_bvh8."""
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    t_max = _tmax(t_max, R, dev)
+    if dev.type == "cpu":
+        return trace_closest_bvh8_full_plain(slabs, nodes8, ray_o, ray_d,
+                                             float(t_min), t_max)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_closest_bvh8_full: unsupported device {dev}")
+    out = _launch8("trace_closest_bvh8_full", slabs, nodes8, ray_o, ray_d,
+                   t_min, t_max,
+                   torch.empty((R, 16), dtype=torch.float32, device=dev),
+                   min_rows=ROWS_FULL - 2)
+    trace_closest_bvh8_full.launches += 1
+    return out
+
+
+def trace_any_bvh8(slabs, nodes8, ray_o, ray_d, t_min, t_max):
+    """Any hit of R rays by the 8-wide walk -> (R,) bool occlusion, a hit
+    being t_min < t < t_max; inputs as trace_closest_bvh8."""
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    t_max = _tmax(t_max, R, dev)
+    if dev.type == "cpu":
+        return trace_any_bvh8_plain(slabs, nodes8, ray_o, ray_d,
+                                    float(t_min), t_max)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_any_bvh8: unsupported device {dev}")
+    occ = _launch8("trace_any_bvh8", slabs, nodes8, ray_o, ray_d, t_min,
+                   t_max, torch.empty((R,), dtype=torch.bool, device=dev))
+    trace_any_bvh8.launches += 1
+    return occ
+
+
 trace_closest_bvh.launches = 0
 trace_any_bvh.launches = 0
 trace_primary_bvh_full.launches = 0
 trace_closest_bvh_full.launches = 0
 trace_any_bvh_dense.launches = 0
 trace_closest_bvh_dense.launches = 0
+trace_closest_bvh8.launches = 0
+trace_closest_bvh8_full.launches = 0
+trace_any_bvh8.launches = 0
 KERNELS = (trace_primary_bvh_full, trace_closest_bvh, trace_any_bvh,
            trace_closest_bvh_full, trace_any_bvh_dense,
-           trace_closest_bvh_dense)
+           trace_closest_bvh_dense, trace_closest_bvh8,
+           trace_closest_bvh8_full, trace_any_bvh8)
 
 
 def reset_launch_counts() -> None:

@@ -219,7 +219,8 @@ def render_gbuffer(scene: dict, cam: dict, width: int, height: int,
     cone = {"alpha": pixel_cone_alpha(cam, height), "bias": 0.0,
             "aniso_taps": aniso_taps}
     surface = evaluate_surface_from_attrs(scene["arena"], o, d, hit,
-                                          cone=cone)
+                                          cone=cone,
+                                          tris_packed=geom["packed_full"])
     valid = hit["tri"] >= 0
     # safe normal without a surface (the oct encoding of 0 is NaN);
     # filled on the device: a tensor from a list would wait for it

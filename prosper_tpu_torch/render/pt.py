@@ -38,6 +38,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import config
 from ..mathx import rng as prng
 from ..ops.brdf import (
     cook_torrance_brdf,
@@ -135,7 +136,11 @@ def _shade_and_bounce(scene, bounce, state, color, throughput, active,
         1 + lights["point_count"] + lights["spot_count"]
     ).to(torch.float32)
     hit_valid = (hit["tri"] >= 0) & active
-    surface = evaluate_surface_from_attrs(scene["arena"], ray_o, ray_d, hit)
+    # secondary surfaces sample at one coarse mip when
+    # config.policy.bounce_tap_mip > 0; primary ones at the base mip
+    mip = config.policy.bounce_tap_mip if bounce > 0 else 0
+    surface = evaluate_surface_from_attrs(scene["arena"], ray_o, ray_d, hit,
+                                          fixed_mip=mip if mip > 0 else None)
 
     # direct light: the light-pick advance is skipped on misses and on
     # alpha == 0 surfaces, as evaluateDirectLighting returns early there

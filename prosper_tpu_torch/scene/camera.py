@@ -1,9 +1,8 @@
 """Camera uniforms in numpy.
 
-Counterpart of prosper_tpu/scene/camera.py (`Camera.uniforms`) together
-with the parts of prosper_tpu/mathx/transforms.py it uses (`look_at`,
-`perspective_reverse_z`, `frustum_corners`, `frustum_planes`). A copy,
-because the JAX package's camera module imports jax through mathx.
+Counterpart of prosper_tpu/scene/camera.py (`Camera`, `look_at`,
+`uniforms`) over the port's copy of mathx/transforms.py. A copy, because
+the JAX package's camera module imports jax through mathx.
 
 Right-handed lookAt, reverse-z glTF projection with the Halton(2,3) TAA
 jitter folded into the matrix (Camera.cpp:105-153 of the reference).
@@ -14,6 +13,13 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from ..mathx.transforms import (
+    frustum_corners,
+    frustum_planes,
+    look_at,
+    perspective_reverse_z,
+)
 
 SENSOR_WIDTH = 0.035  # 35 mm film back (Camera.hpp sensorWidth)
 
@@ -31,102 +37,6 @@ HALTON_23 = np.array(
     ],
     dtype=np.float32,
 )
-
-
-def look_at(eye, target, up) -> np.ndarray:
-    """Right-handed worldToCamera (Camera.cpp:366-383)."""
-    eye = np.asarray(eye, np.float32)
-    target = np.asarray(target, np.float32)
-    up = np.asarray(up, np.float32)
-    fwd = target - eye
-    fwd = fwd / np.linalg.norm(fwd)
-    z = -fwd
-    right = np.cross(up, z)
-    right = right / np.linalg.norm(right)
-    new_up = np.cross(z, right)
-    new_up = new_up / np.linalg.norm(new_up)
-    m = np.eye(4, dtype=np.float32)
-    m[0, :3] = right
-    m[1, :3] = new_up
-    m[2, :3] = z
-    m[0, 3] = -np.dot(right, eye)
-    m[1, 3] = -np.dot(new_up, eye)
-    m[2, 3] = -np.dot(z, eye)
-    return m
-
-
-def perspective_reverse_z(fov_y, aspect, z_near, z_far, jitter=(0.0, 0.0)):
-    """cameraToClip: reverse-z, z in [0, 1], y flipped, jitter in the
-    third column (Camera.cpp:105-146)."""
-    zn, zf = z_far, z_near
-    tf = 1.0 / np.tan(fov_y * 0.5)
-    jx, jy = jitter
-    proj = np.array(
-        [
-            [tf / aspect, 0.0, -jx, 0.0],
-            [0.0, tf, jy, 0.0],
-            [0.0, 0.0, (zf + zn) / (zn - zf), 2.0 * zf * zn / (zn - zf)],
-            [0.0, 0.0, -1.0, 0.0],
-        ],
-        dtype=np.float32,
-    )
-    remap = np.array(
-        [
-            [1.0, 0.0, 0.0, 0.0],
-            [0.0, -1.0, 0.0, 0.0],
-            [0.0, 0.0, 0.5, 0.5],
-            [0.0, 0.0, 0.0, 1.0],
-        ],
-        dtype=np.float32,
-    )
-    return remap @ proj
-
-
-def _plane(p0, p1, p2) -> np.ndarray:
-    """Plane (normal, d) through three points (Camera.cpp:38-44)."""
-    n = np.cross(p1 - p0, p2 - p0)
-    n = n / np.linalg.norm(n)
-    return np.concatenate([n, [-np.dot(n, p0)]]).astype(np.float32)
-
-
-def frustum_corners(eye, world_to_camera, fov_y, aspect, z_near, z_far):
-    """World-space frustum corners (Camera.cpp:268-313)."""
-    right = world_to_camera[0, :3]
-    up = world_to_camera[1, :3]
-    fwd = -world_to_camera[2, :3]
-    half_y_far = z_far * np.tan(fov_y * 0.5)
-    half_x_far = half_y_far * aspect
-    half_y_near = z_near * np.tan(fov_y * 0.5)
-    half_x_near = half_y_near * aspect
-    eye = np.asarray(eye, np.float32)
-
-    def corner(z, hx, hy, sx, sy):
-        return eye + z * fwd + sx * hx * right + sy * hy * up
-
-    return {
-        "bln": corner(z_near, half_x_near, half_y_near, -1, -1),
-        "brn": corner(z_near, half_x_near, half_y_near, +1, -1),
-        "tln": corner(z_near, half_x_near, half_y_near, -1, +1),
-        "trn": corner(z_near, half_x_near, half_y_near, +1, +1),
-        "blf": corner(z_far, half_x_far, half_y_far, -1, -1),
-        "brf": corner(z_far, half_x_far, half_y_far, +1, -1),
-        "tlf": corner(z_far, half_x_far, half_y_far, -1, +1),
-        "trf": corner(z_far, half_x_far, half_y_far, +1, +1),
-    }
-
-
-def frustum_planes(c) -> np.ndarray:
-    """Six inward-facing world-space planes (Camera.cpp:398-415)."""
-    return np.stack(
-        [
-            _plane(c["brn"], c["bln"], c["trn"]),
-            _plane(c["brf"], c["trf"], c["blf"]),
-            _plane(c["bln"], c["blf"], c["tln"]),
-            _plane(c["brn"], c["trn"], c["brf"]),
-            _plane(c["tln"], c["tlf"], c["trn"]),
-            _plane(c["bln"], c["brn"], c["blf"]),
-        ]
-    )
 
 
 @dataclass
@@ -165,6 +75,11 @@ class Camera:
         self._previous_jitter = np.zeros(2, np.float32)
         self._prev_world_to_camera = None
         self._prev_camera_to_clip = None
+        self.update()
+
+    def look_at(self, transform: CameraTransform) -> None:
+        """Aim the camera (World.make_camera's scene camera)."""
+        self.transform = transform
         self.update()
 
     def update(self) -> None:

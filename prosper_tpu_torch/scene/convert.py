@@ -4,7 +4,8 @@ The state the path tracer carries across frames is the scene. This
 module puts it on the device once, as prosper_tpu/ops/trace.py
 `prepare_geometry` (:82-112) does for the JAX package: the slabs, the
 attribute rows, the packed material tables, the light uniforms and the
-BVH arrays from accel/bvh.py.
+BVH arrays from accel/bvh.py, for a procedural scene (testing.py) or a
+glTF World's static_scene_arrays(), frame_arrays() and texture arena.
 """
 
 from __future__ import annotations
@@ -25,16 +26,25 @@ def _tensor(a, device):
     return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
 
+# World.frame_arrays keys that stay on the host: the BVH2 depth (an int,
+# checked against the kernels' stack by World) and the scene camera
+# (make_camera reads it)
+HOST_ONLY = ("bvh_depth", "scene_camera")
+
+
 def from_numpy_scene(static: dict, frame: dict, arena: dict, device) -> dict:
-    """(static, frame, arena) numpy dicts (testing.make_test_scene layout)
-    -> {"static", "frame", "arena", "geom"} on `device`.
+    """(static, frame, arena) numpy dicts (testing.make_test_scene
+    layout, or a World's) -> {"static", "frame", "arena", "geom"} on
+    `device`.
 
     geom: "tris", "packed9" (C, 9, 128), "packed_full" (C, 40, 128),
-    "attr_rows" (C*128, 32); frame["bvh_bounds"] (N, 6) f32 and
-    frame["bvh_meta"] (N, 3) i32 where the frame carries them (a frame
-    without them traces with the flat kernels, ops/trace.make_tracer);
-    arena gains "mat_f32" / "mat_i32", and its "n_mips" stays on the
-    CPU."""
+    "attr_rows" (C*128, 32); frame["bvh_bounds"] (N, 6) f32,
+    frame["bvh_meta"] (N, 3) i32 and frame["bvh_nodes8"] (N8, 8, 8) f32
+    where the frame carries them (a frame without the BVH2 arrays traces
+    with the flat kernels, ops/trace.make_tracer); the frame's HOST_ONLY
+    keys are left out; arena gains "mat_f32" / "mat_i32" and "one_mip",
+    a bool: every texture has one mip (render/surface.py then samples an
+    isotropic cone's base mip directly)."""
     device = torch.device(device)
     static_t = {
         k: _tensor(v, device) for k, v in static.items() if k != "materials"
@@ -45,11 +55,10 @@ def from_numpy_scene(static: dict, frame: dict, arena: dict, device) -> dict:
             if isinstance(v, dict)
             else _tensor(v, device)
         )
-        for k, v in frame.items()
+        for k, v in frame.items() if k not in HOST_ONLY
     }
     arena_t = {k: _tensor(v, device) for k, v in arena.items()}
-    # read on the host by render/surface.py; it never feeds a kernel
-    arena_t["n_mips"] = _tensor(arena["n_mips"], "cpu")
+    arena_t["one_mip"] = bool((np.asarray(arena["n_mips"]) <= 1).all())
     mat_f32, mat_i32 = pack_material_tables(static["materials"], arena)
     arena_t["mat_f32"] = _tensor(mat_f32, device)
     arena_t["mat_i32"] = _tensor(mat_i32, device)

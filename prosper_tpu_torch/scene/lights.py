@@ -1,13 +1,14 @@
 """Light data with the reference's conventions, in numpy.
 
-A copy of prosper_tpu/scene/lights.py `MAX_POINT_LIGHTS`,
-`MAX_SPOT_LIGHTS`, `LightArrays` and `light_uniforms` (:23-132): 1
-directional + <= 1024 point + <= 1024 spot lights
-(Light.hpp:27,45 of the reference), the directional default (2,2,2)
-along (-1,-1,-1) (lights.h:17-20), and the packed (1 + P + S, 12) rows in
-sampleLight order. The port keeps its own copy so that it imports
-nothing of the JAX package; `load_lights` needs the glTF path (ROADMAP.md
-queue 1, "Scene path without JAX").
+A copy of prosper_tpu/scene/lights.py (:23-132): 1 directional + <= 1024
+point + <= 1024 spot lights (Light.hpp:27,45 of the reference), the
+directional default (2,2,2) along (-1,-1,-1) (lights.h:17-20),
+`load_lights` with the reference's glTF unit conversions
+(WorldData.cpp:1456-1530: irradiance = color * intensity; point and spot
+radiance = color * intensity / 4pi; a point radius of range, else
+sqrt(luminance / 0.01); the glTF angular attenuation scale and offset),
+and the packed (1 + P + S, 12) rows in sampleLight order. The port keeps
+its own copy so that it imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -58,6 +59,40 @@ class LightArrays:
         default_factory=lambda: np.zeros((MAX_SPOT_LIGHTS, 3), np.float32)
     )
     spot_count: int = 0
+
+
+def load_lights(doc) -> LightArrays:
+    """Static light parameters of a scene.gltf.GltfDocument (positions
+    and directions are filled per frame by scene_graph.update_scene)."""
+    la = LightArrays()
+    for light in doc.lights:
+        color = light.color.astype(np.float32)
+        if light.kind == "directional":
+            la.dir_irradiance = color * np.float32(light.intensity)
+        elif light.kind == "point":
+            if la.point_count >= MAX_POINT_LIGHTS:
+                continue
+            radiance = color * np.float32(light.intensity) / (4.0 * np.pi)
+            lum = float(np.dot(radiance, [0.2126, 0.7152, 0.0722]))
+            radius = light.range if light.range > 0 else float(np.sqrt(lum / 0.01))
+            la.point_radiance[la.point_count] = radiance
+            la.point_radius[la.point_count] = radius
+            la.point_count += 1
+        elif light.kind == "spot":
+            if la.spot_count >= MAX_SPOT_LIGHTS:
+                continue
+            angle_scale = 1.0 / max(
+                0.001,
+                float(np.cos(light.inner_cone_angle) - np.cos(light.outer_cone_angle)),
+            )
+            angle_offset = -float(np.cos(light.outer_cone_angle)) * angle_scale
+            la.spot_radiance[la.spot_count] = color * np.float32(light.intensity) / (
+                4.0 * np.pi
+            )
+            la.spot_angle_scale[la.spot_count] = angle_scale
+            la.spot_angle_offset[la.spot_count] = angle_offset
+            la.spot_count += 1
+    return la
 
 
 def light_uniforms(la: LightArrays) -> dict[str, np.ndarray]:

@@ -1,4 +1,4 @@
-"""Procedural scenes as numpy dicts.
+"""Procedural scenes as numpy dicts, and as glTF files.
 
 Counterpart of prosper_tpu/testing.py. Both scene functions return
 (static, frame, arena, cam_fn) in the layout of
@@ -7,15 +7,26 @@ them: `static` holds the object-space triangle arena and materials,
 `frame` the per-frame AABBs, BVH2 node arrays and light uniforms,
 `arena` a 1-px white texture arena (plus an alpha checker where a plate
 scene has alpha-masked plates), and `cam_fn(w, h)` camera uniforms.
+
+`write_gltf` writes a glTF 2.0 file (.gltf with a .bin buffer, or .glb)
+from a document whose accessors and images are numpy arrays;
+`write_plate_gltf` writes the plate scene's triangles, lights and camera
+as such a file, for the scene path (scene/world.py).
 """
 
 from __future__ import annotations
 
+import io
+import json
+import os
+
 import numpy as np
 
 from .accel.bvh import build_bvh, pack_nodes
+from .mathx.transforms import look_at
 from .scene.camera import Camera, CameraParameters, CameraTransform
 from .scene.lights import MAX_POINT_LIGHTS, LightArrays, light_uniforms
+from .scene.textures import pack_rgba8_quads
 
 CLUSTER_TRI_PAD = 128  # triangles per cluster slab (scene/meshlets.py)
 
@@ -30,19 +41,6 @@ def _white_arena() -> dict:
     }
 
 
-def _rgba8_quads(img: np.ndarray) -> np.ndarray:
-    """(H, W, 4) u8 -> (H*W, 4) u32 bilinear quads: texel (x, y) and its
-    +x, +y, +xy REPEAT neighbours (prosper_tpu/scene/textures.py
-    pack_rgba8_quads)."""
-    i = img.astype(np.uint32)
-    grid = i[..., 0] | (i[..., 1] << 8) | (i[..., 2] << 16) | (i[..., 3] << 24)
-    xr = np.roll(grid, -1, axis=1)
-    yr = np.roll(grid, -1, axis=0)
-    xyr = np.roll(xr, -1, axis=0)
-    return np.stack([grid.reshape(-1), xr.reshape(-1), yr.reshape(-1),
-                     xyr.reshape(-1)], axis=1)
-
-
 def _checker_arena(n: int = 4) -> dict:
     """The white arena plus texture 1: an n x n white sRGB texture whose
     alpha is a checker of 255 and 0, one mip, REPEAT wrap. Bilinear taps
@@ -55,7 +53,7 @@ def _checker_arena(n: int = 4) -> dict:
         [arena["table"], np.zeros((1, 13, 4), np.int32)
          + np.array([1, n, n, 1], np.int32)[None, None, :]])
     return {
-        "data": np.concatenate([arena["data"], _rgba8_quads(img)]),
+        "data": np.concatenate([arena["data"], pack_rgba8_quads(img)]),
         "table": table,
         "n_mips": np.ones(2, np.int32),
     }
@@ -194,6 +192,39 @@ def make_test_scene(n_boxes: int = 4, seed: int = 0):
     return static, frame, _white_arena(), cam_fn
 
 
+def _unit_plate(g: int = 8):
+    """The (g + 1)^2 vertices (z = 0, the unit square) and 2 g^2
+    triangles of one plate."""
+    xs, ys = np.meshgrid(np.arange(g + 1), np.arange(g + 1), indexing="ij")
+    verts = np.stack(
+        [xs.ravel() / g, ys.ravel() / g, np.zeros((g + 1) * (g + 1))], 1
+    ).astype(np.float32)
+    quads = []
+    for i in range(g):
+        for j in range(g):
+            a = i * (g + 1) + j
+            b = a + 1
+            c = a + (g + 1)
+            d = c + 1
+            quads += [(a, b, c), (b, d, c)]
+    return verts, np.array(quads, np.int32)
+
+
+def _plate_frames(n_clusters: int, rng):
+    """Each plate's origin (f64) and random rotation (f32, from QR, so
+    it may be a reflection): a cell of a side^3 grid of 1.5 spacing,
+    jittered by U(-0.2, 0.2)."""
+    side = int(np.ceil(n_clusters ** (1.0 / 3.0)))
+    origins, rots = [], []
+    for ci in range(n_clusters):
+        cell = np.array(
+            [ci % side, (ci // side) % side, ci // (side * side)], np.float32
+        )
+        origins.append(cell * 1.5 + rng.uniform(-0.2, 0.2, 3))
+        rots.append(np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32))
+    return origins, rots
+
+
 def make_plate_scene(n_clusters: int = 2048, seed: int = 0,
                      scatter_lights: int = 0, blend_every: int = 0,
                      mask_every: int = 0):
@@ -227,7 +258,6 @@ def make_plate_scene(n_clusters: int = 2048, seed: int = 0,
     g = 8  # 8x8 quads -> 128 tris, a full cluster
     nv = (g + 1) * (g + 1)
 
-    side = int(np.ceil(n_clusters ** (1.0 / 3.0)))
     S = n_clusters * pad
     p0 = np.zeros((S, 3), np.float32)
     p1 = np.zeros((S, 3), np.float32)
@@ -236,26 +266,8 @@ def make_plate_scene(n_clusters: int = 2048, seed: int = 0,
     wc_max = np.zeros((n_clusters, 3), np.float32)
     a_packed = np.zeros((n_clusters * nv, 12), np.float32)
 
-    xs, ys = np.meshgrid(np.arange(g + 1), np.arange(g + 1), indexing="ij")
-    verts = np.stack(
-        [xs.ravel() / g, ys.ravel() / g, np.zeros((g + 1) * (g + 1))], 1
-    ).astype(np.float32)
-    quads = []
-    for i in range(g):
-        for j in range(g):
-            a = i * (g + 1) + j
-            b = a + 1
-            c = a + (g + 1)
-            d = c + 1
-            quads += [(a, b, c), (b, d, c)]
-    tris_local = np.array(quads, np.int32)
-
-    for ci in range(n_clusters):
-        cell = np.array(
-            [ci % side, (ci // side) % side, ci // (side * side)], np.float32
-        )
-        origin = cell * 1.5 + rng.uniform(-0.2, 0.2, 3)
-        rot = np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32)
+    verts, tris_local = _unit_plate(g)
+    for ci, (origin, rot) in enumerate(zip(*_plate_frames(n_clusters, rng))):
         v = verts @ rot.T + origin
         base = ci * pad
         p0[base : base + 128] = v[tris_local[:, 0]]
@@ -348,3 +360,271 @@ def make_plate_scene(n_clusters: int = 2048, seed: int = 0,
     eye = center + view / np.linalg.norm(view) * 0.9 * ext
     arena = _checker_arena() if alpha else _white_arena()
     return static, frame, arena, _cam_fn(eye, center)
+
+
+# ---------------------------------------------------------------------------
+# glTF files
+
+_COMPONENT_TYPES = {np.dtype(np.float32): 5126, np.dtype(np.uint32): 5125,
+                    np.dtype(np.uint16): 5123, np.dtype(np.uint8): 5121}
+_ACCESSOR_TYPES = {1: "SCALAR", 2: "VEC2", 3: "VEC3", 4: "VEC4"}
+
+
+def _png_bytes(pixels: np.ndarray) -> bytes:
+    from PIL import Image
+
+    out = io.BytesIO()
+    Image.fromarray(np.asarray(pixels, np.uint8)).save(out, format="PNG")
+    return out.getvalue()
+
+
+def write_gltf(path, doc: dict) -> str:
+    """Write a glTF 2.0 document and return its path.
+
+    `doc` is glTF JSON except that primitive attributes and indices and
+    animation sampler inputs and outputs are numpy arrays (float32,
+    uint32, uint16 or uint8; (N,) or (N, 1-4)), which become accessors
+    of one buffer, and each image is {"pixels": (H, W, 3|4) uint8} plus
+    either "uri" (a PNG file written next to the document) or nothing
+    (the PNG embedded in the buffer). A path ending in .glb writes a
+    binary glTF, else a .gltf with its buffer in a .bin beside it."""
+    path = os.fspath(path)
+    base = os.path.dirname(os.path.abspath(path))
+    os.makedirs(base, exist_ok=True)
+    blob = bytearray()
+    views: list[dict] = []
+    accessors: list[dict] = []
+
+    def view(data: bytes) -> int:
+        blob.extend(b"\0" * (-len(blob) % 4))
+        views.append({"buffer": 0, "byteOffset": len(blob),
+                      "byteLength": len(data)})
+        blob.extend(data)
+        return len(views) - 1
+
+    def accessor(a) -> int:
+        a = np.ascontiguousarray(a)
+        n = 1 if a.ndim == 1 else a.shape[1]
+        acc = {"bufferView": view(a.tobytes()),
+               "componentType": _COMPONENT_TYPES[a.dtype],
+               "count": int(a.shape[0]), "type": _ACCESSOR_TYPES[n]}
+        if a.dtype == np.float32 and n == 3:
+            acc["min"] = a.min(0).tolist()
+            acc["max"] = a.max(0).tolist()
+        accessors.append(acc)
+        return len(accessors) - 1
+
+    out = {k: v for k, v in doc.items()}
+    out.setdefault("asset", {"version": "2.0"})
+    out["meshes"] = [
+        {**m, "primitives": [
+            {**p, "attributes": {k: accessor(v)
+                                 for k, v in p["attributes"].items()},
+             **({"indices": accessor(p["indices"])} if "indices" in p else {})}
+            for p in m["primitives"]]}
+        for m in doc.get("meshes", [])]
+    if "animations" in doc:
+        out["animations"] = [
+            {**a, "samplers": [
+                {**s, "input": accessor(s["input"]),
+                 "output": accessor(s["output"])} for s in a["samplers"]]}
+            for a in doc["animations"]]
+    images = []
+    for img in doc.get("images", []):
+        if "uri" in img:
+            img_path = os.path.join(base, img["uri"])
+            with open(img_path, "wb") as f:
+                f.write(_png_bytes(img["pixels"]))
+            images.append({"uri": img["uri"]})
+        else:
+            images.append({"bufferView": view(_png_bytes(img["pixels"])),
+                           "mimeType": "image/png"})
+    if images:
+        out["images"] = images
+    blob.extend(b"\0" * (-len(blob) % 4))
+    out["accessors"], out["bufferViews"] = accessors, views
+    out["buffers"] = [{"byteLength": len(blob)}]
+    if path.endswith(".glb"):
+        js = json.dumps(out).encode()
+        js += b" " * (-len(js) % 4)
+        chunks = (len(js).to_bytes(4, "little") + b"JSON" + js
+                  + len(blob).to_bytes(4, "little") + b"BIN\0" + bytes(blob))
+        with open(path, "wb") as f:
+            f.write(b"glTF" + (2).to_bytes(4, "little")
+                    + (12 + len(chunks)).to_bytes(4, "little") + chunks)
+        return path
+    bin_name = os.path.splitext(os.path.basename(path))[0] + ".bin"
+    out["buffers"][0]["uri"] = bin_name
+    with open(os.path.join(base, bin_name), "wb") as f:
+        f.write(bytes(blob))
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return path
+
+
+def mat3_to_quat(r: np.ndarray) -> np.ndarray:
+    """A rotation matrix -> its unit quaternion (x, y, z, w), glTF order."""
+    r = np.asarray(r, np.float64)
+    tr = np.trace(r)
+    if tr > 0:
+        s = 2.0 * np.sqrt(1.0 + tr)
+        q = [(r[2, 1] - r[1, 2]) / s, (r[0, 2] - r[2, 0]) / s,
+             (r[1, 0] - r[0, 1]) / s, 0.25 * s]
+    else:
+        i = int(np.argmax(np.diag(r)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = 2.0 * np.sqrt(max(1.0 + r[i, i] - r[j, j] - r[k, k], 1e-30))
+        q = [0.0] * 4
+        q[i] = 0.25 * s
+        q[j] = (r[j, i] + r[i, j]) / s
+        q[k] = (r[k, i] + r[i, k]) / s
+        q[3] = (r[k, j] - r[j, k]) / s
+    q = np.asarray(q)
+    return (q / np.linalg.norm(q)).astype(np.float32)
+
+
+def _plate_images(seed: int) -> list[dict]:
+    """The plate scene's three textures: a 512^2 sRGB base color (colour
+    cells under a fine checker), a 256^2 linear metallic-roughness map
+    (roughness in G, metallic in B) and a 256^2 linear normal map of
+    gentle bumps."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:512, 0:512]
+    cells = rng.integers(60, 255, (8, 8, 3))
+    base = cells[y // 64, x // 64] * np.where((x // 8 + y // 8) % 2, 1.0,
+                                              0.7)[..., None]
+    base = np.concatenate([base, np.full((512, 512, 1), 255.0)], -1)
+    y, x = np.mgrid[0:256, 0:256] / 256.0
+    mr = np.stack([np.zeros_like(x), 0.5 + 0.5 * np.sin(6.283 * 3 * x) ** 2,
+                   (y > 0.5).astype(np.float64), np.ones_like(x)], -1) * 255.0
+    nx = 0.3 * np.sin(6.283 * 4 * x)
+    ny = 0.3 * np.cos(6.283 * 4 * y)
+    n = np.stack([nx, ny, np.ones_like(x)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    nrm = np.concatenate([(n * 0.5 + 0.5) * 255.0, np.full((256, 256, 1),
+                                                           255.0)], -1)
+    return [{"uri": name, "pixels": np.clip(img + 0.5, 0, 255).astype(np.uint8)}
+            for name, img in (("base.png", base), ("mr.png", mr),
+                              ("normal.png", nrm))]
+
+
+def write_plate_gltf(directory, n_clusters: int = 2048, seed: int = 0,
+                     n_instanced: int = 64, scatter_lights: int = 1024,
+                     name: str = "plates.gltf") -> str:
+    """make_plate_scene's plates, lights and camera as a glTF file in
+    `directory`; returns its path.
+
+    Two meshes: "plates", the first n_clusters - n_instanced plates in
+    world space (their 128 triangles each, with normals and uvs, no
+    tangents: World generates MikkTSpace ones), and "plate", the unit
+    plate, instanced by n_instanced nodes under a parent node with TRS
+    transforms that place the remaining plates (a reflected plate takes
+    the scale (-1, 1, 1)). The triangles equal make_plate_scene's up to
+    float rounding: n_clusters * 128 in all, 262,144 at 2048. World cuts
+    them into clusters of at most 124: 1984 static plates fill 2048
+    clusters exactly, and each instance adds two.
+
+    Materials: the rough dielectric of the plate scene on "plates", with
+    a sRGB base color texture and a linear metallic-roughness texture;
+    the metal on "plate", with a normal map; PNG files beside the
+    document. Lights: scatter_lights point lights as KHR_lights_punctual
+    nodes (make_plate_scene's scatter recipe: radiance U(0.05, 0.5) as
+    the colour, intensity 4 pi, range the bounds' diagonal), else its one
+    point light; no directional light, so World keeps the default sun.
+    A camera node at make_plate_scene's eye, aimed at the grid's
+    centre."""
+    rng = np.random.default_rng(seed)
+    verts, tris = _unit_plate()
+    origins, rots = _plate_frames(n_clusters, rng)
+    n_static = n_clusters - n_instanced
+    nv = len(verts)
+    world = [(verts @ rot.T + origin).astype(np.float32)
+             for origin, rot in zip(origins, rots)]
+    lo = np.min([w.min(0) for w in world], axis=0)
+    hi = np.max([w.max(0) for w in world], axis=0)
+    uv = np.ascontiguousarray(verts[:, :2])
+
+    plates = {
+        "POSITION": np.concatenate(world[:n_static]),
+        "NORMAL": np.concatenate([np.tile(rot[:, 2], (nv, 1)).astype(
+            np.float32) for rot in rots[:n_static]]),
+        "TEXCOORD_0": np.tile(uv, (n_static, 1)),
+    }
+    plate = {"POSITION": verts,
+             "NORMAL": np.tile(np.float32([0, 0, 1]), (nv, 1)),
+             "TEXCOORD_0": uv}
+    meshes = [
+        {"name": "plates", "primitives": [{
+            "attributes": plates, "material": 0,
+            "indices": (tris[None] + nv * np.arange(n_static)[:, None, None])
+            .reshape(-1).astype(np.uint32)}]},
+        {"name": "plate", "primitives": [{
+            "attributes": plate, "material": 1,
+            "indices": tris.reshape(-1).astype(np.uint16)}]},
+    ]
+    parent_t = np.float32([0.5, 0.0, -0.25])
+    nodes = [{"name": "plates", "mesh": 0},
+             {"name": "instances", "translation": parent_t.tolist(),
+              "children": list(range(2, 2 + n_instanced))}]
+    for origin, rot in zip(origins[n_static:], rots[n_static:]):
+        scale = [1.0, 1.0, 1.0]
+        if np.linalg.det(rot) < 0:
+            rot = rot * np.float32([-1.0, 1.0, 1.0])[None, :]
+            scale = [-1.0, 1.0, 1.0]
+        nodes.append({"mesh": 1,
+                      "translation": (origin - parent_t).tolist(),
+                      "rotation": mat3_to_quat(rot).tolist(),
+                      "scale": scale})
+
+    center = (lo + hi) / 2
+    ext = float(np.max(hi - lo))
+    if scatter_lights > 0:
+        lrng = np.random.default_rng(0)
+        n = min(scatter_lights, MAX_POINT_LIGHTS)
+        pos = lrng.uniform(lo, hi, (n, 3))
+        color = lrng.uniform(0.05, 0.5, (n, 3))
+        lights = [{"type": "point", "color": c.tolist(),
+                   "intensity": 4.0 * np.pi,
+                   "range": float(np.linalg.norm(hi - lo))} for c in color]
+    else:
+        pos = [center + np.array([0.0, 0.75 * ext, 0.0])]
+        lights = [{"type": "point", "color": [1.0, 0.9, 0.8],
+                   "intensity": 4.0 * np.pi * ext * ext, "range": 4.0 * ext}]
+    for i, p in enumerate(pos):
+        nodes.append({"translation": np.asarray(p, np.float32).tolist(),
+                      "extensions": {"KHR_lights_punctual": {"light": i}}})
+
+    view = np.array([1.0, 0.7, 1.2])
+    eye = center + view / np.linalg.norm(view) * 0.9 * ext
+    w2c = look_at(eye, center, np.array([0.0, 1.0, 0.0]))
+    nodes.append({"name": "camera", "camera": 0,
+                  "translation": np.asarray(eye, np.float32).tolist(),
+                  "rotation": mat3_to_quat(w2c[:3, :3].T).tolist()})
+
+    doc = {
+        "scene": 0,
+        "scenes": [{"nodes": [0, 1] + list(range(2 + n_instanced,
+                                                 len(nodes)))}],
+        "nodes": nodes,
+        "meshes": meshes,
+        "materials": [
+            {"name": "rough dielectric", "pbrMetallicRoughness": {
+                "baseColorFactor": [0.8, 0.8, 0.75, 1.0],
+                "metallicFactor": 0.0, "roughnessFactor": 0.6,
+                "baseColorTexture": {"index": 0},
+                "metallicRoughnessTexture": {"index": 1}}},
+            {"name": "metal", "pbrMetallicRoughness": {
+                "baseColorFactor": [0.95, 0.64, 0.54, 1.0],
+                "metallicFactor": 1.0, "roughnessFactor": 0.35},
+             "normalTexture": {"index": 2}},
+        ],
+        "samplers": [{"wrapS": 10497, "wrapT": 10497}],
+        "textures": [{"source": i, "sampler": 0} for i in range(3)],
+        "images": _plate_images(seed),
+        "cameras": [{"type": "perspective", "perspective": {
+            "yfov": float(np.radians(59.0)), "znear": 0.1, "zfar": 100.0,
+            "aspectRatio": 16 / 9}}],
+        "extensionsUsed": ["KHR_lights_punctual"],
+        "extensions": {"KHR_lights_punctual": {"lights": lights}},
+    }
+    return write_gltf(os.path.join(os.fspath(directory), name), doc)

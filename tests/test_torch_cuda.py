@@ -8,12 +8,14 @@ there run
 Tolerances as chip_smoke.py states them: hit/miss and occlusion equal,
 tri equal except exact t ties, t within rtol 1e-5, attributes 1e-4; the
 shading kernel within rtol 1e-5 / atol 1e-6 of its plain version; the
-pair-block kernel's slots equal to its plain version's."""
+pair-block kernel's slots equal to its plain version's; the 8-wide
+kernels equal to their plain versions bit for bit."""
 
 import numpy as np
 import pytest
 import torch
 
+from prosper_tpu_torch.accel.bvh import build_bvh, pack_nodes8
 from prosper_tpu_torch.entry import entry
 from prosper_tpu_torch.ops import shade_tiles as tst
 from prosper_tpu_torch.ops import trace_bvh as tb
@@ -86,7 +88,7 @@ def test_kernels_match_plain_on_card(cuda, scene, n):
                                   t_max)
     assert torch.equal(occ, want)
     tb.check_stack_overflow(cuda)
-    assert [f.launches for f in tb.KERNELS] == [1, 1, 1, 0, 0, 0]
+    assert [f.launches for f in tb.KERNELS] == [1, 1, 1, 0, 0, 0, 0, 0, 0]
 
 
 def _random_rays(cam, R, seed, device):
@@ -602,3 +604,84 @@ def test_leafmajor_frames_on_card_match_cpu(cuda, mode, monkeypatch):
     assert n_g == n_c > 0 and k_g > 0 and k_c == 0
     off = ((img_g - img_c).abs() > 1e-3).any(dim=-1).float().mean()
     assert float(off) <= 0.01
+
+
+def _nodes8(sc, device):
+    frame = sc["frame"]
+    bvh = build_bvh(frame["wc_aabb_min_w"].cpu().numpy(),
+                    frame["wc_aabb_max_w"].cpu().numpy(), max_leaf_size=1)
+    return torch.as_tensor(pack_nodes8(bvh), device=device)
+
+
+@pytest.mark.parametrize("n", [6, 64])
+def test_bvh8_kernels_match_plain_on_card(cuda, n):
+    """K11, K12 and K13 against their plain versions (equal bit for bit)
+    and against K2, K4 and K3 on the same rays. At n = 6 the root holds
+    two empty slots (NaN bounds, enc 0) and the rays start inside the
+    root's box, near the scene's centre."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=n, width=32,
+                             height=32)
+    geom, frame = sc["geom"], sc["frame"]
+    bvh = (frame["bvh_bounds"], frame["bvh_meta"])
+    nodes8 = _nodes8(sc, cuda)
+    R = 5000
+    rng = np.random.default_rng(n)
+    if n == 6:
+        assert int(torch.isnan(nodes8[0, :, 0]).sum()) == 2
+        lo = frame["wc_aabb_min_w"].amin(0)
+        hi = frame["wc_aabb_max_w"].amax(0)
+        o = (lo + hi) / 2 + torch.as_tensor(
+            rng.uniform(-0.3, 0.3, (R, 3)), dtype=torch.float32, device=cuda)
+        d = torch.as_tensor(rng.normal(size=(R, 3)), dtype=torch.float32,
+                            device=cuda)
+        o, d = o.contiguous(), (d / d.norm(dim=1, keepdim=True)).contiguous()
+        t_max = torch.full((R,), float("inf"), device=cuda)
+    else:
+        o, d, t_max = _incoherent_rays(sc, R, 9, cuda)
+    for f in tb.KERNELS:
+        f.launches = 0
+    got = tb.trace_closest_bvh8(geom["packed9"], nodes8, o, d, 1e-4, t_max)
+    want = tb.trace_closest_bvh8_plain(geom["packed9"], nodes8, o, d, 1e-4,
+                                       t_max)
+    assert torch.equal(got, want) and (got[:, 1] >= 0).any()
+    _rows_agree(got, tb.trace_closest_bvh(geom["packed9"], *bvh, o, d, 1e-4,
+                                          t_max))
+    full = tb.trace_closest_bvh8_full(geom["packed_full"], nodes8, o, d, 1e-4,
+                                      t_max)
+    assert torch.equal(full, tb.trace_closest_bvh8_full_plain(
+        geom["packed_full"], nodes8, o, d, 1e-4, t_max))
+    _rows_agree(full, tb.trace_closest_bvh_full(geom["packed_full"], *bvh, o,
+                                                d, 1e-4, t_max))
+    t_any = torch.where(torch.isfinite(t_max), t_max, 8.0)
+    occ = tb.trace_any_bvh8(geom["packed9"], nodes8, o, d, 0.1, t_any)
+    assert torch.equal(occ, tb.trace_any_bvh8_plain(geom["packed9"], nodes8,
+                                                    o, d, 0.1, t_any))
+    assert torch.equal(occ, tb.trace_any_bvh(geom["packed9"], *bvh, o, d,
+                                             0.1, t_any))
+    tb.check_stack_overflow(cuda)
+    assert [f.launches for f in tb.KERNELS][-3:] == [1, 1, 1]
+
+
+def test_bvh8_stack_overflow_raises_on_card(cuda):
+    """A 20-level chain of 8-wide nodes whose first slot is the next node
+    and whose other seven are leaves, every box around the ray: each
+    level leaves 7 entries on the stack, 7 * 19 + 8 > STACK8_CAP, so the
+    walk sets the overflow flag and check_stack_overflow raises."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=8, width=32,
+                             height=32)
+    depth = 20
+    assert 7 * (depth - 1) + 8 > tb.STACK8_CAP
+    nodes8 = np.zeros((depth, 8, 8), np.float32)
+    nodes8[:, :, 0:3] = -100.0
+    nodes8[:, :, 3:6] = 100.0
+    nodes8[:, 1:, 6] = -(np.arange(7) + 1.0)
+    nodes8[:-1, 0, 6] = np.arange(1, depth)
+    nodes8[-1, 0, 6] = -8.0  # the last node's first slot: cluster 7
+    o = torch.zeros((4, 3), device=cuda)
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 4, device=cuda)
+    tb.trace_closest_bvh8(sc["geom"]["packed9"],
+                          torch.as_tensor(nodes8, device=cuda), o, d, 1e-4,
+                          float("inf"))
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        tb.check_stack_overflow(cuda)
+    tb.check_stack_overflow(cuda)  # cleared

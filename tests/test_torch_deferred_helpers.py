@@ -79,8 +79,14 @@ def test_directional_light_equals_jax():
 
 
 def test_pixel_cone_and_mip_check():
-    """The spread equals JAX's; a cone is accepted on the one-mip arena
-    of the procedural scenes and refused on a multi-mip arena."""
+    """The spread equals JAX's. A cone's LOD on the one-mip arena of the
+    procedural scenes samples the base mip (the trilinear tap clamps the
+    LOD to [0, n_mips - 1]); on a mipped texture the trilinear taps equal
+    JAX's within 1e-6 (the multi-mip arena no longer raises)."""
+    from prosper_tpu.ops import texture as jtexture
+    from prosper_tpu_torch.ops import texture as ttexture
+    from prosper_tpu_torch.scene.textures import generate_mips, pack_rgba8_quads
+
     static, frame, arena, cam_fn = ttesting.make_test_scene(4)
     cam = cam_fn(64, 48)
     want = float(jsurface.pixel_cone_alpha(
@@ -89,13 +95,34 @@ def test_pixel_cone_and_mip_check():
         {k: torch.as_tensor(v) for k, v in cam.items()}, 48))
     assert got == pytest.approx(want, rel=1e-6)
     scene = from_numpy_scene(static, frame, arena, "cpu")
-    cone = {"alpha": got, "bias": 0.0, "aniso_taps": 1}
-    tsurface._check_cone(scene["arena"], cone)  # one mip: accepted
-    multi = dict(scene["arena"], n_mips=scene["arena"]["n_mips"] + 1)
-    with pytest.raises(NotImplementedError, match="multi-mip"):
-        tsurface._check_cone(multi, cone)
-    with pytest.raises(NotImplementedError, match="aniso"):
-        tsurface._check_cone(scene["arena"], dict(cone, aniso_taps=4))
+    rng = np.random.default_rng(0)
+    mat = torch.ones(500, dtype=torch.int32)
+    uv = torch.as_tensor(rng.uniform(-1, 2, (500, 2)), dtype=torch.float32)
+    lod = torch.as_tensor(rng.uniform(-3, 6, 500), dtype=torch.float32)
+    base = ttexture.sample_material_packed(scene["arena"], mat, uv)
+    coned = ttexture.sample_material_packed(scene["arena"], mat, uv, lod=lod)
+    for k in base:
+        torch.testing.assert_close(coned[k], base[k], rtol=0, atol=0)
+
+    img = rng.integers(0, 256, (16, 8, 4)).astype(np.uint8)
+    mips = generate_mips(img, srgb=True)
+    offs = np.cumsum([0] + [m.shape[0] * m.shape[1] for m in mips])
+    table = np.zeros((1, 13, 4), np.int32)
+    for m, mip in enumerate(mips):
+        table[0, m] = (offs[m], mip.shape[1], mip.shape[0], 1)
+    table[0, len(mips):] = table[0, len(mips) - 1]
+    mipped = {"data": np.concatenate([pack_rgba8_quads(m) for m in mips]),
+              "table": table, "n_mips": np.int32([len(mips)])}
+    tex = np.zeros(500, np.int32)
+    want = jtexture.sample_trilinear(
+        {k: jnp.asarray(v) for k, v in mipped.items()}, jnp.asarray(tex),
+        jnp.asarray(uv.numpy()), jnp.asarray(lod.numpy()))
+    got = ttexture.sample_trilinear(
+        {k: torch.as_tensor(v.astype(np.int64) if v.dtype == np.uint32
+                            else v) for k, v in mipped.items()},
+        torch.as_tensor(tex), uv, lod)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
 
 
 def test_z_slices_equal_jax():

@@ -218,18 +218,31 @@ def test_evaluate_surface_matches_jax(case):
 
 
 def test_evaluate_surface_refuses_what_the_base_mip_cannot_honour(case):
-    _, _, port, tcam = case
+    """What the base-mip port refused it now samples: anisotropic taps
+    (aniso_taps 4) equal JAX's on the same hits, within 1e-5; and a table
+    that claims more mips than a texture holds clamps to its last mip,
+    so the surfaces equal the one-mip arena's within 1e-6 (the trilinear
+    blend of two equal taps)."""
+    (_, (js, jf, ja, _), port, _) = case
     scene = port["bvh"]
     o, d, rows = _forward_hits(case)
     args = (scene["static"], scene["frame"], scene["arena"], o, d,
             unpack_hit8(rows))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsurface.evaluate_surface(*args, cone={"alpha": 1e-3,
-                                               "aniso_taps": 4})
-    multi = dict(scene["arena"], n_mips=torch.tensor([1, 3]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsurface.evaluate_surface(*args[:2], multi, *args[3:],
-                                  cone={"alpha": 1e-3})
+    cone = {"alpha": 1e-3, "bias": 0.0, "aniso_taps": 4}
+    got = tsurface.evaluate_surface(*args, cone=cone)
+    want = jsurface.evaluate_surface(js, jf, ja, _j(o), _j(d), _jhit(rows),
+                                     cone=cone)
+    valid = np.asarray(want["valid"])
+    for k in ("albedo", "alpha", "roughness", "metallic", "normal_ws"):
+        np.testing.assert_allclose(got[k].numpy()[valid],
+                                   np.asarray(want[k])[valid], rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+    multi = dict(scene["arena"], n_mips=torch.tensor([1, 3]), one_mip=False)
+    base = tsurface.evaluate_surface(*args, cone={"alpha": 1e-3})
+    more = tsurface.evaluate_surface(*args[:2], multi, *args[3:],
+                                     cone={"alpha": 1e-3})
+    for k in ("albedo", "alpha", "roughness", "metallic"):
+        torch.testing.assert_close(more[k], base[k], rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("draw_type", list(tdebug.DrawType)[1:])

@@ -182,8 +182,11 @@ def test_port_never_imports_jax():
     """Importing every module of the port and rendering a CPU path-traced,
     a CPU deferred and a CPU forward frame (the transparent pass and alpha
     discard on a frame without BVH arrays), two CPU ReSTIR frames, a
-    path-traced frame without BVH arrays and one under the leaf-major
-    bounce tracer pulls in no JAX and nothing of prosper_tpu."""
+    path-traced frame without BVH arrays, one under the leaf-major
+    bounce tracer, and a deferred frame of a glTF scene written by
+    testing.write_plate_gltf and loaded through scene/world.py (glTF,
+    native mesh pipeline, textures with mips) pulls in no JAX and
+    nothing of prosper_tpu."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "torch.set_num_threads(2)\n"
@@ -220,6 +223,15 @@ def test_port_never_imports_jax():
         "                 height=32, mode='pt')\n"
         "img, _, n = fn(*args)\n"
         "assert img.shape == (32, 32, 3) and int(n) > 32 * 32\n"
+        "import tempfile\n"
+        "from prosper_tpu_torch import testing\n"
+        "path = testing.write_plate_gltf(tempfile.mkdtemp(), n_clusters=8,\n"
+        "                                n_instanced=2, scatter_lights=4)\n"
+        "fn, args = entry('cpu', scene=path, width=32, height=32,\n"
+        "                 mode='deferred', use_culling=True)\n"
+        "img, state, drawn = fn(*args)\n"
+        "assert img.shape == (32, 32, 3) and int(drawn) > 0\n"
+        "assert int(args[0]['arena']['n_mips'].max()) > 1\n"
         "bad =sorted(m for m in sys.modules if m.startswith('jax')\n"
         "             or m == 'prosper_tpu' or m.startswith('prosper_tpu.'))\n"
         "print(len(sys.modules), bad)\n"
