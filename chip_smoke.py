@@ -11,12 +11,14 @@ culling, the forward renderer with its transparent pass and alpha-mask
 discard, ReSTIR DI under its three tracer configurations, the path
 tracer and ReSTIR under the leaf-major bounce tracer, and the glTF
 scene path: the plate scene written as a glTF file, loaded through
-World, rendered, and traced by the 8-wide kernels. Phases:
+World, rendered, and traced by the 8-wide kernels, and the measurement
+entry points of the experiments and scripts (X1-X3). Phases:
 
 1. device: CUDA, nvcc and the card's name and power limit;
 2. build: compile csrc/trace_bvh.cu, csrc/shade_tiles.cu,
-   csrc/trace_flat.cu and csrc/trace_leafmajor.cu for sm_90a, one nvcc
-   each, in parallel (timed);
+   csrc/trace_flat.cu, csrc/trace_leafmajor.cu, csrc/trace_wavefront.cu
+   and csrc/bench_kernels.cu for sm_90a, one nvcc each, in parallel
+   (timed);
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the whole inputs of one frame, with kernel and plain times and
    the bound (the least time an H100 could take for the same work):
@@ -88,7 +90,22 @@ World, rendered, and traced by the 8-wide kernels. Phases:
    those hits (sorted by cluster and octant) K11 against its plain
    version and K2, K12 against its plain version and K4, and, with t_max
    8, K13 against its plain version and K3; each with its time, the
-   plain version's and the BVH2 kernel's on the same rays.
+   plain version's and the BVH2 kernel's on the same rays;
+15. kernels: experiments: the port's measurement entry points, run while
+   the World file still exists: scripts/bench_visit_breakdown.main on
+   plate-2048 and on the World (K4 primary rays, the cosine bounce set,
+   the counting K2 X3a, K2's time, the threaded walk X1 at each ray's hit
+   t and t_max, the Möller unit X3b), experiments/bench_mxu_isect.main
+   (the Möller block against the tensor-core Plücker block, then the three
+   X2 loops at one block and at 8 blocks per SM) and
+   scripts/bench_loop_overhead.main (X3c-f); then X1, X3a, the Möller
+   loops and X3c-f against their plain versions (equal) on the shapes the
+   entry points ran, the Plücker loops against their TF32 plain version
+   (no hit/miss mismatch off ops/plucker.tf32_agreement's border, t
+   within rtol 1e-5 plus the bound of a reordered sum) and at one block
+   against Möller (the script's bar:
+   99.95% of pairs, t within rtol 1e-2), with times, bounds and the
+   yardstick torch.matmul of the Plücker products.
 
 Every launch count is set to 0 just before a path is driven and read
 just after; a kernel of the path that never launched fails the run. Any
@@ -121,6 +138,8 @@ SOURCES = {
     "shade_tiles": "prosper_tpu_torch/csrc/shade_tiles.cu",
     "trace_flat": "prosper_tpu_torch/csrc/trace_flat.cu",
     "trace_leafmajor": "prosper_tpu_torch/csrc/trace_leafmajor.cu",
+    "trace_wavefront": "prosper_tpu_torch/csrc/trace_wavefront.cu",
+    "bench_kernels": "prosper_tpu_torch/csrc/bench_kernels.cu",
 }
 # kernel -> (source, the Pallas kernel it replaces)
 KERNELS = {
@@ -147,7 +166,27 @@ KERNELS = {
     "trace_closest_bvh8_full": ("trace_bvh",
                                 "prosper_tpu/ops/trace_bvh.py:1948"),
     "trace_any_bvh8": ("trace_bvh", "prosper_tpu/ops/trace_bvh.py:1977"),
+    "walk_leaves": ("trace_wavefront", "experiments/trace_wavefront.py:158"),
+    "trace_closest_bvh_visits": ("trace_bvh",
+                                 "scripts/bench_visit_breakdown.py:148"),
+    "isect_loop_moller": ("bench_kernels",
+                          "experiments/bench_mxu_isect.py:130"),
+    "isect_loop_plucker": ("bench_kernels",
+                           "experiments/bench_mxu_isect.py:130"),
+    "isect_loop_plucker_pre": ("bench_kernels",
+                               "experiments/bench_mxu_isect.py:130"),
+    "moller_chain_loop": ("bench_kernels",
+                          "scripts/bench_visit_breakdown.py:179"),
+    "loop_flat": ("bench_kernels", "scripts/bench_loop_overhead.py:58"),
+    "loop_nested": ("bench_kernels", "scripts/bench_loop_overhead.py:88"),
+    "loop_cond": ("bench_kernels", "scripts/bench_loop_overhead.py:113"),
+    "loop_vec": ("bench_kernels", "scripts/bench_loop_overhead.py:143"),
 }
+# phase 15: the kernels the measurement entry points run
+EXPERIMENT_PATH = ("walk_leaves", "trace_closest_bvh_visits",
+                   "isect_loop_moller", "isect_loop_plucker",
+                   "isect_loop_plucker_pre", "moller_chain_loop", "loop_flat",
+                   "loop_nested", "loop_cond", "loop_vec")
 PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
 DEFERRED_PATH = {False: ("trace_primary_bvh_full", "shade_clustered_tiles"),
                  True: ("trace_closest_bvh_full", "shade_clustered_tiles")}
@@ -191,7 +230,9 @@ PORT_KERNEL_SYMBOLS = ("primary_kernel", "closest_kernel", "any_kernel",
                        "flat_any_kernel", "dense_any_kernel",
                        "dense_closest_kernel", "pairs_kernel",
                        "closest8_kernel", "closest8_full_kernel",
-                       "any8_kernel")
+                       "any8_kernel", "walk_kernel", "isect_loop_kernel",
+                       "loop_flat_kernel", "loop_nested_kernel",
+                       "loop_cond_kernel", "loop_vec_kernel")
 # the glTF World scene: plate-2048's plates, the last 64 as instances
 WORLD_INSTANCED = 64
 # trace kernel vs plain: hit/miss and occlusion equal; tri equal unless
@@ -220,6 +261,36 @@ FP32_OPS_PER_S = 67e12
 # (attenuation, light_contrib, accumulation); one spot light.
 MOLLER_OPS = 53
 LANES = 128  # triangles per cluster slab
+# Phase 15. One slab test (csrc/ray_common.cuh slab_enter: 6 subtractions,
+# 6 products, 6 min/max, 3 max for the entry, 2 min for the exit, 2
+# compares). The Plücker block per (ray, triangle): its products at their
+# real depth, 2 x (6 + 6 + 3 + 3), on the tensor cores at the H100's 495
+# TF32 TFLOP/s, and its epilogue (csrc/bench_kernels.cu: abs, compare,
+# reciprocal, select, t, u, v, five range tests, u + v, select, min) at
+# 67 TFLOP/s. A one-block loop is held to one of the 132 SMs' share.
+SLAB_OPS = 25
+TF32_OPS_PER_S = 495e12
+PLUCKER_PRODUCT_OPS = 36
+PLUCKER_EPILOGUE_OPS = 17
+H100_SMS = 132
+TILE_RAYS = 256
+# The loop probes' bound: the cycles of one iteration's loop-carried
+# dependence chain at the SM clock, the chain read from the sm_90a SASS
+# of csrc/bench_kernels.cu (cuobjdump -sass), with assumed latencies in
+# cycles: 4 for a dependent integer or float32 add, multiply or min, 23
+# for a warp shuffle and for a shared-memory load, 20 for a
+# shared-memory store and for a block barrier. nvcc unrolls flat and
+# nested 16 times and carries the sum through eight three-input adds
+# (IADD3) per 16 iterations; cond's else branch folds into one IADD3 of
+# s[i] + 3 per four iterations; vec carries sub, mul, min, five shuffle
+# and min steps, the store, the barrier, a load, seven mins and the add.
+LAT_ALU, LAT_SHFL, LAT_LDS, LAT_STS, LAT_BAR = 4, 23, 23, 20, 20
+PROBE_CHAIN_CYCLES = {
+    "loop_flat": 8 * LAT_ALU / 16, "loop_nested": 8 * LAT_ALU / 16,
+    "loop_cond": LAT_ALU / 4,
+    "loop_vec": (3 * LAT_ALU + 5 * (LAT_SHFL + LAT_ALU) + LAT_STS + LAT_BAR
+                 + LAT_LDS + 7 * LAT_ALU + LAT_ALU),
+}
 LIST_LIGHT_OPS = 6
 POINT_LIGHT_OPS = 109
 SPOT_LIGHT_OPS = 112
@@ -277,12 +348,15 @@ def patched(*swaps):
 
 
 def all_kernels():
+    from prosper_tpu_torch.experiments import trace_wavefront as tw
+    from prosper_tpu_torch.ops import bench_kernels as bk
     from prosper_tpu_torch.ops import shade_tiles as tst
     from prosper_tpu_torch.ops import trace_bvh as tb
     from prosper_tpu_torch.ops import trace_flat as tf
     from prosper_tpu_torch.ops import trace_leafmajor as lm
 
-    return tb.KERNELS + tst.KERNELS + tf.KERNELS + lm.KERNELS
+    return (tb.KERNELS + tst.KERNELS + tf.KERNELS + lm.KERNELS + tw.KERNELS
+            + bk.KERNELS)
 
 
 def reset_counts() -> None:
@@ -627,7 +701,7 @@ def as_plain(plain):
     def fn(*args, **kw):
         *head, o, d, t_min, t_max = args
         return plain(*head, o, d, float(t_min),
-                     tb._tmax(t_max, o.shape[0], o.device), **kw)
+                     tb.as_tmax(t_max, o.shape[0], o.device), **kw)
     return fn
 
 
@@ -690,7 +764,7 @@ def culled_phases(run):
         out = run()
     if len(calls) != 2:
         raise RuntimeError(f"a culled frame traced {len(calls)} phases, not 2")
-    return out, [(o, d, t_min, tb._tmax(t_max, o.shape[0], o.device),
+    return out, [(o, d, t_min, tb.as_tmax(t_max, o.shape[0], o.device),
                   kw["skip_mask"])
                  for (_, _, _, o, d, t_min, t_max), kw in calls]
 
@@ -917,7 +991,7 @@ def check_flat_call(label, kern, plain, args, attr_cols):
 
     slabs, mn, mx, o, d, t_min, t_max = args
     args = (slabs, mn, mx, o, d, float(t_min),
-            tb._tmax(t_max, o.shape[0], o.device))
+            tb.as_tmax(t_max, o.shape[0], o.device))
     t_max = args[-1]
     want, plain_ms = timed_call(lambda: plain(*args))
     got = kern(*args)
@@ -1155,7 +1229,7 @@ def check_any_call(label, kern, plain, args, boxes, k3_args=None):
 
     *head, o, d, t_min, t_max = args
     t_min = float(t_min)
-    t_max = tb._tmax(t_max, o.shape[0], o.device)
+    t_max = tb.as_tmax(t_max, o.shape[0], o.device)
     args = (*head, o, d, t_min, t_max)
     want, plain_ms = timed_call(lambda: plain(*args))
     got = kern(*args)
@@ -1489,7 +1563,7 @@ def check_trace_set(label, args, any_hit):
 
     slabs, bounds, meta, mn, mx, o, d, t_min, t_max = args
     t_min = float(t_min)
-    t_max = tb._tmax(t_max, o.shape[0], o.device)
+    t_max = tb.as_tmax(t_max, o.shape[0], o.device)
     C = mn.shape[0]
     heavy, pairs, _ = lm.light_pairs(mn, mx, o, d, t_min, t_max)
     live = t_max > t_min
@@ -1793,53 +1867,6 @@ def run_world_frames(smi, dev, path, tmp):
     return launches, pt_call
 
 
-def bounce_set(o, d, rows):
-    """scripts/bench_bvh8.py:82-128 on the port's tensors: from every hit
-    of the primary rows (R, 16), a cosine-distributed direction about its
-    normal (numpy default_rng(0)), the origin 1e-4 along the normal;
-    padded with dead rays (t_max 0) to a multiple of 2048 and sorted by
-    (cluster, octant of the direction). Returns (o, d, t_max, live)."""
-    import numpy as np
-
-    t = rows[:, 0].cpu().numpy()
-    tri = rows[:, 1].cpu().numpy().astype(np.int64)
-    n = rows[:, 2:5].cpu().numpy()
-    pos = o.cpu().numpy() + t[:, None] * d.cpu().numpy()
-    idx = np.nonzero(tri >= 0)[0]
-    rng = np.random.default_rng(0)
-    nrm = n[idx]
-    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-9)
-    u1, u2 = rng.random(idx.size), rng.random(idx.size)
-    r = np.sqrt(u1)
-    phi = 2 * np.pi * u2
-    tang = np.cross(nrm, np.where(np.abs(nrm[:, :1]) < 0.9, [[1.0, 0, 0]],
-                                  [[0, 1.0, 0]]))
-    tang /= np.maximum(np.linalg.norm(tang, axis=1, keepdims=True), 1e-9)
-    bit = np.cross(nrm, tang)
-    dd = (tang * (r * np.cos(phi))[:, None] + bit * (r * np.sin(phi))[:, None]
-          + nrm * np.sqrt(np.maximum(1 - u1, 0))[:, None]).astype(np.float32)
-    oo = (pos[idx] + 1e-4 * nrm).astype(np.float32)
-    cluster = tri[idx] // LANES
-    pad = (-idx.size) % 2048
-    oo = np.pad(oo, ((0, pad), (0, 0)))
-    dd = np.pad(dd, ((0, pad), (0, 0)))
-    tmax = np.pad(np.full(idx.size, np.inf, np.float32), (0, pad))
-    cl = np.pad(cluster, (0, pad))
-    ad = np.abs(dd)
-    denom = np.maximum(ad.sum(1), 1e-20)
-    ox, oy = dd[:, 0] / denom, dd[:, 1] / denom
-    fold = dd[:, 2] < 0
-    ox2 = np.where(fold, (1 - np.abs(oy)) * np.sign(ox), ox)
-    oy2 = np.where(fold, (1 - np.abs(ox)) * np.sign(oy), oy)
-    bx = np.clip(((ox2 * 0.5 + 0.5) * 8).astype(np.int32), 0, 7)
-    by = np.clip(((oy2 * 0.5 + 0.5) * 8).astype(np.int32), 0, 7)
-    perm = np.argsort(cl * 128 + (bx * 8 + by) * 2 + fold, kind="stable")
-    dev = o.device
-    return (torch.as_tensor(oo[perm], device=dev),
-            torch.as_tensor(dd[perm], device=dev),
-            torch.as_tensor(tmax[perm], device=dev), idx.size)
-
-
 def check_closest8(label, kern, plain, ref, args, ref_args, attr_cols,
                    boxes):
     """An 8-wide closest-hit kernel on one ray set against its plain
@@ -1875,9 +1902,11 @@ def check_bvh8_kernels(smi, scene, cam):
     pinhole rays, K11 and K12 on the cosine bounce set, K13 on it with
     t_max 8, each against its plain version and its BVH2 twin. Returns
     (ok, records)."""
-    from prosper_tpu_torch.ops import trace as ttrace
     from prosper_tpu_torch.ops import trace_bvh as tb
-    from prosper_tpu_torch.ops.rays import pinhole_rays
+    from prosper_tpu_torch.scripts.bench_visit_breakdown import (
+        bounce_rays,
+        primary_rays,
+    )
 
     geom, frame = scene["geom"], scene["frame"]
     dev = geom["packed_full"].device
@@ -1885,12 +1914,7 @@ def check_bvh8_kernels(smi, scene, cam):
     bvh = (frame["bvh_bounds"], frame["bvh_meta"])
     boxes = leaf_boxes(scene)
     t_min, t_any = 1e-4, 0.1  # what the Pallas kernels hard-code
-    px, py, _ = ttrace.block_pixel_order(W, H)
-    uv = (torch.as_tensor(np.stack([px, py], -1).astype(np.float32),
-                          device=dev) + 0.5) / torch.tensor(
-        [float(W), float(H)], device=dev)
-    o, d = pinhole_rays(cam, uv)
-    o, d = o.contiguous(), d.contiguous()
+    o, d = primary_rays(cam, W, H, dev)
     inf = torch.full((o.shape[0],), float("inf"), device=dev)
     full = list(range(2, 13))
     ok_all, k12 = check_closest8(
@@ -1899,7 +1923,7 @@ def check_bvh8_kernels(smi, scene, cam):
         tb.trace_closest_bvh_full, (p40, n8, o, d, t_min, inf),
         (p40, *bvh, o, d, t_min, inf), full, boxes)
     primary = tb.trace_closest_bvh_full(p40, *bvh, o, d, t_min, inf)
-    ob, db, tb_max, live = bounce_set(o, d, primary)
+    ob, db, tb_max, live = bounce_rays(o, d, primary)
     print(f"bounce set: {live} live rays of {ob.shape[0]}")
     ok, k11 = check_closest8(
         "K11 world bounce set", tb.trace_closest_bvh8,
@@ -1933,9 +1957,353 @@ def check_bvh8_kernels(smi, scene, cam):
                     "trace_any_bvh8": k13}
 
 
+def sm_clock_mhz() -> tuple[float, float]:
+    """(current, maximum) SM clock of card 0 in MHz, from nvidia-smi."""
+    cur, top = sh(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                   "--format=csv,noheader,nounits"]).splitlines()[0].split(",")
+    return float(cur), float(top)
+
+
+def check_walk(label, table, rays, rec):
+    """X1 on one bounce set against its plain version (leaves and counts
+    equal) -> (ok, record)."""
+    from prosper_tpu_torch.experiments import trace_wavefront as tw
+
+    o, d, t_max = rays
+    (want_l, want_c, steps), plain_ms = timed_call(
+        lambda: tw.walk_plain(table, o, d, t_max))
+    got_l, got_c = tw.walk_leaves(table, o, d, t_max)
+    ok = torch.equal(got_l, want_l) and torch.equal(got_c, want_c)
+    live = t_max > 0
+    c = got_c[live].double()
+    out = {"max_abs_err": float((got_c - want_c).abs().max()),
+           "rays": int(o.shape[0]), "live_rays": int(live.sum()),
+           "leaves_per_ray_mean": float(c.mean()),
+           "leaves_per_ray_max": int(c.max()),
+           "overflow_share": float((c > tw.L_CAP).double().mean()),
+           "steps_per_ray_mean": float(steps[live].double().mean()),
+           "ms": device_ms(lambda: tw.walk_leaves(table, o, d, t_max), 5),
+           "plain_ms": plain_ms,
+           **bound(nbytes(table, o, d, t_max, got_l, got_c),
+                   SLAB_OPS * int(steps.sum()))}
+    print(f"X1 walk_leaves {label}: ok={ok} leaves/ray mean "
+          f"{out['leaves_per_ray_mean']:.3f} max {out['leaves_per_ray_max']}, "
+          f"overflow share {out['overflow_share']:.5f}; {out['ms']:.3f} ms, "
+          f"plain {plain_ms:.1f} ms, bound {out['bound_ms']:.3f} ms "
+          f"({out['bound_by']}); entry point: {rec['walk_ms']:.3f} ms")
+    return ok, out
+
+
+def check_visits(label, scene, rays, rows, rec):
+    """X3a on one bounce set: the counting K2's rows (counted in the entry
+    point's run) against its plain version (equal) and rows 0-5 against
+    K2's on the same rays -> (ok, record)."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
+
+    o, d, t_max = rays
+    args = (scene["geom"]["packed9"], scene["frame"]["bvh_bounds"],
+            scene["frame"]["bvh_meta"], o, d, 1e-4, t_max)
+    want, plain_ms = timed_call(lambda: tb.trace_closest_bvh_visits_plain(
+        *args))
+    k2 = tb.trace_closest_bvh(*args)
+    tb.check_stack_overflow(o.device)
+    ok = torch.equal(rows, want) and torch.equal(rows[:, 0:6], k2[:, 0:6])
+    both = (rows[:, 1] >= 0) & (want[:, 1] >= 0)
+    err = float(torch.where(both[:, None], (rows - want).abs(), 0.0).amax())
+    out = {"max_abs_err": err, "rays": int(o.shape[0]),
+           "live_rays": rec["live_rays"], "hits": rec["hits"],
+           "leaf_visits_per_ray": rec["leaf_visits"],
+           "interior_nodes_per_ray": rec["node_pops"],
+           "leaves_before_hit_per_ray": rec["leaves_before_hit"],
+           "leaves_entered_per_ray": rec["leaves_entered"],
+           "ms": rec["visits_kernel_ms"], "k2_same_rays_ms": rec["k2_ms"],
+           "plain_ms": plain_ms,
+           **bound(nbytes(*args[:5], t_max, rows),
+                   closest_ops(leaf_boxes(scene), o, d, rows, t_max))}
+    v, p = rec["leaf_visits"], rec["node_pops"]
+    print(f"X3a visits {label}: ok={ok}; per live ray: leaves tested mean "
+          f"{v['mean']:.3f} (p50 {v['p50']:.0f}, p99 {v['p99']:.0f}, max "
+          f"{v['max']:.0f}), interior nodes {p['mean']:.3f}, leaves entered "
+          f"before the hit {rec['leaves_before_hit']['mean']:.3f}, before "
+          f"t_max {rec['leaves_entered']['mean']:.3f}; K2 {rec['k2_ms']:.3f} "
+          f"ms, counting K2 {out['ms']:.3f} ms, plain {plain_ms:.1f} ms, "
+          f"bound {out['bound_ms']:.3f} ms ({out['bound_by']})")
+    return ok, out
+
+
+def plucker_library_ms(cols, rows, iters) -> float:
+    """One torch.matmul that computes the four Plücker products of
+    `iters` blocks of these rays, [d | o x d | o] (iters * 256, 9) @ (9,
+    512) in TF32: the yardstick beside the tensor-core loop (the port
+    never calls it)."""
+    o = cols[0, 0:3].T
+    d = cols[0, 3:6].T
+    a = torch.cat([d, torch.linalg.cross(o, d), o], dim=1)
+    b = torch.zeros((9, 512), device=cols.device)
+    b[0:6, 0:128] = rows[0:6]
+    b[0:6, 128:256] = rows[12:18]
+    b[0:3, 256:384] = rows[18:21]
+    b[6:9, 384:512] = rows[18:21]
+    a = a.repeat(iters, 1)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return device_ms(lambda: torch.matmul(a, b), 5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def loop_bound(variant, rays, iters, one_block) -> dict:
+    """The triangle loops' bound: Möller 53 float32 operations a test;
+    Plücker 36 TF32 operations a pair (the products at their real K) at
+    495 TFLOP/s plus its epilogue at 67 TFLOP/s. One block is held to one
+    SM's share of the card."""
+    pairs = iters * rays * LANES
+    share = 1.0 / H100_SMS if one_block else 1.0
+    if variant == "moller":
+        ms = pairs * MOLLER_OPS / (FP32_OPS_PER_S * share) * 1e3
+    else:
+        ms = (pairs * PLUCKER_PRODUCT_OPS / (TF32_OPS_PER_S * share)
+              + pairs * PLUCKER_EPILOGUE_OPS / (FP32_OPS_PER_S * share)) * 1e3
+    return {"bound_ms": ms, "bound_by": "operations", "bound_pairs": pairs}
+
+
+def plucker_vs_plain(slab, cols, t):
+    """ops/plucker.tf32_agreement of a tensor-core X2 loop's last t on
+    cols against the TF32 plain block; X2's chain holds t_upper at inf."""
+    from prosper_tpu_torch.ops import bench_kernels as bk
+    from prosper_tpu_torch.ops.plucker import (
+        plucker_rows_from_slab,
+        tf32_agreement,
+    )
+
+    o = cols[:, 0:3].transpose(1, 2).reshape(-1, 3)
+    d = cols[:, 3:6].transpose(1, 2).reshape(-1, 3)
+    return tf32_agreement(plucker_rows_from_slab(slab), o, d, bk.T_MIN,
+                          float("inf"), t)
+
+
+def check_isect_loops(mxu, dev):
+    """X2's three loops against their plain versions at one block (the
+    script's 256 rays) and at full card (bench_mxu_isect.block_cols'
+    distinct rays), NV iterations: the entry point's best and a keep_t
+    launch's best and last t. Möller equal. The tensor-core Plücker loops:
+    best equal, and against the TF32 plain block (ops/plucker.py
+    tf32_agreement) no hit/miss mismatch off the border and, where both
+    hit, t within rtol 1e-5 plus the bound of a reordered sum; at one
+    block also against Möller by the script's bar, 99.95% of the pairs
+    and t within rtol 1e-2 -> (ok, records)."""
+    from prosper_tpu_torch.experiments import bench_mxu_isect as bmi
+    from prosper_tpu_torch.ops import bench_kernels as bk
+    from prosper_tpu_torch.ops.plucker import plucker_rows_from_slab
+
+    runs = {(r["variant"], r["blocks"]): r for r in mxu["runs"]}
+    full_blocks = max(b for _, b in runs)
+    ok_all, records, t_moller = True, {}, None
+    for variant in bmi.VARIANTS:
+        kind = bk.MOLLER if variant == "moller" else bk.PLUCKER
+        ok, err, rec = True, 0.0, {}
+        for blocks in (1, full_blocks):
+            slab, cols = bmi.block_cols(blocks, dev)
+            best, t = bmi.LOOPS[variant](bmi.loop_input(variant, slab), cols,
+                                         bmi.NV, keep_t=True)
+            (want_best, want_t), plain_ms = timed_call(
+                lambda: bk.isect_loop_plain(kind, bk.CHAIN_X2, slab, cols,
+                                            bmi.NV, keep_t=True))
+            run = runs[(variant, blocks)]
+            ok &= (torch.equal(best, want_best)
+                   and torch.equal(run["best"], want_best))
+            both = torch.isfinite(t) & torch.isfinite(want_t)
+            err = max(err, float(torch.where(both, (t - want_t).abs(),
+                                             0.0).amax()))
+            part = {"rays": TILE_RAYS * blocks, "iters": bmi.NV,
+                    "ms": run["ms"], "us_per_visit": run["us_per_visit"],
+                    "plain_ms": plain_ms,
+                    **loop_bound(variant, TILE_RAYS * blocks, bmi.NV,
+                                 blocks == 1)}
+            if variant == "moller":
+                ok &= torch.equal(t, want_t)
+                if blocks == 1:
+                    t_moller = t
+            else:
+                a = plucker_vs_plain(slab, cols, t)
+                ok &= (bool(torch.isinf(want_best).all())
+                       and a["mismatches"] == 0 and a["t_err_ratio"] <= 1.0)
+                part["vs_tf32_plain"] = a
+                if blocks == 1:
+                    agree, rel = bmi.agreement(t_moller, t)
+                    ok &= agree >= bmi.AGREEMENT and rel <= 1e-2
+                    part.update({
+                        "hit_agreement_vs_moller": agree,
+                        "t_rel_err_vs_moller": rel,
+                        "library_ms": plucker_library_ms(
+                            cols, plucker_rows_from_slab(slab), bmi.NV)})
+            if blocks == 1:
+                rec.update(part)
+            else:
+                rec["full_card"] = {"blocks": blocks, **part}
+        rec["max_abs_err"] = err
+        full = rec["full_card"]
+        print(f"X2 {variant}: ok={ok} {rec['ms']:.3f} ms at one block "
+              f"({rec['us_per_visit']:.4f} us/visit), {full['ms']:.3f} ms at "
+              f"{full['blocks']} blocks ({full['us_per_visit']:.5f} us/visit "
+              f"per block); plain {rec['plain_ms']:.1f} ms, "
+              f"{full['plain_ms']:.1f} ms; bound {rec['bound_ms']:.3f} ms one "
+              f"block, {full['bound_ms']:.3f} ms full; max abs t err {err:.3g}")
+        if variant != "moller":
+            for label, part in (("one block", rec), ("full card", full)):
+                print(f"  vs TF32 plain, {label}: {part['vs_tf32_plain']}")
+            print(f"  vs Möller, one block: agreement "
+                  f"{rec['hit_agreement_vs_moller']:.6f}, t rel err "
+                  f"{rec['t_rel_err_vs_moller']:.3g}; library "
+                  f"{rec['library_ms']:.3f} ms")
+        ok_all &= ok
+        records[f"isect_loop_{variant}"] = rec
+    return ok_all, records
+
+
+def check_moller_unit(label, tensors, rec):
+    """X3b on one bounce set, cluster 0's slab: the chain loop on the
+    first 256 rays at K = 1024 and on the whole set at K = 32, as the
+    entry point ran it, against its plain version: the entry point's
+    best and a keep_t launch's best and last t equal -> (ok, record)."""
+    from prosper_tpu_torch.ops import bench_kernels as bk
+    from prosper_tpu_torch.scripts import bench_visit_breakdown as bvb
+
+    o, d, _ = tensors["rays"]
+    slab = tensors["unit_slab"]
+    cols = bk.cols_from_rays(o, d)
+    ok, err, plain = True, 0.0, {}
+    for key, c, k in (("256_rays", cols[0:1], bvb.K_UNIT),
+                      ("set", cols, bvb.K_SET)):
+        best, t = bk.moller_chain_loop(slab, c, k, keep_t=True)
+        (want_b, want_t), plain[key] = timed_call(lambda: bk.isect_loop_plain(
+            bk.MOLLER, bk.CHAIN_X3B, slab, c, k, keep_t=True))
+        ok &= (torch.equal(best, want_b) and torch.equal(t, want_t)
+               and torch.equal(tensors["unit_best"][key], want_b))
+        fin = torch.isfinite(want_t)
+        err = max(err, float(torch.where(fin, (t - want_t).abs(), 0.0).amax()))
+    unit = rec["moller_unit"]
+    one, whole = unit["256_rays"], unit["set"]
+    out = {"max_abs_err": err, "rays": one["rays"], "iters": one["k"],
+           "ms": one["ms"], "ns_per_ray_visit": one["ns_per_ray_visit"],
+           "plain_ms": plain["256_rays"],
+           **loop_bound("moller", one["rays"], one["k"], True),
+           "set": {"rays": whole["rays"], "iters": whole["k"],
+                   "ms": whole["ms"],
+                   "ns_per_ray_visit": whole["ns_per_ray_visit"],
+                   "plain_ms": plain["set"],
+                   **loop_bound("moller", whole["rays"], whole["k"], False)},
+           "est_moller_share_ms": rec["est_moller_share_ms"]}
+    print(f"X3b moller unit {label}: ok={ok} {one['ms']:.3f} ms for 256 rays "
+          f"x {one['k']} ({one['ns_per_ray_visit']:.4f} ns per ray visit), "
+          f"{whole['ms']:.3f} ms for {whole['rays']} rays x {whole['k']} "
+          f"({whole['ns_per_ray_visit']:.5f} ns); est Möller share of K2 "
+          f"{rec['est_moller_share_ms']:.3f} ms of {rec['k2_ms']:.3f}; plain "
+          f"{plain['256_rays']:.1f} ms, {plain['set']:.1f} ms the set; bound "
+          f"{out['bound_ms']:.3f} ms one block, {out['set']['bound_ms']:.3f} "
+          f"ms the set")
+    return ok, out
+
+
+def check_probes(loops, dev):
+    """X3c-f: the entry point's outputs (the script's inputs) and a run on
+    seeded inputs against the plain versions (equal); the bound is the
+    iteration count times the cycles of one iteration's dependence chain
+    at the SM clock nvidia-smi reads just after -> (ok, records)."""
+    from prosper_tpu_torch.ops import bench_kernels as bk
+    from prosper_tpu_torch.scripts import bench_loop_overhead as blo
+
+    cur, top = sm_clock_mhz()
+    rng = np.random.default_rng(0)
+    s = torch.as_tensor(rng.integers(-2**31, 2**31 - 1, 128),
+                        dtype=torch.int32, device=dev)
+    v = rng.uniform(-1, 1, (8, 128)).astype(np.float32)
+    v[2:4] = np.abs(v[2:4]) * 0.5
+    v[6:8] = np.abs(v[6:8]) * 0.5
+    seeded = {"s": s, "v": torch.as_tensor(v, device=dev)}
+    plain_of = {bk.loop_flat: bk.loop_flat_plain,
+                bk.loop_nested: bk.loop_nested_plain,
+                bk.loop_cond: bk.loop_cond_plain,
+                bk.loop_vec: bk.loop_vec_plain}
+    ok_all, records = True, {}
+    for name, (fn, x, counts, iters) in blo.probes(dev).items():
+        plain = plain_of[fn]
+        want, plain_ms = timed_call(lambda: plain(x, *counts))
+        xs = seeded["v" if fn is bk.loop_vec else "s"]
+        ok = (torch.equal(loops[name]["out"], want)
+              and torch.equal(fn(xs, *counts), plain(xs, *counts)))
+        chain = PROBE_CHAIN_CYCLES[fn.__name__]
+        rec = {"max_abs_err": float((loops[name]["out"] - want).abs().max()),
+               "iters": iters, "ms": loops[name]["ms"],
+               "ns_per_iter": loops[name]["ns_per_iter"], "plain_ms": plain_ms,
+               "bound_ms": iters * chain / (cur * 1e6) * 1e3,
+               "bound_by": "operations", "chain_cycles_per_iter": chain,
+               "sm_clock_mhz": cur, "sm_clock_max_mhz": top}
+        print(f"X3 {fn.__name__}: ok={ok} {rec['ms']:.3f} ms "
+              f"({rec['ns_per_iter']:.3f} ns/iter), plain {plain_ms:.1f} ms, "
+              f"bound {rec['bound_ms']:.3f} ms ({chain} cycles/iter at "
+              f"{cur:.0f} MHz, max {top:.0f})")
+        ok_all &= ok
+        records[fn.__name__] = rec
+    return ok_all, records
+
+
+def run_experiments(dev, world_path):
+    """Phase 15 on plate-2048 and the World scene: the measurement entry
+    points, counts set to 0 just before and read just after, then each of
+    their kernels against its plain version. Returns (records, launches
+    of the phase's kernels)."""
+    from prosper_tpu_torch.experiments import bench_mxu_isect as bmi
+    from prosper_tpu_torch.scripts import bench_loop_overhead as blo
+    from prosper_tpu_torch.scripts import bench_visit_breakdown as bvb
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    visits = {"plate": bvb.main("plate", dev),
+              "world": bvb.main(world_path, dev)}
+    mxu = bmi.main(dev)
+    loops = blo.main(dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches = {k: counts[k] for k in EXPERIMENT_PATH}
+    print(f"phase 15 entry points: {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise RuntimeError(f"phase 15: kernels never launched: {missing}")
+
+    ok_all, records = True, {}
+    for label, (rec, t) in visits.items():
+        for name, (ok, r) in (
+                ("walk_leaves", check_walk(label, t["table"], t["rays"], rec)),
+                ("trace_closest_bvh_visits",
+                 check_visits(label, t["scene"], t["rays"], t["rows"], rec)),
+                ("moller_chain_loop", check_moller_unit(label, t, rec))):
+            ok_all &= ok
+            if name in records:  # the plate set leads, the World's beside
+                records[name]["world"] = r
+                records[name]["max_abs_err"] = max(
+                    records[name]["max_abs_err"], r["max_abs_err"])
+            else:
+                records[name] = r
+    ok, r = check_isect_loops(mxu, dev)
+    ok_all &= ok
+    records.update(r)
+    ok, r = check_probes(loops, dev)
+    ok_all &= ok
+    records.update(r)
+    if not ok_all:
+        raise RuntimeError("phase 15: a kernel disagrees with its plain "
+                           "version")
+    return records, launches
+
+
 def run_world(smi, dev):
-    """Phases 13 and 14; returns (records of K11-K13, launches per kernel
-    over the two World frames, the World's load timings)."""
+    """Phases 13-15; returns (records of K11-K13 and of phase 15's
+    kernels, launches per kernel over the two World frames and phase 15's
+    entry points)."""
     import shutil
     import tempfile
 
@@ -1950,6 +2318,13 @@ def run_world(smi, dev):
             raise RuntimeError("an 8-wide kernel disagrees with its plain "
                                "version or with its BVH2 twin")
         records["trace_closest_bvh8"]["world_load"] = times
+        phase("kernels: experiments")
+        t0 = time.perf_counter()
+        exp_records, exp_launches = run_experiments(dev, path)
+        print(f"experiments phase: {time.perf_counter() - t0:.1f} s; card: "
+              f"{smi}")
+        records.update(exp_records)
+        launches.update(exp_launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return records, launches

@@ -1,0 +1,396 @@
+// Measurement kernels for Hopper (sm_90a): the port of the Pallas TPU
+// loops of the repo's triangle-test and loop-overhead benchmarks.
+//
+//   isect_loop_kernel<MOLLER, CHAIN_X2>   replaces experiments/
+//       bench_mxu_isect.py run (:130, loop_kernel :94, pallas_call :137),
+//       variant "moller";
+//   isect_loop_kernel<PLUCKER, CHAIN_X2>  the same, "plucker" (feature
+//       rows made from the 9-row slab in the kernel);
+//   isect_loop_kernel<PLUCKER_PRE, CHAIN_X2>  the same, "plucker_pre"
+//       (the 22 rows given);
+//   isect_loop_kernel<MOLLER, CHAIN_X3B>  replaces scripts/
+//       bench_visit_breakdown.py moller_loop_kernel (:179, :198);
+//   loop_flat_kernel, loop_nested_kernel, loop_cond_kernel,
+//   loop_vec_kernel  replace scripts/bench_loop_overhead.py flat_kernel
+//       (:49, :59), nested_kernel (:71, :89), cond_kernel (:98, :114),
+//       vec_kernel (:126, :144).
+//
+// The triangle loops. One block is 256 rays against one 128-triangle
+// slab staged in shared memory, `iters` times over, each block's minimum
+// t per ray fed into the next through a chain, as the TPU kernels do:
+// X2 keeps best = tmin < -1 ? tmin : best (t_upper stays inf), X3b best =
+// min(best, tmin + 1e-7). The Möller variants give each thread a ray and
+// run csrc/ray_common.cuh moller_tri on the FMA units, 53 float32
+// operations a test. The Plücker variants do what the TPU did on its MXU
+// on the tensor cores: per warp 32 rays (two 16-row tiles) against the
+// 128 triangles in 16 eight-column tiles, four mma.sync m16n8k8 TF32
+// products per tile (the sides of edges AB and CA, K = 6 padded to 8,
+// and the plane terms n.d and n.o, K = 3 padded to 8), then the epilogue
+// of experiments/trace_plucker.py:107-121 in float32 on the fragments. The
+// products' operands are rounded to TF32 (cvt.rna), so the Plücker loops
+// agree with the Möller loops on hits, not to the bit. The bound: FP32
+// throughput (Möller, and the Plücker epilogue) and TF32 tensor-core
+// throughput (the products), held to one SM's share for one block; the
+// loops move almost no bytes. wgmma, which needs 64-row tiles in shared
+// memory, is later work.
+//
+// The loop probes. One thread (flat, nested, cond) adds s[i % 128], read
+// from shared memory through a volatile pointer so that every iteration
+// loads, into an unsigned (wrapping) sum; the vector probe is one
+// 256-thread block, one element of the (2, 128) pair per thread, with a
+// block-wide min per iteration (warp shuffles, then shared memory and one
+// __syncthreads, double-buffered). Bound: the dependence chain of one
+// iteration times the iteration count.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "ray_common.cuh"
+
+#define TILE 256  // rays per block
+#define LANES 128  // triangles per slab
+#define PLU_ROWS 22
+#define PLU_DET_EPS 1e-9f
+#define TF_STRIDE 136  // tf32 row stride: conflict-free B fragment loads
+
+enum { MOLLER = 0, PLUCKER = 1, PLUCKER_PRE = 2 };
+enum { CHAIN_X2 = 0, CHAIN_X3B = 1 };
+
+namespace {
+
+template <int CHAIN>
+__device__ __forceinline__ float chain(float best, float tmin) {
+    if (CHAIN == CHAIN_X2) return tmin < -1.0f ? tmin : best;
+    return fminf(best, tmin + 1e-7f);
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+    return r;
+}
+
+// D = A (16x8, row) * B (8x8, col), TF32 operands, float32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%10, %11, %12, %13};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(0.0f), "f"(0.0f), "f"(0.0f), "f"(0.0f));
+}
+
+// Of four values, the one at index i (0..3), without a local array.
+__device__ __forceinline__ float pick4(float x0, float x1, float x2, float x3,
+                                       int i) {
+    return i == 0 ? x0 : i == 1 ? x1 : i == 2 ? x2 : x3;
+}
+
+// experiments/trace_plucker.py plucker_rows_from_slab (:42-70) for
+// triangle j of the 9-row slab s, into the 22-row block p.
+__device__ void plucker_rows(const float* s, int j, float* p) {
+    const float v0x = s[0 * LANES + j], v0y = s[1 * LANES + j];
+    const float v0z = s[2 * LANES + j], e1x = s[3 * LANES + j];
+    const float e1y = s[4 * LANES + j], e1z = s[5 * LANES + j];
+    const float e2x = s[6 * LANES + j], e2y = s[7 * LANES + j];
+    const float e2z = s[8 * LANES + j];
+    const float a0 = v0y * e1z - v0z * e1y, a1 = v0z * e1x - v0x * e1z,
+                a2 = v0x * e1y - v0y * e1x;  // v0 x e1
+    const float b0 = v0y * e2z - v0z * e2y, b1 = v0z * e2x - v0x * e2z,
+                b2 = v0x * e2y - v0y * e2x;  // v0 x e2
+    const float n0 = e1y * e2z - e1z * e2y, n1 = e1z * e2x - e1x * e2z,
+                n2 = e1x * e2y - e1y * e2x;  // e1 x e2
+    const float row[PLU_ROWS] = {
+        a0, a1, a2, e1x, e1y, e1z,
+        b0 - a0 + n0, b1 - a1 + n1, b2 - a2 + n2,
+        e2x - e1x, e2y - e1y, e2z - e1z,
+        -b0, -b1, -b2, -e2x, -e2y, -e2z,
+        n0, n1, n2,
+        n0 * v0x + n1 * v0y + n2 * v0z};
+#pragma unroll
+    for (int f = 0; f < PLU_ROWS; ++f) p[f * LANES + j] = row[f];
+}
+
+// cols (B, 6, 256): ox oy oz dx dy dz of block b's rays. slab: (9, 128)
+// v0 | e1 | e2, or for PLUCKER_PRE the (22, 128) feature rows. best (B *
+// 256,); t_out (B * 256, 128), the last iteration's t (inf on a miss),
+// or nullptr.
+template <int VARIANT, int CHAIN>
+__global__ void __launch_bounds__(TILE)
+isect_loop_kernel(const float* __restrict__ slab,
+                  const float* __restrict__ cols, int iters, float t_min,
+                  float* __restrict__ best_out, float* __restrict__ t_out) {
+    __shared__ float s_raw[9 * LANES];         // the Möller slab
+    __shared__ float s_rows[PLU_ROWS * LANES];  // the Plücker rows, f32
+    __shared__ uint32_t s_tf[15 * TF_STRIDE];  // rows 0:6, 12:18, 18:21 tf32
+    const int tid = threadIdx.x;
+    const float* c = cols + (size_t)blockIdx.x * 6 * TILE;
+    const size_t ray0 = (size_t)blockIdx.x * TILE;
+
+    if (VARIANT == MOLLER) {
+        for (int i = tid; i < 9 * LANES; i += TILE) s_raw[i] = slab[i];
+        __syncthreads();
+        Ray r;
+        r.ox = c[tid];
+        r.oy = c[TILE + tid];
+        r.oz = c[2 * TILE + tid];
+        r.dx = c[3 * TILE + tid];
+        r.dy = c[4 * TILE + tid];
+        r.dz = c[5 * TILE + tid];
+        float best = INF;
+        for (int it = 0; it < iters; ++it) {
+            const bool last = t_out != nullptr && it == iters - 1;
+            float tmin = INF;
+            for (int j = 0; j < LANES; ++j) {
+                float t, u, v;
+                const bool hit = moller_tri(
+                    s_raw[j], s_raw[LANES + j], s_raw[2 * LANES + j],
+                    s_raw[3 * LANES + j], s_raw[4 * LANES + j],
+                    s_raw[5 * LANES + j], s_raw[6 * LANES + j],
+                    s_raw[7 * LANES + j], s_raw[8 * LANES + j], r, t_min,
+                    best, t, u, v);
+                const float tt = hit ? t : INF;
+                tmin = fminf(tmin, tt);
+                if (last) t_out[(ray0 + tid) * LANES + j] = tt;
+            }
+            best = chain<CHAIN>(best, tmin);
+        }
+        best_out[ray0 + tid] = best;
+        return;
+    }
+
+    // Plücker: stage the feature rows, f32 and TF32
+    if (VARIANT == PLUCKER) {
+        for (int i = tid; i < 9 * LANES; i += TILE) s_raw[i] = slab[i];
+        __syncthreads();
+        if (tid < LANES) plucker_rows(s_raw, tid, s_rows);
+    } else {
+        for (int i = tid; i < PLU_ROWS * LANES; i += TILE) s_rows[i] = slab[i];
+    }
+    __syncthreads();
+    for (int i = tid; i < 15 * LANES; i += TILE) {
+        const int q = i / LANES, j = i % LANES;
+        const int src = q < 6 ? q : q + 6;  // 0:6, then 12:18 and 18:21
+        s_tf[q * TF_STRIDE + j] = tf32(s_rows[src * LANES + j]);
+    }
+    __syncthreads();
+
+    const int lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, tg = lane & 3;
+    // A fragments of the warp's two 16-ray tiles: [d | o x d | 0 0], d
+    // and o; rows g and g + 8 of a tile, columns tg and tg + 4
+    uint32_t a_side[2][4], a_d[2][4], a_o[2][4];
+    float best[2][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int k = 32 * warp + 16 * mt + 8 * h + g;
+            const float ox = c[k], oy = c[TILE + k], oz = c[2 * TILE + k];
+            const float dx = c[3 * TILE + k], dy = c[4 * TILE + k],
+                        dz = c[5 * TILE + k];
+            const float mx = oy * dz - oz * dy, my = oz * dx - ox * dz,
+                        mz = ox * dy - oy * dx;
+            a_side[mt][h] = tf32(pick4(dx, dy, dz, mx, tg));
+            a_side[mt][2 + h] = tf32(pick4(my, mz, 0.0f, 0.0f, tg));
+            a_d[mt][h] = tf32(pick4(dx, dy, dz, 0.0f, tg));
+            a_o[mt][h] = tf32(pick4(ox, oy, oz, 0.0f, tg));
+            a_d[mt][2 + h] = a_o[mt][2 + h] = 0u;
+            best[mt][h] = INF;
+        }
+    }
+    for (int it = 0; it < iters; ++it) {
+        const bool last = t_out != nullptr && it == iters - 1;
+        float tmin[2][2] = {{INF, INF}, {INF, INF}};
+        for (int nt = 0; nt < LANES / 8; ++nt) {
+            const int col = 8 * nt + g;
+            const uint32_t b_ab0 = s_tf[tg * TF_STRIDE + col];
+            const uint32_t b_ab1 =
+                tg < 2 ? s_tf[(tg + 4) * TF_STRIDE + col] : 0u;
+            const uint32_t b_ca0 = s_tf[(6 + tg) * TF_STRIDE + col];
+            const uint32_t b_ca1 =
+                tg < 2 ? s_tf[(10 + tg) * TF_STRIDE + col] : 0u;
+            const uint32_t b_n0 =
+                tg < 3 ? s_tf[(12 + tg) * TF_STRIDE + col] : 0u;
+            const int j0 = 8 * nt + 2 * tg;
+            const float c0 = s_rows[21 * LANES + j0];
+            const float c1 = s_rows[21 * LANES + j0 + 1];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+                float s1[4], s3[4], den[4], on[4];
+                mma_tf32(s1, a_side[mt], b_ab0, b_ab1);
+                mma_tf32(s3, a_side[mt], b_ca0, b_ca1);
+                mma_tf32(den, a_d[mt], b_n0, 0u);
+                mma_tf32(on, a_o[mt], b_n0, 0u);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int h = e >> 1;  // row g or g + 8
+                    const bool ok = fabsf(den[e]) > PLU_DET_EPS;
+                    const float inv = ok ? 1.0f / den[e] : 0.0f;
+                    const float t = ((e & 1 ? c1 : c0) - on[e]) * inv;
+                    const float u = s3[e] * inv;
+                    const float v = s1[e] * inv;
+                    const bool hit = ok && u >= 0.0f && v >= 0.0f &&
+                                     u + v <= 1.0f && t > t_min &&
+                                     t < best[mt][h];
+                    const float tt = hit ? t : INF;
+                    tmin[mt][h] = fminf(tmin[mt][h], tt);
+                    if (last) {
+                        const size_t k =
+                            ray0 + 32 * warp + 16 * mt + 8 * h + g;
+                        t_out[k * LANES + j0 + (e & 1)] = tt;
+                    }
+                }
+            }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                float m = tmin[mt][h];
+                m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+                m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+                best[mt][h] = chain<CHAIN>(best[mt][h], m);
+            }
+        }
+    }
+    if (tg == 0) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+                best_out[ray0 + 32 * warp + 16 * mt + 8 * h + g] = best[mt][h];
+    }
+}
+
+// The loop probes write their result over an (8, 128) block, as the TPU
+// kernels do.
+__device__ __forceinline__ void fill_int(int* out, unsigned a) {
+    for (int i = 0; i < 8 * 128; ++i) out[i] = (int)a;
+}
+
+__global__ void loop_flat_kernel(const int* __restrict__ s, int n,
+                                 int* __restrict__ out) {
+    __shared__ int s_s[128];
+    for (int i = 0; i < 128; ++i) s_s[i] = s[i];
+    volatile int* vs = s_s;
+    unsigned a = 0u;
+    for (int i = 0; i < n; ++i) a += (unsigned)vs[i & 127];
+    fill_int(out, a);
+}
+
+__global__ void loop_nested_kernel(const int* __restrict__ s, int m, int k,
+                                   int* __restrict__ out) {
+    __shared__ int s_s[128];
+    for (int i = 0; i < 128; ++i) s_s[i] = s[i];
+    volatile int* vs = s_s;
+    unsigned a = 0u;
+    for (int i = 0; i < m; ++i) {
+        const int j0 = i * k;
+        for (int j = j0; j < j0 + k; ++j) a += (unsigned)vs[j & 127];
+    }
+    fill_int(out, a);
+}
+
+__global__ void loop_cond_kernel(const int* __restrict__ s, int n,
+                                 int* __restrict__ out) {
+    __shared__ int s_s[128];
+    for (int i = 0; i < 128; ++i) s_s[i] = s[i];
+    volatile int* vs = s_s;
+    unsigned a = 0u;
+    for (int i = 0; i < n; ++i) {
+        if ((i & 3) == 0)
+            a += (unsigned)vs[i & 127];
+        else
+            a += 1u;
+    }
+    fill_int(out, a);
+}
+
+// v (8, 128): thread e holds element e of rows[0:2], rows[2:4], rows[4:6]
+// and rows[6:8]; a += min((rows[0:2] - a) * rows[2:4], (rows[4:6] - a) *
+// rows[6:8]) over the block, nv times.
+__global__ void __launch_bounds__(TILE)
+loop_vec_kernel(const float* __restrict__ v, int nv, float* __restrict__ out) {
+    __shared__ float s_min[2][TILE / 32];
+    const int e = threadIdx.x;
+    const float r0 = v[e], r2 = v[TILE + e], r4 = v[2 * TILE + e],
+                r6 = v[3 * TILE + e];
+    float a = 0.0f;
+    for (int i = 0; i < nv; ++i) {
+        float m = fminf((r0 - a) * r2, (r4 - a) * r6);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
+        if ((e & 31) == 0) s_min[i & 1][e >> 5] = m;
+        __syncthreads();
+        float b = s_min[i & 1][0];
+#pragma unroll
+        for (int w = 1; w < TILE / 32; ++w) b = fminf(b, s_min[i & 1][w]);
+        a = a + b;
+    }
+    for (int i = e; i < 8 * 128; i += TILE) out[i] = a;
+}
+
+template <int VARIANT, int CHAIN>
+int launch_isect(const float* slab, const float* cols, int blocks, int iters,
+                 float t_min, float* best, float* t_out, cudaStream_t stream) {
+    if (blocks > 0)
+        isect_loop_kernel<VARIANT, CHAIN><<<blocks, TILE, 0, stream>>>(
+            slab, cols, iters, t_min, best, t_out);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points: launch on `stream`, never synchronise, return
+// cudaGetLastError() (0 on success).
+
+// variant: 0 Möller, 1 Plücker (rows in the kernel), 2 Plücker (rows
+// given); chain: 0 X2's, 1 X3b's. t_out may be null.
+extern "C" int isect_loop(int variant, int chain_rule, const float* slab,
+                          const float* cols, int blocks, int iters,
+                          float t_min, float* best, float* t_out,
+                          void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (chain_rule == CHAIN_X3B) {
+        if (variant != MOLLER) return (int)cudaErrorInvalidValue;
+        return launch_isect<MOLLER, CHAIN_X3B>(slab, cols, blocks, iters,
+                                               t_min, best, t_out, st);
+    }
+    switch (variant) {
+        case MOLLER:
+            return launch_isect<MOLLER, CHAIN_X2>(slab, cols, blocks, iters,
+                                                  t_min, best, t_out, st);
+        case PLUCKER:
+            return launch_isect<PLUCKER, CHAIN_X2>(slab, cols, blocks, iters,
+                                                   t_min, best, t_out, st);
+        case PLUCKER_PRE:
+            return launch_isect<PLUCKER_PRE, CHAIN_X2>(
+                slab, cols, blocks, iters, t_min, best, t_out, st);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int loop_flat(const int* s, int n, int* out, void* stream) {
+    loop_flat_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(s, n, out);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int loop_nested(const int* s, int m, int k, int* out,
+                           void* stream) {
+    loop_nested_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(s, m, k, out);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int loop_cond(const int* s, int n, int* out, void* stream) {
+    loop_cond_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(s, n, out);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int loop_vec(const float* v, int nv, float* out, void* stream) {
+    loop_vec_kernel<<<1, TILE, 0, (cudaStream_t)stream>>>(v, nv, out);
+    return (int)cudaGetLastError();
+}

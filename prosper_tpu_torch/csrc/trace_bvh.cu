@@ -10,6 +10,9 @@
 //                           interpolation at the final hit.
 //   trace_closest_bvh       replaces trace_bvh.py trace_closest_bvh
 //                           (:1050): closest hit, (R, 8) rows.
+//   trace_closest_bvh_visits  replaces K2's body under DEBUG_VISITS
+//                           (scripts/bench_visit_breakdown.py:148): K2's
+//                           rows with per-ray node and leaf counts.
 //   trace_closest_bvh_full  replaces trace_bvh.py trace_closest_bvh_full
 //                           (:1211): closest hit of given rays with an
 //                           optional per-cluster skip mask (the culled
@@ -52,27 +55,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ray_common.cuh"
+
 #define STACK_CAP 64  // >= BVH depth + 2 (trace_bvh.py:52)
 #define LANES 128     // triangles per cluster slab
 #define BLOCK 128     // threads per block
-#define DET_EPS 1e-10f
-#define INF __int_as_float(0x7f800000)
 
 namespace {
-
-struct Ray {
-    float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-};
-
-__device__ __forceinline__ float safe_inv(float d) {
-    return fabsf(d) > 1e-12f ? 1.0f / d : 1e30f;
-}
-
-__device__ __forceinline__ void set_inv(Ray& r) {
-    r.ix = safe_inv(r.dx);
-    r.iy = safe_inv(r.dy);
-    r.iz = safe_inv(r.dz);
-}
 
 // Slab test of node i (trace_bvh.py:229-255): kept when enter <= exit
 // and enter < best.
@@ -80,18 +69,10 @@ __device__ __forceinline__ bool node_test(const float* __restrict__ bounds,
                                           int i, const Ray& r, float best,
                                           float& enter) {
     const float* b = bounds + 6 * i;
-    float t0x = (__ldg(b + 0) - r.ox) * r.ix;
-    float t1x = (__ldg(b + 3) - r.ox) * r.ix;
-    float t0y = (__ldg(b + 1) - r.oy) * r.iy;
-    float t1y = (__ldg(b + 4) - r.oy) * r.iy;
-    float t0z = (__ldg(b + 2) - r.oz) * r.iz;
-    float t1z = (__ldg(b + 5) - r.oz) * r.iz;
-    float en = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                     fmaxf(fminf(t0z, t1z), 0.0f));
-    float ex = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                     fmaxf(t0z, t1z));
-    enter = en;
-    return en <= ex && en < best;
+    float ex;
+    enter = slab_enter(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3),
+                       __ldg(b + 4), __ldg(b + 5), r, ex);
+    return enter <= ex && enter < best;
 }
 
 // Möller-Trumbore against triangle j of a slab (trace_pallas.py:76-116).
@@ -99,26 +80,11 @@ __device__ __forceinline__ bool moller(const float* __restrict__ s, int j,
                                        const Ray& r, float t_min,
                                        float t_upper, float& t, float& u,
                                        float& v) {
-    float v0x = __ldg(s + 0 * LANES + j), v0y = __ldg(s + 1 * LANES + j);
-    float v0z = __ldg(s + 2 * LANES + j), e1x = __ldg(s + 3 * LANES + j);
-    float e1y = __ldg(s + 4 * LANES + j), e1z = __ldg(s + 5 * LANES + j);
-    float e2x = __ldg(s + 6 * LANES + j), e2y = __ldg(s + 7 * LANES + j);
-    float e2z = __ldg(s + 8 * LANES + j);
-    float px = r.dy * e2z - r.dz * e2y;
-    float py = r.dz * e2x - r.dx * e2z;
-    float pz = r.dx * e2y - r.dy * e2x;
-    float det = e1x * px + e1y * py + e1z * pz;
-    bool ok = fabsf(det) > DET_EPS;
-    float inv = ok ? 1.0f / det : 0.0f;
-    float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-    u = (tx * px + ty * py + tz * pz) * inv;
-    float qx = ty * e1z - tz * e1y;
-    float qy = tz * e1x - tx * e1z;
-    float qz = tx * e1y - ty * e1x;
-    v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-    return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min &&
-           t < t_upper;
+    return moller_tri(__ldg(s + 0 * LANES + j), __ldg(s + 1 * LANES + j),
+                      __ldg(s + 2 * LANES + j), __ldg(s + 3 * LANES + j),
+                      __ldg(s + 4 * LANES + j), __ldg(s + 5 * LANES + j),
+                      __ldg(s + 6 * LANES + j), __ldg(s + 7 * LANES + j),
+                      __ldg(s + 8 * LANES + j), r, t_min, t_upper, t, u, v);
 }
 
 struct Hit {
@@ -128,13 +94,15 @@ struct Hit {
 
 // Near-first ordered BVH2 walk. ANY=true stops at the first hit. A leaf
 // whose cluster has live[cluster] == 0 is skipped without touching its
-// slab (live == nullptr: every cluster is live). Returns false on stack
-// overflow.
-template <bool ANY>
+// slab (live == nullptr: every cluster is live). VISITS=true counts into
+// n[0] the interior nodes it expands (pops that pass the prune) and into
+// n[1] the leaves it tests. Returns false on stack overflow.
+template <bool ANY, bool VISITS = false>
 __device__ bool walk(const float* __restrict__ slabs, int rows,
                      const float* __restrict__ bounds,
                      const int* __restrict__ meta, const Ray& r, float t_min,
-                     const uint8_t* __restrict__ live, Hit& h) {
+                     const uint8_t* __restrict__ live, Hit& h,
+                     int* n = nullptr) {
     int stack_node[STACK_CAP];
     float stack_enter[STACK_CAP];
     int sp = 0;
@@ -151,6 +119,7 @@ __device__ bool walk(const float* __restrict__ slabs, int rows,
         int leaf = __ldg(meta + 3 * i + 2);
         if (leaf >= 0) {
             if (live != nullptr && __ldg(live + leaf) == 0) continue;
+            if (VISITS) ++n[1];
             const float* s = slabs + (size_t)leaf * rows * LANES;
             for (int j = 0; j < LANES; ++j) {
                 float t, u, v;
@@ -166,6 +135,7 @@ __device__ bool walk(const float* __restrict__ slabs, int rows,
             }
             continue;
         }
+        if (VISITS) ++n[0];
         int l = __ldg(meta + 3 * i), rc = __ldg(meta + 3 * i + 1);
         float el, er;
         bool hl = node_test(bounds, l, r, h.t, el);
@@ -227,6 +197,12 @@ __device__ __forceinline__ void load_ray(const float* __restrict__ ray_o,
     set_inv(r);
 }
 
+// K2: (R, 8) rows t | tri | u | v | pad. VISITS=true is X3a, K2 with
+// DEBUG_VISITS (scripts/bench_visit_breakdown.py:148, trace_bvh.py:941):
+// JAX writes each packet's leaf visits into pad row 7; here pad row 6
+// holds the interior nodes the ray expands and pad row 7 the leaves it
+// tests, per ray.
+template <bool VISITS>
 __global__ void closest_kernel(const float* __restrict__ slabs, int rows,
                                const float* __restrict__ bounds,
                                const int* __restrict__ meta,
@@ -240,15 +216,19 @@ __global__ void closest_kernel(const float* __restrict__ slabs, int rows,
     Ray r;
     load_ray(ray_o, ray_d, k, r);
     Hit h = {t_max[k], 0.0f, 0.0f, -1};
+    int n[2] = {0, 0};
     if (h.t > 0.0f &&
-        !walk<false>(slabs, rows, bounds, meta, r, t_min, nullptr, h))
+        !walk<false, VISITS>(slabs, rows, bounds, meta, r, t_min, nullptr, h,
+                             n))
         atomicExch(err, 1);
     float* o = out + 8 * (size_t)k;
     o[0] = h.t;
     o[1] = (float)h.tri;
     o[2] = h.u;
     o[3] = h.v;
-    o[4] = o[5] = o[6] = o[7] = 0.0f;
+    o[4] = o[5] = 0.0f;
+    o[6] = VISITS ? (float)n[0] : 0.0f;
+    o[7] = VISITS ? (float)n[1] : 0.0f;
 }
 
 __global__ void any_kernel(const float* __restrict__ slabs, int rows,
@@ -772,7 +752,21 @@ extern "C" int trace_closest_bvh(const float* slabs, int rows,
                                  const float* t_max, int R, float t_min,
                                  float* out, int* err, void* stream) {
     if (R > 0)
-        closest_kernel<<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
+        closest_kernel<false><<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
+            slabs, rows, bounds, meta, ray_o, ray_d, t_max, R, t_min, out, err);
+    return (int)cudaGetLastError();
+}
+
+// X3a: K2 with per-ray counts in pad rows 6 (nodes) and 7 (leaves).
+extern "C" int trace_closest_bvh_visits(const float* slabs, int rows,
+                                        const float* bounds, const int* meta,
+                                        const float* ray_o,
+                                        const float* ray_d,
+                                        const float* t_max, int R,
+                                        float t_min, float* out, int* err,
+                                        void* stream) {
+    if (R > 0)
+        closest_kernel<true><<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
             slabs, rows, bounds, meta, ray_o, ray_d, t_max, R, t_min, out, err);
     return (int)cudaGetLastError();
 }

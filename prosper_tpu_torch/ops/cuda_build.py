@@ -3,7 +3,8 @@
 The sources under prosper_tpu_torch/csrc are compiled with nvcc into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), at first use, into <repo>/build/kernels/, keyed by a
-hash of the source and the flags. The library is loaded with ctypes.
+hash of the source, the shared headers (csrc/*.cuh) and the flags. The
+library is loaded with ctypes.
 
 Several processes may build at once (pytest-xdist workers on a machine
 with a card): the build runs under a file lock and the finished library
@@ -25,8 +26,8 @@ from functools import lru_cache
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("trace_bvh", "shade_tiles", "trace_flat",
-           "trace_leafmajor")  # csrc/<name>.cu
+SOURCES = ("trace_bvh", "shade_tiles", "trace_flat", "trace_leafmajor",
+           "trace_wavefront", "bench_kernels")  # csrc/<name>.cu
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # --fmad=false: no a*b+c contraction, so the kernels round every
 # operation as the plain PyTorch versions do and agree with them bit for
@@ -57,8 +58,9 @@ def _build(name: str) -> Path:
     """Compile csrc/<name>.cu unless a library for its current hash
     exists; returns the library's path."""
     src = CSRC / f"{name}.cu"
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"{name}-{key}.so"
     if lib.exists():
@@ -108,3 +110,18 @@ def build_log(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of csrc/<name>.cu, built on first use."""
     return ctypes.CDLL(str(_build(name)))
+
+
+def launch(name: str, symbol: str, argtypes, device, args) -> None:
+    """Call the C entry point `symbol` of csrc/<name>.cu with `args`
+    (argtypes: their ctypes types) and the current stream of `device`,
+    and raise if it returns a CUDA error."""
+    import torch
+
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol}: CUDA launch failed with error {rc}")

@@ -257,19 +257,10 @@ def shade_clustered_tiles_plain(inp: dict, width: int, height: int,
     return out
 
 
+# the C entry point's arguments before the stream (cuda_build.launch)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p]
-
-
-def _kernel():
-    from . import cuda_build
-
-    fn = cuda_build.load("shade_tiles").shade_clustered_tiles
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def shade_clustered_tiles(inp: dict, width: int, height: int):
@@ -282,31 +273,26 @@ def shade_clustered_tiles(inp: dict, width: int, height: int):
         return shade_clustered_tiles_plain(inp, width, height)
     if dev.type != "cuda":
         raise ValueError(f"shade_clustered_tiles: unsupported device {dev}")
-    from .trace_bvh import _expect
+    from . import cuda_build
+    from .trace_bvh import expect_tensor
 
     fx, fy = tile_grid(width, height)
-    _expect(chan, "chan", torch.float32, dev, (CHANNELS, R))
-    _expect(inp["rows"], "rows", torch.float32, dev, (None, 12))
+    expect_tensor(chan, "chan", torch.float32, dev, (CHANNELS, R))
+    expect_tensor(inp["rows"], "rows", torch.float32, dev, (None, 12))
     lcap = inp["lists"].shape[1]
-    _expect(inp["lists"], "lists", torch.int32, dev, (fx * fy, lcap))
-    _expect(inp["counts"], "counts", torch.int32, dev, (fx * fy,))
-    _expect(inp["lvz"], "lvz", torch.float32, dev, (lcap,))
-    _expect(inp["ints"], "ints", torch.int32, dev, (2,))
-    _expect(inp["scal"], "scal", torch.float32, dev, (8,))
+    expect_tensor(inp["lists"], "lists", torch.int32, dev, (fx * fy, lcap))
+    expect_tensor(inp["counts"], "counts", torch.int32, dev, (fx * fy,))
+    expect_tensor(inp["lvz"], "lvz", torch.float32, dev, (lcap,))
+    expect_tensor(inp["ints"], "ints", torch.int32, dev, (2,))
+    expect_tensor(inp["scal"], "scal", torch.float32, dev, (8,))
     if inp["rows"].shape[0] < 1 + lcap:
         raise ValueError("rows must hold the sun and every listed light")
     out = torch.empty((R, 3), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel()(
-            chan.data_ptr(), width, height, inp["rows"].data_ptr(),
-            inp["lvz"].data_ptr(), inp["lists"].data_ptr(), lcap,
-            inp["counts"].data_ptr(), inp["ints"].data_ptr(),
-            inp["scal"].data_ptr(), out.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"shade_clustered_tiles: CUDA launch failed with error {rc}")
+    cuda_build.launch("shade_tiles", "shade_clustered_tiles", _ARGTYPES, dev, (
+        chan.data_ptr(), width, height, inp["rows"].data_ptr(),
+        inp["lvz"].data_ptr(), inp["lists"].data_ptr(), lcap,
+        inp["counts"].data_ptr(), inp["ints"].data_ptr(),
+        inp["scal"].data_ptr(), out.data_ptr()))
     shade_clustered_tiles.launches += 1
     return out
 

@@ -1,6 +1,6 @@
 """BVH trace kernels: wrappers, plain PyTorch versions, camera uniforms.
 
-Counterpart of prosper_tpu/ops/trace_bvh.py. Nine kernels, each a
+Counterpart of prosper_tpu/ops/trace_bvh.py. Ten kernels, each a
 hand-written CUDA kernel in csrc/trace_bvh.cu with a plain PyTorch twin:
 
 - `trace_primary_bvh_full` (K1, replaces the Pallas kernel of the same
@@ -9,6 +9,10 @@ hand-written CUDA kernel in csrc/trace_bvh.cu with a plain PyTorch twin:
   jitter or the G-buffer's pixel centres shifted by the TAA jitter —
   closest hit, attributes at the final hit -> (T*256, 16) rows.
 - `trace_closest_bvh` (K2, trace_bvh.py:1050): closest hit -> (R, 8) rows.
+- `trace_closest_bvh_visits` (X3a, K2's body under DEBUG_VISITS,
+  scripts/bench_visit_breakdown.py:148): K2's rows with the interior
+  nodes each ray expands in row 6 and the leaves it tests in row 7. Its
+  plain version walks the BVH as the kernel does, so the counts agree.
 - `trace_closest_bvh_full` (K4, trace_bvh.py:1211): closest hit of given
   rays with an optional per-cluster `skip_mask` (the two-phase meshlet
   cull's draw list) and attributes at the final hit -> (R, 16) rows.
@@ -34,12 +38,12 @@ t_min: the Pallas kernels ignore their t_min argument (1e-4 closest, 0.1
 any-hit, trace_bvh.py:675/:1633); these kernels and plain versions
 honour it, as the XLA tracer in prosper_tpu/ops/trace.py does.
 
-The plain versions are brute force over the cluster slabs, chunked by
-rays: a per-ray slab test against every live cluster's AABB (the BVH's
-leaf boxes; K4 drops the masked clusters first) picks (ray, cluster)
-pairs, Möller runs on all 128 triangles of each pair, and a per-ray
-reduction keeps the nearest hit (lowest tri id among exact ties). They
-share no traversal with the kernels.
+The plain versions but X3a's are brute force over the cluster slabs,
+chunked by rays: a per-ray slab test against every live cluster's AABB
+(the BVH's leaf boxes; K4 drops the masked clusters first) picks (ray,
+cluster) pairs, Möller runs on all 128 triangles of each pair, and a
+per-ray reduction keeps the nearest hit (lowest tri id among exact
+ties). They share no traversal with the kernels.
 """
 
 from __future__ import annotations
@@ -335,6 +339,101 @@ def trace_closest_bvh_plain(slabs, bounds, meta, ray_o, ray_d, t_min, t_max):
                          ray_o, ray_d, t_min, t_max)
 
 
+def trace_closest_bvh_visits_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
+                                   t_max):
+    """Plain X3a -> K2's (R, 8) rows with row 6 = interior nodes the ray
+    expands and row 7 = leaves it tests.
+
+    Unlike K2's plain version this one walks the BVH as the kernel does
+    (csrc/trace_bvh.cu walk<false>), every ray in lockstep: the root
+    test, a pop per step, the prune of an entry >= the best t, a leaf's
+    Möller over its 128 lanes with a strict t < best (the lowest lane
+    among equal t), an interior node's two children tested against the
+    best t and pushed far first (ties to the left child), a stack of
+    STACK_CAP entries. So its counts equal the kernel's. A ray that
+    would overflow the stack raises."""
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    t_max = t_max.to(dev, torch.float32).expand(R)
+    inv = safe_inv_dir(ray_d)
+    best = t_max.clone()
+    tri = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    best_u = torch.zeros(R, dtype=torch.float32, device=dev)
+    best_v = torch.zeros(R, dtype=torch.float32, device=dev)
+    counts = torch.zeros((R, 2), dtype=torch.int64, device=dev)
+    stack = torch.zeros((R, STACK_CAP), dtype=torch.int32, device=dev)
+    stack_enter = torch.zeros((R, STACK_CAP), dtype=torch.float32, device=dev)
+    sp = torch.zeros(R, dtype=torch.int64, device=dev)
+    lanes = torch.arange(CLUSTER_PAD, device=dev)
+    bmin, bmax = bounds[:, 0:3], bounds[:, 3:6]
+
+    def test(a, node):
+        en, ex = slab_enter_exit(ray_o[a], inv[a], bmin[node], bmax[node])
+        return (en <= ex) & (en < best[a]), en
+
+    def push(a, node, enter):
+        stack[a, sp[a]] = node.to(torch.int32)
+        stack_enter[a, sp[a]] = enter
+        sp[a] += 1
+
+    live = torch.nonzero(best > 0.0).flatten()
+    root = torch.zeros_like(live)
+    ok, en = test(live, root)
+    push(live[ok], root[ok], en[ok])
+    walking = live[ok]
+    _, pair_chunk = _chunks(dev)
+    while walking.numel():
+        sp[walking] -= 1
+        node = stack[walking, sp[walking]].long()
+        keep = stack_enter[walking, sp[walking]] < best[walking]
+        a, node = walking[keep], node[keep]
+        leaf = meta[node, 2].long()
+        is_leaf = leaf >= 0
+        for r0 in range(0, int(is_leaf.sum()), pair_chunk):
+            rl = a[is_leaf][r0:r0 + pair_chunk]
+            c = leaf[is_leaf][r0:r0 + pair_chunk]
+            counts[rl, 1] += 1
+            s = slabs[c, 0:ROWS_PLAIN, :]
+            hit, t, u, v = moller_trumbore(
+                ray_o[rl][:, None, :], ray_d[rl][:, None, :],
+                s[:, 0:3].transpose(1, 2), s[:, 3:6].transpose(1, 2),
+                s[:, 6:9].transpose(1, 2), t_min, best[rl][:, None])
+            t = torch.where(hit, t, float("inf"))
+            tmin = t.min(dim=1).values
+            lane = torch.where(t == tmin[:, None], lanes, CLUSTER_PAD).amin(1)
+            imp = torch.isfinite(tmin)
+            rows, lane = rl[imp], lane[imp]
+            best[rows] = tmin[imp]
+            tri[rows] = c[imp] * CLUSTER_PAD + lane
+            best_u[rows] = u[imp, lane]
+            best_v[rows] = v[imp, lane]
+        ai, ni = a[~is_leaf], node[~is_leaf]
+        counts[ai, 0] += 1
+        left, right = meta[ni, 0].long(), meta[ni, 1].long()
+        hl, el = test(ai, left)
+        hr, er = test(ai, right)
+        if bool((sp[ai] + hl.long() + hr.long() > STACK_CAP).any()):
+            raise RuntimeError(f"BVH stack overflow (depth > {STACK_CAP - 2})")
+        left_near = el <= er
+        both = hl & hr
+        far = torch.where(left_near, right, left)
+        near = torch.where(left_near, left, right)
+        push(ai[both], far[both], torch.where(left_near, er, el)[both])
+        push(ai[both], near[both], torch.where(left_near, el, er)[both])
+        one = hl ^ hr
+        push(ai[one], torch.where(hl, left, right)[one],
+             torch.where(hl, el, er)[one])
+        walking = walking[sp[walking] > 0]
+    hit = tri >= 0
+    out = torch.zeros((R, 8), dtype=torch.float32, device=dev)
+    out[:, 0] = torch.where(hit, best, t_max)
+    out[:, 1] = tri.to(torch.float32)
+    out[:, 2] = torch.where(hit, best_u, 0.0)
+    out[:, 3] = torch.where(hit, best_v, 0.0)
+    out[:, 6:8] = counts.to(torch.float32)
+    return out
+
+
 def trace_closest_bvh_full_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
                                  t_max, skip_mask=None):
     """Plain closest hit with attributes -> (R, 16) full rows; clusters
@@ -427,21 +526,23 @@ def trace_primary_bvh_full_plain(slabs, bounds, meta, pix_cols, cam_vec,
 # Kernel wrappers
 
 _P = ctypes.c_void_p
+# the C entry points' arguments before the stream (cuda_build.launch)
 _ARGTYPES = {
     "trace_closest_bvh": [_P, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int,
-                          ctypes.c_float, _P, _P, _P],
+                          ctypes.c_float, _P, _P],
     "trace_any_bvh": [_P, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int,
-                      ctypes.c_float, _P, _P, _P],
+                      ctypes.c_float, _P, _P],
     "trace_primary_bvh_full": [_P, ctypes.c_int, _P, _P, _P, ctypes.c_int,
-                               _P, ctypes.c_int, ctypes.c_float, _P, _P, _P],
+                               _P, ctypes.c_int, ctypes.c_float, _P, _P],
     "trace_closest_bvh_full": [_P, ctypes.c_int, _P, _P, _P, _P, _P,
-                               ctypes.c_int, ctypes.c_float, _P, _P, _P, _P],
+                               ctypes.c_int, ctypes.c_float, _P, _P, _P],
     "trace_any_bvh_dense": [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
-                            _P, _P, ctypes.c_int, ctypes.c_float, _P, _P],
+                            _P, _P, ctypes.c_int, ctypes.c_float, _P],
 }
+_ARGTYPES["trace_closest_bvh_visits"] = _ARGTYPES["trace_closest_bvh"]
 _ARGTYPES["trace_closest_bvh_dense"] = _ARGTYPES["trace_any_bvh_dense"]
 _ARGTYPES["trace_closest_bvh8"] = [_P, ctypes.c_int, _P, _P, _P, _P,
-                                   ctypes.c_int, ctypes.c_float, _P, _P, _P]
+                                   ctypes.c_int, ctypes.c_float, _P, _P]
 _ARGTYPES["trace_closest_bvh8_full"] = _ARGTYPES["trace_closest_bvh8"]
 _ARGTYPES["trace_any_bvh8"] = _ARGTYPES["trace_closest_bvh8"]
 DENSE_TILE = 128  # rays per packet of K9, K10 (trace_bvh.py:1154, :1819)
@@ -455,16 +556,9 @@ def dense_list_bytes(n_clusters: int) -> int:
     return 4 * int(n_clusters) + DENSE_STATIC_SMEM
 
 
-def _kernel(name: str):
-    from . import cuda_build
-
-    fn = getattr(cuda_build.load("trace_bvh"), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _expect(t: torch.Tensor, name: str, dtype, device, shape=None):
+def expect_tensor(t: torch.Tensor, name: str, dtype, device, shape=None):
+    """Raise unless t has this dtype, device, contiguity and shape (None
+    in `shape`: any size): the check every kernel wrapper makes."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.device != device:
@@ -479,14 +573,15 @@ def _expect(t: torch.Tensor, name: str, dtype, device, shape=None):
 
 
 def _check_scene(slabs, bounds, meta, device, min_rows=ROWS_PLAIN):
-    _expect(slabs, "slabs", torch.float32, device, (None, None, CLUSTER_PAD))
+    expect_tensor(slabs, "slabs", torch.float32, device,
+                  (None, None, CLUSTER_PAD))
     if slabs.shape[1] < min_rows:
         raise ValueError(f"slabs need >= {min_rows} rows, got {slabs.shape[1]}")
-    _expect(bounds, "bounds", torch.float32, device, (None, 6))
-    _expect(meta, "meta", torch.int32, device, (bounds.shape[0], 3))
+    expect_tensor(bounds, "bounds", torch.float32, device, (None, 6))
+    expect_tensor(meta, "meta", torch.int32, device, (bounds.shape[0], 3))
 
 
-def _tmax(t_max, R: int, device) -> torch.Tensor:
+def as_tmax(t_max, R: int, device) -> torch.Tensor:
     """t_max as (R,) f32 on device; a Python scalar is filled in place,
     with no host-to-device copy."""
     if not isinstance(t_max, torch.Tensor):
@@ -529,11 +624,12 @@ def check_stack_overflow(device) -> None:
 
 
 def _launch(name: str, device, args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _kernel(name)(*args, _overflow_flag(device).data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    """Launch a stack-walking kernel of csrc/trace_bvh.cu with the
+    device's overflow flag."""
+    from . import cuda_build
+
+    cuda_build.launch("trace_bvh", name, _ARGTYPES[name], device,
+                      (*args, _overflow_flag(device).data_ptr()))
 
 
 def trace_closest_bvh(slabs, bounds, meta, ray_o, ray_d, t_min, t_max):
@@ -544,15 +640,15 @@ def trace_closest_bvh(slabs, bounds, meta, ray_o, ray_d, t_min, t_max):
     tri = -1."""
     dev = ray_o.device
     R = ray_o.shape[0]
-    t_max = _tmax(t_max, R, dev)
+    t_max = as_tmax(t_max, R, dev)
     if dev.type == "cpu":
         return trace_closest_bvh_plain(slabs, bounds, meta, ray_o, ray_d,
                                        float(t_min), t_max)
     if dev.type != "cuda":
         raise ValueError(f"trace_closest_bvh: unsupported device {dev}")
     _check_scene(slabs, bounds, meta, dev)
-    _expect(ray_o, "ray_o", torch.float32, dev, (R, 3))
-    _expect(ray_d, "ray_d", torch.float32, dev, (R, 3))
+    expect_tensor(ray_o, "ray_o", torch.float32, dev, (R, 3))
+    expect_tensor(ray_d, "ray_d", torch.float32, dev, (R, 3))
     out = torch.empty((R, 8), dtype=torch.float32, device=dev)
     _launch("trace_closest_bvh", dev, (
         slabs.data_ptr(), slabs.shape[1], bounds.data_ptr(), meta.data_ptr(),
@@ -563,20 +659,46 @@ def trace_closest_bvh(slabs, bounds, meta, ray_o, ray_d, t_min, t_max):
     return out
 
 
+def trace_closest_bvh_visits(slabs, bounds, meta, ray_o, ray_d, t_min,
+                             t_max):
+    """X3a: K2's closest hit with its walk's counts -> (R, 8) rows t |
+    tri | u | v | 0 | 0 | interior nodes expanded | leaves tested, rows
+    0-5 equal to trace_closest_bvh's; inputs as trace_closest_bvh."""
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    t_max = as_tmax(t_max, R, dev)
+    if dev.type == "cpu":
+        return trace_closest_bvh_visits_plain(slabs, bounds, meta, ray_o,
+                                              ray_d, float(t_min), t_max)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_closest_bvh_visits: unsupported device {dev}")
+    _check_scene(slabs, bounds, meta, dev)
+    expect_tensor(ray_o, "ray_o", torch.float32, dev, (R, 3))
+    expect_tensor(ray_d, "ray_d", torch.float32, dev, (R, 3))
+    out = torch.empty((R, 8), dtype=torch.float32, device=dev)
+    _launch("trace_closest_bvh_visits", dev, (
+        slabs.data_ptr(), slabs.shape[1], bounds.data_ptr(), meta.data_ptr(),
+        ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(), R,
+        float(t_min), out.data_ptr(),
+    ))
+    trace_closest_bvh_visits.launches += 1
+    return out
+
+
 def trace_any_bvh(slabs, bounds, meta, ray_o, ray_d, t_min, t_max):
     """Any hit (shadow rays) of R rays -> (R,) bool occlusion, a hit
     being t_min < t < t_max."""
     dev = ray_o.device
     R = ray_o.shape[0]
-    t_max = _tmax(t_max, R, dev)
+    t_max = as_tmax(t_max, R, dev)
     if dev.type == "cpu":
         return trace_any_bvh_plain(slabs, bounds, meta, ray_o, ray_d,
                                    float(t_min), t_max)
     if dev.type != "cuda":
         raise ValueError(f"trace_any_bvh: unsupported device {dev}")
     _check_scene(slabs, bounds, meta, dev)
-    _expect(ray_o, "ray_o", torch.float32, dev, (R, 3))
-    _expect(ray_d, "ray_d", torch.float32, dev, (R, 3))
+    expect_tensor(ray_o, "ray_o", torch.float32, dev, (R, 3))
+    expect_tensor(ray_d, "ray_d", torch.float32, dev, (R, 3))
     occ = torch.empty((R,), dtype=torch.bool, device=dev)
     _launch("trace_any_bvh", dev, (
         slabs.data_ptr(), slabs.shape[1], bounds.data_ptr(), meta.data_ptr(),
@@ -598,7 +720,7 @@ def trace_closest_bvh_full(slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
     tested (its leaf is skipped in the walk)."""
     dev = ray_o.device
     R = ray_o.shape[0]
-    t_max = _tmax(t_max, R, dev)
+    t_max = as_tmax(t_max, R, dev)
     if dev.type == "cpu":
         return trace_closest_bvh_full_plain(slabs, bounds, meta, ray_o,
                                             ray_d, float(t_min), t_max,
@@ -606,11 +728,12 @@ def trace_closest_bvh_full(slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
     if dev.type != "cuda":
         raise ValueError(f"trace_closest_bvh_full: unsupported device {dev}")
     _check_scene(slabs, bounds, meta, dev, min_rows=ROWS_FULL - 2)
-    _expect(ray_o, "ray_o", torch.float32, dev, (R, 3))
-    _expect(ray_d, "ray_d", torch.float32, dev, (R, 3))
+    expect_tensor(ray_o, "ray_o", torch.float32, dev, (R, 3))
+    expect_tensor(ray_d, "ray_d", torch.float32, dev, (R, 3))
     live = 0
     if skip_mask is not None:
-        _expect(skip_mask, "skip_mask", torch.bool, dev, (slabs.shape[0],))
+        expect_tensor(skip_mask, "skip_mask", torch.bool, dev,
+                      (slabs.shape[0],))
         live = skip_mask.data_ptr()
     out = torch.empty((R, 16), dtype=torch.float32, device=dev)
     _launch("trace_closest_bvh_full", dev, (
@@ -641,8 +764,8 @@ def trace_primary_bvh_full(slabs, bounds, meta, pix_cols, cam_vec,
     if dev.type != "cuda":
         raise ValueError(f"trace_primary_bvh_full: unsupported device {dev}")
     _check_scene(slabs, bounds, meta, dev, min_rows=ROWS_FULL - 2)
-    _expect(pix_cols, "pix_cols", torch.float32, dev, (T, 3, TILE))
-    _expect(cam_vec, "cam_vec", torch.float32, dev, (1, 24))
+    expect_tensor(pix_cols, "pix_cols", torch.float32, dev, (T, 3, TILE))
+    expect_tensor(cam_vec, "cam_vec", torch.float32, dev, (1, 24))
     R = T * TILE
     out = torch.empty((R, 16), dtype=torch.float32, device=dev)
     _launch("trace_primary_bvh_full", dev, (
@@ -660,8 +783,8 @@ def _launch_dense(name, slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
     dev = ray_o.device
     R = ray_o.shape[0]
     _check_scene(slabs, bounds, meta, dev)
-    _expect(ray_o, "ray_o", torch.float32, dev, (R, 3))
-    _expect(ray_d, "ray_d", torch.float32, dev, (R, 3))
+    expect_tensor(ray_o, "ray_o", torch.float32, dev, (R, 3))
+    expect_tensor(ray_d, "ray_d", torch.float32, dev, (R, 3))
     C = slabs.shape[0]
     if dense_list_bytes(C) > MAX_SHARED:
         raise ValueError(
@@ -670,17 +793,15 @@ def _launch_dense(name, slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
             f"block has ({MAX_SHARED})")
     live = 0
     if skip_mask is not None:
-        _expect(skip_mask, "skip_mask", torch.bool, dev, (C,))
+        expect_tensor(skip_mask, "skip_mask", torch.bool, dev, (C,))
         live = skip_mask.data_ptr()
     node_of = dense_aux(C, bounds, meta)[0]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel(name)(
-            slabs.data_ptr(), slabs.shape[1], C, bounds.data_ptr(),
-            node_of.data_ptr(), live, ray_o.data_ptr(), ray_d.data_ptr(),
-            t_max.data_ptr(), R, float(t_min), out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    from . import cuda_build
+
+    cuda_build.launch("trace_bvh", name, _ARGTYPES[name], dev, (
+        slabs.data_ptr(), slabs.shape[1], C, bounds.data_ptr(),
+        node_of.data_ptr(), live, ray_o.data_ptr(), ray_d.data_ptr(),
+        t_max.data_ptr(), R, float(t_min), out.data_ptr()))
     return out
 
 
@@ -694,7 +815,7 @@ def trace_any_bvh_dense(slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
     a cluster marked False is never tested."""
     dev = ray_o.device
     R = ray_o.shape[0]
-    t_max = _tmax(t_max, R, dev)
+    t_max = as_tmax(t_max, R, dev)
     if dev.type == "cpu":
         return trace_any_bvh_dense_plain(slabs, bounds, meta, ray_o, ray_d,
                                          float(t_min), t_max, skip_mask)
@@ -718,7 +839,7 @@ def trace_closest_bvh_dense(slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
     a cluster marked False is never tested."""
     dev = ray_o.device
     R = ray_o.shape[0]
-    t_max = _tmax(t_max, R, dev)
+    t_max = as_tmax(t_max, R, dev)
     if dev.type == "cpu":
         return trace_closest_bvh_dense_plain(slabs, bounds, meta, ray_o,
                                              ray_d, float(t_min), t_max,
@@ -737,14 +858,15 @@ def _launch8(name, slabs, nodes8, ray_o, ray_d, t_min, t_max, out,
     """Check the inputs of K11, K12 or K13 and launch it into out."""
     dev = ray_o.device
     R = ray_o.shape[0]
-    _expect(slabs, "slabs", torch.float32, dev, (None, None, CLUSTER_PAD))
+    expect_tensor(slabs, "slabs", torch.float32, dev,
+                  (None, None, CLUSTER_PAD))
     if slabs.shape[1] < min_rows:
         raise ValueError(f"slabs need >= {min_rows} rows, got {slabs.shape[1]}")
-    _expect(nodes8, "nodes8", torch.float32, dev, (None, 8, 8))
+    expect_tensor(nodes8, "nodes8", torch.float32, dev, (None, 8, 8))
     if nodes8.data_ptr() % 16:
         raise ValueError("nodes8 must be 16-byte aligned (float4 loads)")
-    _expect(ray_o, "ray_o", torch.float32, dev, (R, 3))
-    _expect(ray_d, "ray_d", torch.float32, dev, (R, 3))
+    expect_tensor(ray_o, "ray_o", torch.float32, dev, (R, 3))
+    expect_tensor(ray_d, "ray_d", torch.float32, dev, (R, 3))
     _launch(name, dev, (
         slabs.data_ptr(), slabs.shape[1], nodes8.data_ptr(),
         ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(), R,
@@ -762,7 +884,7 @@ def trace_closest_bvh8(slabs, nodes8, ray_o, ray_d, t_min, t_max):
     accel/bvh.pack_nodes8; ray_o, ray_d (R, 3) f32; t_max scalar or (R,)."""
     dev = ray_o.device
     R = ray_o.shape[0]
-    t_max = _tmax(t_max, R, dev)
+    t_max = as_tmax(t_max, R, dev)
     if dev.type == "cpu":
         return trace_closest_bvh8_plain(slabs, nodes8, ray_o, ray_d,
                                         float(t_min), t_max)
@@ -781,7 +903,7 @@ def trace_closest_bvh8_full(slabs, nodes8, ray_o, ray_d, t_min, t_max):
     slabs (C, 40, 128) f32; the rest as trace_closest_bvh8."""
     dev = ray_o.device
     R = ray_o.shape[0]
-    t_max = _tmax(t_max, R, dev)
+    t_max = as_tmax(t_max, R, dev)
     if dev.type == "cpu":
         return trace_closest_bvh8_full_plain(slabs, nodes8, ray_o, ray_d,
                                              float(t_min), t_max)
@@ -800,7 +922,7 @@ def trace_any_bvh8(slabs, nodes8, ray_o, ray_d, t_min, t_max):
     being t_min < t < t_max; inputs as trace_closest_bvh8."""
     dev = ray_o.device
     R = ray_o.shape[0]
-    t_max = _tmax(t_max, R, dev)
+    t_max = as_tmax(t_max, R, dev)
     if dev.type == "cpu":
         return trace_any_bvh8_plain(slabs, nodes8, ray_o, ray_d,
                                     float(t_min), t_max)
@@ -821,10 +943,11 @@ trace_closest_bvh_dense.launches = 0
 trace_closest_bvh8.launches = 0
 trace_closest_bvh8_full.launches = 0
 trace_any_bvh8.launches = 0
+trace_closest_bvh_visits.launches = 0
 KERNELS = (trace_primary_bvh_full, trace_closest_bvh, trace_any_bvh,
            trace_closest_bvh_full, trace_any_bvh_dense,
            trace_closest_bvh_dense, trace_closest_bvh8,
-           trace_closest_bvh8_full, trace_any_bvh8)
+           trace_closest_bvh8_full, trace_any_bvh8, trace_closest_bvh_visits)
 
 
 def reset_launch_counts() -> None:

@@ -53,9 +53,9 @@ from .trace_bvh import (
     MAX_SHARED,
     _brute,
     _closest_rows,
-    _expect,
     _full_rows,
-    _tmax,
+    as_tmax,
+    expect_tensor,
 )
 
 SLAB_FLOATS = ROWS_PLAIN * CLUSTER_PAD  # the staged Möller rows
@@ -104,7 +104,7 @@ def cull_lists(ray_o, ray_d, t_min, t_max, wc_min, wc_max):
     overlapping clusters first, front to back by key, ties by id, then
     the others with key 3e38 (trace_pallas._cull_lists with every
     cluster kept)."""
-    t_max = _tmax(t_max, ray_o.shape[0], ray_o.device)
+    t_max = as_tmax(t_max, ray_o.shape[0], ray_o.device)
     overlap, key = packet_overlap(ray_o, ray_d, t_min, t_max, wc_min, wc_max)
     keys, order = torch.sort(torch.where(overlap, key, BIG), dim=1,
                              stable=True)
@@ -114,7 +114,7 @@ def cull_lists(ray_o, ray_d, t_min, t_max, wc_min, wc_max):
 def trace_closest_flat_plain(slabs, wc_min, wc_max, ray_o, ray_d, t_min,
                              t_max):
     """Plain flat closest hit -> (R, 8) rows t | tri | u | v | 0 0 0 0."""
-    t_max = _tmax(t_max, ray_o.shape[0], ray_o.device)
+    t_max = as_tmax(t_max, ray_o.shape[0], ray_o.device)
     overlap, _ = packet_overlap(ray_o, ray_d, t_min, t_max, wc_min, wc_max)
     return _closest_rows(slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max,
                          tile_ok=overlap)
@@ -131,7 +131,7 @@ def trace_any_flat_plain(slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max):
     """Plain flat any hit -> (R,) bool occlusion. The packet cull only
     adds clusters that a ray's own box test then rejects, so the mask
     does not depend on which rays share a tile."""
-    t_max = _tmax(t_max, ray_o.shape[0], ray_o.device)
+    t_max = as_tmax(t_max, ray_o.shape[0], ray_o.device)
     overlap, _ = packet_overlap(ray_o, ray_d, t_min, t_max, wc_min, wc_max)
     best_t, _, _, _ = _brute(slabs, wc_min, wc_max, ray_o, ray_d, t_min,
                              t_max, any_hit=True, tile_ok=overlap)
@@ -142,17 +142,9 @@ def trace_any_flat_plain(slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max):
 # Kernel wrappers
 
 _P = ctypes.c_void_p
+# the C entry points' arguments before the stream (cuda_build.launch)
 _ARGTYPES = [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int,
-             ctypes.c_float, _P, _P]
-
-
-def _kernel(name: str):
-    from . import cuda_build
-
-    fn = getattr(cuda_build.load("trace_flat"), name)
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+             ctypes.c_float, _P]
 
 
 def list_bytes(n_clusters: int) -> int:
@@ -167,26 +159,25 @@ def _launch(name, slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max,
     dev = ray_o.device
     R = ray_o.shape[0]
     C = slabs.shape[0]
-    _expect(slabs, "slabs", torch.float32, dev, (None, None, CLUSTER_PAD))
+    expect_tensor(slabs, "slabs", torch.float32, dev,
+                  (None, None, CLUSTER_PAD))
     if slabs.shape[1] < min_rows:
         raise ValueError(f"slabs need >= {min_rows} rows, got {slabs.shape[1]}")
-    _expect(wc_min, "wc_min", torch.float32, dev, (C, 3))
-    _expect(wc_max, "wc_max", torch.float32, dev, (C, 3))
-    _expect(ray_o, "ray_o", torch.float32, dev, (R, 3))
-    _expect(ray_d, "ray_d", torch.float32, dev, (R, 3))
+    expect_tensor(wc_min, "wc_min", torch.float32, dev, (C, 3))
+    expect_tensor(wc_max, "wc_max", torch.float32, dev, (C, 3))
+    expect_tensor(ray_o, "ray_o", torch.float32, dev, (R, 3))
+    expect_tensor(ray_d, "ray_d", torch.float32, dev, (R, 3))
     if list_bytes(C) > MAX_SHARED:
         raise ValueError(
             f"{name}: the cull list of {C} clusters needs {list_bytes(C)} "
             f"bytes of shared memory, more than a block has ({MAX_SHARED})")
     out = torch.empty(out_shape, dtype=out_dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel(name)(
-            slabs.data_ptr(), slabs.shape[1], C, wc_min.data_ptr(),
-            wc_max.data_ptr(), ray_o.data_ptr(), ray_d.data_ptr(),
-            t_max.data_ptr(), R, float(t_min), out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    from . import cuda_build
+
+    cuda_build.launch("trace_flat", name, _ARGTYPES, dev, (
+        slabs.data_ptr(), slabs.shape[1], C, wc_min.data_ptr(),
+        wc_max.data_ptr(), ray_o.data_ptr(), ray_d.data_ptr(),
+        t_max.data_ptr(), R, float(t_min), out.data_ptr()))
     return out
 
 
@@ -196,7 +187,7 @@ def trace_closest_flat(slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max):
     slabs (C, >=9, 128) f32; wc_min, wc_max (C, 3) f32 (inverted where a
     cluster is masked); ray_o, ray_d (R, 3) f32; t_max scalar or (R,)."""
     dev = ray_o.device
-    t_max = _tmax(t_max, ray_o.shape[0], dev)
+    t_max = as_tmax(t_max, ray_o.shape[0], dev)
     if dev.type == "cpu":
         return trace_closest_flat_plain(slabs, wc_min, wc_max, ray_o, ray_d,
                                         float(t_min), t_max)
@@ -215,7 +206,7 @@ def trace_closest_flat_full(slabs, wc_min, wc_max, ray_o, ray_d, t_min,
 
     slabs (C, 40, 128) f32; otherwise as trace_closest_flat."""
     dev = ray_o.device
-    t_max = _tmax(t_max, ray_o.shape[0], dev)
+    t_max = as_tmax(t_max, ray_o.shape[0], dev)
     if dev.type == "cpu":
         return trace_closest_flat_full_plain(slabs, wc_min, wc_max, ray_o,
                                              ray_d, float(t_min), t_max)
@@ -234,7 +225,7 @@ def trace_any_flat(slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max):
     slabs (C, >=9, 128) f32; wc_min, wc_max (C, 3) f32 (inverted where a
     cluster is masked); ray_o, ray_d (R, 3) f32; t_max scalar or (R,)."""
     dev = ray_o.device
-    t_max = _tmax(t_max, ray_o.shape[0], dev)
+    t_max = as_tmax(t_max, ray_o.shape[0], dev)
     if dev.type == "cpu":
         return trace_any_flat_plain(slabs, wc_min, wc_max, ray_o, ray_d,
                                     float(t_min), t_max)

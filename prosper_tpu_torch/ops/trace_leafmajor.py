@@ -81,7 +81,7 @@ def enumerate_pairs(wc_min, wc_max, ray_o, ray_d, t_min, t_max):
     lo = torch.minimum(t0, t1).amax(-1)
     hi = torch.maximum(t0, t1).amin(-1)
     entry = torch.clamp_min(lo, float(t_min))
-    t_max = trace_bvh._tmax(t_max, R, dev)
+    t_max = trace_bvh.as_tmax(t_max, R, dev)
     flat = ((hi >= entry) & (entry < t_max[None, :])).reshape(C * R)
     P = PAIR_CAP_PER_RAY * R
     pos = torch.cumsum(flat, 0) - 1
@@ -105,7 +105,7 @@ def candidate_lists(wc_min, wc_max, ray_o, ray_d, t_min, t_max):
     so they widen no packet and enter nothing."""
     R0, C = ray_o.shape[0], wc_min.shape[0]
     dev = ray_o.device
-    t_max = trace_bvh._tmax(t_max, R0, dev)
+    t_max = trace_bvh.as_tmax(t_max, R0, dev)
     pad = (-R0) % ENUM_TILE
     if pad:
         ray_o = torch.cat([ray_o, ray_o[:1].expand(pad, 3)])
@@ -256,7 +256,7 @@ def run_pairs_plain(slabs, block_leaf, slot_ray, slot_valid, ray_o, ray_d,
     valid slot."""
     B = block_leaf.shape[0]
     dev = ray_o.device
-    t_max = trace_bvh._tmax(t_max, ray_o.shape[0], dev)
+    t_max = trace_bvh.as_tmax(t_max, ray_o.shape[0], dev)
     live = slot_valid & (block_leaf >= 0)[:, None]
     if any_hit:
         out = torch.zeros((B, BLOCK), dtype=torch.bool, device=dev)
@@ -297,19 +297,11 @@ def run_pairs_plain(slabs, block_leaf, slot_ray, slot_valid, ray_o, ray_d,
     return out
 
 
+# the C entry point's arguments before the stream (cuda_build.launch)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-
-
-def _kernel():
-    from . import cuda_build
-
-    fn = cuda_build.load("trace_leafmajor").run_pairs
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+             ctypes.c_int, ctypes.c_void_p]
 
 
 def run_pairs(slabs, block_leaf, slot_ray, slot_valid, ray_o, ray_d, t_min,
@@ -321,14 +313,14 @@ def run_pairs(slabs, block_leaf, slot_ray, slot_valid, ray_o, ray_d, t_min,
     scalar or (R,)."""
     dev = ray_o.device
     R = ray_o.shape[0]
-    t_max = trace_bvh._tmax(t_max, R, dev)
+    t_max = trace_bvh.as_tmax(t_max, R, dev)
     if dev.type == "cpu":
         return run_pairs_plain(slabs, block_leaf, slot_ray, slot_valid, ray_o,
                                ray_d, float(t_min), t_max, any_hit)
     if dev.type != "cuda":
         raise ValueError(f"run_pairs: unsupported device {dev}")
     B = block_leaf.shape[0]
-    expect = trace_bvh._expect
+    expect = trace_bvh.expect_tensor
     expect(slabs, "slabs", torch.float32, dev, (None, None, CLUSTER_PAD))
     if slabs.shape[1] < ROWS_PLAIN:
         raise ValueError(f"slabs need >= {ROWS_PLAIN} rows, got "
@@ -342,15 +334,13 @@ def run_pairs(slabs, block_leaf, slot_ray, slot_valid, ray_o, ray_d, t_min,
         out = torch.empty((B, BLOCK), dtype=torch.bool, device=dev)
     else:
         out = torch.empty((B, 4, BLOCK), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel()(
-            slabs.data_ptr(), slabs.shape[1], block_leaf.data_ptr(), B,
-            slot_ray.data_ptr(), slot_valid.data_ptr(), ray_o.data_ptr(),
-            ray_d.data_ptr(), t_max.data_ptr(), float(t_min), int(any_hit),
-            out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"run_pairs: CUDA launch failed with error {rc}")
+    from . import cuda_build
+
+    cuda_build.launch("trace_leafmajor", "run_pairs", _ARGTYPES, dev, (
+        slabs.data_ptr(), slabs.shape[1], block_leaf.data_ptr(), B,
+        slot_ray.data_ptr(), slot_valid.data_ptr(), ray_o.data_ptr(),
+        ray_d.data_ptr(), t_max.data_ptr(), float(t_min), int(any_hit),
+        out.data_ptr()))
     run_pairs.launches += 1
     return out
 
@@ -451,7 +441,7 @@ def trace_closest_hybrid(slabs, bvh_bounds, bvh_meta, wc_min, wc_max, ray_o,
     Exact. Returns (dict(t, tri, u, v), t = inf on a miss;
     tile_overflow)."""
     R = ray_o.shape[0]
-    t_max = trace_bvh._tmax(t_max, R, ray_o.device)
+    t_max = trace_bvh.as_tmax(t_max, R, ray_o.device)
     heavy, pairs, tile_overflow = light_pairs(wc_min, wc_max, ray_o, ray_d,
                                               t_min, t_max)
     h_lm = closest_from_pairs(slabs, *pairs, wc_min.shape[0], R, ray_o,
@@ -471,7 +461,7 @@ def trace_any_hybrid(slabs, bvh_bounds, bvh_meta, wc_min, wc_max, ray_o,
     """Any hit, hybrid as trace_closest_hybrid with K3 for the heavy rays.
     Returns ((R,) bool, tile_overflow)."""
     R = ray_o.shape[0]
-    t_max = trace_bvh._tmax(t_max, R, ray_o.device)
+    t_max = trace_bvh.as_tmax(t_max, R, ray_o.device)
     heavy, pairs, tile_overflow = light_pairs(wc_min, wc_max, ray_o, ray_d,
                                               t_min, t_max)
     occ_lm = any_from_pairs(slabs, *pairs, wc_min.shape[0], R, ray_o, ray_d,

@@ -9,7 +9,13 @@ Tolerances as chip_smoke.py states them: hit/miss and occlusion equal,
 tri equal except exact t ties, t within rtol 1e-5, attributes 1e-4; the
 shading kernel within rtol 1e-5 / atol 1e-6 of its plain version; the
 pair-block kernel's slots equal to its plain version's; the 8-wide
-kernels equal to their plain versions bit for bit."""
+kernels, the threaded walk, the counting K2, the Möller loops and the
+loop probes equal to their plain versions bit for bit; the tensor-core
+Plücker loops agree with their TF32 plain versions on every hit off the
+border of ops/plucker.tf32_agreement, with t within rtol 1e-5 plus the
+bound of a reordered sum where both hit, and with Möller on at least
+99.95% of (ray, triangle) pairs (experiments/bench_mxu_isect.py:89) with
+t within rtol 1e-2 where both hit."""
 
 import numpy as np
 import pytest
@@ -17,6 +23,13 @@ import torch
 
 from prosper_tpu_torch.accel.bvh import build_bvh, pack_nodes8
 from prosper_tpu_torch.entry import entry
+from prosper_tpu_torch.experiments import bench_mxu_isect as bmi
+from prosper_tpu_torch.experiments import trace_wavefront as tw
+from prosper_tpu_torch.ops import bench_kernels as bk
+from prosper_tpu_torch.ops.plucker import (
+    plucker_rows_from_slab,
+    tf32_agreement,
+)
 from prosper_tpu_torch.ops import shade_tiles as tst
 from prosper_tpu_torch.ops import trace_bvh as tb
 from prosper_tpu_torch.ops import trace_flat as tf
@@ -88,7 +101,8 @@ def test_kernels_match_plain_on_card(cuda, scene, n):
                                   t_max)
     assert torch.equal(occ, want)
     tb.check_stack_overflow(cuda)
-    assert [f.launches for f in tb.KERNELS] == [1, 1, 1, 0, 0, 0, 0, 0, 0]
+    assert [f.launches for f in tb.KERNELS] == [1, 1, 1] + [0] * (
+        len(tb.KERNELS) - 3)
 
 
 def _random_rays(cam, R, seed, device):
@@ -659,7 +673,9 @@ def test_bvh8_kernels_match_plain_on_card(cuda, n):
     assert torch.equal(occ, tb.trace_any_bvh(geom["packed9"], *bvh, o, d,
                                              0.1, t_any))
     tb.check_stack_overflow(cuda)
-    assert [f.launches for f in tb.KERNELS][-3:] == [1, 1, 1]
+    assert [f.launches for f in (tb.trace_closest_bvh8,
+                                 tb.trace_closest_bvh8_full,
+                                 tb.trace_any_bvh8)] == [1, 1, 1]
 
 
 def test_bvh8_stack_overflow_raises_on_card(cuda):
@@ -685,3 +701,107 @@ def test_bvh8_stack_overflow_raises_on_card(cuda):
     with pytest.raises(RuntimeError, match="stack overflow"):
         tb.check_stack_overflow(cuda)
     tb.check_stack_overflow(cuda)  # cleared
+
+
+@pytest.mark.parametrize("l_cap", [2, tw.L_CAP])
+def test_walk_leaves_matches_plain_on_card(cuda, l_cap):
+    """X1 against its plain version: leaves and counts equal, with l_cap
+    2 so that counts pass it; dead rays and zero direction components."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32)
+    frame = sc["frame"]
+    table = torch.as_tensor(tw.pack_threaded(build_bvh(
+        frame["wc_aabb_min_w"].cpu().numpy(),
+        frame["wc_aabb_max_w"].cpu().numpy(), max_leaf_size=1)), device=cuda)
+    o, d, t_max = _incoherent_rays(sc, 3000, 4, cuda)
+    d[::7, 0] = 0.0
+    t_max[::5] = 0.0
+    tw.walk_leaves.launches = 0
+    got = tw.walk_leaves(table, o, d, t_max, l_cap)
+    want = tw.walk_leaves_plain(table, o, d, t_max, l_cap)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].max()) > 2 and tw.walk_leaves.launches == 1
+
+
+def test_visits_kernel_matches_plain_on_card(cuda):
+    """X3a against its plain version (the lockstep walk): rows and counts
+    equal; rows 0-5 equal K2's on the same rays."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32)
+    geom, frame = sc["geom"], sc["frame"]
+    bvh = (frame["bvh_bounds"], frame["bvh_meta"])
+    o, d, t_max = _incoherent_rays(sc, 3000, 5, cuda)
+    t_max[::9] = 0.0
+    got = tb.trace_closest_bvh_visits(geom["packed9"], *bvh, o, d, 1e-4, t_max)
+    tb.check_stack_overflow(cuda)
+    want = tb.trace_closest_bvh_visits_plain(geom["packed9"], *bvh, o, d,
+                                             1e-4, t_max)
+    assert torch.equal(got, want) and float(got[:, 7].max()) > 1
+    k2 = tb.trace_closest_bvh(geom["packed9"], *bvh, o, d, 1e-4, t_max)
+    assert torch.equal(got[:, 0:6], k2[:, 0:6])
+
+
+@pytest.mark.parametrize("loop", ["moller", "moller_chain"])
+def test_moller_loops_match_plain_on_card(cuda, loop):
+    """X2's Möller loop and X3b's chain against their plain versions over
+    two blocks, 5 iterations: best and the last t equal."""
+    slab, cols = bmi.block_cols(2, cuda)
+    fn = bk.isect_loop_moller if loop == "moller" else bk.moller_chain_loop
+    chain = bk.CHAIN_X2 if loop == "moller" else bk.CHAIN_X3B
+    best, t = fn(slab, cols, 5, keep_t=True)
+    want_best, want_t = bk.isect_loop_plain(bk.MOLLER, chain, slab, cols, 5,
+                                            keep_t=True)
+    assert torch.equal(best, want_best) and torch.equal(t, want_t)
+    assert int(torch.isfinite(t).sum()) > 10
+
+
+@pytest.mark.parametrize("variant", ["plucker", "plucker_pre"])
+def test_plucker_loops_on_card(cuda, variant):
+    """The tensor-core Plücker loops against their TF32 plain version on
+    the script's block and 63 seeded ones (bench_mxu_isect.block_cols):
+    best equal, no hit/miss mismatch off tf32_agreement's border, t within
+    rtol 1e-5 plus the reordered sums' bound where both hit; against the
+    Möller block on the script's scene (bench_mxu_isect.check) by the
+    script's bar, 99.95% of pairs and t within rtol 1e-2. On other rays
+    TF32's rounding of o and n in n.o can move t by more than 1e-2 where
+    n.v0 - n.o cancels, so the Möller bar is the script's scene's."""
+    slab, cols = bmi.block_cols(64, cuda)
+    best, t = bmi.LOOPS[variant](bmi.loop_input(variant, slab), cols, 3,
+                                 keep_t=True)
+    want, _ = bk.isect_loop_plain(bk.PLUCKER, bk.CHAIN_X2, slab, cols, 3)
+    assert torch.equal(best, want) and bool(torch.isinf(want).all())
+    o = cols[:, 0:3].transpose(1, 2).reshape(-1, 3)
+    d = cols[:, 3:6].transpose(1, 2).reshape(-1, 3)
+    a = tf32_agreement(plucker_rows_from_slab(slab), o, d, bk.T_MIN,
+                       float("inf"), t)
+    assert a["mismatches"] == 0 and a["t_err_ratio"] <= 1.0, a
+    assert a["hits"] > 2000
+    rec = bmi.check(cuda)
+    assert rec["agreement"] >= bmi.AGREEMENT and rec["t_rel_err"] <= 1e-2
+
+
+def test_loop_probes_match_plain_on_card(cuda):
+    """X3c-f at small counts and at the script's, on seeded inputs: equal
+    to their plain versions."""
+    rng = np.random.default_rng(2)
+    s = torch.as_tensor(rng.integers(-2**31, 2**31 - 1, 128),
+                        dtype=torch.int32, device=cuda)
+    v = rng.uniform(-1, 1, (8, 128)).astype(np.float32)
+    v[2:4] = np.abs(v[2:4]) * 0.5
+    v[6:8] = np.abs(v[6:8]) * 0.5
+    v = torch.as_tensor(v, device=cuda)
+    for n in (5, 1000):
+        assert torch.equal(bk.loop_flat(s, n), bk.loop_flat_plain(s, n))
+        assert torch.equal(bk.loop_nested(s, n // 4, 4),
+                           bk.loop_nested_plain(s, n // 4, 4))
+        assert torch.equal(bk.loop_cond(s, n), bk.loop_cond_plain(s, n))
+        assert torch.equal(bk.loop_vec(v, n), bk.loop_vec_plain(v, n))
+    from prosper_tpu_torch.scripts import bench_loop_overhead as blo
+
+    for name, rec in blo.main(cuda).items():
+        fn, x, counts, _ = blo.probes(cuda)[name]
+        plain = {bk.loop_flat: bk.loop_flat_plain,
+                 bk.loop_nested: bk.loop_nested_plain,
+                 bk.loop_cond: bk.loop_cond_plain,
+                 bk.loop_vec: bk.loop_vec_plain}[fn]
+        assert torch.equal(rec["out"], plain(x, *counts)) and rec["ms"] > 0

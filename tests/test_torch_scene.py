@@ -183,10 +183,12 @@ def test_port_never_imports_jax():
     a CPU deferred and a CPU forward frame (the transparent pass and alpha
     discard on a frame without BVH arrays), two CPU ReSTIR frames, a
     path-traced frame without BVH arrays, one under the leaf-major
-    bounce tracer, and a deferred frame of a glTF scene written by
+    bounce tracer, a deferred frame of a glTF scene written by
     testing.write_plate_gltf and loaded through scene/world.py (glTF,
-    native mesh pipeline, textures with mips) pulls in no JAX and
-    nothing of prosper_tpu."""
+    native mesh pipeline, textures with mips), and the measurement entry
+    points of prosper_tpu_torch.experiments and .scripts at a small size
+    pulls in no JAX, nothing of prosper_tpu and nothing of the repo's
+    experiments/ or scripts/."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "torch.set_num_threads(2)\n"
@@ -232,8 +234,16 @@ def test_port_never_imports_jax():
         "img, state, drawn = fn(*args)\n"
         "assert img.shape == (32, 32, 3) and int(drawn) > 0\n"
         "assert int(args[0]['arena']['n_mips'].max()) > 1\n"
-        "bad =sorted(m for m in sys.modules if m.startswith('jax')\n"
-        "             or m == 'prosper_tpu' or m.startswith('prosper_tpu.'))\n"
+        "from prosper_tpu_torch.scripts import bench_visit_breakdown as bvb\n"
+        "rec, _ = bvb.main(path, 'cpu', 32, 32)\n"
+        "v, need = rec['leaf_visits'], rec['leaves_before_hit']\n"
+        "assert v['total'] >= need['total'] > 0\n"
+        "from prosper_tpu_torch.experiments import bench_mxu_isect as bmi\n"
+        "assert bmi.check('cpu')['agreement'] > bmi.AGREEMENT\n"
+        "from prosper_tpu_torch.scripts import bench_loop_overhead as blo\n"
+        "assert int(blo.main('cpu')['flat']['out'][0, 0]) == 12697952\n"
+        "top = ('jax', 'prosper_tpu', 'experiments', 'scripts')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in top)\n"
         "print(len(sys.modules), bad)\n"
     )
     out = subprocess.run(
@@ -242,5 +252,5 @@ def test_port_never_imports_jax():
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.split(maxsplit=1)
+    n_modules, bad = out.stdout.splitlines()[-1].split(maxsplit=1)
     assert int(n_modules) > 100 and bad.strip() == "[]", out.stdout
