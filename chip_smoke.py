@@ -18,14 +18,16 @@ entry points of the experiments and scripts (X1-X3). Phases:
 2. build: compile csrc/trace_bvh.cu, csrc/shade_tiles.cu,
    csrc/trace_flat.cu, csrc/trace_leafmajor.cu, csrc/trace_wavefront.cu
    and csrc/bench_kernels.cu for sm_90a, one nvcc each, in parallel
-   (timed);
+   (timed), and print the ptxas line (registers, stack frame, spills)
+   of K2 and K3 and of K1, K4 and X3a, which keep the one-thread walk;
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the whole inputs of one frame, with kernel and plain times and
    the bound (the least time an H100 could take for the same work):
    K1 on every primary ray of the path tracer and on every pixel of the
-   G-buffer, K2 on the first bounce set, K3 on the first shadow set, K4
-   on both culling phases of a culled G-buffer, K5 on the G-buffer of a
-   deferred frame;
+   G-buffer, K2 on the first bounce set (also against X3a, the
+   one-thread walk: rows 0-5 equal bit for bit, both timed), K3 on the
+   first shadow set, K4 on both culling phases of a culled G-buffer, K5
+   on the G-buffer of a deferred frame;
 4. pt: the path tracer's frame call (sample, accumulate, tone map), 2
    warm-up + 8 timed frames, launch counts, memory, a profile of one
    frame; the CUDA frame against the CPU frame on the 64x64 test scene;
@@ -83,7 +85,8 @@ entry points of the experiments and scripts (X1-X3). Phases:
    frame_arrays with pack_nodes8); then the path tracer (3 bounces: K1,
    K2, K3) and the culled deferred frame (K1/K4, K5) on it through
    entry(scene=<path>), each checked as phase 4 checks its frame (the
-   64x64 frames on a 64-plate glTF);
+   64x64 frames on a 64-plate glTF), and the PT frame's K1-K3 as phase 3
+   checks them;
 14. kernels: 8-wide: the World's 8-wide table on the rays of
    scripts/bench_bvh8.py: K12 on the 1080p block-order pinhole rays
    against its plain version and K4; on the cosine bounce set from
@@ -188,6 +191,10 @@ EXPERIMENT_PATH = ("walk_leaves", "trace_closest_bvh_visits",
                    "isect_loop_plucker_pre", "moller_chain_loop", "loop_flat",
                    "loop_nested", "loop_cond", "loop_vec")
 PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
+# the kernels whose ptxas line phase 2 prints: K2 and K3, then K1, K4
+# and X3a on the one-thread walk
+PTXAS_KERNELS = ("warp_closest_kernel", "warp_any_kernel", "primary_kernel",
+                 "closest_full_kernel", "closest_kernel")
 DEFERRED_PATH = {False: ("trace_primary_bvh_full", "shade_clustered_tiles"),
                  True: ("trace_closest_bvh_full", "shade_clustered_tiles")}
 # the blend and mask plates; with them entry() sets the CLI's flags:
@@ -225,7 +232,8 @@ LEAFMAJOR_CELLS = {
                          ("trace_primary_bvh_full", "run_pairs",
                           "trace_any_bvh")),
 }
-PORT_KERNEL_SYMBOLS = ("primary_kernel", "closest_kernel", "any_kernel",
+PORT_KERNEL_SYMBOLS = ("primary_kernel", "warp_closest_kernel",
+                       "warp_any_kernel", "closest_kernel",
                        "closest_full_kernel", "shade_kernel", "flat_kernel",
                        "flat_any_kernel", "dense_any_kernel",
                        "dense_closest_kernel", "pairs_kernel",
@@ -294,6 +302,24 @@ PROBE_CHAIN_CYCLES = {
 LIST_LIGHT_OPS = 6
 POINT_LIGHT_OPS = 109
 SPOT_LIGHT_OPS = 112
+
+
+def ptxas_line(log: str, symbol: str) -> str:
+    """The compiler's report (ptxas -v) of the kernel `symbol`:
+    registers, stack frame and spills, from the block of the entry
+    function whose mangled name holds <length><symbol>."""
+    key = f"{len(symbol)}{symbol}"
+    for block in log.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        if key not in mangled:
+            continue
+        lines = block.splitlines()
+        at = next(i for i, ln in enumerate(lines)
+                  if ln.rstrip().endswith(f"Function properties for {mangled}"))
+        used = next(ln for ln in lines if ": Used " in ln)
+        return (f"{symbol}: {used.split(': ', 1)[1].strip()}; "
+                f"{lines[at + 1].strip()}")
+    raise RuntimeError(f"no ptxas report for {symbol}")
 
 
 def phase(name: str) -> None:
@@ -493,7 +519,8 @@ def check_pt_kernels(label, fn, scene, cam, width, height):
     """The path tracer's kernels against their plain versions on the
     whole wavefront the frame gives each (K1 every pixel, K2 the first
     bounce set, K3 the first shadow set), with both times and the
-    bounds. Returns (ok, per-kernel records, primary coverage)."""
+    bounds; K2 also against X3a's rows 0-5, bit for bit, with its time.
+    Returns (ok, per-kernel records, primary coverage)."""
     from prosper_tpu_torch.ops import trace_bvh as tb
     from prosper_tpu_torch.render import pt
 
@@ -520,10 +547,23 @@ def check_pt_kernels(label, fn, scene, cam, width, height):
         want, plain_ms = timed_call(lambda: plain(*args))
         got = kern(*args)
         tb.check_stack_overflow(dev)
+        ms = device_ms(lambda: kern(*args), 5)
         extra = {}
         if key == "closest":
             ok, counts, err = compare_rows(got, want, [2, 3])
             ops = closest_ops(leaf_boxes(scene), o, d, want, t_max)
+            # the one-thread walk (X3a, K2's old design) on the same rays:
+            # rows 0-5 equal bit for bit, tri on exact ties included
+            x3a = tb.trace_closest_bvh_visits(*args)
+            tb.check_stack_overflow(dev)
+            same = torch.equal(got[:, 0:6], x3a[:, 0:6])
+            ok &= same
+            extra["x3a_rows_equal"] = same
+            extra["x3a_same_rays_ms"] = device_ms(
+                lambda: tb.trace_closest_bvh_visits(*args), 5)
+            print(f"K2 {label} vs X3a (the one-thread walk) on the same "
+                  f"rays: rows 0-5 equal {same}; K2 {ms:.3f} ms, X3a "
+                  f"{extra['x3a_same_rays_ms']:.3f} ms")
         else:
             mism = int((got != want).sum())
             ok = mism == 0
@@ -540,8 +580,8 @@ def check_pt_kernels(label, fn, scene, cam, width, height):
         ok_all &= ok
         records[kern.__name__] = {
             "max_abs_err": err, **extra, "rays": int(got.shape[0]),
-            "live_rays": live, "ms": device_ms(lambda: kern(*args), 5),
-            "plain_ms": plain_ms, **bound(nbytes(*args, got), ops),
+            "live_rays": live, "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes(*args, got), ops),
         }
     tb.check_stack_overflow(dev)
     return ok_all, records, cover
@@ -1818,9 +1858,10 @@ def load_world(directory):
 
 def run_world_frames(smi, dev, path, tmp):
     """Phase 13: the path tracer and the culled deferred frame of the
-    glTF World scene, each checked as phase 4 checks its frame. Returns
-    the launches per kernel and the World scene's PT frame call (for
-    phase 14)."""
+    glTF World scene, each checked as phase 4 checks its frame, and the
+    PT frame's kernels as phase 3 checks them. Returns the launches per
+    kernel, the World scene's PT frame call (for phase 14) and the
+    records of K1-K3 on its wavefronts."""
     from prosper_tpu_torch import entry as port_entry
     from prosper_tpu_torch import testing
 
@@ -1830,7 +1871,7 @@ def run_world_frames(smi, dev, path, tmp):
              "world deferred culled": ({"mode": "deferred",
                                         "use_culling": True},
                                        DEFERRED_PATH[True])}
-    launches, pt_call = {}, None
+    launches, pt_call, pt_records = {}, None, None
     for cell, (kw, path_kernels) in cells.items():
         label = f"{cell} {W}x{H}"
         fn, (scene, cam, _) = port_entry.entry(dev, scene=path, width=W,
@@ -1845,6 +1886,11 @@ def run_world_frames(smi, dev, path, tmp):
         what = "rays" if "pt" in cell else "drawn meshlets"
         print(f"{label}: {what} per timed frame {min(stats)}-{max(stats)}")
         breakdown(fn, scene, cam, WARMUP + TIMED, state)
+        if "pt" in cell:
+            ok, pt_records, _ = check_pt_kernels(label, fn, scene, cam, W, H)
+            if not ok:
+                raise RuntimeError(f"{label}: a kernel disagrees with its "
+                                   "plain version or K2 with X3a")
         keep = state if "deferred" in cell else None
         img_k, _, n_k = fn(scene, cam, WARMUP, keep)
         out = []
@@ -1864,7 +1910,7 @@ def run_world_frames(smi, dev, path, tmp):
             img64, _, n = fn64(sc, cm, 1, st)
             got.append((img64, n))
         frames_agree(f"{cell} glTF plate-64 64x64 cuda vs cpu", *got)
-    return launches, pt_call
+    return launches, pt_call, pt_records
 
 
 def check_closest8(label, kern, plain, ref, args, ref_args, attr_cols,
@@ -2303,7 +2349,8 @@ def run_experiments(dev, world_path):
 def run_world(smi, dev):
     """Phases 13-15; returns (records of K11-K13 and of phase 15's
     kernels, launches per kernel over the two World frames and phase 15's
-    entry points)."""
+    entry points, records of K1-K3 on the World PT frame's
+    wavefronts)."""
     import shutil
     import tempfile
 
@@ -2311,7 +2358,8 @@ def run_world(smi, dev):
     try:
         phase("world")
         path, _, times = load_world(tmp)
-        launches, (fn, scene, cam) = run_world_frames(smi, dev, path, tmp)
+        launches, (fn, scene, cam), pt_records = run_world_frames(
+            smi, dev, path, tmp)
         phase("kernels: 8-wide")
         ok, records = check_bvh8_kernels(smi, scene, cam)
         if not ok:
@@ -2327,7 +2375,7 @@ def run_world(smi, dev):
         launches.update(exp_launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return records, launches
+    return records, launches, pt_records
 
 
 def main() -> int:
@@ -2350,6 +2398,10 @@ def main() -> int:
         f"{k} {s:.2f}" for k, s in each.items()) + ")")
     for name in cuda_build.SOURCES:
         print(cuda_build.build_log(name).strip())
+    # K2 and K3's warp-shared walk beside the one-thread walk's kernels
+    print("ptxas: " + " | ".join(
+        ptxas_line(cuda_build.build_log("trace_bvh"), sym)
+        for sym in PTXAS_KERNELS))
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -2385,9 +2437,13 @@ def main() -> int:
     print(f"leafmajor phases: {time.perf_counter() - t0:.1f} s")
     records.update(lm_records)
     t0 = time.perf_counter()
-    world_records, world_launches = run_world(smi, dev)
+    world_records, world_launches, world_pt = run_world(smi, dev)
     print(f"world phases: {time.perf_counter() - t0:.1f} s")
     records.update(world_records)
+    for name, rec in world_pt.items():  # K1-K3 on the World PT frame
+        records[name]["world_pt"] = rec
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           rec["max_abs_err"])
     for counts in (pt_launches, fwd_launches, restir_launches,
                    pt_flat_launches, lm_launches, world_launches):
         for k, n in counts.items():

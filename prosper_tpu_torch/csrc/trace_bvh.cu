@@ -38,19 +38,31 @@
 // the XLA reference tracer (ops/trace.py) does; callers pass the value
 // they mean.
 //
-// What bounds them on the H100: divergent leaf visits (rays of one warp
-// walk different nodes and leave the loop at different times) and
-// scattered slab reads — each leaf visit reads 9 rows x 128 floats
-// (4.5 KB) of a cluster that neighbouring threads may not share, so the
-// reads are uncoalesced and live on L1/L2 hit rates (262k triangles are
-// 9.4 MB of Möller rows, inside the 50 MB L2). The 128-triangle loop runs
-// in registers. This first design is simple and exact: one thread per
-// ray, a per-thread stack of STACK_CAP nodes in local memory, near-first
-// ordered descent with pruning against the ray's best t, and the
-// Möller test written operation for operation as the plain PyTorch
-// version (compiled with --fmad=false) so hits agree bit for bit.
-// Packets, warp-cooperative leaf tests, wgmma, TMA and ray sorting are
-// later work.
+// The first design (`walk`) is one thread per ray: a per-thread stack of
+// STACK_CAP nodes in local memory, near-first ordered descent with
+// pruning against the ray's best t, and at each leaf the thread alone
+// loops over the cluster's 128 triangles, with the Möller test written
+// operation for operation as the plain PyTorch version (compiled with
+// --fmad=false) so hits agree bit for bit. What bounds it on the H100 is
+// the leaf loop, not the arithmetic (Möller is about an eighth of K2's
+// time): each test issues 9 scalar loads of the thread's own cluster, so
+// in a warp whose lanes sit in up to 32 different clusters every load
+// touches up to 32 cache lines (a leaf round up to 147 KB, served from
+// L2), and the warp runs a 128-test round whenever any lane is at a leaf
+// while the others idle, so each lane pays at least (the warp's largest
+// leaf count) x 128 tests.
+//
+// K2 and K3 (`warp_walk`) keep that walk and share the leaf tests: a
+// lane walks its own ray's interior nodes until it pops a leaf, which it
+// holds pending; when every lane holds one or is done, the warp tests the
+// pending leaves one at a time, all 32 lanes on each, 4 triangles a lane
+// and every slab load one full 128-byte line across the warp. A warp's
+// tests then scale with the leaves its rays visit, not with 128 times the
+// most any lane visits. Each ray's pops, prunes and leaf tests stay
+// `walk`'s, so the rows equal its bit for bit. K1, K4 and X3a (K2's
+// counting form, the old design's yardstick) keep `walk`; K9-K13 are
+// their own kernels. Node layouts, persistent threads, ray reordering
+// and wgmma are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,12 +104,12 @@ struct Hit {
     int tri;
 };
 
-// Near-first ordered BVH2 walk. ANY=true stops at the first hit. A leaf
+// Near-first ordered BVH2 walk, one thread per ray, closest hit. A leaf
 // whose cluster has live[cluster] == 0 is skipped without touching its
 // slab (live == nullptr: every cluster is live). VISITS=true counts into
 // n[0] the interior nodes it expands (pops that pass the prune) and into
 // n[1] the leaves it tests. Returns false on stack overflow.
-template <bool ANY, bool VISITS = false>
+template <bool VISITS = false>
 __device__ bool walk(const float* __restrict__ slabs, int rows,
                      const float* __restrict__ bounds,
                      const int* __restrict__ meta, const Ray& r, float t_min,
@@ -130,7 +142,6 @@ __device__ bool walk(const float* __restrict__ slabs, int rows,
                     h.u = u;
                     h.v = v;
                     h.tri = leaf * LANES + j;
-                    if (ANY) return true;
                 }
             }
             continue;
@@ -197,12 +208,11 @@ __device__ __forceinline__ void load_ray(const float* __restrict__ ray_o,
     set_inv(r);
 }
 
-// K2: (R, 8) rows t | tri | u | v | pad. VISITS=true is X3a, K2 with
-// DEBUG_VISITS (scripts/bench_visit_breakdown.py:148, trace_bvh.py:941):
-// JAX writes each packet's leaf visits into pad row 7; here pad row 6
-// holds the interior nodes the ray expands and pad row 7 the leaves it
-// tests, per ray.
-template <bool VISITS>
+// X3a, K2 with DEBUG_VISITS (scripts/bench_visit_breakdown.py:148,
+// trace_bvh.py:941), on `walk`: K2's (R, 8) rows t | tri | u | v | pad,
+// with the interior nodes the ray expands in pad row 6 and the leaves it
+// tests in pad row 7 (JAX writes each packet's leaf visits into row 7).
+// Rows 0-5 equal K2's.
 __global__ void closest_kernel(const float* __restrict__ slabs, int rows,
                                const float* __restrict__ bounds,
                                const int* __restrict__ meta,
@@ -218,8 +228,7 @@ __global__ void closest_kernel(const float* __restrict__ slabs, int rows,
     Hit h = {t_max[k], 0.0f, 0.0f, -1};
     int n[2] = {0, 0};
     if (h.t > 0.0f &&
-        !walk<false, VISITS>(slabs, rows, bounds, meta, r, t_min, nullptr, h,
-                             n))
+        !walk<true>(slabs, rows, bounds, meta, r, t_min, nullptr, h, n))
         atomicExch(err, 1);
     float* o = out + 8 * (size_t)k;
     o[0] = h.t;
@@ -227,31 +236,214 @@ __global__ void closest_kernel(const float* __restrict__ slabs, int rows,
     o[2] = h.u;
     o[3] = h.v;
     o[4] = o[5] = 0.0f;
-    o[6] = VISITS ? (float)n[0] : 0.0f;
-    o[7] = VISITS ? (float)n[1] : 0.0f;
+    o[6] = (float)n[0];
+    o[7] = (float)n[1];
 }
 
-__global__ void any_kernel(const float* __restrict__ slabs, int rows,
-                           const float* __restrict__ bounds,
-                           const int* __restrict__ meta,
-                           const float* __restrict__ ray_o,
-                           const float* __restrict__ ray_d,
-                           const float* __restrict__ t_max, int R,
-                           float t_min, uint8_t* __restrict__ occ,
-                           int* __restrict__ err) {
-    int k = blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= R) return;
+#define FULL_MASK 0xffffffffu
+#define NO_KEY 0xffffffffu  // a lane without a hit in the leaf
+
+// `walk`'s loop up to its next leaf: pops, prunes against best, tests
+// and pushes an interior node's children as `walk` does, until it pops a
+// leaf, whose cluster it returns, or its stack is empty (-1). On stack
+// overflow sets ok = false and empties the stack.
+__device__ __forceinline__ int next_leaf(const float* __restrict__ bounds,
+                                         const int* __restrict__ meta,
+                                         const Ray& r, float best,
+                                         int* stack_node, float* stack_enter,
+                                         int& sp, bool& ok) {
+    while (sp > 0) {
+        --sp;
+        const int i = stack_node[sp];
+        if (stack_enter[sp] >= best) continue;  // pruned by a closer hit
+        const int leaf = __ldg(meta + 3 * i + 2);
+        if (leaf >= 0) return leaf;
+        const int l = __ldg(meta + 3 * i), rc = __ldg(meta + 3 * i + 1);
+        float el, er;
+        const bool hl = node_test(bounds, l, r, best, el);
+        const bool hr = node_test(bounds, rc, r, best, er);
+        if (sp + (int)hl + (int)hr > STACK_CAP) {
+            ok = false;
+            sp = 0;
+            return -1;
+        }
+        const bool left_near = el <= er;
+        // push the far child first so the near one pops next
+        if (hl && hr) {
+            stack_node[sp] = left_near ? rc : l;
+            stack_enter[sp] = left_near ? er : el;
+            ++sp;
+            stack_node[sp] = left_near ? l : rc;
+            stack_enter[sp] = left_near ? el : er;
+            ++sp;
+        } else if (hl || hr) {
+            stack_node[sp] = hl ? l : rc;
+            stack_enter[sp] = hl ? el : er;
+            ++sp;
+        }
+    }
+    return -1;
+}
+
+// A hit's t as an unsigned key of the same order; -0 and +0, equal as
+// floats, give one key. A hit's t is finite, so its key is below NO_KEY.
+__device__ __forceinline__ unsigned t_key(float t) {
+    const unsigned b = __float_as_uint(t == 0.0f ? 0.0f : t);
+    return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// K2 and K3's walk: `walk` per lane, the leaf tests by the whole warp.
+// Every thread of the warp calls it, a lane without a ray with h.t = 0
+// (it never enters the root), and stays to the end: each _sync takes
+// the full mask. ANY=true: the owner of a leaf with any hit is done, and
+// h.tri >= 0 marks it occluded. Sets *err on stack overflow.
+//
+// A leaf owned by lane src with best t b: lane l tests triangles l + 32q
+// (q = 0..3) against the owner's ray with t_upper = b and keeps its
+// lowest t, the lowest j among equal t; the warp takes the minimum key
+// of t, then the lowest j among the lanes at that key. `walk`'s loop
+// over j = 0..127 with a strict t < best keeps the same triangle: the
+// lowest t below b and, among equal t, the lowest j. Every hit lies below
+// b, so the owner always takes it, and a later cluster's equal t never
+// replaces it: the earlier visit keeps a tie across clusters.
+template <bool ANY>
+__device__ void warp_walk(const float* __restrict__ slabs, int rows,
+                          const float* __restrict__ bounds,
+                          const int* __restrict__ meta, const Ray& r,
+                          float t_min, Hit& h, int* __restrict__ err) {
+    const int lane = threadIdx.x & 31;
+    int stack_node[STACK_CAP];
+    float stack_enter[STACK_CAP];
+    int sp = 0;
+    float en;
+    if (h.t > 0.0f && node_test(bounds, 0, r, h.t, en)) {
+        stack_node[0] = 0;
+        stack_enter[0] = en;
+        sp = 1;
+    }
+    bool ok = true;
+    for (;;) {
+        // each lane walks until it holds a leaf or is done
+        const int leaf =
+            next_leaf(bounds, meta, r, h.t, stack_node, stack_enter, sp, ok);
+        unsigned pending = __ballot_sync(FULL_MASK, leaf >= 0);
+        if (pending == 0) break;
+        do {  // the pending leaves, lowest owner lane first
+            const int src = __ffs(pending) - 1;
+            pending &= pending - 1;
+            Ray q;  // the owner's ray; Möller reads no reciprocal
+            q.ox = __shfl_sync(FULL_MASK, r.ox, src);
+            q.oy = __shfl_sync(FULL_MASK, r.oy, src);
+            q.oz = __shfl_sync(FULL_MASK, r.oz, src);
+            q.dx = __shfl_sync(FULL_MASK, r.dx, src);
+            q.dy = __shfl_sync(FULL_MASK, r.dy, src);
+            q.dz = __shfl_sync(FULL_MASK, r.dz, src);
+            q.ix = q.iy = q.iz = 0.0f;
+            const float best = __shfl_sync(FULL_MASK, h.t, src);
+            const int c = __shfl_sync(FULL_MASK, leaf, src);
+            const float* s = slabs + (size_t)c * rows * LANES + lane;
+            if (ANY) {
+                bool hit = false;
+#pragma unroll
+                for (int j = 0; j < LANES; j += 32) {
+                    float t, u, v;
+                    hit |= moller(s, j, q, t_min, best, t, u, v);
+                }
+                if (__any_sync(FULL_MASK, hit) && lane == src) {
+                    h.tri = c * LANES;  // occluded: the owner is done
+                    sp = 0;
+                }
+            } else {
+                float bt = best, bu = 0.0f, bv = 0.0f;
+                int bj = -1;
+#pragma unroll
+                for (int j = 0; j < LANES; j += 32) {
+                    float t, u, v;
+                    if (moller(s, j, q, t_min, best, t, u, v) && t < bt) {
+                        bt = t;
+                        bu = u;
+                        bv = v;
+                        bj = lane + j;
+                    }
+                }
+                const unsigned key = bj >= 0 ? t_key(bt) : NO_KEY;
+                const unsigned kmin = __reduce_min_sync(FULL_MASK, key);
+                if (kmin != NO_KEY) {
+                    const unsigned j = __reduce_min_sync(
+                        FULL_MASK, key == kmin ? (unsigned)bj : NO_KEY);
+                    const int w = (int)(j & 31u);
+                    const float t = __shfl_sync(FULL_MASK, bt, w);
+                    const float u = __shfl_sync(FULL_MASK, bu, w);
+                    const float v = __shfl_sync(FULL_MASK, bv, w);
+                    if (lane == src) {
+                        h.t = t;
+                        h.u = u;
+                        h.v = v;
+                        h.tri = c * LANES + (int)j;
+                    }
+                }
+            }
+        } while (pending != 0);
+    }
+    if (!ok) atomicExch(err, 1);
+}
+
+// The ray of lane k, or for k >= R none (h.t = 0: it never walks).
+__device__ __forceinline__ void load_lane(const float* __restrict__ ray_o,
+                                          const float* __restrict__ ray_d,
+                                          const float* __restrict__ t_max,
+                                          int R, int k, Ray& r, Hit& h) {
+    r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    h = {0.0f, 0.0f, 0.0f, -1};
+    if (k < R) {
+        load_ray(ray_o, ray_d, k, r);
+        h.t = t_max[k];
+    }
+}
+
+// K2: (R, 8) rows t | tri | u | v | pad; a miss has t = t_max, tri = -1.
+__global__ void warp_closest_kernel(const float* __restrict__ slabs,
+                                    int rows,
+                                    const float* __restrict__ bounds,
+                                    const int* __restrict__ meta,
+                                    const float* __restrict__ ray_o,
+                                    const float* __restrict__ ray_d,
+                                    const float* __restrict__ t_max, int R,
+                                    float t_min, float* __restrict__ out,
+                                    int* __restrict__ err) {
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
     Ray r;
-    load_ray(ray_o, ray_d, k, r);
-    Hit h = {t_max[k], 0.0f, 0.0f, -1};
-    if (h.t > 0.0f &&
-        !walk<true>(slabs, rows, bounds, meta, r, t_min, nullptr, h))
-        atomicExch(err, 1);
-    occ[k] = h.tri >= 0 ? 1 : 0;
+    Hit h;
+    load_lane(ray_o, ray_d, t_max, R, k, r, h);
+    warp_walk<false>(slabs, rows, bounds, meta, r, t_min, h, err);
+    if (k >= R) return;
+    float* o = out + 8 * (size_t)k;
+    o[0] = h.t;
+    o[1] = (float)h.tri;
+    o[2] = h.u;
+    o[3] = h.v;
+    o[4] = o[5] = o[6] = o[7] = 0.0f;
 }
 
-// K4: the closest walk of closest_kernel with the cluster skip mask, and
-// the attributes of write_full at the final hit.
+// K3: (R,) occlusion, a hit being t_min < t < t_max.
+__global__ void warp_any_kernel(const float* __restrict__ slabs, int rows,
+                                const float* __restrict__ bounds,
+                                const int* __restrict__ meta,
+                                const float* __restrict__ ray_o,
+                                const float* __restrict__ ray_d,
+                                const float* __restrict__ t_max, int R,
+                                float t_min, uint8_t* __restrict__ occ,
+                                int* __restrict__ err) {
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
+    Ray r;
+    Hit h;
+    load_lane(ray_o, ray_d, t_max, R, k, r, h);
+    warp_walk<true>(slabs, rows, bounds, meta, r, t_min, h, err);
+    if (k < R) occ[k] = h.tri >= 0 ? 1 : 0;
+}
+
+// K4: `walk` with the cluster skip mask, and the attributes of
+// write_full at the final hit.
 __global__ void closest_full_kernel(const float* __restrict__ slabs, int rows,
                                     const float* __restrict__ bounds,
                                     const int* __restrict__ meta,
@@ -267,8 +459,7 @@ __global__ void closest_full_kernel(const float* __restrict__ slabs, int rows,
     Ray r;
     load_ray(ray_o, ray_d, k, r);
     Hit h = {t_max[k], 0.0f, 0.0f, -1};
-    if (h.t > 0.0f &&
-        !walk<false>(slabs, rows, bounds, meta, r, t_min, live, h))
+    if (h.t > 0.0f && !walk(slabs, rows, bounds, meta, r, t_min, live, h))
         atomicExch(err, 1);
     write_full(slabs, rows, h, out + 16 * (size_t)k);
 }
@@ -328,8 +519,7 @@ __global__ void primary_kernel(const float* __restrict__ slabs, int rows,
     r.oz = cam[2];
     set_inv(r);
     Hit h = {tmax, 0.0f, 0.0f, -1};
-    if (h.t > 0.0f &&
-        !walk<false>(slabs, rows, bounds, meta, r, t_min, nullptr, h))
+    if (h.t > 0.0f && !walk(slabs, rows, bounds, meta, r, t_min, nullptr, h))
         atomicExch(err, 1);
     write_full(slabs, rows, h, out + 16 * (size_t)k);
 }
@@ -752,7 +942,7 @@ extern "C" int trace_closest_bvh(const float* slabs, int rows,
                                  const float* t_max, int R, float t_min,
                                  float* out, int* err, void* stream) {
     if (R > 0)
-        closest_kernel<false><<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
+        warp_closest_kernel<<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
             slabs, rows, bounds, meta, ray_o, ray_d, t_max, R, t_min, out, err);
     return (int)cudaGetLastError();
 }
@@ -766,7 +956,7 @@ extern "C" int trace_closest_bvh_visits(const float* slabs, int rows,
                                         float t_min, float* out, int* err,
                                         void* stream) {
     if (R > 0)
-        closest_kernel<true><<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
+        closest_kernel<<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
             slabs, rows, bounds, meta, ray_o, ray_d, t_max, R, t_min, out, err);
     return (int)cudaGetLastError();
 }
@@ -777,7 +967,7 @@ extern "C" int trace_any_bvh(const float* slabs, int rows, const float* bounds,
                              float t_min, uint8_t* occ, int* err,
                              void* stream) {
     if (R > 0)
-        any_kernel<<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
+        warp_any_kernel<<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
             slabs, rows, bounds, meta, ray_o, ray_d, t_max, R, t_min, occ, err);
     return (int)cudaGetLastError();
 }

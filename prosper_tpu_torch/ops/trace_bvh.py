@@ -9,6 +9,9 @@ hand-written CUDA kernel in csrc/trace_bvh.cu with a plain PyTorch twin:
   jitter or the G-buffer's pixel centres shifted by the TAA jitter —
   closest hit, attributes at the final hit -> (T*256, 16) rows.
 - `trace_closest_bvh` (K2, trace_bvh.py:1050): closest hit -> (R, 8) rows.
+  K2 and K3 walk one ray per lane and test each leaf with the whole warp
+  (csrc/trace_bvh.cu warp_walk); their rows equal the one-thread walk's
+  (X3a's rows 0-5, the lockstep plain walk's) bit for bit.
 - `trace_closest_bvh_visits` (X3a, K2's body under DEBUG_VISITS,
   scripts/bench_visit_breakdown.py:148): K2's rows with the interior
   nodes each ray expands in row 6 and the leaves it tests in row 7. Its
@@ -344,14 +347,15 @@ def trace_closest_bvh_visits_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
     """Plain X3a -> K2's (R, 8) rows with row 6 = interior nodes the ray
     expands and row 7 = leaves it tests.
 
-    Unlike K2's plain version this one walks the BVH as the kernel does
-    (csrc/trace_bvh.cu walk<false>), every ray in lockstep: the root
-    test, a pop per step, the prune of an entry >= the best t, a leaf's
-    Möller over its 128 lanes with a strict t < best (the lowest lane
-    among equal t), an interior node's two children tested against the
-    best t and pushed far first (ties to the left child), a stack of
-    STACK_CAP entries. So its counts equal the kernel's. A ray that
-    would overflow the stack raises."""
+    Unlike K2's plain version this one walks the BVH as the kernels do
+    (csrc/trace_bvh.cu walk, and warp_walk per lane), every ray in
+    lockstep: the root test, a pop per step, the prune of an entry >=
+    the best t, a leaf's Möller over its 128 lanes with a strict t <
+    best (the lowest lane among equal t), an interior node's two
+    children tested against the best t and pushed far first (ties to
+    the left child), a stack of STACK_CAP entries. So its counts equal
+    X3a's and its rows K2's, ties included. A ray that would overflow
+    the stack raises."""
     dev = ray_o.device
     R = ray_o.shape[0]
     t_max = t_max.to(dev, torch.float32).expand(R)

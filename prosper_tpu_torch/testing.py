@@ -8,6 +8,10 @@ them: `static` holds the object-space triangle arena and materials,
 `arena` a 1-px white texture arena (plus an alpha checker where a plate
 scene has alpha-masked plates), and `cam_fn(w, h)` camera uniforms.
 
+`make_tie_scene` builds exact t ties for the closest-hit walks: one
+triangle copied into several lanes of two clusters under a two-leaf
+BVH2, with rays that visit either cluster first.
+
 `write_gltf` writes a glTF 2.0 file (.gltf with a .bin buffer, or .glb)
 from a document whose accessors and images are numpy arrays;
 `write_plate_gltf` writes the plate scene's triangles, lights and camera
@@ -360,6 +364,49 @@ def make_plate_scene(n_clusters: int = 2048, seed: int = 0,
     eye = center + view / np.linalg.norm(view) * 0.9 * ext
     arena = _checker_arena() if alpha else _white_arena()
     return static, frame, arena, _cam_fn(eye, center)
+
+
+# The tie scene's copies of one triangle, by cluster. Cluster 0's lowest
+# copy sits in warp lane 9 and its others in lane 4; cluster 1's lowest
+# in lane 8, its last in lane 7: a minimum over lanes, not over triangle
+# indices, would pick another copy.
+TIE_LANES = ((9, 36, 68, 100), (40, 72, 103))
+
+
+def make_tie_scene(n_rays: int = 64, seed: int = 0):
+    """Exact t ties for the closest-hit walks: one triangle in the plane
+    z = 5, copied into the lanes TIE_LANES[c] of clusters 0 and 1 (every
+    other lane degenerate, zero edges), under a BVH2 root whose leaves
+    are cluster 0's box (z in [2, 8]) and cluster 1's (z in [1, 6]).
+
+    Even rays go up (+z) from z = 0 and enter cluster 1's box first, odd
+    rays down from z = 10 and enter cluster 0's first; each ray's x, y
+    is uniform in [-2, 2]. Every ray meets every copy at the same t, so
+    a walk that keeps a strict t < best over ascending lanes returns the
+    lowest copy of the cluster it visits first: tri 128 + 40 for the up
+    rays, 9 for the down rays (a brute-force minimum of (t, tri) gives 9
+    to all).
+
+    Returns numpy (slabs (2, 9, 128) f32, bounds (3, 6) f32, meta (3, 3)
+    i32, o (R, 3) f32, d (R, 3) f32, the walk's tri per ray (R,) i64)."""
+    slabs = np.zeros((2, 9, CLUSTER_TRI_PAD), np.float32)
+    tri = np.array([-10.0, -10.0, 5.0, 30.0, 0.0, 0.0, 0.0, 30.0, 0.0],
+                   np.float32)  # v0 | e1 | e2
+    for c, lanes in enumerate(TIE_LANES):
+        slabs[c][:, list(lanes)] = tri[:, None]
+    bounds = np.array([[-10, -10, 1, 20, 20, 8],
+                       [-10, -10, 2, 20, 20, 8],
+                       [-10, -10, 1, 20, 20, 6]], np.float32)
+    meta = np.array([[1, 2, -1], [-1, -1, 0], [-1, -1, 1]], np.int32)
+    rng = np.random.default_rng(seed)
+    up = np.arange(n_rays) % 2 == 0
+    o = np.zeros((n_rays, 3), np.float32)
+    o[:, 0:2] = rng.uniform(-2.0, 2.0, (n_rays, 2))
+    o[:, 2] = np.where(up, 0.0, 10.0)
+    d = np.zeros((n_rays, 3), np.float32)
+    d[:, 2] = np.where(up, 1.0, -1.0)
+    want = np.where(up, CLUSTER_TRI_PAD + TIE_LANES[1][0], TIE_LANES[0][0])
+    return slabs, bounds, meta, o, d, want.astype(np.int64)
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,11 @@ there run
 Tolerances as chip_smoke.py states them: hit/miss and occlusion equal,
 tri equal except exact t ties, t within rtol 1e-5, attributes 1e-4; the
 shading kernel within rtol 1e-5 / atol 1e-6 of its plain version; the
-pair-block kernel's slots equal to its plain version's; the 8-wide
-kernels, the threaded walk, the counting K2, the Möller loops and the
-loop probes equal to their plain versions bit for bit; the tensor-core
+pair-block kernel's slots equal to its plain version's; K2's rows 0-5
+equal to the lockstep plain walk's and the counting K2's bit for bit,
+ties included; the 8-wide kernels, the threaded walk, the counting K2,
+the Möller loops and the loop probes equal to their plain versions bit
+for bit; the tensor-core
 Plücker loops agree with their TF32 plain versions on every hit off the
 border of ops/plucker.tf32_agreement, with t within rtol 1e-5 plus the
 bound of a reordered sum where both hit, and with Möller on at least
@@ -41,6 +43,7 @@ from prosper_tpu_torch.scene.camera import (
     CameraTransform,
 )
 from prosper_tpu_torch.scene.convert import camera_tensors
+from prosper_tpu_torch.testing import make_tie_scene
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -739,6 +742,81 @@ def test_visits_kernel_matches_plain_on_card(cuda):
     assert torch.equal(got, want) and float(got[:, 7].max()) > 1
     k2 = tb.trace_closest_bvh(geom["packed9"], *bvh, o, d, 1e-4, t_max)
     assert torch.equal(got[:, 0:6], k2[:, 0:6])
+
+
+def _mixed_rays(sc, R, seed, device):
+    """R of _incoherent_rays' 2048 rays (cone, free, t_max 6 and t_max 0
+    lanes), drawn in a seeded order, every ninth with t_max 0 and every
+    fifth from beyond the scene's bounds pointing away from them (it
+    misses the root)."""
+    o, d, t_max = _incoherent_rays(sc, 2048, seed, device)
+    pick = torch.as_tensor(np.random.default_rng(seed).permutation(2048)[:R],
+                           device=device)
+    o, d, t_max = o[pick], d[pick], t_max[pick]
+    t_max[::9] = 0.0
+    hi = sc["frame"]["wc_aabb_max_w"].amax(0)
+    away = torch.as_tensor(
+        np.random.default_rng(seed + 1).uniform(0.2, 1.0, (R, 3)),
+        dtype=torch.float32, device=device)
+    o[2::5] = hi + 1.0 + away[2::5]
+    d[2::5] = away[2::5] / away[2::5].norm(dim=1, keepdim=True)
+    return o.contiguous(), d.contiguous(), t_max.contiguous()
+
+
+@pytest.mark.parametrize("R", [1, 31, 33, 1031])
+def test_warp_k2_k3_match_the_walk_on_card(cuda, R):
+    """K2 and K3 share each leaf's tests across the warp: K2's rows 0-5
+    equal the lockstep plain walk's and X3a's (the one-thread walk) bit
+    for bit, K3's occlusion its plain version's, at R = 1, 31, 33 and
+    1031 (a partial last warp), with t_max 0 lanes and rays that miss
+    the root."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32)
+    slabs = sc["geom"]["packed9"]
+    bvh = (sc["frame"]["bvh_bounds"], sc["frame"]["bvh_meta"])
+    o, d, t_max = _mixed_rays(sc, R, R, cuda)
+    tb.reset_launch_counts()
+    got = tb.trace_closest_bvh(slabs, *bvh, o, d, 1e-4, t_max)
+    x3a = tb.trace_closest_bvh_visits(slabs, *bvh, o, d, 1e-4, t_max)
+    t_any = torch.where(torch.isfinite(t_max), t_max, 8.0)
+    occ = tb.trace_any_bvh(slabs, *bvh, o, d, 0.1, t_any)
+    tb.check_stack_overflow(cuda)
+    walk = tb.trace_closest_bvh_visits_plain(slabs, *bvh, o, d, 1e-4, t_max)
+    assert torch.equal(got[:, 0:6], walk[:, 0:6])
+    assert torch.equal(got[:, 0:6], x3a[:, 0:6])
+    assert not got[:, 6:8].any()
+    assert torch.equal(occ, tb.trace_any_bvh_plain(slabs, *bvh, o, d, 0.1,
+                                                   t_any))
+    away = torch.zeros(R, dtype=torch.bool, device=cuda)
+    away[2::5] = True
+    assert (got[away | (t_max == 0), 1] == -1).all()
+    assert not occ[away | (t_max == 0)].any()
+    if R > 31:
+        assert (got[:, 1] >= 0).any() and occ.any()
+    assert (tb.trace_closest_bvh.launches, tb.trace_any_bvh.launches) == (1, 1)
+
+
+def test_warp_k2_keeps_the_walk_order_on_ties_on_card(cuda):
+    """testing.make_tie_scene: one triangle copied into several lanes of
+    two clusters, up and down rays alternating in each warp. K2 keeps the
+    lowest copy of the cluster each ray visits first, as the plain walk
+    and X3a do; K3 occludes below and not above the tie's t."""
+    slabs, bounds, meta, o, d, want = (
+        torch.as_tensor(a, device=cuda) for a in make_tie_scene(100))
+    args = (slabs, bounds, meta, o, d, 1e-4)
+    inf = torch.full((100,), float("inf"), device=cuda)
+    got = tb.trace_closest_bvh(*args, inf)
+    x3a = tb.trace_closest_bvh_visits(*args, inf)
+    tb.check_stack_overflow(cuda)
+    assert torch.equal(got[:, 1].long(), want)
+    assert torch.equal(got[:, 0:6], x3a[:, 0:6])
+    assert torch.equal(got[:, 0:6],
+                       tb.trace_closest_bvh_visits_plain(*args, inf)[:, 0:6])
+    for t_max, occluded in ((6.0, True), (4.0, False)):
+        occ = tb.trace_any_bvh(slabs, bounds, meta, o, d, 0.1, t_max)
+        assert bool(occ.all()) if occluded else not occ.any()
+        assert torch.equal(occ, tb.trace_any_bvh_plain(
+            slabs, bounds, meta, o, d, 0.1, torch.full_like(inf, t_max)))
 
 
 @pytest.mark.parametrize("loop", ["moller", "moller_chain"])
