@@ -19,7 +19,7 @@ entry points of the experiments and scripts (X1-X3). Phases:
    csrc/trace_flat.cu, csrc/trace_leafmajor.cu, csrc/trace_wavefront.cu
    and csrc/bench_kernels.cu for sm_90a, one nvcc each, in parallel
    (timed), and print the ptxas line (registers, stack frame, spills)
-   of K2 and K3 and of K1, K4 and X3a, which keep the one-thread walk;
+   of K1-K4 (the warp walk) and X3a (the one-thread walk);
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the whole inputs of one frame, with kernel and plain times and
    the bound (the least time an H100 could take for the same work):
@@ -27,7 +27,11 @@ entry points of the experiments and scripts (X1-X3). Phases:
    G-buffer, K2 on the first bounce set (also against X3a, the
    one-thread walk: rows 0-5 equal bit for bit, both timed), K3 on the
    first shadow set, K4 on both culling phases of a culled G-buffer, K5
-   on the G-buffer of a deferred frame;
+   on the G-buffer of a deferred frame; K1 and K4 also against the
+   one-thread walk on the same rays, bit for bit (K1: X3a's rows 0-3 on
+   raygen_plain's rays, through the attribute interpolation; K4's
+   masked phases: the lockstep plain walk with the same mask), with
+   X3a's time on the same unmasked rays beside theirs;
 4. pt: the path tracer's frame call (sample, accumulate, tone map), 2
    warm-up + 8 timed frames, launch counts, memory, a profile of one
    frame; the CUDA frame against the CPU frame on the 64x64 test scene;
@@ -85,11 +89,12 @@ entry points of the experiments and scripts (X1-X3). Phases:
    frame_arrays with pack_nodes8); then the path tracer (3 bounces: K1,
    K2, K3) and the culled deferred frame (K1/K4, K5) on it through
    entry(scene=<path>), each checked as phase 4 checks its frame (the
-   64x64 frames on a 64-plate glTF), and the PT frame's K1-K3 as phase 3
-   checks them;
+   64x64 frames on a 64-plate glTF), the PT frame's K1-K3 and the
+   deferred frame's K4 phases as phase 3 checks them;
 14. kernels: 8-wide: the World's 8-wide table on the rays of
    scripts/bench_bvh8.py: K12 on the 1080p block-order pinhole rays
-   against its plain version and K4; on the cosine bounce set from
+   against its plain version and K4 (K4 there also against X3a, as phase
+   3); on the cosine bounce set from
    those hits (sorted by cluster and octant) K11 against its plain
    version and K2, K12 against its plain version and K4, and, with t_max
    8, K13 against its plain version and K3; each with its time, the
@@ -191,8 +196,8 @@ EXPERIMENT_PATH = ("walk_leaves", "trace_closest_bvh_visits",
                    "isect_loop_plucker_pre", "moller_chain_loop", "loop_flat",
                    "loop_nested", "loop_cond", "loop_vec")
 PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
-# the kernels whose ptxas line phase 2 prints: K2 and K3, then K1, K4
-# and X3a on the one-thread walk
+# the kernels whose ptxas line phase 2 prints: K2, K3, K1 and K4 on the
+# warp walk, then X3a on the one-thread walk
 PTXAS_KERNELS = ("warp_closest_kernel", "warp_any_kernel", "primary_kernel",
                  "closest_full_kernel", "closest_kernel")
 DEFERRED_PATH = {False: ("trace_primary_bvh_full", "shade_clustered_tiles"),
@@ -492,6 +497,32 @@ def capture_wavefronts(pt, fn, scene, cam):
     return captured
 
 
+def walk_twins(label, slabs, bvh, rays, got, mask=None):
+    """K1's or K4's rows `got` against the one-thread walk on the same
+    rays (o, d, t_min, t_max), bit for bit: without a mask X3a's rows 0-3
+    through the attribute interpolation (_full_rows), with one the
+    lockstep plain walk's under the same mask. Returns the record: rows
+    equal, and without a mask X3a's ms on the same rays (with one X3a
+    would test the leaves the mask drops, so its time is not kept)."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
+
+    o, d, t_min, t_max = rays
+    args = (slabs, *bvh, o, d, t_min, t_max)
+    if mask is not None:
+        walk = tb.trace_closest_bvh_visits_plain(*args, skip_mask=mask)
+        eq = torch.equal(got, tb._full_rows(slabs, walk))
+        print(f"{label} vs the masked lockstep plain walk on the same "
+              f"rays: rows equal {eq}")
+        return {"walk_rows_equal": eq}
+    walk = tb.trace_closest_bvh_visits(*args)
+    tb.check_stack_overflow(o.device)
+    eq = torch.equal(got, tb._full_rows(slabs, walk))
+    x3a_ms = device_ms(lambda: tb.trace_closest_bvh_visits(*args), 5)
+    print(f"{label} vs X3a on the same rays: rows equal {eq}; X3a "
+          f"{x3a_ms:.3f} ms")
+    return {"walk_rows_equal": eq, "x3a_same_rays_ms": x3a_ms}
+
+
 def check_primary(label, scene, cols, cam_vec, frame_index, t_min):
     """K1 against its plain version on every lane of `cols`."""
     from prosper_tpu_torch.ops import trace_bvh as tb
@@ -506,12 +537,15 @@ def check_primary(label, scene, cols, cam_vec, frame_index, t_min):
     ok, counts, err = compare_rows(got, want, list(range(2, 13)))
     print(f"K1 {label}: ok={ok} {counts}")
     o, d, tmax = tb.raygen_plain(cols, cam_vec, frame_index)
-    rec = {"max_abs_err": err, "rays": int(got.shape[0]),
-           "ms": device_ms(lambda: tb.trace_primary_bvh_full(*args), 5),
-           "plain_ms": plain_ms,
+    o = o.contiguous()
+    ms = device_ms(lambda: tb.trace_primary_bvh_full(*args), 5)
+    twins = walk_twins(f"K1 {label} ({ms:.3f} ms)", args[0], args[1:3],
+                       (o, d, t_min, tmax), got)
+    ok &= twins["walk_rows_equal"]
+    rec = {"max_abs_err": err, "rays": int(got.shape[0]), "ms": ms,
+           "plain_ms": plain_ms, **twins,
            **bound(nbytes(*args[:5], got),
-                   closest_ops(leaf_boxes(scene), o.contiguous(), d, want,
-                               tmax))}
+                   closest_ops(leaf_boxes(scene), o, d, want, tmax))}
     return ok, rec, want
 
 
@@ -818,7 +852,8 @@ def check_k4_phases(label, scene, seen):
     dev = geom["packed_full"].device
     ok_all = True
     k4 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "rays": 0,
-          "bound_bytes": 0, "bound_ops": 0, "live_clusters": []}
+          "bound_bytes": 0, "bound_ops": 0, "live_clusters": [],
+          "walk_rows_equal": True, "phase_ms": []}
     for i, (o, d, t_min, t_max, mask) in enumerate(seen, 1):
         args = (geom["packed_full"], frame["bvh_bounds"], frame["bvh_meta"],
                 o, d, t_min, t_max)
@@ -829,12 +864,20 @@ def check_k4_phases(label, scene, seen):
         ok, counts, err = compare_rows(got, want, list(range(2, 13)))
         print(f"K4 {label}, phase {i}: ok={ok} live clusters "
               f"{int(mask.sum())} of {mask.shape[0]}; {counts}")
-        ok_all &= ok
         b = bound(nbytes(*args, mask, got),
                   closest_ops(leaf_boxes(scene), o, d, want, t_max, mask))
-        k4["max_abs_err"] = max(k4["max_abs_err"], err)
-        k4["ms"] += device_ms(
+        ms = device_ms(
             lambda: tb.trace_closest_bvh_full(*args, skip_mask=mask), 5)
+        twins = walk_twins(
+            f"K4 {label}, phase {i} ({ms:.3f} ms, bound "
+            f"{b['bound_ms']:.3f})", args[0], args[1:3],
+            (o, d, t_min, t_max), got, mask)
+        ok &= twins["walk_rows_equal"]
+        ok_all &= ok
+        k4["walk_rows_equal"] &= twins["walk_rows_equal"]
+        k4["max_abs_err"] = max(k4["max_abs_err"], err)
+        k4["ms"] += ms
+        k4["phase_ms"].append(ms)
         k4["plain_ms"] += plain_ms
         k4["rays"] += int(got.shape[0])
         k4["bound_bytes"] += b["bound_bytes"]
@@ -1859,9 +1902,10 @@ def load_world(directory):
 def run_world_frames(smi, dev, path, tmp):
     """Phase 13: the path tracer and the culled deferred frame of the
     glTF World scene, each checked as phase 4 checks its frame, and the
-    PT frame's kernels as phase 3 checks them. Returns the launches per
-    kernel, the World scene's PT frame call (for phase 14) and the
-    records of K1-K3 on its wavefronts."""
+    PT frame's kernels and the deferred frame's K4 phases as phase 3
+    checks them. Returns the launches per kernel, the World scene's PT
+    frame call (for phase 14) and {"world_pt": the records of K1-K3 on
+    its wavefronts, "world_deferred": K4's}."""
     from prosper_tpu_torch import entry as port_entry
     from prosper_tpu_torch import testing
 
@@ -1871,7 +1915,7 @@ def run_world_frames(smi, dev, path, tmp):
              "world deferred culled": ({"mode": "deferred",
                                         "use_culling": True},
                                        DEFERRED_PATH[True])}
-    launches, pt_call, pt_records = {}, None, None
+    launches, pt_call, records = {}, None, {}
     for cell, (kw, path_kernels) in cells.items():
         label = f"{cell} {W}x{H}"
         fn, (scene, cam, _) = port_entry.entry(dev, scene=path, width=W,
@@ -1887,10 +1931,15 @@ def run_world_frames(smi, dev, path, tmp):
         print(f"{label}: {what} per timed frame {min(stats)}-{max(stats)}")
         breakdown(fn, scene, cam, WARMUP + TIMED, state)
         if "pt" in cell:
-            ok, pt_records, _ = check_pt_kernels(label, fn, scene, cam, W, H)
-            if not ok:
-                raise RuntimeError(f"{label}: a kernel disagrees with its "
-                                   "plain version or K2 with X3a")
+            ok, records["world_pt"], _ = check_pt_kernels(label, fn, scene,
+                                                          cam, W, H)
+        else:
+            _, seen = culled_phases(lambda: fn(scene, cam, WARMUP, state))
+            ok, k4 = check_k4_phases(label, scene, seen)
+            records["world_deferred"] = {"trace_closest_bvh_full": k4}
+        if not ok:
+            raise RuntimeError(f"{label}: a kernel disagrees with its plain "
+                               "version or with the one-thread walk")
         keep = state if "deferred" in cell else None
         img_k, _, n_k = fn(scene, cam, WARMUP, keep)
         out = []
@@ -1910,7 +1959,7 @@ def run_world_frames(smi, dev, path, tmp):
             img64, _, n = fn64(sc, cm, 1, st)
             got.append((img64, n))
         frames_agree(f"{cell} glTF plate-64 64x64 cuda vs cpu", *got)
-    return launches, pt_call, pt_records
+    return launches, pt_call, records
 
 
 def check_closest8(label, kern, plain, ref, args, ref_args, attr_cols,
@@ -1946,8 +1995,9 @@ def check_closest8(label, kern, plain, ref, args, ref_args, attr_cols,
 def check_bvh8_kernels(smi, scene, cam):
     """Phase 14 on the World scene's arrays: K12 on the block-order
     pinhole rays, K11 and K12 on the cosine bounce set, K13 on it with
-    t_max 8, each against its plain version and its BVH2 twin. Returns
-    (ok, records)."""
+    t_max 8, each against its plain version and its BVH2 twin; K4 on the
+    pinhole rays against X3a (walk_twins).
+    Returns (ok, records, K4's record)."""
     from prosper_tpu_torch.ops import trace_bvh as tb
     from prosper_tpu_torch.scripts.bench_visit_breakdown import (
         bounce_rays,
@@ -1969,6 +2019,13 @@ def check_bvh8_kernels(smi, scene, cam):
         tb.trace_closest_bvh_full, (p40, n8, o, d, t_min, inf),
         (p40, *bvh, o, d, t_min, inf), full, boxes)
     primary = tb.trace_closest_bvh_full(p40, *bvh, o, d, t_min, inf)
+    tb.check_stack_overflow(dev)
+    k4 = walk_twins(
+        f"K4 world {W}x{H} primary rays (block order, "
+        f"{k12['trace_closest_bvh_full_same_rays_ms']:.3f} ms)", p40, bvh,
+        (o, d, t_min, inf), primary)
+    k4["ms"] = k12["trace_closest_bvh_full_same_rays_ms"]
+    ok_all &= k4["walk_rows_equal"]
     ob, db, tb_max, live = bounce_rays(o, d, primary)
     print(f"bounce set: {live} live rays of {ob.shape[0]}")
     ok, k11 = check_closest8(
@@ -2000,7 +2057,7 @@ def check_bvh8_kernels(smi, scene, cam):
           f" ms, K13/K3 bounce t_max 8 {k13['ms']:.3f}/"
           f"{k13['k3_same_rays_ms']:.3f} ms; card: {smi}")
     return ok_all, {"trace_closest_bvh8": k11, "trace_closest_bvh8_full": k12,
-                    "trace_any_bvh8": k13}
+                    "trace_any_bvh8": k13}, k4
 
 
 def sm_clock_mhz() -> tuple[float, float]:
@@ -2349,8 +2406,8 @@ def run_experiments(dev, world_path):
 def run_world(smi, dev):
     """Phases 13-15; returns (records of K11-K13 and of phase 15's
     kernels, launches per kernel over the two World frames and phase 15's
-    entry points, records of K1-K3 on the World PT frame's
-    wavefronts)."""
+    entry points, {where: {kernel: record}} of K1-K4 on the World's
+    rays)."""
     import shutil
     import tempfile
 
@@ -2358,10 +2415,11 @@ def run_world(smi, dev):
     try:
         phase("world")
         path, _, times = load_world(tmp)
-        launches, (fn, scene, cam), pt_records = run_world_frames(
+        launches, (fn, scene, cam), world = run_world_frames(
             smi, dev, path, tmp)
         phase("kernels: 8-wide")
-        ok, records = check_bvh8_kernels(smi, scene, cam)
+        ok, records, k4 = check_bvh8_kernels(smi, scene, cam)
+        world["world_primary"] = {"trace_closest_bvh_full": k4}
         if not ok:
             raise RuntimeError("an 8-wide kernel disagrees with its plain "
                                "version or with its BVH2 twin")
@@ -2375,7 +2433,7 @@ def run_world(smi, dev):
         launches.update(exp_launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return records, launches, pt_records
+    return records, launches, world
 
 
 def main() -> int:
@@ -2398,7 +2456,7 @@ def main() -> int:
         f"{k} {s:.2f}" for k, s in each.items()) + ")")
     for name in cuda_build.SOURCES:
         print(cuda_build.build_log(name).strip())
-    # K2 and K3's warp-shared walk beside the one-thread walk's kernels
+    # K1-K4's warp walk beside X3a's one-thread walk
     print("ptxas: " + " | ".join(
         ptxas_line(cuda_build.build_log("trace_bvh"), sym)
         for sym in PTXAS_KERNELS))
@@ -2437,13 +2495,14 @@ def main() -> int:
     print(f"leafmajor phases: {time.perf_counter() - t0:.1f} s")
     records.update(lm_records)
     t0 = time.perf_counter()
-    world_records, world_launches, world_pt = run_world(smi, dev)
+    world_records, world_launches, world = run_world(smi, dev)
     print(f"world phases: {time.perf_counter() - t0:.1f} s")
     records.update(world_records)
-    for name, rec in world_pt.items():  # K1-K3 on the World PT frame
-        records[name]["world_pt"] = rec
-        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
-                                           rec["max_abs_err"])
+    for where, recs in world.items():  # K1-K4 on the World's rays
+        for name, rec in recs.items():
+            records[name][where] = rec
+            records[name]["max_abs_err"] = max(
+                records[name]["max_abs_err"], rec.get("max_abs_err", 0.0))
     for counts in (pt_launches, fwd_launches, restir_launches,
                    pt_flat_launches, lm_launches, world_launches):
         for k, n in counts.items():

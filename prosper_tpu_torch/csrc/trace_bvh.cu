@@ -50,19 +50,20 @@
 // touches up to 32 cache lines (a leaf round up to 147 KB, served from
 // L2), and the warp runs a 128-test round whenever any lane is at a leaf
 // while the others idle, so each lane pays at least (the warp's largest
-// leaf count) x 128 tests.
+// leaf count) x 128 tests. Only X3a (K2's counting form, the old
+// design's yardstick) keeps it.
 //
-// K2 and K3 (`warp_walk`) keep that walk and share the leaf tests: a
-// lane walks its own ray's interior nodes until it pops a leaf, which it
-// holds pending; when every lane holds one or is done, the warp tests the
-// pending leaves one at a time, all 32 lanes on each, 4 triangles a lane
+// K1-K4 (`warp_walk`) keep that walk and share the leaf tests: a lane
+// walks its own ray's interior nodes until it pops a leaf, which it holds
+// pending (K4 drops a leaf of a masked cluster on pop, unread, as `walk`
+// did); when every lane holds one or is done, the warp tests the pending
+// leaves one owner at a time, all 32 lanes on each, 4 triangles a lane
 // and every slab load one full 128-byte line across the warp. A warp's
 // tests then scale with the leaves its rays visit, not with 128 times the
 // most any lane visits. Each ray's pops, prunes and leaf tests stay
-// `walk`'s, so the rows equal its bit for bit. K1, K4 and X3a (K2's
-// counting form, the old design's yardstick) keep `walk`; K9-K13 are
-// their own kernels. Node layouts, persistent threads, ray reordering
-// and wgmma are later work.
+// `walk`'s, so the rows equal its bit for bit. K9-K13 are their own
+// kernels. Node layouts, persistent threads, ray reordering and wgmma are
+// later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,17 +105,14 @@ struct Hit {
     int tri;
 };
 
-// Near-first ordered BVH2 walk, one thread per ray, closest hit. A leaf
-// whose cluster has live[cluster] == 0 is skipped without touching its
-// slab (live == nullptr: every cluster is live). VISITS=true counts into
-// n[0] the interior nodes it expands (pops that pass the prune) and into
-// n[1] the leaves it tests. Returns false on stack overflow.
-template <bool VISITS = false>
+// Near-first ordered BVH2 walk, one thread per ray, closest hit, for
+// X3a: counts into n[0] the interior nodes it expands (pops that pass the
+// prune) and into n[1] the leaves it tests. Returns false on stack
+// overflow.
 __device__ bool walk(const float* __restrict__ slabs, int rows,
                      const float* __restrict__ bounds,
                      const int* __restrict__ meta, const Ray& r, float t_min,
-                     const uint8_t* __restrict__ live, Hit& h,
-                     int* n = nullptr) {
+                     Hit& h, int* n) {
     int stack_node[STACK_CAP];
     float stack_enter[STACK_CAP];
     int sp = 0;
@@ -130,8 +128,7 @@ __device__ bool walk(const float* __restrict__ slabs, int rows,
         if (stack_enter[sp] >= h.t) continue;  // pruned by a closer hit
         int leaf = __ldg(meta + 3 * i + 2);
         if (leaf >= 0) {
-            if (live != nullptr && __ldg(live + leaf) == 0) continue;
-            if (VISITS) ++n[1];
+            ++n[1];
             const float* s = slabs + (size_t)leaf * rows * LANES;
             for (int j = 0; j < LANES; ++j) {
                 float t, u, v;
@@ -146,7 +143,7 @@ __device__ bool walk(const float* __restrict__ slabs, int rows,
             }
             continue;
         }
-        if (VISITS) ++n[0];
+        ++n[0];
         int l = __ldg(meta + 3 * i), rc = __ldg(meta + 3 * i + 1);
         float el, er;
         bool hl = node_test(bounds, l, r, h.t, el);
@@ -227,8 +224,7 @@ __global__ void closest_kernel(const float* __restrict__ slabs, int rows,
     load_ray(ray_o, ray_d, k, r);
     Hit h = {t_max[k], 0.0f, 0.0f, -1};
     int n[2] = {0, 0};
-    if (h.t > 0.0f &&
-        !walk<true>(slabs, rows, bounds, meta, r, t_min, nullptr, h, n))
+    if (h.t > 0.0f && !walk(slabs, rows, bounds, meta, r, t_min, h, n))
         atomicExch(err, 1);
     float* o = out + 8 * (size_t)k;
     o[0] = h.t;
@@ -245,10 +241,14 @@ __global__ void closest_kernel(const float* __restrict__ slabs, int rows,
 
 // `walk`'s loop up to its next leaf: pops, prunes against best, tests
 // and pushes an interior node's children as `walk` does, until it pops a
-// leaf, whose cluster it returns, or its stack is empty (-1). On stack
-// overflow sets ok = false and empties the stack.
+// leaf, whose cluster it returns, or its stack is empty (-1). LIVE: a
+// popped leaf whose cluster has live[cluster] == 0 is dropped there,
+// unread (live == nullptr: every cluster is live). On stack overflow sets
+// ok = false and empties the stack.
+template <bool LIVE>
 __device__ __forceinline__ int next_leaf(const float* __restrict__ bounds,
                                          const int* __restrict__ meta,
+                                         const uint8_t* __restrict__ live,
                                          const Ray& r, float best,
                                          int* stack_node, float* stack_enter,
                                          int& sp, bool& ok) {
@@ -257,7 +257,10 @@ __device__ __forceinline__ int next_leaf(const float* __restrict__ bounds,
         const int i = stack_node[sp];
         if (stack_enter[sp] >= best) continue;  // pruned by a closer hit
         const int leaf = __ldg(meta + 3 * i + 2);
-        if (leaf >= 0) return leaf;
+        if (leaf >= 0) {
+            if (LIVE && live != nullptr && __ldg(live + leaf) == 0) continue;
+            return leaf;
+        }
         const int l = __ldg(meta + 3 * i), rc = __ldg(meta + 3 * i + 1);
         float el, er;
         const bool hl = node_test(bounds, l, r, best, el);
@@ -292,11 +295,12 @@ __device__ __forceinline__ unsigned t_key(float t) {
     return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
-// K2 and K3's walk: `walk` per lane, the leaf tests by the whole warp.
-// Every thread of the warp calls it, a lane without a ray with h.t = 0
-// (it never enters the root), and stays to the end: each _sync takes
-// the full mask. ANY=true: the owner of a leaf with any hit is done, and
-// h.tri >= 0 marks it occluded. Sets *err on stack overflow.
+// K1-K4's walk: `walk` per lane, the leaf tests by the whole warp. Every
+// thread of the warp calls it, a lane without a ray with h.t = 0 (it
+// never enters the root), and stays to the end: each _sync takes the
+// full mask. ANY=true: the owner of a leaf with any hit is done, and
+// h.tri >= 0 marks it occluded (K3). LIVE: the skip mask `live` (K4).
+// Sets *err on stack overflow.
 //
 // A leaf owned by lane src with best t b: lane l tests triangles l + 32q
 // (q = 0..3) against the owner's ray with t_upper = b and keeps its
@@ -306,11 +310,12 @@ __device__ __forceinline__ unsigned t_key(float t) {
 // lowest t below b and, among equal t, the lowest j. Every hit lies below
 // b, so the owner always takes it, and a later cluster's equal t never
 // replaces it: the earlier visit keeps a tie across clusters.
-template <bool ANY>
+template <bool ANY, bool LIVE>
 __device__ void warp_walk(const float* __restrict__ slabs, int rows,
                           const float* __restrict__ bounds,
                           const int* __restrict__ meta, const Ray& r,
-                          float t_min, Hit& h, int* __restrict__ err) {
+                          float t_min, const uint8_t* __restrict__ live,
+                          Hit& h, int* __restrict__ err) {
     const int lane = threadIdx.x & 31;
     int stack_node[STACK_CAP];
     float stack_enter[STACK_CAP];
@@ -324,8 +329,8 @@ __device__ void warp_walk(const float* __restrict__ slabs, int rows,
     bool ok = true;
     for (;;) {
         // each lane walks until it holds a leaf or is done
-        const int leaf =
-            next_leaf(bounds, meta, r, h.t, stack_node, stack_enter, sp, ok);
+        const int leaf = next_leaf<LIVE>(bounds, meta, live, r, h.t,
+                                         stack_node, stack_enter, sp, ok);
         unsigned pending = __ballot_sync(FULL_MASK, leaf >= 0);
         if (pending == 0) break;
         do {  // the pending leaves, lowest owner lane first
@@ -415,7 +420,8 @@ __global__ void warp_closest_kernel(const float* __restrict__ slabs,
     Ray r;
     Hit h;
     load_lane(ray_o, ray_d, t_max, R, k, r, h);
-    warp_walk<false>(slabs, rows, bounds, meta, r, t_min, h, err);
+    warp_walk<false, false>(slabs, rows, bounds, meta, r, t_min, nullptr, h,
+                            err);
     if (k >= R) return;
     float* o = out + 8 * (size_t)k;
     o[0] = h.t;
@@ -438,12 +444,13 @@ __global__ void warp_any_kernel(const float* __restrict__ slabs, int rows,
     Ray r;
     Hit h;
     load_lane(ray_o, ray_d, t_max, R, k, r, h);
-    warp_walk<true>(slabs, rows, bounds, meta, r, t_min, h, err);
+    warp_walk<true, false>(slabs, rows, bounds, meta, r, t_min, nullptr, h,
+                           err);
     if (k < R) occ[k] = h.tri >= 0 ? 1 : 0;
 }
 
-// K4: `walk` with the cluster skip mask, and the attributes of
-// write_full at the final hit.
+// K4: the warp walk with the cluster skip mask (live == nullptr: none),
+// and the attributes of write_full at the final hit.
 __global__ void closest_full_kernel(const float* __restrict__ slabs, int rows,
                                     const float* __restrict__ bounds,
                                     const int* __restrict__ meta,
@@ -454,14 +461,13 @@ __global__ void closest_full_kernel(const float* __restrict__ slabs, int rows,
                                     const uint8_t* __restrict__ live,
                                     float* __restrict__ out,
                                     int* __restrict__ err) {
-    int k = blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= R) return;
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
     Ray r;
-    load_ray(ray_o, ray_d, k, r);
-    Hit h = {t_max[k], 0.0f, 0.0f, -1};
-    if (h.t > 0.0f && !walk(slabs, rows, bounds, meta, r, t_min, live, h))
-        atomicExch(err, 1);
-    write_full(slabs, rows, h, out + 16 * (size_t)k);
+    Hit h;
+    load_lane(ray_o, ray_d, t_max, R, k, r, h);
+    warp_walk<false, true>(slabs, rows, bounds, meta, r, t_min, live, h,
+                           err);
+    if (k < R) write_full(slabs, rows, h, out + 16 * (size_t)k);
 }
 
 // One pcg3d round of uvec3(x, y, z) (random.glsl:17-28).
@@ -485,7 +491,9 @@ __device__ __forceinline__ void pcg3d(uint32_t& x, uint32_t& y, uint32_t& z) {
 // + uy*B + C), ux = (px + pcg_on*jx + offx) / W (_raygen_tile,
 // trace_bvh.py:212-214): pcg_on = 1, off = 0 is the path tracer's
 // per-pixel jitter, pcg_on = 0 the G-buffer's TAA-shifted pixel centres.
-// pix: (T, 3, 256) f32 px | py | tmax per 256-pixel tile.
+// pix: (T, 3, 256) f32 px | py | tmax per 256-pixel tile. K1: each
+// lane makes its pixel's ray, then the warp walk and write_full as K4
+// (a lane past R, with h.t = 0, only takes part in the walk).
 __global__ void primary_kernel(const float* __restrict__ slabs, int rows,
                                const float* __restrict__ bounds,
                                const int* __restrict__ meta,
@@ -494,34 +502,36 @@ __global__ void primary_kernel(const float* __restrict__ slabs, int rows,
                                uint32_t frame_index, float t_min,
                                float* __restrict__ out,
                                int* __restrict__ err) {
-    int k = blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= R) return;
-    const float* p = pix + (size_t)(k >> 8) * 3 * 256 + (k & 255);
-    float px = p[0], py = p[256], tmax = p[512];
-    // per-pixel jitter = rnd2d01(make_state(px, py, frame)), converted
-    // exactly (u32 -> f32 round-to-nearest, then * 2^-32)
-    uint32_t x = (uint32_t)(int)px, y = (uint32_t)(int)py, z = frame_index;
-    pcg3d(x, y, z);
-    float jx = __uint2float_rn(x) * 2.3283064365386963e-10f;
-    float jy = __uint2float_rn(y) * 2.3283064365386963e-10f;
-    float ux = (px + cam[16] * jx + cam[14]) / cam[12];
-    float uy = (py + cam[16] * jy + cam[15]) / cam[13];
-    Ray r;
-    r.dx = ux * cam[3] + uy * cam[6] + cam[9];
-    r.dy = ux * cam[4] + uy * cam[7] + cam[10];
-    r.dz = ux * cam[5] + uy * cam[8] + cam[11];
-    float inv_n = 1.0f / sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
-    r.dx = r.dx * inv_n;
-    r.dy = r.dy * inv_n;
-    r.dz = r.dz * inv_n;
-    r.ox = cam[0];
-    r.oy = cam[1];
-    r.oz = cam[2];
-    set_inv(r);
-    Hit h = {tmax, 0.0f, 0.0f, -1};
-    if (h.t > 0.0f && !walk(slabs, rows, bounds, meta, r, t_min, nullptr, h))
-        atomicExch(err, 1);
-    write_full(slabs, rows, h, out + 16 * (size_t)k);
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
+    Ray r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    Hit h = {0.0f, 0.0f, 0.0f, -1};  // k >= R: no ray, it never walks
+    if (k < R) {
+        const float* p = pix + (size_t)(k >> 8) * 3 * 256 + (k & 255);
+        float px = p[0], py = p[256];
+        h.t = p[512];
+        // per-pixel jitter = rnd2d01(make_state(px, py, frame)), converted
+        // exactly (u32 -> f32 round-to-nearest, then * 2^-32)
+        uint32_t x = (uint32_t)(int)px, y = (uint32_t)(int)py, z = frame_index;
+        pcg3d(x, y, z);
+        float jx = __uint2float_rn(x) * 2.3283064365386963e-10f;
+        float jy = __uint2float_rn(y) * 2.3283064365386963e-10f;
+        float ux = (px + cam[16] * jx + cam[14]) / cam[12];
+        float uy = (py + cam[16] * jy + cam[15]) / cam[13];
+        r.dx = ux * cam[3] + uy * cam[6] + cam[9];
+        r.dy = ux * cam[4] + uy * cam[7] + cam[10];
+        r.dz = ux * cam[5] + uy * cam[8] + cam[11];
+        float inv_n = 1.0f / sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
+        r.dx = r.dx * inv_n;
+        r.dy = r.dy * inv_n;
+        r.dz = r.dz * inv_n;
+        r.ox = cam[0];
+        r.oy = cam[1];
+        r.oz = cam[2];
+        set_inv(r);
+    }
+    warp_walk<false, false>(slabs, rows, bounds, meta, r, t_min, nullptr, h,
+                            err);
+    if (k < R) write_full(slabs, rows, h, out + 16 * (size_t)k);
 }
 
 // K10, the dense-cull any hit (trace_bvh.py _any_body(dense=True) :1617,

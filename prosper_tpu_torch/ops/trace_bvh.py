@@ -9,9 +9,10 @@ hand-written CUDA kernel in csrc/trace_bvh.cu with a plain PyTorch twin:
   jitter or the G-buffer's pixel centres shifted by the TAA jitter —
   closest hit, attributes at the final hit -> (T*256, 16) rows.
 - `trace_closest_bvh` (K2, trace_bvh.py:1050): closest hit -> (R, 8) rows.
-  K2 and K3 walk one ray per lane and test each leaf with the whole warp
+  K1-K4 walk one ray per lane and test each leaf with the whole warp
   (csrc/trace_bvh.cu warp_walk); their rows equal the one-thread walk's
-  (X3a's rows 0-5, the lockstep plain walk's) bit for bit.
+  (X3a's, the lockstep plain walk's; K1's and K4's through _full_rows,
+  K4's under its skip mask) bit for bit.
 - `trace_closest_bvh_visits` (X3a, K2's body under DEBUG_VISITS,
   scripts/bench_visit_breakdown.py:148): K2's rows with the interior
   nodes each ray expands in row 6 and the leaves it tests in row 7. Its
@@ -343,7 +344,7 @@ def trace_closest_bvh_plain(slabs, bounds, meta, ray_o, ray_d, t_min, t_max):
 
 
 def trace_closest_bvh_visits_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
-                                   t_max):
+                                   t_max, skip_mask=None):
     """Plain X3a -> K2's (R, 8) rows with row 6 = interior nodes the ray
     expands and row 7 = leaves it tests.
 
@@ -354,8 +355,10 @@ def trace_closest_bvh_visits_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
     best (the lowest lane among equal t), an interior node's two
     children tested against the best t and pushed far first (ties to
     the left child), a stack of STACK_CAP entries. So its counts equal
-    X3a's and its rows K2's, ties included. A ray that would overflow
-    the stack raises."""
+    X3a's and its rows K1's, K2's and K4's, ties included. skip_mask (C,)
+    bool: a popped leaf whose cluster is marked False is dropped
+    unread and uncounted, as K4 drops it. A ray that would overflow the
+    stack raises."""
     dev = ray_o.device
     R = ray_o.shape[0]
     t_max = t_max.to(dev, torch.float32).expand(R)
@@ -370,6 +373,8 @@ def trace_closest_bvh_visits_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
     sp = torch.zeros(R, dtype=torch.int64, device=dev)
     lanes = torch.arange(CLUSTER_PAD, device=dev)
     bmin, bmax = bounds[:, 0:3], bounds[:, 3:6]
+    if skip_mask is not None:
+        skip_mask = skip_mask.to(device=dev, dtype=torch.bool)
 
     def test(a, node):
         en, ex = slab_enter_exit(ray_o[a], inv[a], bmin[node], bmax[node])
@@ -393,6 +398,11 @@ def trace_closest_bvh_visits_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
         a, node = walking[keep], node[keep]
         leaf = meta[node, 2].long()
         is_leaf = leaf >= 0
+        if skip_mask is not None:  # a dead leaf: neither tested nor expanded
+            live_leaf = is_leaf & skip_mask[leaf.clamp_min(0)]
+            keep = live_leaf | ~is_leaf
+            a, node = a[keep], node[keep]
+            leaf, is_leaf = leaf[keep], live_leaf[keep]
         for r0 in range(0, int(is_leaf.sum()), pair_chunk):
             rl = a[is_leaf][r0:r0 + pair_chunk]
             c = leaf[is_leaf][r0:r0 + pair_chunk]

@@ -373,7 +373,7 @@ def make_plate_scene(n_clusters: int = 2048, seed: int = 0,
 TIE_LANES = ((9, 36, 68, 100), (40, 72, 103))
 
 
-def make_tie_scene(n_rays: int = 64, seed: int = 0):
+def make_tie_scene(n_rays: int = 64, seed: int = 0, rows: int = 9):
     """Exact t ties for the closest-hit walks: one triangle in the plane
     z = 5, copied into the lanes TIE_LANES[c] of clusters 0 and 1 (every
     other lane degenerate, zero edges), under a BVH2 root whose leaves
@@ -387,13 +387,19 @@ def make_tie_scene(n_rays: int = 64, seed: int = 0):
     rays, 9 for the down rays (a brute-force minimum of (t, tri) gives 9
     to all).
 
-    Returns numpy (slabs (2, 9, 128) f32, bounds (3, 6) f32, meta (3, 3)
-    i32, o (R, 3) f32, d (R, 3) f32, the walk's tri per ray (R,) i64)."""
-    slabs = np.zeros((2, 9, CLUSTER_TRI_PAD), np.float32)
+    rows > 9 (38 or more for the attribute kernels) adds slab rows 9 up
+    to rows of uniform values in [-1, 1) from `seed`, a distinct
+    attribute row for every lane, so a full hit row shows which copy a
+    walk kept.
+
+    Returns numpy (slabs (2, rows, 128) f32, bounds (3, 6) f32, meta
+    (3, 3) i32, o (R, 3) f32, d (R, 3) f32, the walk's tri per ray (R,)
+    i64)."""
+    slabs = np.zeros((2, rows, CLUSTER_TRI_PAD), np.float32)
     tri = np.array([-10.0, -10.0, 5.0, 30.0, 0.0, 0.0, 0.0, 30.0, 0.0],
                    np.float32)  # v0 | e1 | e2
     for c, lanes in enumerate(TIE_LANES):
-        slabs[c][:, list(lanes)] = tri[:, None]
+        slabs[c][0:9, list(lanes)] = tri[:, None]
     bounds = np.array([[-10, -10, 1, 20, 20, 8],
                        [-10, -10, 2, 20, 20, 8],
                        [-10, -10, 1, 20, 20, 6]], np.float32)
@@ -405,6 +411,7 @@ def make_tie_scene(n_rays: int = 64, seed: int = 0):
     o[:, 2] = np.where(up, 0.0, 10.0)
     d = np.zeros((n_rays, 3), np.float32)
     d[:, 2] = np.where(up, 1.0, -1.0)
+    slabs[:, 9:] = rng.uniform(-1.0, 1.0, (2, rows - 9, CLUSTER_TRI_PAD))
     want = np.where(up, CLUSTER_TRI_PAD + TIE_LANES[1][0], TIE_LANES[0][0])
     return slabs, bounds, meta, o, d, want.astype(np.int64)
 

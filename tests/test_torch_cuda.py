@@ -10,10 +10,11 @@ tri equal except exact t ties, t within rtol 1e-5, attributes 1e-4; the
 shading kernel within rtol 1e-5 / atol 1e-6 of its plain version; the
 pair-block kernel's slots equal to its plain version's; K2's rows 0-5
 equal to the lockstep plain walk's and the counting K2's bit for bit,
-ties included; the 8-wide kernels, the threaded walk, the counting K2,
-the Möller loops and the loop probes equal to their plain versions bit
-for bit; the tensor-core
-Plücker loops agree with their TF32 plain versions on every hit off the
+ties included, and K1's and K4's rows 0-15 to the lockstep plain walk's
+(under K4's skip mask) and the counting K2's through the attribute
+interpolation, bit for bit; the 8-wide kernels, the threaded walk, the
+counting K2, the Möller loops and the loop probes equal to their plain
+versions bit for bit; the tensor-core Plücker loops agree with their TF32 plain versions on every hit off the
 border of ops/plucker.tf32_agreement, with t within rtol 1e-5 plus the
 bound of a reordered sum where both hit, and with Möller on at least
 99.95% of (ray, triangle) pairs (experiments/bench_mxu_isect.py:89) with
@@ -817,6 +818,139 @@ def test_warp_k2_keeps_the_walk_order_on_ties_on_card(cuda):
         assert bool(occ.all()) if occluded else not occ.any()
         assert torch.equal(occ, tb.trace_any_bvh_plain(
             slabs, bounds, meta, o, d, 0.1, torch.full_like(inf, t_max)))
+
+
+@pytest.mark.parametrize("R", [1, 31, 33, 1031])
+def test_warp_k4_matches_the_walk_on_card(cuda, R):
+    """K4 on the warp walk, without and with a random skip mask, at R =
+    1, 31, 33 and 1031 with t_max 0 lanes and rays that miss the root:
+    rows 0-15 equal the lockstep plain walk's under the same mask through
+    _full_rows; unmasked, also X3a's rows 0-3 through _full_rows (t, tri
+    and the u, v the attributes are interpolated at), bit for bit."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32)
+    slabs = sc["geom"]["packed_full"]
+    bvh = (sc["frame"]["bvh_bounds"], sc["frame"]["bvh_meta"])
+    o, d, t_max = _mixed_rays(sc, R, R + 3, cuda)
+    mask = torch.as_tensor(np.random.default_rng(R).random(64) > 0.4,
+                           device=cuda)
+    tb.reset_launch_counts()
+    for m in (None, mask):
+        got = tb.trace_closest_bvh_full(slabs, *bvh, o, d, 1e-4, t_max,
+                                        skip_mask=m)
+        tb.check_stack_overflow(cuda)
+        walk = tb.trace_closest_bvh_visits_plain(slabs, *bvh, o, d, 1e-4,
+                                                 t_max, skip_mask=m)
+        assert torch.equal(got, tb._full_rows(slabs, walk))
+        _rows_agree(got, tb.trace_closest_bvh_full_plain(
+            slabs, *bvh, o, d, 1e-4, t_max, skip_mask=m))
+        away = torch.zeros(R, dtype=torch.bool, device=cuda)
+        away[2::5] = True
+        assert (got[away | (t_max == 0), 1] == -1).all()
+        if R > 31:
+            assert (got[:, 1] >= 0).any()
+    x3a = tb.trace_closest_bvh_visits(slabs, *bvh, o, d, 1e-4, t_max)
+    unmasked = tb.trace_closest_bvh_full(slabs, *bvh, o, d, 1e-4, t_max)
+    tb.check_stack_overflow(cuda)
+    assert torch.equal(unmasked, tb._full_rows(slabs, x3a))
+    tri = got[:, 1].long()
+    assert mask[tri[tri >= 0] // 128].all()
+    assert tb.trace_closest_bvh_full.launches == 3
+
+
+def _k1_frame(form, cam, device):
+    """A 33x31 frame's pixels (1023 of them: the last warp holds one pad
+    lane) in the (T, 3, 256) layout, and the uniforms of K1's path tracer
+    form (pcg jitter) or G-buffer form (pixel centres shifted by a TAA
+    jitter of (0.3, -0.2) pixels)."""
+    W, H = 33, 31
+    cols = gbuffer._row_pixels(W, H, str(device))
+    jitter = (torch.tensor([0.6 / W, 0.4 / H], device=device)
+              if form == "gbuffer" else None)
+    return cols, tb.primary_cam_vec(cam, W, H, pixel_jitter=jitter,
+                                    device=device)
+
+
+@pytest.mark.parametrize("form", ["pt", "gbuffer"])
+def test_warp_k1_matches_the_walk_on_card(cuda, form):
+    """K1 on the warp walk, both forms, on a 33x31 frame of plate-64:
+    rows 0-15 equal the lockstep plain walk's and X3a's on
+    raygen_plain's rays through _full_rows, bit for bit; pad lanes miss
+    with t = 0."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=33,
+                             height=31)
+    slabs = sc["geom"]["packed_full"]
+    bvh = (sc["frame"]["bvh_bounds"], sc["frame"]["bvh_meta"])
+    cols, vec = _k1_frame(form, cam, cuda)
+    tb.reset_launch_counts()
+    got = tb.trace_primary_bvh_full(slabs, *bvh, cols, vec, 7, 0.0)
+    tb.check_stack_overflow(cuda)
+    o, d, t_max = tb.raygen_plain(cols, vec, 7)
+    o = o.contiguous()
+    walk = tb.trace_closest_bvh_visits_plain(slabs, *bvh, o, d, 0.0, t_max)
+    x3a = tb.trace_closest_bvh_visits(slabs, *bvh, o, d, 0.0, t_max)
+    tb.check_stack_overflow(cuda)
+    assert torch.equal(x3a, walk)
+    assert torch.equal(got, tb._full_rows(slabs, walk))
+    _rows_agree(got, tb.trace_primary_bvh_full_plain(slabs, *bvh, cols, vec,
+                                                     7, 0.0))
+    assert (got[1023:, 0:2] == torch.tensor([0.0, -1.0], device=cuda)).all()
+    assert (got[:1023, 1] >= 0).sum() > 100
+    assert tb.trace_primary_bvh_full.launches == 1
+
+
+def test_warp_k4_keeps_the_walk_order_on_ties_on_card(cuda):
+    """testing.make_tie_scene with attribute rows: K4 keeps the lowest
+    copy of the cluster each ray visits first, and with a mask that
+    kills one cluster the other's lowest copy; rows 0-15 equal the
+    lockstep plain walk's with the same mask through _full_rows."""
+    slabs, bounds, meta, o, d, want = (
+        torch.as_tensor(a, device=cuda) for a in make_tie_scene(100, rows=40))
+    inf = torch.full((100,), float("inf"), device=cuda)
+    up = torch.arange(100, device=cuda) % 2 == 0
+    for live in (None, (True, False), (False, True)):
+        mask = None if live is None else torch.tensor(live, device=cuda)
+        got = tb.trace_closest_bvh_full(slabs, bounds, meta, o, d, 1e-4, inf,
+                                        skip_mask=mask)
+        tb.check_stack_overflow(cuda)
+        walk = tb.trace_closest_bvh_visits_plain(slabs, bounds, meta, o, d,
+                                                 1e-4, inf, skip_mask=mask)
+        assert torch.equal(got, tb._full_rows(slabs, walk))
+        tri = got[:, 1].long()
+        if live is None:
+            assert torch.equal(tri, want)
+        else:  # every ray takes the live cluster's lowest copy
+            assert torch.equal(tri, want[up if live[1] else ~up][0]
+                               .expand(100))
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+def test_k1_k4_stack_overflow_raises_on_card(cuda, kernel):
+    """test_stack_overflow_raises_on_card's BVH chain under K1's camera
+    rays and K4's ray: the warp walk sets the overflow flag."""
+    fn, (sc, cam, _) = entry(cuda, width=32, height=32)
+    L = tb.STACK_CAP + 6  # internal nodes 0..L-1, leaves L..2L
+    left = [i + 1 for i in range(L - 1)] + [2 * L]
+    meta = torch.tensor(
+        [[left[i], L + i, -1] for i in range(L)] + [[-1, -1, 0]] * (L + 1),
+        dtype=torch.int32, device=cuda,
+    )
+    # one box around everything: every ray enters every node
+    bounds = torch.tensor([[-1e3, -1e3, -1e3, 1e3, 1e3, 1e3]],
+                          device=cuda).expand(2 * L + 1, 6).contiguous()
+    slabs = sc["geom"]["packed_full"]
+    if kernel == "K1":
+        _, _, cols, _ = pt._pixel_layouts(32, 32, str(cuda))
+        vec = tb.primary_cam_vec(cam, 32, 32, device=cuda)
+        tb.trace_primary_bvh_full(slabs, bounds, meta, cols, vec, 0, 0.0)
+    else:
+        o = torch.tensor([[0.0, 0.0, -50.0]], device=cuda)
+        d = torch.tensor([[0.0, 0.0, 1.0]], device=cuda)
+        tb.trace_closest_bvh_full(slabs, bounds, meta, o, d, 0.0,
+                                  float("inf"))
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        tb.check_stack_overflow(cuda)
+    tb.check_stack_overflow(cuda)  # cleared
 
 
 @pytest.mark.parametrize("loop", ["moller", "moller_chain"])
