@@ -19,7 +19,8 @@ entry points of the experiments and scripts (X1-X3). Phases:
    csrc/trace_flat.cu, csrc/trace_leafmajor.cu, csrc/trace_wavefront.cu
    and csrc/bench_kernels.cu for sm_90a, one nvcc each, in parallel
    (timed), and print the ptxas line (registers, stack frame, spills)
-   of K1-K4 (the warp walk) and X3a (the one-thread walk);
+   of K1-K4 (the warp walk), X3a (the one-thread walk), K10 and K9 (the
+   dense cull), K10's cull form, K5 and K5's walk form;
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the whole inputs of one frame, with kernel and plain times and
    the bound (the least time an H100 could take for the same work):
@@ -27,7 +28,10 @@ entry points of the experiments and scripts (X1-X3). Phases:
    G-buffer, K2 on the first bounce set (also against X3a, the
    one-thread walk: rows 0-5 equal bit for bit, both timed), K3 on the
    first shadow set, K4 on both culling phases of a culled G-buffer, K5
-   on the G-buffer of a deferred frame; K1 and K4 also against the
+   on the G-buffer of a deferred frame (with its walk form, the walk
+   without the shading, against its plain counts: per pixel the list
+   entries its color needs and its warp walks, and the warp's shading
+   union, timed beside K5); K1 and K4 also against the
    one-thread walk on the same rays, bit for bit (K1: X3a's rows 0-3 on
    raygen_plain's rays, through the attribute interpolation; K4's
    masked phases: the lockstep plain walk with the same mask), with
@@ -52,13 +56,17 @@ entry points of the experiments and scripts (X1-X3). Phases:
    blend/mask scene (transparent pass, two alpha-discard rounds, the
    CLI's flags), (c) the culled deferred frame of the blend/mask scene
    without BVH arrays; each 2 warm-up + 8 timed frames with launch
-   counts, memory and a profile of one frame, the 1080p frame with the
+   counts, memory and a profile of one frame, K5 and its walk form on
+   every G-buffer one frame shades (as phase 3), the 1080p frame with the
    plain versions against the kernels' frame, and 64x64 CUDA frames
    against CPU frames;
 8. kernels: any hit: the shadow rays of one ReSTIR frame with BVH arrays
    (plate-2048 + 1024 lights) and of one without; K10 on the first
-   against its plain version and K3, K7 on the second against its plain
-   version and K3, K3 on both;
+   against its plain version and K3, without and with a skip mask (one
+   keeping every cluster, one random), and K10's cull form (the dense
+   cull alone: each packet's list length, against its plain version,
+   timed beside K10), K7 on the second against its plain version and
+   K3, K3 on both;
 9. restir: ReSTIR DI with BVH arrays under config.policy.any_tracer
    "stack" (K1, K3) and "dense" (K1, K10), and without BVH arrays (K8,
    K7); each 2 warm-up + 8 timed frames with launch counts, shadow-ray
@@ -90,7 +98,7 @@ entry points of the experiments and scripts (X1-X3). Phases:
    K2, K3) and the culled deferred frame (K1/K4, K5) on it through
    entry(scene=<path>), each checked as phase 4 checks its frame (the
    64x64 frames on a 64-plate glTF), the PT frame's K1-K3 and the
-   deferred frame's K4 phases as phase 3 checks them;
+   deferred frame's K4 phases and K5 as phase 3 checks them;
 14. kernels: 8-wide: the World's 8-wide table on the rays of
    scripts/bench_bvh8.py: K12 on the 1080p block-order pinhole rays
    against its plain version and K4 (K4 there also against X3a, as phase
@@ -116,7 +124,8 @@ entry points of the experiments and scripts (X1-X3). Phases:
    yardstick torch.matmul of the Plücker products.
 
 Every launch count is set to 0 just before a path is driven and read
-just after; a kernel of the path that never launched fails the run. Any
+just after; a kernel of the path that never launched fails the run, and
+so does a frame that launched a measurement form. Any
 failed phase exits non-zero. The last line is the result object, the
 line before it the per-kernel record. Needs no network and one card.
 """
@@ -196,10 +205,17 @@ EXPERIMENT_PATH = ("walk_leaves", "trace_closest_bvh_visits",
                    "isect_loop_plucker_pre", "moller_chain_loop", "loop_flat",
                    "loop_nested", "loop_cond", "loop_vec")
 PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
-# the kernels whose ptxas line phase 2 prints: K2, K3, K1 and K4 on the
-# warp walk, then X3a on the one-thread walk
-PTXAS_KERNELS = ("warp_closest_kernel", "warp_any_kernel", "primary_kernel",
-                 "closest_full_kernel", "closest_kernel")
+# the kernels whose ptxas line phase 2 prints, (source, symbol): K2, K3,
+# K1 and K4 on the warp walk, X3a on the one-thread walk, K10 (its walk
+# on the warp-shared leaf test) and K9 over the dense cull, K10's cull
+# form, K5 and its walk form
+PTXAS_KERNELS = tuple(("trace_bvh", k) for k in (
+    "warp_closest_kernel", "warp_any_kernel", "primary_kernel",
+    "closest_full_kernel", "closest_kernel", "dense_any_kernel",
+    "dense_closest_kernel", "dense_cull_kernel")) + tuple(
+    ("shade_tiles", k) for k in ("shade_kernel", "shade_walk_kernel"))
+# the measurement forms of K5 and K10, which no frame may launch
+MEASUREMENT_FORMS = ("shade_walk_counts", "dense_cull_counts")
 DEFERRED_PATH = {False: ("trace_primary_bvh_full", "shade_clustered_tiles"),
                  True: ("trace_closest_bvh_full", "shade_clustered_tiles")}
 # the blend and mask plates; with them entry() sets the CLI's flags:
@@ -692,6 +708,10 @@ def drive(fn, scene, cam, path, label, smi):
     if missing:
         raise RuntimeError(f"{label}: kernels of the path never launched: "
                            f"{missing}")
+    stray = [k for k in MEASUREMENT_FORMS if launches[k] != 0]
+    if stray:
+        raise RuntimeError(f"{label}: the frame launched the measurement "
+                           f"forms {stray}")
     return ms_frame, {k: launches[k] for k in path}, img, out[1], stats
 
 
@@ -894,9 +914,8 @@ def check_deferred_kernels(fns, scene, cam):
     all-near previous HiZ, which must equal the unculled G-buffer; K5 on
     an unculled frame's G-buffer. Returns (ok, records)."""
     from prosper_tpu_torch.ops import hiz
-    from prosper_tpu_torch.ops import shade_tiles as tst
     from prosper_tpu_torch.ops import trace_bvh as tb
-    from prosper_tpu_torch.render import gbuffer, shading
+    from prosper_tpu_torch.render import gbuffer
 
     dev = scene["geom"]["packed_full"].device
     cols = gbuffer._row_pixels(W, H, str(dev))
@@ -934,36 +953,105 @@ def check_deferred_kernels(fns, scene, cam):
     records["trace_closest_bvh_full"] = k4
 
     # K5 on the frame's G-buffer
+    (inp, _, _), _ = k5_calls(fns[False], scene, cam)[0]
+    ok, records["shade_clustered_tiles"] = check_k5(
+        f"deferred plate {W}x{H}", inp)
+    ok_all &= ok
+    return ok_all, records
+
+
+def k5_calls(fn, scene, cam, frame_index=0, state=None):
+    """The (args, kwargs) of every K5 call of one frame fn(scene, cam,
+    frame_index, state)."""
+    from prosper_tpu_torch.render import shading
+
     with recording(shading, "shade_clustered_tiles") as calls:
-        fns[False](scene, cam, 0)
-    (inp, _, _), _ = calls[0]
+        fn(scene, cam, frame_index, state)
+    if not calls:
+        raise RuntimeError("the frame made no K5 call")
+    return calls
+
+
+def check_k5(label, inp):
+    """K5 on one W x H G-buffer's whole inputs against its plain version
+    (within K5_RTOL / K5_ATOL), and its walk form against the plain walk
+    counts (exactly) -> (ok, record). The record holds the times of both
+    forms, the plain version's and the bound, and per pixel with a
+    surface the means of: its tile's list length, the entries its color
+    needs (up to its 128th visible light), the entries its warp walks,
+    the lights it shades and its warp's shading union (the entries at
+    which some lane of the warp shades)."""
+    from prosper_tpu_torch.ops import shade_tiles as tst
+
     (want, cnt, needed), plain_ms = timed_call(
         lambda: tst.shade_clustered_tiles_plain(inp, W, H, return_counts=True))
     got = tst.shade_clustered_tiles(inp, W, H)
     diff = (got - want).abs()
     out_of_tol = int((diff > K5_ATOL + K5_RTOL * want.abs()).sum())
+    walk_want = tst.shade_walk_counts_plain(inp, W, H)
+    walk = tst.shade_walk_counts(inp, W, H)
+    walk_eq = bool(torch.equal(walk, walk_want))
     valid = inp["chan"][12] > 0
+    n_valid = int(valid.sum())
     # the z-slab tests the color needs: up to each pixel's 128th visible
-    # light (the kernel may walk on; that is not counted)
+    # light (the kernel's warps may walk on; that is not counted)
     listed = int(needed[valid].long().sum())
     shaded = int(torch.clamp_max(cnt, tst.MAX_FROXEL_LIGHTS)[valid].sum())
-    spots = int(inp["ints"][1]) * int(valid.sum())
+    spots = int(inp["ints"][1]) * n_valid
     ops = (LIST_LIGHT_OPS * listed + POINT_LIGHT_OPS * shaded
            + SPOT_LIGHT_OPS * spots)
-    ok = out_of_tol == 0
-    print(f"K5 plate {W}x{H}: ok={ok} pixels {W * H} with a surface "
-          f"{int(valid.sum())}; lights per tile {int(inp['counts'].min())}-"
+    tile = tst._walk_setup(inp, W, H)[0]
+    union = walk_want[valid, 2]
+    walk_rec = {
+        "list_mean": float(inp["counts"][tile][valid].float().mean()),
+        "needed_mean": listed / max(n_valid, 1),
+        "walked_mean": float(walk[valid, 1].mean()),
+        "shaded_mean": shaded / max(n_valid, 1),
+        "union_mean": float(union.mean()),
+        "union_over_128": float(union.mean()) / tst.MAX_FROXEL_LIGHTS,
+        "union_over_141_share": float((union > 1.1 * tst.MAX_FROXEL_LIGHTS)
+                                      .float().mean()),
+    }
+    ok = out_of_tol == 0 and walk_eq
+    rec = {"max_abs_err": float(diff.max()), "pixels": W * H,
+           "with_surface": n_valid,
+           "ms": device_ms(lambda: tst.shade_clustered_tiles(inp, W, H), 5),
+           "walk_form_ms": device_ms(lambda: tst.shade_walk_counts(inp, W, H),
+                                     5),
+           "plain_ms": plain_ms, **walk_rec,
+           **bound(nbytes(*inp.values(), got), ops)}
+    rec["shading_share"] = 1.0 - rec["walk_form_ms"] / rec["ms"]
+    print(f"K5 {label}: ok={ok} pixels {W * H} with a surface {n_valid}; "
+          f"lights per tile {int(inp['counts'].min())}-"
           f"{int(inp['counts'].max())}; needed z-slab tests {listed}, shaded "
           f"point lights {shaded}, spot evaluations {spots}; channels out of "
-          f"tolerance {out_of_tol}; max abs err {float(diff.max()):.3e}")
-    ok_all &= ok
-    records["shade_clustered_tiles"] = {
-        "max_abs_err": float(diff.max()), "pixels": W * H,
-        "ms": device_ms(lambda: tst.shade_clustered_tiles(inp, W, H), 5),
-        "plain_ms": plain_ms,
-        **bound(nbytes(*inp.values(), got), ops),
-    }
-    return ok_all, records
+          f"tolerance {out_of_tol}; max abs err {float(diff.max()):.3e}; "
+          f"walk form equal to its plain version {walk_eq}; per pixel with a "
+          f"surface: list {walk_rec['list_mean']:.1f}, needed "
+          f"{walk_rec['needed_mean']:.1f}, walked by its warp "
+          f"{walk_rec['walked_mean']:.1f}, shaded {walk_rec['shaded_mean']:.1f},"
+          f" warp shading union {walk_rec['union_mean']:.1f} "
+          f"({walk_rec['union_over_128']:.3f} x 128; share above 1.1 x 128 "
+          f"{walk_rec['union_over_141_share']:.3f}); K5 {rec['ms']:.3f} ms, "
+          f"walk form {rec['walk_form_ms']:.3f} ms, shading share "
+          f"{rec['shading_share']:.3f}")
+    return ok, rec
+
+
+def check_k5_frame(label, fn, scene, cam, state, record):
+    """check_k5 on every K5 call of one frame (frame index WARMUP); each
+    call's record goes under record[label (call i)]. Returns ok."""
+    ok_all = True
+    for i, ((inp, _, _), _) in enumerate(k5_calls(fn, scene, cam, WARMUP,
+                                                  state)):
+        ok, rec = check_k5(f"{label} call {i}", inp)
+        ok_all &= ok
+        record[f"{label} call {i}"] = {k: rec[k] for k in (
+            "max_abs_err", "with_surface", "ms", "walk_form_ms", "plain_ms",
+            "bound_ms", "bound_by", "needed_mean", "walked_mean",
+            "shaded_mean", "union_mean", "shading_share")}
+        record["max_abs_err"] = max(record["max_abs_err"], rec["max_abs_err"])
+    return ok_all
 
 
 def run_deferred(smi, dev):
@@ -1219,8 +1307,9 @@ def plain_frame_estimate_s(label, records) -> float:
 
 def run_forward(smi, dev, records):
     """Phases 6 and 7; records holds the earlier phases' kernel records
-    (for the plain-frame estimates). Returns (records of K6 and K8,
-    launches per kernel summed over the three frames)."""
+    (for the plain-frame estimates; K5's takes the K5 checks of each
+    frame's G-buffers). Returns (records of K6 and K8, launches per
+    kernel summed over the three frames)."""
     from prosper_tpu_torch import entry as port_entry
 
     phase("kernels: flat")
@@ -1250,6 +1339,9 @@ def run_forward(smi, dev, records):
                 else "pixels with an opaque surface")
         print(f"{label}: {what} per timed frame {min(stats)}-{max(stats)}")
         breakdown(fn, scene, cam, WARMUP + TIMED, state)
+        if not check_k5_frame(cell, fn, scene, cam, state,
+                              records["shade_clustered_tiles"]):
+            raise RuntimeError(f"{label}: K5 disagrees with its plain version")
 
         # the 1080p frame with the plain versions against the kernels'
         est_s = plain_frame_estimate_s(cell, records)
@@ -1339,6 +1431,56 @@ def check_any_call(label, kern, plain, args, boxes, k3_args=None):
     return ok, rec
 
 
+def check_k10_forms(args, k10):
+    """K10 on one shadow set (args = K3's scene arrays, o, d, t_min, t_max)
+    under a skip mask that keeps every cluster (equal to its plain
+    version and K3) and under a random one (equal to its plain version,
+    a subset of K3's mask); its cull form against its plain version,
+    timed beside K10 (k10, check_any_call's record) -> (ok, record)."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
+
+    slabs, bounds, meta, o, d, t_min, t_max = args
+    t_max = tb.as_tmax(t_max, o.shape[0], o.device)
+    args = (slabs, bounds, meta, o, d, float(t_min), t_max)
+    C = slabs.shape[0]
+    k3 = tb.trace_any_bvh(*args)
+    tb.check_stack_overflow(o.device)
+    gen = torch.Generator().manual_seed(11)
+    masks = {"all-true skip_mask": torch.ones(C, dtype=torch.bool),
+             "random skip_mask": torch.rand(C, generator=gen) > 0.3}
+    ok_all, rec = True, {}
+    for name, mask in masks.items():
+        mask = mask.to(o.device)
+        got = tb.trace_any_bvh_dense(*args, skip_mask=mask)
+        want = tb.trace_any_bvh_dense_plain(*args, skip_mask=mask)
+        mism = int((got != want).sum())
+        if bool(mask.all()):
+            vs_k3 = int((got != k3).sum())
+        else:  # the masked clusters occlude nothing
+            vs_k3 = int((got & ~k3).sum())
+        ok = mism == 0 and vs_k3 == 0
+        ok_all &= ok
+        rec[name] = {"live_clusters": int(mask.sum()),
+                     "occlusion_mismatch": mism, "vs_k3_mismatch": vs_k3,
+                     "occluded": int(got.sum()),
+                     "ms": device_ms(lambda: tb.trace_any_bvh_dense(
+                         *args, skip_mask=mask), 5)}
+        print(f"K10 {name}: ok={ok} {rec[name]}")
+    counts = tb.dense_cull_counts(*args)
+    want = tb.dense_cull_counts_plain(*args)
+    eq = bool(torch.equal(counts, want))
+    ok_all &= eq
+    cull_ms = device_ms(lambda: tb.dense_cull_counts(*args), 5)
+    rec["cull_form"] = {
+        "packets": int(counts.shape[0]), "equal_to_plain": eq,
+        "listed_mean": float(counts.float().mean()),
+        "listed_max": int(counts.max()), "clusters": C, "ms": cull_ms,
+        "share_of_k10": cull_ms / k10["ms"]}
+    print(f"K10 cull form: counts equal to the plain version {eq}; "
+          f"{rec['cull_form']}")
+    return ok_all, rec
+
+
 def endpoint_order(o, d, t_max):
     """A ray order by the Morton code of each live ray's end point (the
     light it is cast to; dead rays last): the coherence sort of the JAX
@@ -1378,6 +1520,9 @@ def check_restir_kernels(fns):
         "K10 ReSTIR shadow rays, BVH frame", tb.trace_any_bvh_dense,
         tb.trace_any_bvh_dense_plain, (*k3_args, o, d, t_min, t_max),
         leaf_boxes(scene_b), k3_args)
+    ok, k10_more = check_k10_forms((*k3_args, o, d, t_min, t_max), k10)
+    k10.update(k10_more)
+    ok_all &= ok
     ok, k3 = check_any_call(
         "K3 ReSTIR shadow rays, BVH frame", tb.trace_any_bvh,
         tb.trace_any_bvh_plain, args_b, leaf_boxes(scene_b))
@@ -1936,7 +2081,10 @@ def run_world_frames(smi, dev, path, tmp):
         else:
             _, seen = culled_phases(lambda: fn(scene, cam, WARMUP, state))
             ok, k4 = check_k4_phases(label, scene, seen)
-            records["world_deferred"] = {"trace_closest_bvh_full": k4}
+            k5 = {"max_abs_err": 0.0}
+            ok &= check_k5_frame(cell, fn, scene, cam, state, k5)
+            records["world_deferred"] = {"trace_closest_bvh_full": k4,
+                                         "shade_clustered_tiles": k5}
         if not ok:
             raise RuntimeError(f"{label}: a kernel disagrees with its plain "
                                "version or with the one-thread walk")
@@ -2456,10 +2604,9 @@ def main() -> int:
         f"{k} {s:.2f}" for k, s in each.items()) + ")")
     for name in cuda_build.SOURCES:
         print(cuda_build.build_log(name).strip())
-    # K1-K4's warp walk beside X3a's one-thread walk
     print("ptxas: " + " | ".join(
-        ptxas_line(cuda_build.build_log("trace_bvh"), sym)
-        for sym in PTXAS_KERNELS))
+        ptxas_line(cuda_build.build_log(src), sym)
+        for src, sym in PTXAS_KERNELS))
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()

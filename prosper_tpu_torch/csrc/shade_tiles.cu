@@ -11,6 +11,12 @@
 //                          the first 128 are shaded, every spot light up
 //                          to 128, the BRDF of brdf.glsl:70-88, and zero
 //                          where the pixel has no surface.
+//   shade_walk_counts      the measurement form (chip_smoke.py alone
+//                          calls it): the same walk without the shading,
+//                          writing per pixel its shaded point lights,
+//                          the list entries its warp walked and the
+//                          entries at which some lane of its warp shaded
+//                          (the warp's shading union).
 //
 // Contract (prosper_tpu_torch/ops/shade_tiles.py tile_inputs): chan (13,
 // R) f32 planes in row-major pixel order, position3 | normal3 | albedo3
@@ -21,34 +27,53 @@
 // view-space z; ints [point_count, spot_eff]; scal [near, far,
 // log(far / near), eye.xyz]. out (R, 3) f32.
 //
-// Design: the reference's own shape (light_clustering.comp:15-21): one
-// block per froxel tile, one thread per pixel, the tile's list staged
-// once in shared memory in chunks of 1024 entries together with the
-// light data each entry needs (position, radiance, radius, view z: 8
-// floats, 32 KB for a full chunk) — all 2049 light rows would be 98 KB,
-// over the 48 KB static limit. A tile without a surface skips the walk
-// (__syncthreads_or). Ragged tiles (1080 = 33 * 32 + 24) mask the
-// threads outside the image, which still take part in every barrier.
+// Design: one froxel tile is shaded by GROUPS blocks of THREADS threads,
+// each taking ROWS rows of the tile, one thread per pixel; a warp is 32
+// consecutive pixels of one tile row. Each block stages the tile's
+// whole list once in dynamic shared memory, with the 8 floats each
+// entry needs (position, radiance, radius, view z: 32 bytes an entry,
+// 32 KB at 1024 lights, up to MAX_STAGE entries in the 227 KB a block
+// may take), so the walk itself has no block barrier; a longer list is
+// staged in passes of MAX_STAGE entries. Several 256-thread blocks share
+// an SM (MIN_BLOCKS of them at most 80 registers a thread), so one
+// block's staging and its uneven tail overlap another's walk. A block
+// with no surface among its pixels skips the walk (__syncthreads_or).
+// Ragged tiles (1080 = 33 * 32 + 24) mask the threads outside the
+// image, which stay for every barrier and vote; a block wholly outside
+// the image has no surface.
+//
+// The warp exit: a pixel's color cannot change after its 128th visible
+// light, so before each list entry a warp leaves the point-light walk
+// once every lane has counted 128 visible lights or has no surface
+// (__all_sync). The walk then costs each warp the list positions up to
+// its lanes' last 128th visible light, not the whole list; the colors
+// stay those of the walk over the whole list, bit for bit.
 //
 // What bounds it on the H100: arithmetic. At 1080p with 1024 lights
-// whose radius spans the scene every tile lists every light, so each
-// pixel runs 1024 z-slab tests and 128 point evaluations (~100 flops
-// each); the G-buffer (13 floats a pixel) and the output are ~130 MB.
-// The loop runs from shared memory and registers; threads of a warp
-// whose visibility differs diverge on the shading branch. Stopping the
-// walk once every pixel of a warp has counted 128 visible lights,
-// packing the G-buffer in 16 bits and wgmma-free SIMD tricks are later
-// work. Written operation for operation like the plain PyTorch version
-// and built with --fmad=false (cuda_build.py), so both round alike.
+// whose radius spans the scene every tile lists every light; a pixel
+// needs the z-slab tests up to its 128th visible light and 128 point
+// evaluations (~100 flops each, among them 2 IEEE square roots and 7
+// IEEE divisions); the G-buffer (13 floats a pixel) and the output are
+// ~130 MB. A warp runs the shading branch for the union of its lanes'
+// visible lights (lanes in different z-slices diverge). Written
+// operation for operation like the plain PyTorch version and built with
+// --fmad=false (cuda_build.py), so both round alike; rsqrt and fast
+// division, as JAX's kernel has them, would change that rounding.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define TILE_PX 32
-#define THREADS (TILE_PX * TILE_PX)  // one thread per pixel of a tile
-#define CHUNK THREADS                // list entries staged per pass
-#define MAX_FROXEL_LIGHTS 128.0f
+#define ROWS 8                      // tile rows a block shades
+#define THREADS (TILE_PX * ROWS)    // one thread per pixel of those rows
+#define GROUPS (TILE_PX / ROWS)     // blocks per tile
+#define MIN_BLOCKS 3                // blocks an SM must hold: <= 80 registers
+#define MAX_SHARED 232448           // dynamic shared memory a block can have
+#define ENTRY_BYTES 32              // staged floats of one list entry
+#define MAX_STAGE (MAX_SHARED / ENTRY_BYTES)  // list entries per pass
+#define MAX_FROXEL_LIGHTS 128
 #define Z_SLICES 17
+#define FULL_MASK 0xffffffffu
 #define PI_F 3.14159265358979323846f
 // float(1 / pi) and float(1 / 17): the plain version multiplies by the
 // reciprocal where it divides by a constant, as PyTorch's CUDA division
@@ -93,23 +118,31 @@ __device__ __forceinline__ void light_contrib(const Pixel& s, float lx,
     bb = (s.cdb * INV_PI_F + spec * (s.f0b + (1.0f - s.f0b) * fr)) * NoL;
 }
 
-__global__ void __launch_bounds__(THREADS)
-shade_kernel(const float* __restrict__ chan, int W, int H, int fx,
-             const float* __restrict__ rows, const float* __restrict__ lvz,
-             const int* __restrict__ lists, int lcap,
-             const int* __restrict__ counts, const int* __restrict__ ints,
-             const float* __restrict__ scal, float* __restrict__ out) {
-    __shared__ float s_x[CHUNK], s_y[CHUNK], s_z[CHUNK], s_rad[CHUNK];
-    __shared__ float s_cr[CHUNK], s_cg[CHUNK], s_cb[CHUNK], s_vz[CHUNK];
+// The tile walk of K5 (WALK = false) and of its measurement form (WALK =
+// true: no shading; per pixel its shaded point lights, its warp's walked
+// list entries and the entries at which some lane of its warp shaded).
+template <bool WALK>
+__device__ __forceinline__ void shade_rows(
+    const float* __restrict__ chan, int W, int H, int fx,
+    const float* __restrict__ rows, const float* __restrict__ lvz,
+    const int* __restrict__ lists, int lcap, const int* __restrict__ counts,
+    const int* __restrict__ ints, const float* __restrict__ scal, int stage,
+    float* __restrict__ out) {
+    // staged list entries: x y z red | view z, radius | green blue
+    extern __shared__ float4 s_mem[];
+    float4* s_pos = s_mem;
+    float2* s_zr = reinterpret_cast<float2*>(s_mem + stage);
+    float2* s_gb = s_zr + stage;
 
-    const int t = blockIdx.x;
+    const int t = blockIdx.x / GROUPS;
     const int x = (t % fx) * TILE_PX + (threadIdx.x & (TILE_PX - 1));
-    const int y = (t / fx) * TILE_PX + threadIdx.x / TILE_PX;
+    const int y = (t / fx) * TILE_PX + (blockIdx.x % GROUPS) * ROWS +
+                  threadIdx.x / TILE_PX;
     const bool inside = x < W && y < H;
     const size_t R = (size_t)W * H;
     const size_t p = inside ? (size_t)y * W + x : 0;
     const bool valid = inside && chan[12 * R + p] > 0.0f;
-    if (!__syncthreads_or(valid)) {  // no surface in the tile
+    if (!__syncthreads_or(valid)) {  // no surface in the block's rows
         if (inside) out[3 * p] = out[3 * p + 1] = out[3 * p + 2] = 0.0f;
         return;
     }
@@ -155,32 +188,41 @@ shade_kernel(const float* __restrict__ chan, int W, int H, int fx,
     s.a2 = alpha * alpha;
     s.gv = s.NoV / (s.NoV * (1.0f - s.k) + s.k);
 
-    float accr = 0.0f, accg = 0.0f, accb = 0.0f, cnt = 0.0f;
+    float accr = 0.0f, accg = 0.0f, accb = 0.0f;
+    int cnt = 0;            // visible listed lights so far
+    bool done = !valid;     // no surface, or 128 visible lights counted
+    int walked = 0, uni = 0;  // WALK: the warp's entries walked, shaded
     const int count = counts[t];
     const int* list = lists + (size_t)t * lcap;
-    for (int c0 = 0; c0 < count; c0 += CHUNK) {
-        const int n = min(CHUNK, count - c0);
-        __syncthreads();  // the previous chunk is consumed
-        if ((int)threadIdx.x < n) {
-            const int li = list[c0 + threadIdx.x];
+    for (int c0 = 0; c0 < count; c0 += stage) {
+        const int n = min(stage, count - c0);
+        // the previous pass is consumed; a block whose pixels are all
+        // done stages no more
+        if (c0 > 0 && __syncthreads_and(done)) break;
+        for (int e = threadIdx.x; e < n; e += THREADS) {
+            const int li = list[c0 + e];
             const float* row = rows + 12 * (size_t)(1 + li);
-            s_cr[threadIdx.x] = row[1];
-            s_cg[threadIdx.x] = row[2];
-            s_cb[threadIdx.x] = row[3];
-            s_x[threadIdx.x] = row[4];
-            s_y[threadIdx.x] = row[5];
-            s_z[threadIdx.x] = row[6];
-            s_rad[threadIdx.x] = row[7];
-            s_vz[threadIdx.x] = lvz[li];
+            s_pos[e] = make_float4(row[4], row[5], row[6], row[1]);
+            s_zr[e] = make_float2(lvz[li], row[7]);
+            s_gb[e] = make_float2(row[2], row[3]);
         }
         __syncthreads();
         for (int j = 0; j < n; ++j) {
-            const float zl = s_vz[j], rl = s_rad[j];
+            // the warp exit: no lane's color can change any more
+            if (__all_sync(FULL_MASK, done)) break;
+            const float2 zr = s_zr[j];
+            const float zl = zr.x, rl = zr.y;
             // z-slab test against the pixel's slice
             const bool vis = (-zl - near_d) >= -rl && (zl + far_d) >= -rl;
-            if (vis && cnt < MAX_FROXEL_LIGHTS) {
-                const float tx = s_x[j] - s.px, ty = s_y[j] - s.py;
-                const float tz = s_z[j] - s.pz;
+            const bool shade = vis && !done;
+            if (WALK) {
+                ++walked;
+                uni += __any_sync(FULL_MASK, shade) ? 1 : 0;
+            } else if (shade) {
+                const float4 pl = s_pos[j];
+                const float2 gb = s_gb[j];
+                const float tx = pl.x - s.px, ty = pl.y - s.py;
+                const float tz = pl.z - s.pz;
                 const float d2 = tx * tx + ty * ty + tz * tz;
                 const float inv_d = 1.0f / sqrtf(fmaxf(d2, 1e-20f));
                 const float dpr = fmaxf(d2, 1e-20f) * inv_d / fmaxf(rl, 1e-20f);
@@ -190,12 +232,22 @@ shade_kernel(const float* __restrict__ chan, int W, int H, int fx,
                 float br, bg, bb;
                 light_contrib(s, tx * inv_d, ty * inv_d, tz * inv_d, br, bg,
                               bb);
-                accr = accr + s_cr[j] * w * br;
-                accg = accg + s_cg[j] * w * bg;
-                accb = accb + s_cb[j] * w * bb;
+                accr = accr + pl.w * w * br;
+                accg = accg + gb.x * w * bg;
+                accb = accb + gb.y * w * bb;
             }
-            cnt = cnt + (vis ? 1.0f : 0.0f);
+            cnt += vis ? 1 : 0;
+            done = done || cnt >= MAX_FROXEL_LIGHTS;
         }
+    }
+
+    if (WALK) {
+        if (inside) {
+            out[3 * p] = valid ? (float)min(cnt, MAX_FROXEL_LIGHTS) : 0.0f;
+            out[3 * p + 1] = (float)walked;
+            out[3 * p + 2] = (float)uni;
+        }
+        return;
     }
 
     // spot lights: all visible (the reference's isSpotVisible), <= 128
@@ -225,9 +277,50 @@ shade_kernel(const float* __restrict__ chan, int W, int H, int fx,
     }
 }
 
+#define SHADE_ARGS                                                          \
+    const float *__restrict__ chan, int W, int H, int fx,                   \
+        const float *__restrict__ rows, const float *__restrict__ lvz,      \
+        const int *__restrict__ lists, int lcap,                            \
+        const int *__restrict__ counts, const int *__restrict__ ints,       \
+        const float *__restrict__ scal, int stage, float *__restrict__ out
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+shade_kernel(SHADE_ARGS) {
+    shade_rows<false>(chan, W, H, fx, rows, lvz, lists, lcap, counts, ints,
+                      scal, stage, out);
+}
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+shade_walk_kernel(SHADE_ARGS) {
+    shade_rows<true>(chan, W, H, fx, rows, lvz, lists, lcap, counts, ints,
+                     scal, stage, out);
+}
+
+// Launch one of the two forms over every tile: GROUPS blocks a tile, the
+// list staged in passes of at most MAX_STAGE entries.
+template <typename Kernel>
+int launch(Kernel kernel, const float* chan, int W, int H, const float* rows,
+           const float* lvz, const int* lists, int lcap, const int* counts,
+           const int* ints, const float* scal, float* out, void* stream) {
+    const int fx = (W + TILE_PX - 1) / TILE_PX;
+    const int fy = (H + TILE_PX - 1) / TILE_PX;
+    if (fx <= 0 || fy <= 0) return 0;
+    const int stage = lcap < 1 ? 1 : (lcap < MAX_STAGE ? lcap : MAX_STAGE);
+    const size_t bytes = (size_t)stage * ENTRY_BYTES;
+    if (bytes > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<fx * fy * GROUPS, THREADS, bytes, (cudaStream_t)stream>>>(
+        chan, W, H, fx, rows, lvz, lists, lcap, counts, ints, scal, stage,
+        out);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// C entry point: launches on `stream`, never synchronises, returns
+// C entry points: launch on `stream`, never synchronise, return
 // cudaGetLastError() (0 on success).
 extern "C" int shade_clustered_tiles(const float* chan, int W, int H,
                                      const float* rows, const float* lvz,
@@ -235,10 +328,18 @@ extern "C" int shade_clustered_tiles(const float* chan, int W, int H,
                                      const int* counts, const int* ints,
                                      const float* scal, float* out,
                                      void* stream) {
-    const int fx = (W + TILE_PX - 1) / TILE_PX;
-    const int fy = (H + TILE_PX - 1) / TILE_PX;
-    if (fx > 0 && fy > 0)
-        shade_kernel<<<fx * fy, THREADS, 0, (cudaStream_t)stream>>>(
-            chan, W, H, fx, rows, lvz, lists, lcap, counts, ints, scal, out);
-    return (int)cudaGetLastError();
+    return launch(shade_kernel, chan, W, H, rows, lvz, lists, lcap, counts,
+                  ints, scal, out, stream);
+}
+
+// The measurement form: out (R, 3) = shaded point lights | entries the
+// pixel's warp walked | the warp's shading union.
+extern "C" int shade_walk_counts(const float* chan, int W, int H,
+                                 const float* rows, const float* lvz,
+                                 const int* lists, int lcap,
+                                 const int* counts, const int* ints,
+                                 const float* scal, float* out,
+                                 void* stream) {
+    return launch(shade_walk_kernel, chan, W, H, rows, lvz, lists, lcap,
+                  counts, ints, scal, out, stream);
 }

@@ -61,9 +61,10 @@
 // and every slab load one full 128-byte line across the warp. A warp's
 // tests then scale with the leaves its rays visit, not with 128 times the
 // most any lane visits. Each ray's pops, prunes and leaf tests stay
-// `walk`'s, so the rows equal its bit for bit. K9-K13 are their own
-// kernels. Node layouts, persistent threads, ray reordering and wgmma are
-// later work.
+// `walk`'s, so the rows equal its bit for bit. K10 tests the clusters of
+// its dense list with the same warp-shared leaf test (warp_leaf); K9 and
+// K11-K13 are their own kernels. Node layouts, persistent threads, ray
+// reordering and wgmma are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -295,21 +296,85 @@ __device__ __forceinline__ unsigned t_key(float t) {
     return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
-// K1-K4's walk: `walk` per lane, the leaf tests by the whole warp. Every
-// thread of the warp calls it, a lane without a ray with h.t = 0 (it
-// never enters the root), and stays to the end: each _sync takes the
-// full mask. ANY=true: the owner of a leaf with any hit is done, and
-// h.tri >= 0 marks it occluded (K3). LIVE: the skip mask `live` (K4).
-// Sets *err on stack overflow.
+// The warp-shared leaf test of K1-K4 and K10. Every lane of the warp
+// calls it with the same src, the owner: lane src's ray, with best t
+// h.t, is tested against cluster `leaf` of lane src. ANY=true: returns
+// on every lane whether some triangle hits (t_min < t < best), and the
+// owner sets h.tri = leaf * LANES (occluded). Otherwise returns whether
+// the owner's row changed, and the owner takes the hit.
 //
-// A leaf owned by lane src with best t b: lane l tests triangles l + 32q
-// (q = 0..3) against the owner's ray with t_upper = b and keeps its
-// lowest t, the lowest j among equal t; the warp takes the minimum key
-// of t, then the lowest j among the lanes at that key. `walk`'s loop
-// over j = 0..127 with a strict t < best keeps the same triangle: the
-// lowest t below b and, among equal t, the lowest j. Every hit lies below
-// b, so the owner always takes it, and a later cluster's equal t never
-// replaces it: the earlier visit keeps a tie across clusters.
+// Lane l tests triangles l + 32q (q = 0..3) against the owner's ray with
+// t_upper = best, every slab load one full 128-byte line across the
+// warp, and keeps its lowest t, the lowest j among equal t; the warp
+// takes the minimum key of t, then the lowest j among the lanes at that
+// key. `walk`'s loop over j = 0..127 with a strict t < best keeps the
+// same triangle: the lowest t below best and, among equal t, the lowest
+// j. Every hit lies below best, so the owner always takes it, and a
+// later cluster's equal t never replaces it: the earlier visit keeps a
+// tie across clusters.
+template <bool ANY>
+__device__ __forceinline__ bool warp_leaf(const float* __restrict__ slabs,
+                                          int rows, int leaf, int src,
+                                          const Ray& r, float t_min, Hit& h) {
+    const int lane = threadIdx.x & 31;
+    Ray q;  // the owner's ray; Möller reads no reciprocal
+    q.ox = __shfl_sync(FULL_MASK, r.ox, src);
+    q.oy = __shfl_sync(FULL_MASK, r.oy, src);
+    q.oz = __shfl_sync(FULL_MASK, r.oz, src);
+    q.dx = __shfl_sync(FULL_MASK, r.dx, src);
+    q.dy = __shfl_sync(FULL_MASK, r.dy, src);
+    q.dz = __shfl_sync(FULL_MASK, r.dz, src);
+    q.ix = q.iy = q.iz = 0.0f;
+    const float best = __shfl_sync(FULL_MASK, h.t, src);
+    const int c = __shfl_sync(FULL_MASK, leaf, src);
+    const float* s = slabs + (size_t)c * rows * LANES + lane;
+    if (ANY) {
+        bool hit = false;
+#pragma unroll
+        for (int j = 0; j < LANES; j += 32) {
+            float t, u, v;
+            hit |= moller(s, j, q, t_min, best, t, u, v);
+        }
+        const bool any = __any_sync(FULL_MASK, hit);
+        if (any && lane == src) h.tri = c * LANES;
+        return any;
+    }
+    float bt = best, bu = 0.0f, bv = 0.0f;
+    int bj = -1;
+#pragma unroll
+    for (int j = 0; j < LANES; j += 32) {
+        float t, u, v;
+        if (moller(s, j, q, t_min, best, t, u, v) && t < bt) {
+            bt = t;
+            bu = u;
+            bv = v;
+            bj = lane + j;
+        }
+    }
+    const unsigned key = bj >= 0 ? t_key(bt) : NO_KEY;
+    const unsigned kmin = __reduce_min_sync(FULL_MASK, key);
+    if (kmin == NO_KEY) return false;
+    const unsigned j =
+        __reduce_min_sync(FULL_MASK, key == kmin ? (unsigned)bj : NO_KEY);
+    const int w = (int)(j & 31u);
+    const float t = __shfl_sync(FULL_MASK, bt, w);
+    const float u = __shfl_sync(FULL_MASK, bu, w);
+    const float v = __shfl_sync(FULL_MASK, bv, w);
+    if (lane == src) {
+        h.t = t;
+        h.u = u;
+        h.v = v;
+        h.tri = c * LANES + (int)j;
+    }
+    return true;
+}
+
+// K1-K4's walk: `walk` per lane, the leaf tests by the whole warp
+// (warp_leaf). Every thread of the warp calls it, a lane without a ray
+// with h.t = 0 (it never enters the root), and stays to the end: each
+// _sync takes the full mask. ANY=true: the owner of a leaf with any hit
+// is done, and h.tri >= 0 marks it occluded (K3). LIVE: the skip mask
+// `live` (K4). Sets *err on stack overflow.
 template <bool ANY, bool LIVE>
 __device__ void warp_walk(const float* __restrict__ slabs, int rows,
                           const float* __restrict__ bounds,
@@ -336,58 +401,9 @@ __device__ void warp_walk(const float* __restrict__ slabs, int rows,
         do {  // the pending leaves, lowest owner lane first
             const int src = __ffs(pending) - 1;
             pending &= pending - 1;
-            Ray q;  // the owner's ray; Möller reads no reciprocal
-            q.ox = __shfl_sync(FULL_MASK, r.ox, src);
-            q.oy = __shfl_sync(FULL_MASK, r.oy, src);
-            q.oz = __shfl_sync(FULL_MASK, r.oz, src);
-            q.dx = __shfl_sync(FULL_MASK, r.dx, src);
-            q.dy = __shfl_sync(FULL_MASK, r.dy, src);
-            q.dz = __shfl_sync(FULL_MASK, r.dz, src);
-            q.ix = q.iy = q.iz = 0.0f;
-            const float best = __shfl_sync(FULL_MASK, h.t, src);
-            const int c = __shfl_sync(FULL_MASK, leaf, src);
-            const float* s = slabs + (size_t)c * rows * LANES + lane;
-            if (ANY) {
-                bool hit = false;
-#pragma unroll
-                for (int j = 0; j < LANES; j += 32) {
-                    float t, u, v;
-                    hit |= moller(s, j, q, t_min, best, t, u, v);
-                }
-                if (__any_sync(FULL_MASK, hit) && lane == src) {
-                    h.tri = c * LANES;  // occluded: the owner is done
-                    sp = 0;
-                }
-            } else {
-                float bt = best, bu = 0.0f, bv = 0.0f;
-                int bj = -1;
-#pragma unroll
-                for (int j = 0; j < LANES; j += 32) {
-                    float t, u, v;
-                    if (moller(s, j, q, t_min, best, t, u, v) && t < bt) {
-                        bt = t;
-                        bu = u;
-                        bv = v;
-                        bj = lane + j;
-                    }
-                }
-                const unsigned key = bj >= 0 ? t_key(bt) : NO_KEY;
-                const unsigned kmin = __reduce_min_sync(FULL_MASK, key);
-                if (kmin != NO_KEY) {
-                    const unsigned j = __reduce_min_sync(
-                        FULL_MASK, key == kmin ? (unsigned)bj : NO_KEY);
-                    const int w = (int)(j & 31u);
-                    const float t = __shfl_sync(FULL_MASK, bt, w);
-                    const float u = __shfl_sync(FULL_MASK, bu, w);
-                    const float v = __shfl_sync(FULL_MASK, bv, w);
-                    if (lane == src) {
-                        h.t = t;
-                        h.u = u;
-                        h.v = v;
-                        h.tri = c * LANES + (int)j;
-                    }
-                }
-            }
+            if (warp_leaf<ANY>(slabs, rows, leaf, src, r, t_min, h) && ANY &&
+                lane == src)
+                sp = 0;  // occluded: the owner is done
         } while (pending != 0);
     }
     if (!ok) atomicExch(err, 1);
@@ -540,86 +556,180 @@ __global__ void primary_kernel(const float* __restrict__ slabs, int rows,
 // 1. the packet's rays (origin, reciprocal direction, t_max) are staged
 //    in shared memory; a lane with t_max <= t_min, which no hit can
 //    occlude, stages t_max = 0 and takes no part;
-// 2. the dense cull: each thread takes clusters tid, tid + 128, ... and
-//    tests its leaf box (bounds[node_of[c]], the box K3's walk tests at
-//    that leaf) against the packet's rays with K3's slab test (enter <=
-//    exit, enter < t_max), stopping at the first ray that enters; the
-//    entered live clusters are compacted, in id order, into a list in
-//    shared memory (one int per cluster: 8 KB at C = 2048). Dead
-//    clusters (live[c] == 0, the skip mask) are never listed and pad
-//    clusters do not exist, so neither is ever read. JAX keeps each
-//    cluster's minimum entry over the packet to pop the nearest one
-//    first; that order only steers when a closest-hit walk may stop, and
-//    any order gives an any hit the same mask, so the list keeps no keys;
-// 3. each warp walks the list on its own: a lane still unoccluded retests
-//    the cluster's leaf box against its own ray (node_test on
-//    node_of[c], :443), and the lanes that enter it run Möller over its
-//    128 triangles (reading the same slab words at once, one broadcast
-//    per load) until their first hit. A warp stops when all its lanes are
-//    occluded or out (the any-hit exit of :371-373), with no block
-//    barrier in the walk.
+// 2. the dense cull (dense_cull): every live cluster whose leaf box
+//    (bounds[node_of[c]], the box K3's walk tests at that leaf) some ray
+//    of the packet enters with K3's slab test (enter <= exit, enter <
+//    t_max) is listed, in id order, in shared memory (one int per
+//    cluster: 8 KB at C = 2048). The packet walks the BVH to find them:
+//    a node whose box no ray enters is not opened, so most of the 2048
+//    leaf boxes are never tested against the 128 rays. Dead clusters
+//    (live[c] == 0, the skip mask) are never listed and pad clusters do
+//    not exist, so neither is ever read. JAX keeps each cluster's minimum
+//    entry over the packet to pop the nearest one first; that order only
+//    steers when a closest-hit walk may stop, and any order gives an any
+//    hit the same mask, so the list keeps no keys;
+// 3. each warp walks the list on its own, with the warp-shared leaf test
+//    of K1-K4 (warp_leaf): the lanes still unoccluded that enter the
+//    cluster's leaf box (node_test on node_of[c], :443) are its owners;
+//    for each owner, lowest lane first, the whole warp tests the owner's
+//    ray against the cluster's 128 triangles, 4 a lane on full 128-byte
+//    slab lines, and an owner with a hit is occluded and done. A warp
+//    leaves the list when all its lanes are occluded or out (the any-hit
+//    exit of :371-373), with no block barrier in the walk.
 // The mask equals K3's: a ray is tested against every cluster whose leaf
 // box it enters, and the packet cull lists each of them.
+//
+// What bounds it on the H100: the cull's slab tests (up to 128 rays for
+// each box the packet's walk opens, from registers) and the walk's
+// triangle tests, 4 per lane per owner instead of 128 by each owner lane
+// alone.
+// dense_cull_kernel, the measurement form that chip_smoke.py alone calls,
+// runs steps 1 and 2 and writes each packet's list length, so the cull
+// and the walk are timed apart.
 #define DENSE_TILE 128
 #define DENSE_WARPS (DENSE_TILE / 32)
+#define DENSE_ROUNDS (DENSE_TILE / 32)  // rays a lane holds in the cull
+#define ROOT_ENTERED 1
+#define CULL_OVERFLOW 2
+static_assert(DENSE_WARPS == 4, "the cull splits the tree at depth 2");
+
+// Static shared memory of the dense kernels; the dynamic part holds the
+// list (C ints) and the bitmap of entered clusters (ceil(C / 32) ints).
+struct DenseShared {
+    float ray[7][DENSE_TILE];           // ox oy oz ix iy iz t_max
+    int wcount[DENSE_WARPS];
+    int stack[DENSE_WARPS][STACK_CAP];  // one traversal stack per warp
+    int flags;                          // ROOT_ENTERED | CULL_OVERFLOW
+};
 
 // Steps 1 and 2 of the dense kernels, shared by K10 and K9: stage the
-// packet's rays, cull every live cluster's leaf box against them and
-// compact the entered clusters, in id order, into s_list. Returns the
+// packet's rays, find every live cluster whose leaf box some ray of the
+// packet enters and compact them, in id order, into s_list. Returns the
 // list's length.
+//
+// The cull walks the BVH for the whole packet: a node's box is tested
+// against the packet's rays (lane l holds rays l + 32q, q = 0..3, in
+// registers; a round of 32 stops at the first ray that enters), and only
+// the children of an entered node are tested; an entered leaf marks its
+// cluster in a bitmap. Each warp walks depth first on its own stack; the
+// three nodes above depth 2 are tested by every warp, and warp w takes
+// the w-th subtree at depth 2. A parent's box holds its children's
+// exactly, and the slab test's rounding is monotone in the box, so a ray
+// that enters a leaf box enters every box above it: the bitmap holds
+// exactly the clusters whose leaf box some ray enters, as the test of
+// every leaf box against every ray did. A cluster that no leaf holds
+// (node_of = 0, the root) is listed when some ray enters the root's box,
+// as that test did; a stack overflow lists every live cluster (the walk
+// retests each, so the result stays exact).
 __device__ __forceinline__ int dense_cull(
-    int C, const float* __restrict__ bounds, const int* __restrict__ node_of,
-    const uint8_t* __restrict__ live, const Ray& r, bool can_hit, float tmax,
-    int* s_list, float (*s_ray)[DENSE_TILE], int* s_wcount) {
+    int C, const float* __restrict__ bounds, const int* __restrict__ meta,
+    const int* __restrict__ node_of, const uint8_t* __restrict__ live,
+    const Ray& r, bool can_hit, float tmax, int* s_list,
+    unsigned* s_bits, DenseShared& sh) {
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    s_ray[0][tid] = r.ox;
-    s_ray[1][tid] = r.oy;
-    s_ray[2][tid] = r.oz;
-    s_ray[3][tid] = r.ix;
-    s_ray[4][tid] = r.iy;
-    s_ray[5][tid] = r.iz;
-    s_ray[6][tid] = can_hit ? tmax : 0.0f;  // enter >= 0 is never < 0
+    sh.ray[0][tid] = r.ox;
+    sh.ray[1][tid] = r.oy;
+    sh.ray[2][tid] = r.oz;
+    sh.ray[3][tid] = r.ix;
+    sh.ray[4][tid] = r.iy;
+    sh.ray[5][tid] = r.iz;
+    sh.ray[6][tid] = can_hit ? tmax : 0.0f;  // enter >= 0 is never < 0
+    const int words = (C + 31) >> 5;
+    for (int w = tid; w < words; w += DENSE_TILE) s_bits[w] = 0u;
+    if (tid == 0) sh.flags = 0;
     __syncthreads();
 
-    // 2. the dense cull of every cluster, compacted in id order
+    // 2a. the packet's walk of the BVH, marking the entered live leaves
+    float ox[DENSE_ROUNDS], oy[DENSE_ROUNDS], oz[DENSE_ROUNDS];
+    float ix[DENSE_ROUNDS], iy[DENSE_ROUNDS], iz[DENSE_ROUNDS];
+    float tm[DENSE_ROUNDS];
+#pragma unroll
+    for (int q = 0; q < DENSE_ROUNDS; ++q) {
+        const int i = 32 * q + lane;
+        ox[q] = sh.ray[0][i];
+        oy[q] = sh.ray[1][i];
+        oz[q] = sh.ray[2][i];
+        ix[q] = sh.ray[3][i];
+        iy[q] = sh.ray[4][i];
+        iz[q] = sh.ray[5][i];
+        tm[q] = sh.ray[6][i];
+    }
+    // a stack entry: node | tag << 24; tag 1 the root, 2-3 depth 1, 4-7
+    // depth 2 (warp tag - 4 takes it), 8 below
+    int* stack = sh.stack[warp];
+    if (lane == 0) stack[0] = 1 << 24;
+    int sp = 1;
+    __syncwarp();
+    while (sp > 0) {
+        --sp;
+        const int e = stack[sp];
+        __syncwarp();  // read by every lane before lane 0 reuses the slot
+        const int n = e & 0xffffff, tag = e >> 24;
+        const float* b = bounds + 6 * n;
+        const float lx = __ldg(b), ly = __ldg(b + 1), lz = __ldg(b + 2);
+        const float hx = __ldg(b + 3), hy = __ldg(b + 4), hz = __ldg(b + 5);
+        bool entered = false;
+#pragma unroll
+        for (int q = 0; q < DENSE_ROUNDS; ++q) {
+            const Ray rq = {ox[q], oy[q], oz[q], 0.0f, 0.0f, 0.0f,
+                            ix[q], iy[q], iz[q]};
+            float ex;
+            const float en = slab_enter(lx, ly, lz, hx, hy, hz, rq, ex);
+            if (__any_sync(FULL_MASK, en <= ex && en < tm[q])) {
+                entered = true;  // K3's slab test, some ray of the round
+                break;
+            }
+        }
+        if (!entered) continue;
+        if (tag == 1 && tid == 0) atomicOr(&sh.flags, ROOT_ENTERED);
+        const int leaf = __ldg(meta + 3 * n + 2);
+        if (leaf >= 0) {
+            if (lane == 0 && (live == nullptr || __ldg(live + leaf) != 0))
+                atomicOr(s_bits + (leaf >> 5), 1u << (leaf & 31));
+            continue;
+        }
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+            const int ctag = tag >= 4 ? 8 : 2 * tag + side;
+            if (ctag >= 4 && ctag < 8 && ctag - 4 != warp) continue;
+            if (sp == STACK_CAP) {  // never at BVH depths <= STACK_CAP - 2
+                if (lane == 0) atomicOr(&sh.flags, CULL_OVERFLOW);
+                sp = 0;
+                break;
+            }
+            if (lane == 0)
+                stack[sp] = __ldg(meta + 3 * n + side) | (ctag << 24);
+            ++sp;
+        }
+        __syncwarp();
+    }
+    __syncthreads();
+
+    // 2b. the marked clusters, compacted in id order
+    const int flags = sh.flags;
+    const int root_leaf = __ldg(meta + 2);
     int count = 0;
     for (int base = 0; base < C; base += DENSE_TILE) {
         const int c = base + tid;
         bool ok = false;
         if (c < C && (live == nullptr || __ldg(live + c) != 0)) {
-            const float* b = bounds + 6 * __ldg(node_of + c);
-            const float b0 = __ldg(b + 0), b1 = __ldg(b + 1),
-                        b2 = __ldg(b + 2), b3 = __ldg(b + 3),
-                        b4 = __ldg(b + 4), b5 = __ldg(b + 5);
-            for (int i = 0; i < DENSE_TILE && !ok; ++i) {
-                const float ox = s_ray[0][i], oy = s_ray[1][i];
-                const float oz = s_ray[2][i], ix = s_ray[3][i];
-                const float iy = s_ray[4][i], iz = s_ray[5][i];
-                float t0x = (b0 - ox) * ix;
-                float t1x = (b3 - ox) * ix;
-                float t0y = (b1 - oy) * iy;
-                float t1y = (b4 - oy) * iy;
-                float t0z = (b2 - oz) * iz;
-                float t1z = (b5 - oz) * iz;
-                float en = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                                 fmaxf(fminf(t0z, t1z), 0.0f));
-                float ex = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                                 fmaxf(t0z, t1z));
-                ok = en <= ex && en < s_ray[6][i];
-            }
+            ok = (s_bits[c >> 5] >> (c & 31)) & 1u;
+            ok |= (flags & CULL_OVERFLOW) != 0;
+            ok |= (flags & ROOT_ENTERED) != 0 && __ldg(node_of + c) == 0 &&
+                  root_leaf != c;
         }
-        unsigned bal = __ballot_sync(0xffffffffu, ok);
-        if (lane == 0) s_wcount[warp] = __popc(bal);
+        unsigned bal = __ballot_sync(FULL_MASK, ok);
+        if (lane == 0) sh.wcount[warp] = __popc(bal);
         __syncthreads();
         int off = count, total = 0;
         for (int w = 0; w < DENSE_WARPS; ++w) {
-            int n = s_wcount[w];
+            int n = sh.wcount[w];
             off += w < warp ? n : 0;
             total += n;
         }
         if (ok) s_list[off + __popc(bal & ((1u << lane) - 1u))] = c;
         count += total;
-        __syncthreads();  // s_wcount is rewritten by the next chunk
+        __syncthreads();  // wcount is rewritten by the next chunk
     }
     return count;
 }
@@ -627,15 +737,15 @@ __device__ __forceinline__ int dense_cull(
 __global__ void __launch_bounds__(DENSE_TILE)
 dense_any_kernel(const float* __restrict__ slabs, int rows, int C,
                  const float* __restrict__ bounds,
+                 const int* __restrict__ meta,
                  const int* __restrict__ node_of,
                  const uint8_t* __restrict__ live,
                  const float* __restrict__ ray_o,
                  const float* __restrict__ ray_d,
                  const float* __restrict__ t_max, int R, float t_min,
                  uint8_t* __restrict__ occ) {
-    extern __shared__ int s_list[];  // C
-    __shared__ float s_ray[7][DENSE_TILE];  // ox oy oz ix iy iz t_max
-    __shared__ int s_wcount[DENSE_WARPS];
+    extern __shared__ int s_list[];  // C, then the bitmap
+    __shared__ DenseShared sh;
     const int k = blockIdx.x * DENSE_TILE + threadIdx.x;
     const bool active = k < R;
     Ray r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -645,30 +755,56 @@ dense_any_kernel(const float* __restrict__ slabs, int rows, int C,
         tmax = t_max[k];
     }
     const bool can_hit = active && tmax > t_min;
-    const int count = dense_cull(C, bounds, node_of, live, r, can_hit, tmax,
-                                 s_list, s_ray, s_wcount);
+    const int count =
+        dense_cull(C, bounds, meta, node_of, live, r, can_hit, tmax, s_list,
+                   reinterpret_cast<unsigned*>(s_list + C), sh);
 
-    // 3. the walk, warp by warp
-    bool done = !can_hit, hit = false;
+    // 3. the walk, warp by warp, each listed cluster's owners tested by
+    // the whole warp
+    Hit h = {tmax, 0.0f, 0.0f, -1};  // h.tri >= 0: occluded
     for (int i = 0; i < count; ++i) {
-        if (__all_sync(0xffffffffu, done)) break;
+        const bool done = !can_hit || h.tri >= 0;
+        if (__all_sync(FULL_MASK, done)) break;
         const int c = s_list[i];
         float en;
-        const bool need =
-            !done && node_test(bounds, __ldg(node_of + c), r, tmax, en);
-        if (!__any_sync(0xffffffffu, need)) continue;
-        if (need) {
-            const float* s = slabs + (size_t)c * rows * LANES;
-            for (int j = 0; j < LANES; ++j) {
-                float t, u, v;
-                if (moller(s, j, r, t_min, tmax, t, u, v)) {
-                    hit = done = true;
-                    break;
-                }
-            }
+        unsigned owners = __ballot_sync(
+            FULL_MASK,
+            !done && node_test(bounds, __ldg(node_of + c), r, tmax, en));
+        while (owners != 0) {  // lowest owner lane first
+            const int src = __ffs(owners) - 1;
+            owners &= owners - 1;
+            warp_leaf<true>(slabs, rows, c, src, r, t_min, h);
         }
     }
-    if (active) occ[k] = hit ? 1 : 0;
+    if (active) occ[k] = h.tri >= 0 ? 1 : 0;
+}
+
+// The measurement form of K10's cull: steps 1 and 2 alone, then each
+// packet's list length into counts[blockIdx.x].
+__global__ void __launch_bounds__(DENSE_TILE)
+dense_cull_kernel(int C, const float* __restrict__ bounds,
+                  const int* __restrict__ meta,
+                  const int* __restrict__ node_of,
+                  const uint8_t* __restrict__ live,
+                  const float* __restrict__ ray_o,
+                  const float* __restrict__ ray_d,
+                  const float* __restrict__ t_max, int R, float t_min,
+                  int* __restrict__ counts) {
+    extern __shared__ int s_list[];  // C, then the bitmap
+    __shared__ DenseShared sh;
+    const int k = blockIdx.x * DENSE_TILE + threadIdx.x;
+    const bool active = k < R;
+    Ray r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float tmax = 0.0f;
+    if (active) {
+        load_ray(ray_o, ray_d, k, r);
+        tmax = t_max[k];
+    }
+    const bool can_hit = active && tmax > t_min;
+    const int count =
+        dense_cull(C, bounds, meta, node_of, live, r, can_hit, tmax, s_list,
+                   reinterpret_cast<unsigned*>(s_list + C), sh);
+    if (threadIdx.x == 0) counts[blockIdx.x] = count;
 }
 
 // K9, the dense-cull closest hit (trace_bvh.py trace_closest_bvh_dense
@@ -685,15 +821,15 @@ dense_any_kernel(const float* __restrict__ slabs, int rows, int C,
 __global__ void __launch_bounds__(DENSE_TILE)
 dense_closest_kernel(const float* __restrict__ slabs, int rows, int C,
                      const float* __restrict__ bounds,
+                     const int* __restrict__ meta,
                      const int* __restrict__ node_of,
                      const uint8_t* __restrict__ live,
                      const float* __restrict__ ray_o,
                      const float* __restrict__ ray_d,
                      const float* __restrict__ t_max, int R, float t_min,
                      float* __restrict__ out) {
-    extern __shared__ int s_list[];  // C
-    __shared__ float s_ray[7][DENSE_TILE];  // ox oy oz ix iy iz t_max
-    __shared__ int s_wcount[DENSE_WARPS];
+    extern __shared__ int s_list[];  // C, then the bitmap
+    __shared__ DenseShared sh;
     const int k = blockIdx.x * DENSE_TILE + threadIdx.x;
     const bool active = k < R;
     Ray r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -703,8 +839,9 @@ dense_closest_kernel(const float* __restrict__ slabs, int rows, int C,
         tmax = t_max[k];
     }
     const bool can_hit = active && tmax > t_min;
-    const int count = dense_cull(C, bounds, node_of, live, r, can_hit, tmax,
-                                 s_list, s_ray, s_wcount);
+    const int count =
+        dense_cull(C, bounds, meta, node_of, live, r, can_hit, tmax, s_list,
+                   reinterpret_cast<unsigned*>(s_list + C), sh);
 
     Hit h = {tmax, 0.0f, 0.0f, -1};
     for (int i = 0; i < count; ++i) {
@@ -930,10 +1067,11 @@ __global__ void any8_kernel(const float* __restrict__ slabs, int rows,
 
 inline int blocks(int n) { return (n + BLOCK - 1) / BLOCK; }
 
-// Dynamic shared memory of a dense kernel: the list, one int a cluster.
+// Dynamic shared memory of a dense kernel: the list, one int a cluster,
+// and the bitmap of entered clusters.
 template <typename Kernel>
 inline int dense_smem(Kernel kernel, int C, size_t& bytes) {
-    bytes = sizeof(int) * (size_t)C;
+    bytes = sizeof(int) * ((size_t)C + (size_t)((C + 31) / 32));
     if (bytes <= 48 * 1024) return 0;
     return (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -982,10 +1120,12 @@ extern "C" int trace_any_bvh(const float* slabs, int rows, const float* bounds,
     return (int)cudaGetLastError();
 }
 
-// K10 needs no node stack, so it takes no overflow flag; the list's
-// shared memory is checked by the host against a block's 227 KB.
+// K10 takes no overflow flag: its cull lists every live cluster when a
+// warp's node stack would overflow. The list's shared memory is checked
+// by the host against a block's 227 KB.
 extern "C" int trace_any_bvh_dense(const float* slabs, int rows, int C,
-                                   const float* bounds, const int* node_of,
+                                   const float* bounds, const int* meta,
+                                   const int* node_of,
                                    const uint8_t* live, const float* ray_o,
                                    const float* ray_d, const float* t_max,
                                    int R, float t_min, uint8_t* occ,
@@ -995,15 +1135,34 @@ extern "C" int trace_any_bvh_dense(const float* slabs, int rows, int C,
     int e = dense_smem(dense_any_kernel, C, bytes);
     if (e != 0) return e;
     dense_any_kernel<<<(R + DENSE_TILE - 1) / DENSE_TILE, DENSE_TILE, bytes,
-                       (cudaStream_t)stream>>>(slabs, rows, C, bounds,
+                       (cudaStream_t)stream>>>(slabs, rows, C, bounds, meta,
                                                node_of, live, ray_o, ray_d,
                                                t_max, R, t_min, occ);
     return (int)cudaGetLastError();
 }
 
+// The measurement form of K10's cull: counts (ceil(R / 128),) i32, the
+// list length of each packet; slabs and rows are not read.
+extern "C" int dense_cull_counts(int C, const float* bounds,
+                                 const int* meta, const int* node_of,
+                                 const uint8_t* live,
+                                 const float* ray_o, const float* ray_d,
+                                 const float* t_max, int R, float t_min,
+                                 int* counts, void* stream) {
+    if (R <= 0) return 0;
+    size_t bytes;
+    int e = dense_smem(dense_cull_kernel, C, bytes);
+    if (e != 0) return e;
+    dense_cull_kernel<<<(R + DENSE_TILE - 1) / DENSE_TILE, DENSE_TILE, bytes,
+                        (cudaStream_t)stream>>>(C, bounds, meta, node_of,
+                                                live, ray_o, ray_d, t_max, R,
+                                                t_min, counts);
+    return (int)cudaGetLastError();
+}
+
 // K9: as K10, with (R, 8) closest-hit rows.
 extern "C" int trace_closest_bvh_dense(const float* slabs, int rows, int C,
-                                       const float* bounds,
+                                       const float* bounds, const int* meta,
                                        const int* node_of,
                                        const uint8_t* live,
                                        const float* ray_o,
@@ -1017,8 +1176,8 @@ extern "C" int trace_closest_bvh_dense(const float* slabs, int rows, int C,
     if (e != 0) return e;
     dense_closest_kernel<<<(R + DENSE_TILE - 1) / DENSE_TILE, DENSE_TILE,
                            bytes, (cudaStream_t)stream>>>(
-        slabs, rows, C, bounds, node_of, live, ray_o, ray_d, t_max, R, t_min,
-        out);
+        slabs, rows, C, bounds, meta, node_of, live, ray_o, ray_d, t_max, R,
+        t_min, out);
     return (int)cudaGetLastError();
 }
 

@@ -22,9 +22,16 @@ and is not carried. The G-buffer comes in as 13 channel planes (13, R),
 each in row-major pixel order: position3 | normal3 | albedo3 |
 roughness | metallic | z_cam | valid; the result is (R, 3).
 
-Dispatch: `shade_clustered_tiles` runs the plain version only because
-its tensors lie on the CPU; on CUDA tensors it launches the kernel or
-raises, and counts its launches in `.launches`.
+`shade_walk_counts` is K5's measurement form (`shade_walk_kernel`,
+which chip_smoke.py alone calls; no frame selects it): the same walk
+without the shading, giving per pixel the point lights it shades, the
+list entries its warp walks before the warp exit and its warp's shading
+union (the entries at which some lane of the warp shades); a warp is 32
+consecutive pixels of one tile row.
+
+Dispatch: each wrapper runs its plain version only because its tensors
+lie on the CPU; on CUDA tensors it launches the kernel or raises, and
+counts its launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ from .clustering import (
 TILE_PX = LIGHT_CLUSTER_DIMENSION  # 32
 CHANNELS = 13
 MAX_FROXEL_LIGHTS = MAX_POINT_INDICES  # 128
+# list entries one staging pass of the kernel holds (csrc MAX_STAGE)
+MAX_STAGE = 232448 // 32
 _PI = math.pi
 # divisions by constants are written as products with the reciprocal,
 # which is how PyTorch's CUDA division by a scalar rounds, so that the
@@ -172,6 +181,35 @@ def _light_contrib(l, iv, n, NoV, f0, cd, a2, k, gv):
             for c in range(3)]
 
 
+def _walk_setup(inp: dict, width: int, height: int):
+    """Per pixel of the row-major G-buffer: (tile index, x, y, valid,
+    the z range [near_d, far_d] of its Doom slice, its tile's count)."""
+    chan = inp["chan"]
+    dev = chan.device
+    fx, _ = tile_grid(width, height)
+    ys = torch.arange(height, device=dev).repeat_interleave(width)
+    xs = torch.arange(width, device=dev).repeat(height)
+    tile = (ys // TILE_PX) * fx + xs // TILE_PX
+    scal = inp["scal"]
+    near, lr = scal[0], scal[2]
+    si = cluster_index_z(chan[11], near, scal[1]).to(torch.float32)
+    near_d = torch.where(si == 0.0, 0.0, near * torch.exp(si * _INV_Z * lr))
+    far_d = near * torch.exp((si + 1.0) * _INV_Z * lr)
+    return tile, xs, ys, chan[12] > 0.0, near_d, far_d, inp["counts"][tile]
+
+
+def _list_entry(inp: dict, tile, j: int, near_d, far_d, count_px):
+    """List entry j of each pixel's tile -> (its light rows, radius, the
+    z-slab test against the pixel's slice, false past the count)."""
+    li = inp["lists"][:, j].long()[tile]
+    row = inp["rows"][1 + li]
+    zl = inp["lvz"][li]
+    rl = row[:, 7]
+    vis = (((-zl - near_d) >= -rl) & ((zl + far_d) >= -rl)
+           & (j < count_px))
+    return row, rl, vis
+
+
 def shade_clustered_tiles_plain(inp: dict, width: int, height: int,
                                 return_counts: bool = False):
     """Plain PyTorch version of the kernel -> (R, 3). With return_counts
@@ -179,24 +217,14 @@ def shade_clustered_tiles_plain(inp: dict, width: int, height: int,
     listed point lights (the kernel's running count before the cap);
     needed, the number of list entries whose z-slab test can change the
     color (those up to the 128th visible light, else the whole list)."""
-    chan, rows, lists = inp["chan"], inp["rows"], inp["lists"]
-    dev = chan.device
-    fx, _ = tile_grid(width, height)
-    ys = torch.arange(height, device=dev).repeat_interleave(width)
-    xs = torch.arange(width, device=dev).repeat(height)
-    tile = (ys // TILE_PX) * fx + xs // TILE_PX
+    chan, rows = inp["chan"], inp["rows"]
+    tile, _, _, valid, near_d, far_d, count_px = _walk_setup(inp, width,
+                                                             height)
     pos = [chan[0], chan[1], chan[2]]
     n = [chan[3], chan[4], chan[5]]
     alb = [chan[6], chan[7], chan[8]]
     rough, metal, z_cam = chan[9], chan[10], chan[11]
-    valid = chan[12] > 0.0
     scal = inp["scal"]
-    near, lr = scal[0], scal[2]
-
-    # the pixel's Doom slice and its z range
-    si = cluster_index_z(z_cam, near, scal[1]).to(torch.float32)
-    near_d = torch.where(si == 0.0, 0.0, near * torch.exp(si * _INV_Z * lr))
-    far_d = near * torch.exp((si + 1.0) * _INV_Z * lr)
 
     iv = [scal[3] - pos[0], scal[4] - pos[1], scal[5] - pos[2]]
     inv_len = 1.0 / torch.sqrt(torch.clamp_min(
@@ -213,15 +241,9 @@ def shade_clustered_tiles_plain(inp: dict, width: int, height: int,
 
     acc = [torch.zeros_like(z_cam) for _ in range(3)]
     cnt = torch.zeros_like(z_cam)
-    count_px = inp["counts"][tile]
     needed = count_px.clone()
     for j in range(int(inp["counts"].max())):
-        li = lists[:, j].long()[tile]
-        row = rows[1 + li]
-        zl = inp["lvz"][li]
-        rl = row[:, 7]
-        vis = (((-zl - near_d) >= -rl) & ((zl + far_d) >= -rl)
-               & (j < count_px))
+        row, rl, vis = _list_entry(inp, tile, j, near_d, far_d, count_px)
         shaded = vis & (cnt < MAX_FROXEL_LIGHTS)
         t = [row[:, 4] - pos[0], row[:, 5] - pos[1], row[:, 6] - pos[2]]
         d2 = t[0] * t[0] + t[1] * t[1] + t[2] * t[2]
@@ -257,22 +279,48 @@ def shade_clustered_tiles_plain(inp: dict, width: int, height: int,
     return out
 
 
-# the C entry point's arguments before the stream (cuda_build.launch)
+def shade_walk_counts_plain(inp: dict, width: int, height: int):
+    """Plain version of the measurement form -> (R, 3) f32 per pixel: the
+    point lights it shades (min(count, 128), 0 without a surface); the
+    list entries its warp walks before the warp exit (the most `needed`
+    of a lane with a surface, 0 without one); its warp's shading union,
+    the entries at which some lane with a surface shades. A warp is the
+    32 pixels of one tile row, some outside the image in a ragged tile."""
+    tile, xs, ys, valid, near_d, far_d, count_px = _walk_setup(
+        inp, width, height)
+    fx, _ = tile_grid(width, height)
+    warp = ys * fx + xs // TILE_PX
+    n_warps = height * fx
+    cnt = torch.zeros_like(near_d)
+    needed = count_px.clone()
+    union = torch.zeros(n_warps, dtype=torch.float32, device=near_d.device)
+    for j in range(int(inp["counts"].max())):
+        _, _, vis = _list_entry(inp, tile, j, near_d, far_d, count_px)
+        shaded = vis & valid & (cnt < MAX_FROXEL_LIGHTS)
+        union += torch.zeros_like(union).scatter_reduce_(
+            0, warp, shaded.to(torch.float32), "amax")
+        needed = torch.where(vis & (cnt == MAX_FROXEL_LIGHTS - 1), j + 1,
+                             needed)
+        cnt = cnt + vis.to(torch.float32)
+    walked = torch.zeros_like(union).scatter_reduce_(
+        0, warp, torch.where(valid, needed, 0).to(torch.float32), "amax")
+    shaded = torch.where(valid, torch.clamp_max(cnt, MAX_FROXEL_LIGHTS), 0.0)
+    return torch.stack([shaded, walked[warp], union[warp]], dim=1)
+
+
+# the C entry points' arguments before the stream (cuda_build.launch)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
-def shade_clustered_tiles(inp: dict, width: int, height: int):
-    """Clustered point + spot shading of a width x height G-buffer ->
-    (R, 3) linear color, R = width * height; `inp` from tile_inputs."""
+def _launch(symbol: str, inp: dict, width: int, height: int):
+    """Check K5's inputs and launch the entry point `symbol` -> (R, 3)."""
     chan = inp["chan"]
     dev = chan.device
     R = width * height
-    if dev.type == "cpu":
-        return shade_clustered_tiles_plain(inp, width, height)
     if dev.type != "cuda":
-        raise ValueError(f"shade_clustered_tiles: unsupported device {dev}")
+        raise ValueError(f"{symbol}: unsupported device {dev}")
     from . import cuda_build
     from .trace_bvh import expect_tensor
 
@@ -288,14 +336,35 @@ def shade_clustered_tiles(inp: dict, width: int, height: int):
     if inp["rows"].shape[0] < 1 + lcap:
         raise ValueError("rows must hold the sun and every listed light")
     out = torch.empty((R, 3), dtype=torch.float32, device=dev)
-    cuda_build.launch("shade_tiles", "shade_clustered_tiles", _ARGTYPES, dev, (
+    cuda_build.launch("shade_tiles", symbol, _ARGTYPES, dev, (
         chan.data_ptr(), width, height, inp["rows"].data_ptr(),
         inp["lvz"].data_ptr(), inp["lists"].data_ptr(), lcap,
         inp["counts"].data_ptr(), inp["ints"].data_ptr(),
         inp["scal"].data_ptr(), out.data_ptr()))
+    return out
+
+
+def shade_clustered_tiles(inp: dict, width: int, height: int):
+    """Clustered point + spot shading of a width x height G-buffer ->
+    (R, 3) linear color, R = width * height; `inp` from tile_inputs."""
+    if inp["chan"].device.type == "cpu":
+        return shade_clustered_tiles_plain(inp, width, height)
+    out = _launch("shade_clustered_tiles", inp, width, height)
     shade_clustered_tiles.launches += 1
     return out
 
 
+def shade_walk_counts(inp: dict, width: int, height: int):
+    """K5's measurement form on the inputs of shade_clustered_tiles ->
+    (R, 3) f32, as shade_walk_counts_plain: the walk without the
+    shading."""
+    if inp["chan"].device.type == "cpu":
+        return shade_walk_counts_plain(inp, width, height)
+    out = _launch("shade_walk_counts", inp, width, height)
+    shade_walk_counts.launches += 1
+    return out
+
+
 shade_clustered_tiles.launches = 0
-KERNELS = (shade_clustered_tiles,)
+shade_walk_counts.launches = 0
+KERNELS = (shade_clustered_tiles, shade_walk_counts)

@@ -30,6 +30,10 @@ hand-written CUDA kernel in csrc/trace_bvh.cu with a plain PyTorch twin:
 - `trace_closest_bvh_dense` (K9, trace_bvh.py:1144): K2's closest hit
   through K10's dense cull -> (R, 8) rows, with K10's `skip_mask`. No
   frame calls it, in the JAX package either; chip_smoke.py checks it.
+- `dense_cull_counts`: K10's measurement form (csrc/trace_bvh.cu
+  `dense_cull_kernel`, which chip_smoke.py alone calls; no frame selects
+  it): the dense cull alone -> (ceil(R / 128),) i32, each packet's list
+  length, so that the cull and K10's walk are timed apart.
 
 Dispatch: a wrapper runs the plain version only because its tensors lie
 on the CPU. On CUDA tensors it launches the kernel or raises; it never
@@ -479,6 +483,34 @@ def trace_any_bvh_dense_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
     return torch.isfinite(best_t)
 
 
+def dense_cull_counts_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
+                            t_max, skip_mask=None):
+    """Plain version of K10's cull -> (P,) i32, P = ceil(R / 128): per
+    packet of 128 consecutive rays, the live clusters of dense_aux whose
+    leaf box some ray of the packet with t_max > t_min enters before its
+    t_max (K3's slab test)."""
+    C = slabs.shape[0]
+    _, cmin, cmax, dead = dense_aux(C, bounds, meta, skip_mask)
+    R = ray_o.shape[0]
+    P = -(-R // DENSE_TILE)
+    inv = safe_inv_dir(ray_d)
+    live_ray = t_max > t_min
+    listed = torch.zeros((P, C), dtype=torch.bool, device=ray_o.device)
+    step = DENSE_TILE * 32
+    for r0 in range(0, R, step):
+        r1 = min(R, r0 + step)
+        enter, exit_ = slab_enter_exit(ray_o[r0:r1, None], inv[r0:r1, None],
+                                       cmin[None], cmax[None])
+        ok = ((enter <= exit_) & (enter < t_max[r0:r1, None])
+              & live_ray[r0:r1, None])
+        pad = -(r1 - r0) % DENSE_TILE
+        ok = torch.nn.functional.pad(ok, (0, 0, 0, pad))
+        p0 = r0 // DENSE_TILE
+        listed[p0:p0 + ok.shape[0] // DENSE_TILE] = (
+            ok.reshape(-1, DENSE_TILE, C).any(dim=1))
+    return (listed & ~dead).sum(dim=1).to(torch.int32)
+
+
 def trace_closest_bvh_dense_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
                                   t_max, skip_mask=None):
     """Plain dense closest hit -> (R, 8) rows, K2's over the live
@@ -551,23 +583,30 @@ _ARGTYPES = {
     "trace_closest_bvh_full": [_P, ctypes.c_int, _P, _P, _P, _P, _P,
                                ctypes.c_int, ctypes.c_float, _P, _P, _P],
     "trace_any_bvh_dense": [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
-                            _P, _P, ctypes.c_int, ctypes.c_float, _P],
+                            _P, _P, _P, ctypes.c_int, ctypes.c_float, _P],
 }
 _ARGTYPES["trace_closest_bvh_visits"] = _ARGTYPES["trace_closest_bvh"]
 _ARGTYPES["trace_closest_bvh_dense"] = _ARGTYPES["trace_any_bvh_dense"]
+_ARGTYPES["dense_cull_counts"] = [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
+                                  ctypes.c_int, ctypes.c_float, _P]
 _ARGTYPES["trace_closest_bvh8"] = [_P, ctypes.c_int, _P, _P, _P, _P,
                                    ctypes.c_int, ctypes.c_float, _P, _P]
 _ARGTYPES["trace_closest_bvh8_full"] = _ARGTYPES["trace_closest_bvh8"]
 _ARGTYPES["trace_any_bvh8"] = _ARGTYPES["trace_closest_bvh8"]
 DENSE_TILE = 128  # rays per packet of K9, K10 (trace_bvh.py:1154, :1819)
 MAX_SHARED = 232448  # bytes of shared memory one H100 block can have
-DENSE_STATIC_SMEM = 4 * 7 * DENSE_TILE + 4 * (DENSE_TILE // 32)
+# the packet's staged rays, the warps' counts, one node stack per warp
+# and a flag word (csrc/trace_bvh.cu DenseShared)
+DENSE_STATIC_SMEM = 4 * (7 * DENSE_TILE + (DENSE_TILE // 32) * (1 + STACK_CAP)
+                         + 1)
 
 
 def dense_list_bytes(n_clusters: int) -> int:
     """Shared memory of one K9 or K10 block: the cluster list (one int
-    per cluster) and the packet's staged rays."""
-    return 4 * int(n_clusters) + DENSE_STATIC_SMEM
+    per cluster), the bitmap of entered clusters, the packet's staged
+    rays and the cull's node stacks."""
+    n = int(n_clusters)
+    return 4 * (n + -(-n // 32)) + DENSE_STATIC_SMEM
 
 
 def expect_tensor(t: torch.Tensor, name: str, dtype, device, shape=None):
@@ -791,9 +830,9 @@ def trace_primary_bvh_full(slabs, bounds, meta, pix_cols, cam_vec,
     return out
 
 
-def _launch_dense(name, slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
-                  skip_mask, out):
-    """Check the inputs of K9 or K10 and launch it into out."""
+def _dense_inputs(name, slabs, bounds, meta, ray_o, ray_d, skip_mask):
+    """Check the inputs of K9, K10 or K10's cull -> (C, node_of, the skip
+    mask's pointer or 0)."""
     dev = ray_o.device
     R = ray_o.shape[0]
     _check_scene(slabs, bounds, meta, dev)
@@ -809,13 +848,21 @@ def _launch_dense(name, slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
     if skip_mask is not None:
         expect_tensor(skip_mask, "skip_mask", torch.bool, dev, (C,))
         live = skip_mask.data_ptr()
-    node_of = dense_aux(C, bounds, meta)[0]
+    return C, dense_aux(C, bounds, meta)[0], live
+
+
+def _launch_dense(name, slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
+                  skip_mask, out):
+    """Check the inputs of K9 or K10 and launch it into out."""
+    C, node_of, live = _dense_inputs(name, slabs, bounds, meta, ray_o, ray_d,
+                                     skip_mask)
     from . import cuda_build
 
-    cuda_build.launch("trace_bvh", name, _ARGTYPES[name], dev, (
+    cuda_build.launch("trace_bvh", name, _ARGTYPES[name], ray_o.device, (
         slabs.data_ptr(), slabs.shape[1], C, bounds.data_ptr(),
-        node_of.data_ptr(), live, ray_o.data_ptr(), ray_d.data_ptr(),
-        t_max.data_ptr(), R, float(t_min), out.data_ptr()))
+        meta.data_ptr(), node_of.data_ptr(), live, ray_o.data_ptr(),
+        ray_d.data_ptr(),
+        t_max.data_ptr(), ray_o.shape[0], float(t_min), out.data_ptr()))
     return out
 
 
@@ -865,6 +912,36 @@ def trace_closest_bvh_dense(slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
                         torch.empty((R, 8), dtype=torch.float32, device=dev))
     trace_closest_bvh_dense.launches += 1
     return out
+
+
+def dense_cull_counts(slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
+                      skip_mask=None):
+    """K10's dense cull alone -> (ceil(R / 128),) i32, the number of
+    clusters each 128-ray packet lists for K10's walk; inputs as
+    trace_any_bvh_dense (the slabs are checked, not read)."""
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    t_max = as_tmax(t_max, R, dev)
+    if dev.type == "cpu":
+        return dense_cull_counts_plain(slabs, bounds, meta, ray_o, ray_d,
+                                       float(t_min), t_max, skip_mask)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_cull_counts: unsupported device {dev}")
+    C, node_of, live = _dense_inputs("dense_cull_counts", slabs, bounds,
+                                     meta, ray_o, ray_d, skip_mask)
+    counts = torch.empty((-(-R // DENSE_TILE),), dtype=torch.int32,
+                         device=dev)
+    from . import cuda_build
+
+    cuda_build.launch("trace_bvh", "dense_cull_counts",
+                      _ARGTYPES["dense_cull_counts"], dev, (
+                          C, bounds.data_ptr(), meta.data_ptr(),
+                          node_of.data_ptr(), live,
+                          ray_o.data_ptr(), ray_d.data_ptr(),
+                          t_max.data_ptr(), R, float(t_min),
+                          counts.data_ptr()))
+    dense_cull_counts.launches += 1
+    return counts
 
 
 def _launch8(name, slabs, nodes8, ray_o, ray_d, t_min, t_max, out,
@@ -958,10 +1035,12 @@ trace_closest_bvh8.launches = 0
 trace_closest_bvh8_full.launches = 0
 trace_any_bvh8.launches = 0
 trace_closest_bvh_visits.launches = 0
+dense_cull_counts.launches = 0
 KERNELS = (trace_primary_bvh_full, trace_closest_bvh, trace_any_bvh,
            trace_closest_bvh_full, trace_any_bvh_dense,
            trace_closest_bvh_dense, trace_closest_bvh8,
-           trace_closest_bvh8_full, trace_any_bvh8, trace_closest_bvh_visits)
+           trace_closest_bvh8_full, trace_any_bvh8, trace_closest_bvh_visits,
+           dense_cull_counts)
 
 
 def reset_launch_counts() -> None:

@@ -211,4 +211,7 @@ def test_any_wrappers_refuse_other_devices(case):
                                        frame["bvh_meta"], o, d)]
     with pytest.raises(ValueError, match="unsupported device"):
         trace_bvh.trace_any_bvh_dense(*meta_dev, T_MIN, 1.0)
-    assert trace_bvh.dense_list_bytes(2048) == 4 * 2048 + 4 * (7 * 128 + 4)
+    # the list and the bitmap of entered clusters, the staged rays, the
+    # warps' counts and node stacks, the flag word
+    assert trace_bvh.dense_list_bytes(2048) == (
+        4 * (2048 + 64) + 4 * (7 * 128 + 4 * (1 + 64) + 1))

@@ -1017,3 +1017,158 @@ def test_loop_probes_match_plain_on_card(cuda):
                  bk.loop_cond: bk.loop_cond_plain,
                  bk.loop_vec: bk.loop_vec_plain}[fn]
         assert torch.equal(rec["out"], plain(x, *counts)) and rec["ms"] > 0
+
+
+def _shade_inputs(width, height, n_point, n_spot, seed, device, far_head=0,
+                  empty_tile=False):
+    """Synthetic K5 inputs, the camera at the origin looking down -z (view
+    space is world space): per pixel a random view depth in [0.3, 60] of
+    [0.1, 100], so the lanes of a warp sit in different Doom slices; a
+    normal towards the camera; every seventh pixel, and tile 0 wholly if
+    empty_tile, without a surface. n_point point lights with radii in
+    [0.05, 4] at depths in [0.2, 60], but the first far_head at [85,
+    99], where no pixel's slice sees them; n_spot spot lights; each tile lists a random subset of the point lights (tile 1 all, tile 2
+    none) in ascending order, then the others."""
+    rng = np.random.default_rng(seed)
+    R = width * height
+    depth = rng.uniform(0.3, 60.0, R)
+    pos = np.stack([rng.uniform(-1, 1, R) * depth * 0.5,
+                    rng.uniform(-1, 1, R) * depth * 0.3, -depth])
+    nrm = rng.normal(size=(3, R))
+    nrm[2] = np.abs(nrm[2]) + 0.5
+    nrm /= np.linalg.norm(nrm, axis=0)
+    valid = np.arange(R) % 7 != 3
+    fx, fy = tst.tile_grid(width, height)
+    tile = (np.arange(R) // width // 32) * fx + np.arange(R) % width // 32
+    if empty_tile:
+        valid &= tile != 0
+    chan = np.concatenate([
+        pos, nrm, rng.uniform(0.1, 0.9, (3, R)), rng.uniform(0.2, 1.0, (1, R)),
+        rng.uniform(0.0, 1.0, (1, R)), -depth[None], valid[None]])
+    lcap = -(-n_point // 128) * 128
+    rows = np.zeros((1 + lcap + n_spot, 12))
+    lz = np.where(np.arange(n_point) < far_head,
+                  rng.uniform(85.0, 99.0, n_point),
+                  rng.uniform(0.2, 60.0, n_point))
+    rows[1:1 + n_point, 1:4] = rng.uniform(0.5, 5.0, (n_point, 3))
+    rows[1:1 + n_point, 4] = rng.uniform(-20, 20, n_point)
+    rows[1:1 + n_point, 5] = rng.uniform(-10, 10, n_point)
+    rows[1:1 + n_point, 6] = -lz
+    rows[1:1 + n_point, 7] = rng.uniform(0.05, 4.0, n_point)
+    spots = slice(1 + n_point, 1 + n_point + n_spot)
+    rows[spots, 1:4] = rng.uniform(0.5, 5.0, (n_spot, 3))
+    rows[spots, 4:7] = rng.uniform(-5, 5, (n_spot, 3)) + [0, 0, 10]
+    sd = rng.normal(size=(n_spot, 3)) + [0, 0, -2]
+    rows[spots, 8:11] = sd / np.linalg.norm(sd, axis=1, keepdims=True)
+    rows[spots, 7] = rng.uniform(1.0, 4.0, n_spot)
+    rows[spots, 11] = rng.uniform(-1.0, 0.5, n_spot)
+    lists = np.zeros((fx * fy, lcap), np.int32)
+    counts = rng.integers(0, n_point + 1, fx * fy)
+    counts[1 % (fx * fy)] = n_point
+    if fx * fy > 2:
+        counts[2] = 0
+    for t in range(fx * fy):
+        keep = np.sort(rng.choice(n_point, counts[t], replace=False))
+        rest = np.setdiff1d(np.arange(n_point), keep)
+        lists[t, :n_point] = np.concatenate([keep, rest])
+    lvz = np.zeros(lcap)
+    lvz[:n_point] = -lz
+    scal = [0.1, 100.0, np.log(1000.0), 0, 0, 0, 0, 0]
+    inp = {"chan": chan, "rows": rows, "lists": lists, "counts": counts,
+           "lvz": lvz, "ints": [n_point, min(n_spot, 128)], "scal": scal}
+    return {k: torch.as_tensor(np.asarray(v), device=device,
+                               dtype=torch.int32 if k in ("lists", "counts",
+                                                          "ints")
+                               else torch.float32).contiguous()
+            for k, v in inp.items()}
+
+
+@pytest.mark.parametrize("case", [
+    "straddle", "long_list", "empty_tile_many_spots", "ragged_few_spots"])
+def test_shade_warp_exit_matches_plain_on_card(cuda, case):
+    """K5 and its walk form against their plain versions on synthetic
+    G-buffers: lanes of one warp reach their 128th visible light at
+    different list entries (straddle); a list longer than one staging
+    pass, some pixels reaching 128 only in the second (long_list); a
+    tile without a surface and 150 spot lights, of which 128 shade
+    (empty_tile_many_spots); a 33x31 frame of one ragged tile with 3
+    spot lights. K5 within rtol 1e-5 / atol 1e-6, the walk form
+    exactly."""
+    W, H, n_point, n_spot, far_head, empty = {
+        "straddle": (70, 45, 1024, 0, 0, False),
+        "long_list": (40, 20, 8000, 0, 7000, False),
+        "empty_tile_many_spots": (70, 45, 300, 150, 0, True),
+        "ragged_few_spots": (33, 31, 200, 3, 0, False),
+    }[case]
+    inp = _shade_inputs(W, H, n_point, n_spot, 17, cuda, far_head, empty)
+    tst.shade_clustered_tiles.launches = tst.shade_walk_counts.launches = 0
+    got = tst.shade_clustered_tiles(inp, W, H)
+    walk = tst.shade_walk_counts(inp, W, H)
+    torch.cuda.synchronize()
+    want, cnt, needed = tst.shade_clustered_tiles_plain(inp, W, H,
+                                                        return_counts=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(walk, tst.shade_walk_counts_plain(inp, W, H))
+    assert (tst.shade_clustered_tiles.launches,
+            tst.shade_walk_counts.launches) == (1, 1)
+    valid = inp["chan"][12] > 0
+    assert (got[valid] > 0).any() and (got[~valid] == 0).all()
+    full = valid & (cnt >= 128)
+    if case == "straddle":
+        # warps whose lanes reach 128 at different entries, and warps
+        # that walk past some lane's 128th visible light
+        assert int(full.sum()) > 100
+        assert bool((walk[full, 1] > needed[full]).any())
+        assert bool((walk[full, 2] > 128).any())
+    if case == "long_list":
+        assert int(inp["lists"].shape[1]) > tst.MAX_STAGE
+        assert bool((full & (needed > tst.MAX_STAGE)).any())
+        assert bool((valid & (cnt < 128)).any())
+    if case == "empty_tile_many_spots":
+        assert int(inp["ints"][1]) == 128
+        assert bool((got[:32 * W][valid[:32 * W]] > 0).any())
+
+
+@pytest.mark.parametrize("skip", [False, True], ids=["all", "skip_mask"])
+def test_dense_any_warp_walk_matches_plain_on_card(cuda, skip):
+    """K10's warp-shared walk against its plain version and K3 on 1031
+    incoherent rays (a short last packet, whose lanes enter different
+    clusters), every ninth lane at t_max 0 and every eleventh at t_max =
+    t_min; K10's cull form against its plain version; K9's rows on the
+    same rays equal to its plain version's."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32)
+    frame, slabs = sc["frame"], sc["geom"]["packed9"]
+    bvh = (frame["bvh_bounds"], frame["bvh_meta"])
+    o, d, t_max = _incoherent_rays(sc, 1031, 11, cuda)
+    t_max[::11] = 0.1
+    mask = None
+    if skip:
+        mask = torch.as_tensor(np.random.default_rng(7).random(64) > 0.4,
+                               device=cuda)
+    args = (slabs, *bvh, o, d, 0.1, t_max)
+    for f in (tb.trace_any_bvh_dense, tb.dense_cull_counts,
+              tb.trace_closest_bvh_dense):
+        f.launches = 0
+    got = tb.trace_any_bvh_dense(*args, skip_mask=mask)
+    counts = tb.dense_cull_counts(*args, skip_mask=mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tb.trace_any_bvh_dense_plain(*args,
+                                                         skip_mask=mask))
+    assert not got[t_max <= 0.1].any() and got.any() and not got.all()
+    k3 = tb.trace_any_bvh(*args)
+    tb.check_stack_overflow(cuda)
+    if skip:
+        assert bool((got <= k3).all()) and not torch.equal(got, k3)
+    else:
+        assert torch.equal(got, k3)
+    assert torch.equal(counts, tb.dense_cull_counts_plain(*args,
+                                                          skip_mask=mask))
+    assert counts.shape == (9,) and bool((counts > 1).all())
+    rows = tb.trace_closest_bvh_dense(slabs, *bvh, o, d, 1e-4, t_max,
+                                      skip_mask=mask)
+    want = tb.trace_closest_bvh_dense_plain(slabs, *bvh, o, d, 1e-4, t_max,
+                                            skip_mask=mask)
+    assert torch.equal(rows[:, :4], want[:, :4])
+    assert (tb.trace_any_bvh_dense.launches, tb.dense_cull_counts.launches,
+            tb.trace_closest_bvh_dense.launches) == (1, 1, 1)

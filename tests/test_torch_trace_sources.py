@@ -5,7 +5,9 @@
   the same arity and kinds (pointer, int, float; the stream, which
   cuda_build.launch appends, aside), and every table entry names an
   entry point. ctypes passes what the table says, so a table that lags
-  its source would cut a pointer or shift every later argument.
+  its source would cut a pointer or shift every later argument. The
+  measurement forms of K5 and K10 (shade_walk_counts, dense_cull_counts)
+  have entry points and launch counts of their own.
 - The visit order the closest-hit kernels keep on exact t ties, on
   testing.make_tie_scene: the lockstep plain walk (trace_bvh's
   trace_closest_bvh_visits_plain, the one-thread walk of
@@ -38,7 +40,8 @@ torch.set_num_threads(2)
 # source -> {entry point: the argument types its wrapper passes}
 TABLES = {
     "trace_bvh": tb._ARGTYPES,
-    "shade_tiles": {"shade_clustered_tiles": tst._ARGTYPES},
+    "shade_tiles": {name: tst._ARGTYPES for name in (
+        "shade_clustered_tiles", "shade_walk_counts")},
     "trace_flat": {name: tf._ARGTYPES for name in (
         "trace_closest_flat", "trace_closest_flat_full", "trace_any_flat")},
     "trace_leafmajor": {"run_pairs": lm._ARGTYPES},
@@ -82,6 +85,28 @@ def test_argument_tables_match_entry_points(source):
     for name, kinds in entries.items():
         assert len(table[name]) == len(kinds), name
         assert list(table[name]) == kinds, name
+
+
+# the measurement forms, which chip_smoke.py alone calls: source ->
+# (entry point, its wrapper)
+MEASUREMENT_FORMS = {
+    "shade_tiles": ("shade_walk_counts", tst.shade_walk_counts),
+    "trace_bvh": ("dense_cull_counts", tb.dense_cull_counts),
+}
+
+
+@pytest.mark.parametrize("source", sorted(MEASUREMENT_FORMS))
+def test_measurement_forms_have_entry_points_and_counts(source):
+    """Each measurement form has its own entry point, an argument table
+    of its arity, and a launch count among its module's kernels (so a
+    frame that launched it would show)."""
+    name, wrapper = MEASUREMENT_FORMS[source]
+    entries = _entry_points(source)
+    assert name in entries and name in TABLES[source]
+    assert list(TABLES[source][name]) == entries[name]
+    assert wrapper.__name__ == name and isinstance(wrapper.launches, int)
+    module = {"shade_tiles": tst, "trace_bvh": tb}[source]
+    assert wrapper in module.KERNELS
 
 
 def _t(a):
