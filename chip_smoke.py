@@ -20,7 +20,8 @@ entry points of the experiments and scripts (X1-X3). Phases:
    and csrc/bench_kernels.cu for sm_90a, one nvcc each, in parallel
    (timed), and print the ptxas line (registers, stack frame, spills)
    of K1-K4 (the warp walk), X3a (the one-thread walk), K10 and K9 (the
-   dense cull), K10's cull form, K5 and K5's walk form;
+   dense cull), K10's cull form, K5 and K5's walk form, K6 and K8 (the
+   flat warp walk, flat_kernel<false> and <true>) and K7;
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the whole inputs of one frame, with kernel and plain times and
    the bound (the least time an H100 could take for the same work):
@@ -49,9 +50,15 @@ entry points of the experiments and scripts (X1-X3). Phases:
    the blend/mask scene (make_plate_scene(..., blend_every=8,
    mask_every=8): masked AABBs) and on its first alpha retrace, against
    its plain version; K6 over the unmasked AABBs against K2 on the same
-   rays; K8 on the G-buffer rays of a frame without BVH arrays,
-   unculled (against its plain version and K1) and in both culling
-   phases (against its plain version and K4 with the same masks);
+   rays (both timed); K8 on the G-buffer rays of a frame without BVH
+   arrays, unculled (against its plain version and K1, both timed) and
+   on every call of a culled frame (against its plain version and K4
+   with the same masks, both timed); K6 and K8 rows equal their plain
+   versions' bit for bit, and each set prints the means of
+   trace_flat.flat_walk_counts (tile list length, listed clusters a ray
+   enters, and those it enters no later than its hit); K6 on
+   testing.make_tie_scene's up rays (tri 9, the lowest copy, though
+   cluster 1 is listed first);
 7. forward: (a) forward on the opaque scene, (b) forward on the
    blend/mask scene (transparent pass, two alpha-discard rounds, the
    CLI's flags), (c) the culled deferred frame of the blend/mask scene
@@ -74,9 +81,11 @@ entry points of the experiments and scripts (X1-X3). Phases:
    plain versions against the kernels' frame, and 64x64 CUDA frames
    against CPU frames;
 10. pt bvh=False: the path tracer without BVH arrays (K8 primary and
-   bounce rays, K7 shadow rays): K8 on its first bounce set and K7 on
-   its first shadow set against their plain versions, then checked as
-   phase 4 checks its frame;
+   bounce rays, K7 shadow rays): K8 on its first bounce set (rows bit
+   for bit, walk counts as phase 6, and beside K2 on the same rays over
+   the same scene's BVH) and K7 on its first shadow set against their
+   plain versions, K8 on the tie scene's up rays with attribute rows,
+   then checked as phase 4 checks its frame;
 11. kernels: leaf-major: the first bounce and shadow sets of a
    path-traced frame and the shadow set of a ReSTIR frame, as the frames
    hand them to the hybrid under config.policy.bounce_tracer =
@@ -125,7 +134,8 @@ entry points of the experiments and scripts (X1-X3). Phases:
 
 Every launch count is set to 0 just before a path is driven and read
 just after; a kernel of the path that never launched fails the run, and
-so does a frame that launched a measurement form. Any
+so does a frame that launched a measurement form or called
+trace_flat.flat_walk_counts. Any
 failed phase exits non-zero. The last line is the result object, the
 line before it the per-kernel record. Needs no network and one card.
 """
@@ -208,13 +218,16 @@ PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
 # the kernels whose ptxas line phase 2 prints, (source, symbol): K2, K3,
 # K1 and K4 on the warp walk, X3a on the one-thread walk, K10 (its walk
 # on the warp-shared leaf test) and K9 over the dense cull, K10's cull
-# form, K5 and its walk form
+# form, K5 and its walk form, K6 and K8 (the flat warp walk) and K7
 PTXAS_KERNELS = tuple(("trace_bvh", k) for k in (
     "warp_closest_kernel", "warp_any_kernel", "primary_kernel",
     "closest_full_kernel", "closest_kernel", "dense_any_kernel",
     "dense_closest_kernel", "dense_cull_kernel")) + tuple(
-    ("shade_tiles", k) for k in ("shade_kernel", "shade_walk_kernel"))
-# the measurement forms of K5 and K10, which no frame may launch
+    ("shade_tiles", k) for k in ("shade_kernel", "shade_walk_kernel")) + tuple(
+    ("trace_flat", k) for k in ("flat_kernel<false>", "flat_kernel<true>",
+                                "flat_any_kernel"))
+# the measurement forms of K5 and K10, which no frame may launch; nor may
+# a frame call trace_flat.flat_walk_counts, the walk counts of K6 and K8
 MEASUREMENT_FORMS = ("shade_walk_counts", "dense_cull_counts")
 DEFERRED_PATH = {False: ("trace_primary_bvh_full", "shade_clustered_tiles"),
                  True: ("trace_closest_bvh_full", "shade_clustered_tiles")}
@@ -328,8 +341,12 @@ SPOT_LIGHT_OPS = 112
 def ptxas_line(log: str, symbol: str) -> str:
     """The compiler's report (ptxas -v) of the kernel `symbol`:
     registers, stack frame and spills, from the block of the entry
-    function whose mangled name holds <length><symbol>."""
-    key = f"{len(symbol)}{symbol}"
+    function whose mangled name holds <length><symbol> (for a kernel
+    template of one bool, "name<false>" or "name<true>", followed by
+    ILb0E or ILb1E)."""
+    name, _, arg = symbol.partition("<")
+    key = f"{len(name)}{name}" + (
+        f"ILb{int(arg == 'true>')}E" if arg else "")
     for block in log.split("Compiling entry function '")[1:]:
         mangled = block.split("'", 1)[0]
         if key not in mangled:
@@ -679,8 +696,11 @@ def drive(fn, scene, cam, path, label, smi):
     """The main path of one mode: counts to 0, 2 warm-up + 8 timed
     frames, counts read. Returns (ms/frame, launches, last image, last
     state, per-frame stats)."""
+    from prosper_tpu_torch.ops import trace_flat as tf
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    walk_calls = tf.flat_walk_counts.calls
     reset_counts()
     state = None
     for i in range(WARMUP):
@@ -709,6 +729,8 @@ def drive(fn, scene, cam, path, label, smi):
         raise RuntimeError(f"{label}: kernels of the path never launched: "
                            f"{missing}")
     stray = [k for k in MEASUREMENT_FORMS if launches[k] != 0]
+    if tf.flat_walk_counts.calls != walk_calls:
+        stray.append("flat_walk_counts")
     if stray:
         raise RuntimeError(f"{label}: the frame launched the measurement "
                            f"forms {stray}")
@@ -1155,9 +1177,26 @@ def recording_tracer(module, which):
         yield calls
 
 
+def walk_means(args, rows) -> dict:
+    """trace_flat.flat_walk_counts of a K6 or K8 call's rays and rows:
+    the mean tile list length per ray, and per live ray (t_max > t_min)
+    the mean of the listed clusters it enters and of those it enters no
+    later than its final t (the least any walk of the list tests)."""
+    from prosper_tpu_torch.ops import trace_flat as tf
+
+    slabs, mn, mx, o, d, t_min, t_max = args
+    counts = tf.flat_walk_counts(mn, mx, o, d, t_min, t_max, rows[:, 0])
+    live = t_max > t_min
+    per_live = counts[live].double().mean(0) if bool(live.any()) else (
+        torch.zeros(3, dtype=torch.float64))
+    return {"list": float(counts[:, 0].double().mean()),
+            "entered": float(per_live[1]), "needed": float(per_live[2])}
+
+
 def check_flat_call(label, kern, plain, args, attr_cols):
-    """One flat-kernel call (slabs, wc_min, wc_max, o, d, t_min, t_max)
-    against its plain version -> (ok, record, kernel rows)."""
+    """One K6 or K8 call (slabs, wc_min, wc_max, o, d, t_min, t_max)
+    against its plain version, rows bit for bit, with its walk counts ->
+    (ok, record, kernel rows)."""
     from prosper_tpu_torch.ops import trace_bvh as tb
 
     slabs, mn, mx, o, d, t_min, t_max = args
@@ -1167,16 +1206,44 @@ def check_flat_call(label, kern, plain, args, attr_cols):
     want, plain_ms = timed_call(lambda: plain(*args))
     got = kern(*args)
     ok, counts, err = compare_rows(got, want, attr_cols)
+    equal = torch.equal(got, want)
+    ok &= equal
     live_rays = int((t_max > t_min).sum())
     live_clusters = int((~(mn > mx).any(dim=-1)).sum())
-    print(f"{label}: ok={ok} live rays {live_rays}, live clusters "
-          f"{live_clusters} of {mn.shape[0]}; {counts}")
+    walk = walk_means(args, want)
+    print(f"{label}: ok={ok} rows equal bit for bit {equal}; live rays "
+          f"{live_rays}, live clusters {live_clusters} of {mn.shape[0]}; "
+          f"{counts}; walk per ray: listed {walk['list']:.1f}, per live "
+          f"ray entered {walk['entered']:.2f}, needed {walk['needed']:.2f}")
     rec = {"max_abs_err": err, "rays": int(got.shape[0]),
            "live_rays": live_rays, "live_clusters": live_clusters,
+           "rows_equal": equal, "walk": walk,
            "ms": device_ms(lambda: kern(*args), 5), "plain_ms": plain_ms,
            **bound(nbytes(*args, got),
                    closest_ops((mn, mx), o, d, want, t_max))}
     return ok, rec, got
+
+
+def check_flat_tie(label, kern, plain, dev, rows):
+    """K6 or K8 on testing.make_tie_scene's up rays, a whole tile: its
+    list holds cluster 1 (copies from tri 168) first, and the flat
+    contract gives tri 9, the lowest copy, to every ray. Rows equal the
+    plain version's bit for bit -> ok."""
+    from prosper_tpu_torch import testing as ttesting
+    from prosper_tpu_torch.ops import trace_bvh as tb
+
+    slabs, bounds, meta, o, d, _ = (
+        torch.as_tensor(a, device=dev)
+        for a in ttesting.make_tie_scene(2 * TILE_RAYS, rows=rows))
+    mn, mx = (b.contiguous() for b in tb._leaf_boxes(bounds, meta, 2))
+    args = (slabs, mn, mx, o[0::2].contiguous(), d[0::2].contiguous(), 1e-4,
+            torch.full((TILE_RAYS,), float("inf"), device=dev))
+    got = kern(*args)
+    tri = sorted(set(int(x) for x in got[:, 1].tolist()))
+    ok = tri == [9] and torch.equal(got, plain(*args))
+    print(f"{label} on the tie scene's up rays (cluster 1 listed first): "
+          f"ok={ok} tri {tri}")
+    return ok
 
 
 def check_flat_kernels(dev):
@@ -1210,7 +1277,9 @@ def check_flat_kernels(dev):
     ok_all &= ok
     k6["max_abs_err"] = max(k6["max_abs_err"], retrace["max_abs_err"])
     k6["retrace"] = {k: retrace[k] for k in (
-        "live_rays", "ms", "plain_ms", "bound_ms", "bound_by")}
+        "live_rays", "ms", "plain_ms", "bound_ms", "bound_by", "walk")}
+    ok_all &= check_flat_tie("K6", tf.trace_closest_flat,
+                             tf.trace_closest_flat_plain, dev, 9)
 
     # the flat cull against the BVH walk on the same rays and clusters
     frame = scene["frame"]
@@ -1223,15 +1292,18 @@ def check_flat_kernels(dev):
     ref = tb.trace_closest_bvh(*bvh_args)
     tb.check_stack_overflow(dev)
     ok, counts, err = compare_rows(got, ref, [2, 3])
-    ok_all &= ok
+    equal = torch.equal(got, tf.trace_closest_flat_plain(*flat_args))
+    ok_all &= ok and equal
     k6.update(unmasked_ms=device_ms(lambda: tf.trace_closest_flat(*flat_args),
                                     5),
               k2_same_rays_ms=device_ms(
                   lambda: tb.trace_closest_bvh(*bvh_args), 5),
-              vs_k2_max_abs_err=err)
+              vs_k2_max_abs_err=err, unmasked_walk=walk_means(
+                  (*flat_args[:6], tb.as_tmax(t_max, o.shape[0], dev)), got))
     print(f"K6 over the unmasked AABBs vs K2 on the same rays: ok={ok} "
-          f"{counts}; K6 {k6['unmasked_ms']:.3f} ms, K2 "
-          f"{k6['k2_same_rays_ms']:.3f} ms")
+          f"{counts}; rows equal the plain version's bit for bit {equal}; "
+          f"K6 {k6['unmasked_ms']:.3f} ms, K2 "
+          f"{k6['k2_same_rays_ms']:.3f} ms; walk {k6['unmasked_walk']}")
 
     # K8: the same scene without BVH arrays, culled deferred frames
     fn_c, (scene_c, cam_c, _) = port_entry.entry(
@@ -1260,12 +1332,15 @@ def check_flat_kernels(dev):
         # K4 over the same live clusters and rays
         slabs, mn, mx, o, d, t_min, t_max = args
         live = ~(mn > mx).any(dim=-1)
-        ref = tb.trace_closest_bvh_full(slabs, *bvh, o, d, t_min, t_max,
-                                        skip_mask=None if bool(live.all())
-                                        else live)
+        k4_args = (slabs, *bvh, o, d, t_min, t_max)
+        k4_mask = None if bool(live.all()) else live
+        ref = tb.trace_closest_bvh_full(*k4_args, skip_mask=k4_mask)
         tb.check_stack_overflow(dev)
         ok, counts, err = compare_rows(got, ref, attr_cols)
-        print(f"K8 {name} vs K4: ok={ok} {counts}")
+        rec["k4_same_rays_ms"] = device_ms(
+            lambda: tb.trace_closest_bvh_full(*k4_args, skip_mask=k4_mask), 5)
+        print(f"K8 {name} vs K4: ok={ok} {counts}; K8 {rec['ms']:.3f} ms, "
+              f"K4 {rec['k4_same_rays_ms']:.3f} ms")
         ok_all &= ok
         if k8 is None:
             k8, k8_rows = rec, got
@@ -1274,19 +1349,22 @@ def check_flat_kernels(dev):
             k8["max_abs_err"] = max(k8["max_abs_err"], rec["max_abs_err"])
             k8["calls_of_a_culled_frame"][name] = {k: rec[k] for k in (
                 "live_rays", "live_clusters", "ms", "plain_ms", "bound_ms",
-                "bound_by")}
+                "bound_by", "k4_same_rays_ms", "walk")}
 
     # the unculled G-buffer's K8 rows against K1's (row-major pixels)
     cols = gbuffer._row_pixels(W, H, str(dev))
     cam_vec = tb.primary_cam_vec(cam_c, W, H,
                                  pixel_jitter=cam_c["current_jitter"],
                                  device=dev)
-    k1 = tb.trace_primary_bvh_full(slabs, *bvh, cols, cam_vec, 0,
-                                   gbuffer.GBUFFER_T_MIN)[: W * H]
+    k1_args = (slabs, *bvh, cols, cam_vec, 0, gbuffer.GBUFFER_T_MIN)
+    k1 = tb.trace_primary_bvh_full(*k1_args)[: W * H]
     tb.check_stack_overflow(dev)
     _, inverse = ttrace.block_order(W, H, str(dev))
     ok, counts, err = compare_rows(k8_rows[inverse], k1, attr_cols)
-    print(f"K8 unculled G-buffer vs K1: ok={ok} {counts}")
+    k8["k1_same_pixels_ms"] = device_ms(
+        lambda: tb.trace_primary_bvh_full(*k1_args), 5)
+    print(f"K8 unculled G-buffer vs K1: ok={ok} {counts}; K8 "
+          f"{k8['ms']:.3f} ms, K1 {k8['k1_same_pixels_ms']:.3f} ms")
     ok_all &= ok
     return ok_all, {"trace_closest_flat": k6, "trace_closest_flat_full": k8}
 
@@ -1614,10 +1692,14 @@ def run_restir(smi, dev):
     return records, k3, launches
 
 
-def check_pt_flat_kernels(fn, scene, cam):
+def check_pt_flat_kernels(fn, scene, cam, dev):
     """K8 on the first bounce set and K7 on the first shadow set of a
-    path-traced frame without BVH arrays, each against its plain version
-    -> (ok, {kernel: record of that set})."""
+    path-traced frame without BVH arrays, each against its plain version;
+    K2 on the same bounce rays over the BVH of the same scene, timed
+    beside K8; K8 on the tie scene's up rays -> (ok, {kernel: record of
+    that set})."""
+    from prosper_tpu_torch import entry as port_entry
+    from prosper_tpu_torch.ops import trace_bvh as tb
     from prosper_tpu_torch.ops import trace_flat as tf
     from prosper_tpu_torch.render import pt
 
@@ -1633,7 +1715,7 @@ def check_pt_flat_kernels(fn, scene, cam):
             (pt, "trace_closest_flat_full", rec)):
         fn(scene, cam, 0)
     torch.cuda.synchronize()
-    ok, k8, _ = check_flat_call(
+    ok, k8, got = check_flat_call(
         "K8 pt bvh=False first bounce set", tf.trace_closest_flat_full,
         tf.trace_closest_flat_full_plain, bounces[0], list(range(2, 13)))
     frame = scene["frame"]
@@ -1641,9 +1723,31 @@ def check_pt_flat_kernels(fn, scene, cam):
         "K7 pt bvh=False first shadow set", tf.trace_any_flat,
         tf.trace_any_flat_plain, any_calls[0][1],
         (frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]))
+
+    # K2 on the same bounce rays, over the BVH arrays of the same scene
+    _, (scene_b, _, _) = port_entry.entry(
+        dev, scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
+        max_bounces=BOUNCES)
+    slabs, _, _, o, d, t_min, t_max = bounces[0]
+    same = torch.equal(slabs, scene_b["geom"]["packed_full"])
+    bvh = (scene_b["frame"]["bvh_bounds"], scene_b["frame"]["bvh_meta"])
+    k2_args = (slabs, *bvh, o, d, t_min, t_max)
+    k2 = tb.trace_closest_bvh(*k2_args)
+    tb.check_stack_overflow(dev)
+    ok2, counts, _ = compare_rows(got, tb._full_rows(slabs, k2),
+                                  list(range(2, 13)))
+    k8["k2_same_rays_ms"] = device_ms(lambda: tb.trace_closest_bvh(*k2_args),
+                                      5)
+    print(f"K8 pt bvh=False first bounce set vs K2 on the same rays: "
+          f"ok={ok2 and same} (same slabs {same}) {counts}; K8 "
+          f"{k8['ms']:.3f} ms, K2 {k8['k2_same_rays_ms']:.3f} ms")
+    ok_tie = check_flat_tie("K8", tf.trace_closest_flat_full,
+                            tf.trace_closest_flat_full_plain, dev, 40)
     keep = ("live_rays", "ms", "plain_ms", "bound_ms", "bound_by")
-    return ok and ok7, {"trace_closest_flat_full": {k: k8[k] for k in keep},
-                        "trace_any_flat": {k: k7[k] for k in keep}}
+    return ok and ok7 and ok2 and same and ok_tie, {
+        "trace_closest_flat_full": {k: k8[k] for k in (
+            *keep, "k2_same_rays_ms", "walk")},
+        "trace_any_flat": {k: k7[k] for k in keep}}
 
 
 def run_pt_flat(smi, dev, records):
@@ -1655,7 +1759,7 @@ def run_pt_flat(smi, dev, records):
     fn, (scene, cam, _) = port_entry.entry(
         dev, scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
         max_bounces=BOUNCES, bvh=False)
-    ok, sets = check_pt_flat_kernels(fn, scene, cam)
+    ok, sets = check_pt_flat_kernels(fn, scene, cam, dev)
     if not ok:
         raise RuntimeError("a flat kernel disagrees with its plain version "
                            "on the path tracer's wavefronts")

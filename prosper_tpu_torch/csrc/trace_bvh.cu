@@ -72,7 +72,6 @@
 #include "ray_common.cuh"
 
 #define STACK_CAP 64  // >= BVH depth + 2 (trace_bvh.py:52)
-#define LANES 128     // triangles per cluster slab
 #define BLOCK 128     // threads per block
 
 namespace {
@@ -87,18 +86,6 @@ __device__ __forceinline__ bool node_test(const float* __restrict__ bounds,
     enter = slab_enter(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3),
                        __ldg(b + 4), __ldg(b + 5), r, ex);
     return enter <= ex && enter < best;
-}
-
-// Möller-Trumbore against triangle j of a slab (trace_pallas.py:76-116).
-__device__ __forceinline__ bool moller(const float* __restrict__ s, int j,
-                                       const Ray& r, float t_min,
-                                       float t_upper, float& t, float& u,
-                                       float& v) {
-    return moller_tri(__ldg(s + 0 * LANES + j), __ldg(s + 1 * LANES + j),
-                      __ldg(s + 2 * LANES + j), __ldg(s + 3 * LANES + j),
-                      __ldg(s + 4 * LANES + j), __ldg(s + 5 * LANES + j),
-                      __ldg(s + 6 * LANES + j), __ldg(s + 7 * LANES + j),
-                      __ldg(s + 8 * LANES + j), r, t_min, t_upper, t, u, v);
 }
 
 struct Hit {
@@ -168,32 +155,6 @@ __device__ bool walk(const float* __restrict__ slabs, int rows,
     return true;
 }
 
-// Full hit row (R, 16): t | tri | attributes once, at the final hit
-// (slabs.attrs_from_hit_rows): a(row) = w*row[v0] + u*row[v1] +
-// v*row[v2], w = 1 - u - v; zero attributes on a miss.
-__device__ __forceinline__ void write_full(const float* __restrict__ slabs,
-                                           int rows, const Hit& h,
-                                           float* __restrict__ o) {
-    o[0] = h.t;
-    o[1] = (float)h.tri;
-    if (h.tri < 0) {
-        for (int c = 2; c < 16; ++c) o[c] = 0.0f;
-        return;
-    }
-    const float* s = slabs + (size_t)(h.tri >> 7) * rows * LANES + (h.tri & 127);
-    float w = 1.0f - h.u - h.v;
-#define ATTR(r0, r1, r2)                                                  \
-    (w * __ldg(s + (r0) * LANES) + h.u * __ldg(s + (r1) * LANES) +        \
-     h.v * __ldg(s + (r2) * LANES))
-    for (int c = 0; c < 3; ++c) o[2 + c] = ATTR(9 + c, 12 + c, 15 + c);
-    for (int c = 0; c < 4; ++c) o[5 + c] = ATTR(18 + c, 22 + c, 26 + c);
-    for (int c = 0; c < 2; ++c) o[9 + c] = ATTR(30 + c, 32 + c, 34 + c);
-#undef ATTR
-    o[11] = __ldg(s + 36 * LANES);
-    o[12] = __ldg(s + 37 * LANES);
-    o[13] = o[14] = o[15] = 0.0f;
-}
-
 __device__ __forceinline__ void load_ray(const float* __restrict__ ray_o,
                                          const float* __restrict__ ray_d,
                                          int k, Ray& r) {
@@ -236,9 +197,6 @@ __global__ void closest_kernel(const float* __restrict__ slabs, int rows,
     o[6] = (float)n[0];
     o[7] = (float)n[1];
 }
-
-#define FULL_MASK 0xffffffffu
-#define NO_KEY 0xffffffffu  // a lane without a hit in the leaf
 
 // `walk`'s loop up to its next leaf: pops, prunes against best, tests
 // and pushes an interior node's children as `walk` does, until it pops a
@@ -287,13 +245,6 @@ __device__ __forceinline__ int next_leaf(const float* __restrict__ bounds,
         }
     }
     return -1;
-}
-
-// A hit's t as an unsigned key of the same order; -0 and +0, equal as
-// floats, give one key. A hit's t is finite, so its key is below NO_KEY.
-__device__ __forceinline__ unsigned t_key(float t) {
-    const unsigned b = __float_as_uint(t == 0.0f ? 0.0f : t);
-    return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
 // The warp-shared leaf test of K1-K4 and K10. Every lane of the warp
@@ -483,7 +434,8 @@ __global__ void closest_full_kernel(const float* __restrict__ slabs, int rows,
     load_lane(ray_o, ray_d, t_max, R, k, r, h);
     warp_walk<false, true>(slabs, rows, bounds, meta, r, t_min, live, h,
                            err);
-    if (k < R) write_full(slabs, rows, h, out + 16 * (size_t)k);
+    if (k < R)
+        write_full(slabs, rows, h.t, h.tri, h.u, h.v, out + 16 * (size_t)k);
 }
 
 // One pcg3d round of uvec3(x, y, z) (random.glsl:17-28).
@@ -547,7 +499,8 @@ __global__ void primary_kernel(const float* __restrict__ slabs, int rows,
     }
     warp_walk<false, false>(slabs, rows, bounds, meta, r, t_min, nullptr, h,
                             err);
-    if (k < R) write_full(slabs, rows, h, out + 16 * (size_t)k);
+    if (k < R)
+        write_full(slabs, rows, h.t, h.tri, h.u, h.v, out + 16 * (size_t)k);
 }
 
 // K10, the dense-cull any hit (trace_bvh.py _any_body(dense=True) :1617,
@@ -1044,7 +997,7 @@ __global__ void closest8_full_kernel(const float* __restrict__ slabs,
     Hit h = {t_max[k], 0.0f, 0.0f, -1};
     if (h.t > 0.0f && !walk8<false>(slabs, rows, nodes8, r, t_min, h))
         atomicExch(err, 1);
-    write_full(slabs, rows, h, out + 16 * (size_t)k);
+    write_full(slabs, rows, h.t, h.tri, h.u, h.v, out + 16 * (size_t)k);
 }
 
 // K13: (R,) occlusion, a hit being t_min < t < t_max.

@@ -21,8 +21,8 @@
 // kernels hard-code 1e-4. Exact t ties go to the lowest triangle id, as
 // in the plain version, so the walk order does not change the result.
 //
-// Design: one block of 256 threads per 256 consecutive rays, a tile
-// (callers trace 16x16 pixel blocks). The block
+// Design of K6 and K8: one block of 256 threads per 256 consecutive
+// rays, a tile (callers trace 16x16 pixel blocks). The block
 // 1. reduces its rays to packet bounds (origin and direction boxes, the
 //    largest t_max); a tile with no t_max above t_min writes misses;
 // 2. culls all C cluster AABBs against the packet with the interval slab
@@ -31,58 +31,78 @@
 //    shared memory (a ballot and a prefix over warps);
 // 3. sorts the list front to back by the packet's entry distance (ties
 //    by id; a bitonic sort in shared memory), the order of
-//    trace_pallas._cull_lists;
-// 4. walks the list: each thread tests its ray's own slab entry into
-//    the cluster's AABB, the block skips a cluster no ray enters before
-//    its best hit, else stages the cluster's 9x128 Möller rows (4.5 KB)
-//    in shared memory and every entering thread tests the 128
-//    triangles; the walk stops once the next cluster's packet entry
-//    lies beyond every live ray's best hit (the front-to-back exit of
-//    trace_pallas.py:165-169);
-// 5. the full kernel reads rows 9-37 of the winning triangle once.
+//    trace_pallas._cull_lists, unless it is in that order already: an
+//    incoherent tile's packet entry is 0 for every cluster;
+// 4. bounds each run of 32 list entries by a chunk box, the exact union
+//    of their AABBs (one warp a chunk). A box holds its members and the
+//    slab test rounds monotonically in the box, so a ray that does not
+//    enter the chunk box enters none of its clusters;
+// 5. walks the list warp by warp, with no block barrier (no thread writes
+//    shared memory after step 4), chunk by chunk. The lanes whose own ray
+//    enters the chunk box before their best hit own it. With more owners
+//    than entries (a coherent tile) the warp goes entry by entry: each
+//    owner tests its ray's slab entry into the cluster's AABB. Otherwise
+//    it goes owner by owner, lowest lane first: lane l tests the owner's
+//    ray against entry 32j + l, and the entries it enters are taken in
+//    list order. Each way costs the warp one slab-test round per owner
+//    or per entry, so it takes the fewer. Either way a cluster the
+//    ray enters (enter <= exit, enter < t_max) no later than its best
+//    hit (inclusive: a hit at exactly `best` with a lower triangle id
+//    still wins) is tested with the whole warp: lane l takes triangles
+//    l + 32q on full 128-byte slab lines read from device memory
+//    (flat_leaf), and the owner keeps the lowest (t, triangle id) of the
+//    warp. A warp leaves the list once the next key, a packet entry,
+//    lies beyond the best hit of each of its live lanes (the
+//    front-to-back exit of trace_pallas.py:165-169): a ray's own entry is
+//    never below its packet's, so no later cluster can hold a hit for it;
+// 6. each lane recomputes u, v of its final hit once (the same Möller
+//    test on the same inputs), and the full kernel reads rows 9-37 of the
+//    winning triangle once.
+// Exact t ties go to the lowest triangle id over all clusters, not to
+// the cluster tested first (the warp walk of csrc/trace_bvh.cu keeps the
+// earlier visit; the flat list is ordered by packet entry, not by id),
+// so the rows equal the plain version's bit for bit in any walk order.
 //
-// The any-hit kernel (K7) runs steps 1, 2 and 4 on the same lists, in id
-// order (the order is free for an any hit, so step 3 is left out), with
-// the per-ray test "enters the box before t_max", and a lane is done
-// once occluded or when its t_max is not above t_min (no hit can occlude
-// it). The walk stops when every lane of the block is done
-// (_any_kernel :371-373); counting disabled lanes as done keeps a tile
-// of lanes that trace nothing from walking its whole list.
+// The any-hit kernel (K7) runs steps 1, 2 and a block-wide walk on the
+// same lists, in id order (the order is free for an any hit, so step 3
+// is left out), with the per-ray test "enters the box before t_max": it
+// stages each cluster some lane enters, the 9x128 Möller rows (4.5 KB),
+// in shared memory and each entering thread tests the 128 triangles
+// alone; a lane is done once occluded or when its t_max is not above
+// t_min (no hit can occlude it). The walk stops when every lane of the
+// block is done (_any_kernel :371-373); counting disabled lanes as done
+// keeps a tile of lanes that trace nothing from walking its whole list.
 //
 // The list holds the next power of two above C entries (8 KB of ids and
-// 8 KB of keys at C = 2048); the host side refuses a C whose list does
-// not fit in the 227 KB of shared memory a block can have, so no
-// overlapping cluster is ever dropped.
+// 8 KB of keys at C = 2048; K6 and K8 add 24 bytes of chunk box for
+// every 32 entries, K7 its staged slab); the host side
+// refuses a C whose list does not fit in the 227 KB of shared memory a
+// block can have, so no overlapping cluster is ever dropped.
 //
-// What bounds them on the H100: the Möller tests (53 float operations
-// each, 128 per entered ray-cluster pair) and the block barriers of the
-// walk; the slab reads are coalesced and shared by the 256 rays of the
-// tile, so the bytes are not the limit. Staging with cp.async or TMA,
-// warp-level culls and ray sorting are later work. The Möller test is
-// written operation for operation as the plain PyTorch version (built
-// with --fmad=false), so hits agree bit for bit.
+// What bounds K6 and K8 on the H100: on an incoherent tile (up to C
+// listed clusters, each ray entering a few), the chunk tests (C / 32 a
+// lane) and the owner-by-owner entry tests of the chunks a ray enters;
+// on a coherent one, the Möller tests (53 float operations each, 4 a
+// lane for each cluster an owner enters before its hit). The slab reads
+// are coalesced lines shared through L2 by the tile's rays.
+// K7 is bound by its block barriers and its 128 dependent tests a lane.
+// The Möller test is ray_common.cuh's, operation for operation the plain
+// PyTorch version (built with --fmad=false), so hits agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ray_common.cuh"
+
 #define TILE 256      // rays per block
 #define WARPS (TILE / 32)
-#define LANES 128     // triangles per cluster slab
-#define SLAB_ROWS 9   // Möller rows staged per cluster
-#define DET_EPS 1e-10f
+#define CHUNK 32      // list entries under one chunk box (K6, K8)
+#define MIN_BLOCKS 4  // K6, K8 blocks an SM must hold: <= 64 registers
+#define SLAB_ROWS 9   // Möller rows K7 stages per cluster
 #define BIG 3e38f     // entry / exit of a box no packet overlaps
-#define INF __int_as_float(0x7f800000)
 #define MAX_SHARED 232448  // dynamic shared memory a block can have
 
 namespace {
-
-struct Ray {
-    float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-};
-
-__device__ __forceinline__ float safe_inv(float d) {
-    return fabsf(d) > 1e-12f ? 1.0f / d : 1e30f;
-}
 
 // One axis of ops/intersect.packet_aabb_enter_exit.
 __device__ __forceinline__ void packet_axis(float olo, float ohi, float dlo,
@@ -108,67 +128,20 @@ __device__ __forceinline__ void ray_box(const float* __restrict__ wc_min,
                                         float& ex) {
     const float* a = wc_min + 3 * c;
     const float* b = wc_max + 3 * c;
-    float t0x = (__ldg(a + 0) - r.ox) * r.ix;
-    float t1x = (__ldg(b + 0) - r.ox) * r.ix;
-    float t0y = (__ldg(a + 1) - r.oy) * r.iy;
-    float t1y = (__ldg(b + 1) - r.oy) * r.iy;
-    float t0z = (__ldg(a + 2) - r.oz) * r.iz;
-    float t1z = (__ldg(b + 2) - r.oz) * r.iz;
-    en = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-               fmaxf(fminf(t0z, t1z), 0.0f));
-    ex = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+    en = slab_enter(__ldg(a), __ldg(a + 1), __ldg(a + 2), __ldg(b),
+                    __ldg(b + 1), __ldg(b + 2), r, ex);
 }
 
-// Möller-Trumbore against triangle j of a staged slab
-// (trace_pallas.py:76-116, csrc/trace_bvh.cu moller).
-__device__ __forceinline__ bool moller(const float* s, int j, const Ray& r,
-                                       float t_min, float t_upper, float& t,
-                                       float& u, float& v) {
-    float v0x = s[0 * LANES + j], v0y = s[1 * LANES + j];
-    float v0z = s[2 * LANES + j], e1x = s[3 * LANES + j];
-    float e1y = s[4 * LANES + j], e1z = s[5 * LANES + j];
-    float e2x = s[6 * LANES + j], e2y = s[7 * LANES + j];
-    float e2z = s[8 * LANES + j];
-    float px = r.dy * e2z - r.dz * e2y;
-    float py = r.dz * e2x - r.dx * e2z;
-    float pz = r.dx * e2y - r.dy * e2x;
-    float det = e1x * px + e1y * py + e1z * pz;
-    bool ok = fabsf(det) > DET_EPS;
-    float inv = ok ? 1.0f / det : 0.0f;
-    float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-    u = (tx * px + ty * py + tz * pz) * inv;
-    float qx = ty * e1z - tz * e1y;
-    float qy = tz * e1x - tx * e1z;
-    float qz = tx * e1y - ty * e1x;
-    v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-    return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min &&
-           t < t_upper;
-}
-
-// Full hit row (R, 16) at the final hit (csrc/trace_bvh.cu write_full).
-__device__ __forceinline__ void write_full(const float* __restrict__ slabs,
-                                           int rows, float t, int tri,
-                                           float u, float v,
-                                           float* __restrict__ o) {
-    o[0] = t;
-    o[1] = (float)tri;
-    if (tri < 0) {
-        for (int c = 2; c < 16; ++c) o[c] = 0.0f;
-        return;
-    }
-    const float* s = slabs + (size_t)(tri >> 7) * rows * LANES + (tri & 127);
-    float w = 1.0f - u - v;
-#define ATTR(r0, r1, r2)                                                  \
-    (w * __ldg(s + (r0) * LANES) + u * __ldg(s + (r1) * LANES) +          \
-     v * __ldg(s + (r2) * LANES))
-    for (int c = 0; c < 3; ++c) o[2 + c] = ATTR(9 + c, 12 + c, 15 + c);
-    for (int c = 0; c < 4; ++c) o[5 + c] = ATTR(18 + c, 22 + c, 26 + c);
-    for (int c = 0; c < 2; ++c) o[9 + c] = ATTR(30 + c, 32 + c, 34 + c);
-#undef ATTR
-    o[11] = __ldg(s + 36 * LANES);
-    o[12] = __ldg(s + 37 * LANES);
-    o[13] = o[14] = o[15] = 0.0f;
+// Möller-Trumbore against triangle j of a slab staged in shared memory
+// (K7).
+__device__ __forceinline__ bool moller_staged(const float* s, int j,
+                                              const Ray& r, float t_min,
+                                              float t_upper, float& t,
+                                              float& u, float& v) {
+    return moller_tri(s[0 * LANES + j], s[1 * LANES + j], s[2 * LANES + j],
+                      s[3 * LANES + j], s[4 * LANES + j], s[5 * LANES + j],
+                      s[6 * LANES + j], s[7 * LANES + j], s[8 * LANES + j],
+                      r, t_min, t_upper, t, u, v);
 }
 
 template <bool FULL>
@@ -191,6 +164,11 @@ __device__ __forceinline__ void write_row(const float* __restrict__ slabs,
 // (key, id) lexicographic order of the list.
 __device__ __forceinline__ bool after(float ka, int ia, float kb, int ib) {
     return ka > kb || (ka == kb && ia > ib);
+}
+
+// Chunk boxes of a list of n entries.
+__host__ __device__ __forceinline__ int chunks(int n) {
+    return (n + CHUNK - 1) / CHUNK;
 }
 
 // Step 1: the block's packet bounds, min o | max o | min d | max d | max
@@ -289,28 +267,83 @@ __device__ __forceinline__ Ray tile_ray(const float* __restrict__ ray_o,
     r.dx = ray_d[3 * src];
     r.dy = ray_d[3 * src + 1];
     r.dz = ray_d[3 * src + 2];
-    r.ix = safe_inv(r.dx);
-    r.iy = safe_inv(r.dy);
-    r.iz = safe_inv(r.dz);
+    set_inv(r);
     return r;
 }
 
+// The warp-shared test of one listed cluster c (K6, K8). Every lane of
+// the warp calls it with the same c and src, the owner: lane src's ray,
+// with t_upper = its t_max and its best hit (best, best_tri), is tested
+// against the cluster's 128 triangles, lane l taking triangles l + 32q
+// (q = 0..3), every slab load one full 128-byte line across the warp.
+// A lane keeps a triangle whose (t, id) lies below the owner's (best,
+// best_tri) and below the lane's earlier ones, t compared as floats (-0
+// equals +0); the warp takes the least t key, then the least id among
+// the lanes at that key, and the owner takes its t and id (the kernel
+// computes u, v of the final hit once, at the end). That is the lowest
+// (t, id) of the owner's hits and the hits of the clusters it tested
+// before, the hit the plain version's minimum over all entered clusters
+// gives, whatever the list's order.
+__device__ __forceinline__ void flat_leaf(const float* __restrict__ slabs,
+                                          int rows, int c, int src,
+                                          const Ray& r, float tmax_ray,
+                                          float t_min, float& best,
+                                          int& best_tri) {
+    const int lane = threadIdx.x & 31;
+    Ray q;  // the owner's ray; Möller reads no reciprocal
+    q.ox = __shfl_sync(FULL_MASK, r.ox, src);
+    q.oy = __shfl_sync(FULL_MASK, r.oy, src);
+    q.oz = __shfl_sync(FULL_MASK, r.oz, src);
+    q.dx = __shfl_sync(FULL_MASK, r.dx, src);
+    q.dy = __shfl_sync(FULL_MASK, r.dy, src);
+    q.dz = __shfl_sync(FULL_MASK, r.dz, src);
+    q.ix = q.iy = q.iz = 0.0f;
+    const float t_upper = __shfl_sync(FULL_MASK, tmax_ray, src);
+    float bt = __shfl_sync(FULL_MASK, best, src);
+    int btri = __shfl_sync(FULL_MASK, best_tri, src);
+    bool found = false;
+    const float* s = slabs + (size_t)c * rows * LANES + lane;
+#pragma unroll
+    for (int j = 0; j < LANES; j += 32) {
+        float t, u, v;
+        const int tri = c * LANES + lane + j;
+        if (moller(s, j, q, t_min, t_upper, t, u, v) &&
+            (t < bt || (t == bt && tri < btri))) {
+            bt = t;
+            btri = tri;
+            found = true;
+        }
+    }
+    const unsigned key = found ? t_key(bt) : NO_KEY;
+    const unsigned kmin = __reduce_min_sync(FULL_MASK, key);
+    if (kmin == NO_KEY) return;
+    const unsigned tri =
+        __reduce_min_sync(FULL_MASK, key == kmin ? (unsigned)btri : NO_KEY);
+    const float t = __shfl_sync(FULL_MASK, bt, (int)(tri & 31u));
+    if (lane == src) {
+        best = t;
+        best_tri = (int)tri;
+    }
+}
+
+// K6 (FULL = false, (R, 8) rows) and K8 (FULL = true, (R, 16) rows).
 template <bool FULL>
-__global__ void __launch_bounds__(TILE)
+__global__ void __launch_bounds__(TILE, MIN_BLOCKS)
 flat_kernel(const float* __restrict__ slabs, int rows, int C,
             const float* __restrict__ wc_min, const float* __restrict__ wc_max,
             const float* __restrict__ ray_o, const float* __restrict__ ray_d,
             const float* __restrict__ t_max, int R, float t_min, int cap,
             float* __restrict__ out) {
     extern __shared__ float smem[];
-    float* s_slab = smem;                      // SLAB_ROWS x LANES
-    float* s_key = smem + SLAB_ROWS * LANES;   // cap
-    int* s_id = (int*)(s_key + cap);           // cap
+    float* s_key = smem;                      // cap
+    int* s_id = (int*)(s_key + cap);          // cap
+    float* s_cbox = (float*)(s_id + cap);     // 6 x chunks(cap)
+    const int cstride = chunks(cap);
     __shared__ float s_red[13][WARPS];
     __shared__ float s_pkt[13];
     __shared__ int s_wcount[WARPS];
 
-    const int tid = threadIdx.x;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int first = blockIdx.x * TILE;
     const int k = first + tid;
     const bool active = k < R;
@@ -331,74 +364,157 @@ flat_kernel(const float* __restrict__ slabs, int rows, int C,
     const int count = cull_clusters(C, wc_min, wc_max, s_pkt, tile_tmax,
                                     s_key, s_id, s_wcount);
 
-    // 3. bitonic sort of the list, padded to a power of two, by (key, id)
-    int n2 = 1;
-    while (n2 < count) n2 <<= 1;
-    for (int i = count + tid; i < n2; i += TILE) {
-        s_key[i] = INF;
-        s_id[i] = 0x7fffffff;
-    }
-    __syncthreads();
-    for (int size = 2; size <= n2; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-            for (int i = tid; i < n2; i += TILE) {
-                int j = i ^ stride;
-                if (j > i) {
-                    bool up = (i & size) == 0;
-                    float ki = s_key[i], kj = s_key[j];
-                    int ii = s_id[i], ij = s_id[j];
-                    if (after(ki, ii, kj, ij) == up) {
-                        s_key[i] = kj;
-                        s_key[j] = ki;
-                        s_id[i] = ij;
-                        s_id[j] = ii;
+    // 3. bitonic sort of the list, padded to a power of two, by (key, id),
+    // unless it is in that order already (a tile whose packet entry is 0
+    // for every listed cluster: the incoherent tiles)
+    bool in_order = true;
+    for (int i = tid; i + 1 < count; i += TILE)
+        in_order &= !after(s_key[i], s_id[i], s_key[i + 1], s_id[i + 1]);
+    if (!__syncthreads_and(in_order)) {
+        int n2 = 1;
+        while (n2 < count) n2 <<= 1;
+        for (int i = count + tid; i < n2; i += TILE) {
+            s_key[i] = INF;
+            s_id[i] = 0x7fffffff;
+        }
+        __syncthreads();
+        for (int size = 2; size <= n2; size <<= 1) {
+            for (int stride = size >> 1; stride > 0; stride >>= 1) {
+                for (int i = tid; i < n2; i += TILE) {
+                    int j = i ^ stride;
+                    if (j > i) {
+                        bool up = (i & size) == 0;
+                        float ki = s_key[i], kj = s_key[j];
+                        int ii = s_id[i], ij = s_id[j];
+                        if (after(ki, ii, kj, ij) == up) {
+                            s_key[i] = kj;
+                            s_key[j] = ki;
+                            s_id[i] = ij;
+                            s_id[j] = ii;
+                        }
                     }
                 }
+                __syncthreads();
             }
-            __syncthreads();
         }
     }
 
-    // 4. the walk
-    float best = tmax_ray, bu = 0.0f, bv = 0.0f;
-    int best_tri = -1;
-    for (int i = 0; i < count; ++i) {
-        const float key = s_key[i];
-        const int c = s_id[i];
-        // a lane is live while a hit could still improve it; the walk
-        // ends when the next cluster starts beyond every live lane's best
-        // hit (a hit at exactly `best` with a lower id would still win).
-        // This barrier also keeps the slab of the last cluster until all
-        // threads have tested it.
-        const bool live = active && best > t_min;
-        if (__syncthreads_and(!(live && key <= best))) break;
-        bool need = false;
-        if (live) {
-            float en, ex;
-            ray_box(wc_min, wc_max, c, r, en, ex);
-            need = en <= ex && en < tmax_ray && en <= best;
-        }
-        if (!__syncthreads_or(need)) continue;
-        const float* s = slabs + (size_t)c * rows * LANES;
-        for (int j = tid; j < SLAB_ROWS * LANES; j += TILE)
-            s_slab[j] = __ldg(s + j);
-        __syncthreads();
-        if (need) {
-            for (int j = 0; j < LANES; ++j) {
-                float t, u, v;
-                if (moller(s_slab, j, r, t_min, tmax_ray, t, u, v)) {
-                    int tri = c * LANES + j;
-                    if (t < best || (t == best && tri < best_tri)) {
-                        best = t;
-                        bu = u;
-                        bv = v;
-                        best_tri = tri;
-                    }
-                }
+    // 4. the chunk boxes: the union of the AABBs of list entries 32j ..
+    // 32j + 31, min and max taken exactly, one warp a chunk
+    const int n_chunks = chunks(count);
+    for (int j = warp; j < n_chunks; j += WARPS) {
+        const int e = CHUNK * j + lane;
+        float b[6] = {INF, INF, INF, -INF, -INF, -INF};
+        if (e < count) {
+            const int c = s_id[e];
+#pragma unroll
+            for (int a = 0; a < 3; ++a) {
+                b[a] = __ldg(wc_min + 3 * c + a);
+                b[3 + a] = __ldg(wc_max + 3 * c + a);
             }
         }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+            for (int a = 0; a < 3; ++a) {
+                b[a] = fminf(b[a], __shfl_xor_sync(FULL_MASK, b[a], off));
+                b[3 + a] =
+                    fmaxf(b[3 + a], __shfl_xor_sync(FULL_MASK, b[3 + a], off));
+            }
+        }
+        if (lane == 0) {
+#pragma unroll
+            for (int a = 0; a < 6; ++a) s_cbox[a * cstride + j] = b[a];
+        }
     }
-    if (active) write_row<FULL>(slabs, rows, k, best, best_tri, bu, bv, out);
+    __syncthreads();  // no thread writes shared memory after this
+
+    // 5. the walk, warp by warp, chunk by chunk. A lane is live while a hit
+    // could still improve it (lanes past R and lanes with t_max <= t_min
+    // never are); every lane stays in the loop to the warp's end, so each
+    // _sync takes the full mask.
+    const bool live = active && tmax_ray > t_min;
+    float best = tmax_ray;
+    int best_tri = -1;
+    bool done = false;
+    for (int j = 0; j < n_chunks && !done; ++j) {
+        if (__all_sync(FULL_MASK, !(live && s_key[CHUNK * j] <= best))) break;
+        float ex;
+        const float en = slab_enter(
+            s_cbox[j], s_cbox[cstride + j], s_cbox[2 * cstride + j],
+            s_cbox[3 * cstride + j], s_cbox[4 * cstride + j],
+            s_cbox[5 * cstride + j], r, ex);
+        unsigned owners = __ballot_sync(
+            FULL_MASK, live && en <= ex && en < tmax_ray && en <= best);
+        if (owners == 0) continue;
+        const int n_entries = min(CHUNK, count - CHUNK * j);
+        if (__popc(owners) > n_entries) {
+            // more owners than entries (a coherent tile): entry by entry,
+            // each owner lane testing its own ray
+            const bool owner = (owners >> lane) & 1u;
+            for (int e = CHUNK * j; e < CHUNK * j + n_entries; ++e) {
+                if (__all_sync(FULL_MASK, !(live && s_key[e] <= best))) {
+                    done = true;  // the front-to-back exit, entry by entry
+                    break;
+                }
+                const int c_e = s_id[e];
+                float e_en, e_ex;
+                ray_box(wc_min, wc_max, c_e, r, e_en, e_ex);
+                unsigned tests = __ballot_sync(
+                    FULL_MASK, owner && e_en <= e_ex && e_en < tmax_ray &&
+                                   e_en <= best);
+                while (tests != 0) {  // lowest lane first
+                    const int t = __ffs(tests) - 1;
+                    tests &= tests - 1;
+                    flat_leaf(slabs, rows, c_e, t, r, tmax_ray, t_min, best,
+                              best_tri);
+                }
+            }
+            continue;
+        }
+        // fewer owners than entries: owner by owner, lane l holding entry
+        // 32j + l
+        const int e = CHUNK * j + lane;
+        const bool listed = e < count;
+        const int c = listed ? s_id[e] : 0;
+        const float* lo = wc_min + 3 * c;
+        const float* hi = wc_max + 3 * c;
+        const float lx = __ldg(lo), ly = __ldg(lo + 1), lz = __ldg(lo + 2);
+        const float hx = __ldg(hi), hy = __ldg(hi + 1), hz = __ldg(hi + 2);
+        do {  // owner by owner, lowest lane first
+            const int owner = __ffs(owners) - 1;
+            owners &= owners - 1;
+            Ray q;  // the owner's ray, for the slab test
+            q.ox = __shfl_sync(FULL_MASK, r.ox, owner);
+            q.oy = __shfl_sync(FULL_MASK, r.oy, owner);
+            q.oz = __shfl_sync(FULL_MASK, r.oz, owner);
+            q.ix = __shfl_sync(FULL_MASK, r.ix, owner);
+            q.iy = __shfl_sync(FULL_MASK, r.iy, owner);
+            q.iz = __shfl_sync(FULL_MASK, r.iz, owner);
+            const float q_tmax = __shfl_sync(FULL_MASK, tmax_ray, owner);
+            float q_ex;
+            const float q_en = slab_enter(lx, ly, lz, hx, hy, hz, q, q_ex);
+            unsigned pending = __ballot_sync(
+                FULL_MASK, listed && q_en <= q_ex && q_en < q_tmax);
+            while (pending != 0) {  // the owner's entries in list order
+                const int w = __ffs(pending) - 1;
+                pending &= pending - 1;
+                const float en_w = __shfl_sync(FULL_MASK, q_en, w);
+                const int c_w = __shfl_sync(FULL_MASK, c, w);
+                if (en_w <= __shfl_sync(FULL_MASK, best, owner))
+                    flat_leaf(slabs, rows, c_w, owner, r, tmax_ray, t_min,
+                              best, best_tri);
+            }
+        } while (owners != 0);
+    }
+    if (!active) return;
+    float bu = 0.0f, bv = 0.0f;
+    if (best_tri >= 0) {  // u, v of the hit, as its test computed them
+        float t;
+        moller(slabs + (size_t)(best_tri >> 7) * rows * LANES,
+               best_tri & (LANES - 1), r, t_min, tmax_ray, t, bu, bv);
+    }
+    write_row<FULL>(slabs, rows, k, best, best_tri, bu, bv, out);
 }
 
 // K7: the any hit over the same lists, walked in id order.
@@ -456,7 +572,7 @@ flat_any_kernel(const float* __restrict__ slabs, int rows, int C,
         if (need) {
             for (int j = 0; j < LANES; ++j) {
                 float t, u, v;
-                if (moller(s_slab, j, r, t_min, tmax_ray, t, u, v)) {
+                if (moller_staged(s_slab, j, r, t_min, tmax_ray, t, u, v)) {
                     hit = done = true;
                     break;
                 }
@@ -466,13 +582,17 @@ flat_any_kernel(const float* __restrict__ slabs, int rows, int C,
     if (active) occ[k] = hit ? 1 : 0;
 }
 
-// Dynamic shared memory of one block (the staged slab and the list), or
-// 0 when it exceeds a block's; sets the kernel's limit above 48 KB.
-template <typename K>
+// Dynamic shared memory of one block, or 0 when it exceeds a block's;
+// sets the kernel's limit above 48 KB. The (key, id) list of the next
+// power of two above C entries, then K6's and K8's chunk boxes (6 floats
+// a chunk) or, for K7 (STAGED), its staged slab.
+template <bool STAGED, typename K>
 size_t list_smem(K kernel, int C, int& cap, cudaError_t& err) {
     cap = 1;
     while (cap < C) cap <<= 1;
-    size_t bytes = sizeof(float) * (SLAB_ROWS * LANES + 2 * (size_t)cap);
+    size_t bytes =
+        sizeof(float) * (2 * (size_t)cap +
+                         (STAGED ? SLAB_ROWS * LANES : 6 * (size_t)chunks(cap)));
     err = cudaSuccess;
     if (bytes > MAX_SHARED) {
         err = cudaErrorInvalidConfiguration;
@@ -492,7 +612,7 @@ int launch(const float* slabs, int rows, int C, const float* wc_min,
     if (R <= 0) return 0;
     int cap;
     cudaError_t e;
-    size_t bytes = list_smem(flat_kernel<FULL>, C, cap, e);
+    size_t bytes = list_smem<false>(flat_kernel<FULL>, C, cap, e);
     if (e != cudaSuccess) return (int)e;
     flat_kernel<FULL><<<(R + TILE - 1) / TILE, TILE, bytes, stream>>>(
         slabs, rows, C, wc_min, wc_max, ray_o, ray_d, t_max, R, t_min, cap,
@@ -532,7 +652,7 @@ extern "C" int trace_any_flat(const float* slabs, int rows, int C,
     if (R <= 0) return 0;
     int cap;
     cudaError_t e;
-    size_t bytes = list_smem(flat_any_kernel, C, cap, e);
+    size_t bytes = list_smem<true>(flat_any_kernel, C, cap, e);
     if (e != cudaSuccess) return (int)e;
     flat_any_kernel<<<(R + TILE - 1) / TILE, TILE, bytes,
                       (cudaStream_t)stream>>>(slabs, rows, C, wc_min, wc_max,

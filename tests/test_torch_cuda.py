@@ -1172,3 +1172,97 @@ def test_dense_any_warp_walk_matches_plain_on_card(cuda, skip):
     assert torch.equal(rows[:, :4], want[:, :4])
     assert (tb.trace_any_bvh_dense.launches, tb.dense_cull_counts.launches,
             tb.trace_closest_bvh_dense.launches) == (1, 1, 1)
+
+
+def _flat_pair(full):
+    return ((tf.trace_closest_flat_full, tf.trace_closest_flat_full_plain)
+            if full else (tf.trace_closest_flat, tf.trace_closest_flat_plain))
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["K6", "K8"])
+@pytest.mark.parametrize("R", [1, 31, 33, 1031])
+def test_warp_flat_walk_matches_plain_on_card(cuda, R, full):
+    """K6 and K8 walk the tile's list warp by warp: rows equal their
+    plain versions' bit for bit at R = 1, 31, 33 and 1031 (a partial last
+    warp and tile; C = 64, not a multiple of 256), over the cluster
+    AABBs and masked ones, with t_max 0 and t_max = t_min lanes among
+    live ones, rays that miss every box, and (R = 1031) a first tile
+    whose t_max are all <= t_min."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32, blend_every=8, mask_every=8)
+    kern, plain = _flat_pair(full)
+    slabs = sc["geom"]["packed_full" if full else "packed9"]
+    frame = sc["frame"]
+    mn, mx = frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]
+    keep = torch.as_tensor(np.random.default_rng(R).random(64) > 0.3,
+                           device=cuda)
+    o, d, t_max = _mixed_rays(sc, R, R, cuda)
+    t_max[1::11] = 1e-4  # = t_min: no hit
+    if R > 256:
+        t_max[:256] = torch.where(t_max[:256] > 1e-4, 1e-4, t_max[:256])
+    kern.launches = 0
+    for bmin, bmax in ((mn, mx), gbuffer._masked_aabbs(mn, mx, keep)):
+        got = kern(slabs, bmin, bmax, o, d, 1e-4, t_max)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(slabs, bmin, bmax, o, d, 1e-4, t_max))
+        assert (got[t_max <= 1e-4, 1] == -1).all()
+        if R > 256:
+            assert (got[:256, 1] == -1).all()
+        if R > 31:
+            assert (got[:, 1] >= 0).any()
+    assert kern.launches == 2
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["K6", "K8"])
+@pytest.mark.parametrize("rays", ["up", "down", "mixed"])
+def test_warp_flat_walk_takes_the_lowest_tri_on_ties_on_card(cuda, rays,
+                                                             full):
+    """testing.make_tie_scene over its two leaf boxes: an up ray's tile
+    lists cluster 1 (copies from tri 168) first, yet K6 and K8 give tri 9,
+    the lowest copy over all clusters, to every ray, with K8's attributes
+    those of tri 9: rows equal the plain versions' bit for bit (the warp
+    walk of K2 and K4 keeps the earlier visit, 168)."""
+    slabs, bounds, meta, o, d, _ = make_tie_scene(64, rows=40 if full else 9)
+    pick = {"up": slice(0, None, 2), "down": slice(1, None, 2),
+            "mixed": slice(None)}[rays]
+    slabs, bounds, meta = (torch.as_tensor(a, device=cuda)
+                           for a in (slabs, bounds, meta))
+    o, d = (torch.as_tensor(a[pick], device=cuda).contiguous()
+            for a in (o, d))
+    mn, mx = (b.contiguous() for b in tb._leaf_boxes(bounds, meta, 2))
+    kern, plain = _flat_pair(full)
+    inf = torch.full((o.shape[0],), float("inf"), device=cuda)
+    got = kern(slabs, mn, mx, o, d, 1e-4, inf)
+    torch.cuda.synchronize()
+    assert (got[:, 1] == 9).all()
+    assert torch.equal(got, plain(slabs, mn, mx, o, d, 1e-4, inf))
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["K6", "K8"])
+def test_flat_walk_near_the_list_limit_on_card(cuda, full):
+    """C = 16381 (the list's power of two, 16384, is the most a block's
+    shared memory holds; C not a multiple of 256): plate-64's clusters
+    repeated, so each triangle has 256 copies at the same t and the tie
+    goes to the lowest id. Rows equal the plain version's bit for bit;
+    C = 16385 is refused."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32)
+    kern, plain = _flat_pair(full)
+    slabs = sc["geom"]["packed_full" if full else "packed9"]
+    frame = sc["frame"]
+    C = 16381
+    big = slabs.repeat(256, 1, 1)[:C].contiguous()
+    mn = frame["wc_aabb_min_w"].repeat(256, 1)[:C].contiguous()
+    mx = frame["wc_aabb_max_w"].repeat(256, 1)[:C].contiguous()
+    o, d, t_max = _mixed_rays(sc, 1031, 3, cuda)
+    got = kern(big, mn, mx, o, d, 1e-4, t_max)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(big, mn, mx, o, d, 1e-4, t_max))
+    hit = got[:, 1] >= 0
+    assert hit.any() and (got[hit, 1] < 64 * 128).all()
+    assert torch.equal(got, plain(slabs, frame["wc_aabb_min_w"],
+                                  frame["wc_aabb_max_w"], o, d, 1e-4, t_max))
+    over = torch.cat([big, slabs[:4]])
+    with pytest.raises(ValueError, match="shared memory"):
+        kern(over, torch.cat([mn, mn[:4]]), torch.cat([mx, mx[:4]]), o, d,
+             1e-4, t_max)

@@ -238,5 +238,7 @@ def test_flat_wrapper_dispatch(case):
     for fn in trace_flat.KERNELS:
         with pytest.raises(ValueError, match="unsupported device"):
             fn(*meta, 1e-4, float("inf"))
-    assert trace_flat.list_bytes(2048) == 4 * (9 * 128 + 2 * 2048)
-    assert trace_flat.list_bytes(2049) == 4 * (9 * 128 + 2 * 4096)
+    assert trace_flat.list_bytes(2048) == 4 * (2 * 2048 + 6 * 64)
+    assert trace_flat.list_bytes(2049) == 4 * (2 * 4096 + 6 * 128)
+    assert trace_flat.list_bytes(2048, staged=True) == 4 * (9 * 128 + 2 * 2048)
+    assert trace_flat.list_bytes(2049, staged=True) == 4 * (9 * 128 + 2 * 4096)
