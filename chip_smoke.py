@@ -20,8 +20,10 @@ entry points of the experiments and scripts (X1-X3). Phases:
    and csrc/bench_kernels.cu for sm_90a, one nvcc each, in parallel
    (timed), and print the ptxas line (registers, stack frame, spills)
    of K1-K4 (the warp walk), X3a (the one-thread walk), K10 and K9 (the
-   dense cull), K10's cull form, K5 and K5's walk form, K6 and K8 (the
-   flat warp walk, flat_kernel<false> and <true>) and K7;
+   dense cull), K10's cull form, K5 and K5's walk form, K6, K8 and K7
+   (the flat warp walk, flat_kernel<false> and <true>, flat_any_kernel),
+   the X2 loops (x2_moller_kernel, x2_plucker_kernel<false> and <true>)
+   and X3b (moller_chain_kernel);
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the whole inputs of one frame, with kernel and plain times and
    the bound (the least time an H100 could take for the same work):
@@ -73,7 +75,9 @@ entry points of the experiments and scripts (X1-X3). Phases:
    keeping every cluster, one random), and K10's cull form (the dense
    cull alone: each packet's list length, against its plain version,
    timed beside K10), K7 on the second against its plain version and
-   K3, K3 on both;
+   K3 (with the means of trace_flat.flat_walk_counts at t_hit = t_max:
+   tile list length, and the listed clusters a live ray enters before
+   t_max), K3 on both;
 9. restir: ReSTIR DI with BVH arrays under config.policy.any_tracer
    "stack" (K1, K3) and "dense" (K1, K10), and without BVH arrays (K8,
    K7); each 2 warm-up + 8 timed frames with launch counts, shadow-ray
@@ -84,7 +88,9 @@ entry points of the experiments and scripts (X1-X3). Phases:
    bounce rays, K7 shadow rays): K8 on its first bounce set (rows bit
    for bit, walk counts as phase 6, and beside K2 on the same rays over
    the same scene's BVH) and K7 on its first shadow set against their
-   plain versions, K8 on the tie scene's up rays with attribute rows,
+   plain versions (K7 also against K3 on the same rays over that BVH,
+   both timed, with its walk counts as phase 8), K8 on the tie scene's
+   up rays with attribute rows,
    then checked as phase 4 checks its frame;
 11. kernels: leaf-major: the first bounce and shadow sets of a
    path-traced frame and the shadow set of a ReSTIR frame, as the frames
@@ -122,7 +128,9 @@ entry points of the experiments and scripts (X1-X3). Phases:
    the counting K2 X3a, K2's time, the threaded walk X1 at each ray's hit
    t and t_max, the Möller unit X3b), experiments/bench_mxu_isect.main
    (the Möller block against the tensor-core Plücker block, then the three
-   X2 loops at one block and at 8 blocks per SM) and
+   X2 loops at one block and at 8 blocks per SM, each also timed at NV
+   and 2 NV iterations: the ratio must be at least 1.8, so no iteration
+   was hoisted out of the loop) and
    scripts/bench_loop_overhead.main (X3c-f); then X1, X3a, the Möller
    loops and X3c-f against their plain versions (equal) on the shapes the
    entry points ran, the Plücker loops against their TF32 plain version
@@ -218,14 +226,19 @@ PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
 # the kernels whose ptxas line phase 2 prints, (source, symbol): K2, K3,
 # K1 and K4 on the warp walk, X3a on the one-thread walk, K10 (its walk
 # on the warp-shared leaf test) and K9 over the dense cull, K10's cull
-# form, K5 and its walk form, K6 and K8 (the flat warp walk) and K7
+# form, K5 and its walk form, K6, K8 and K7 (the flat warp walk), the X2
+# loops and X3b
 PTXAS_KERNELS = tuple(("trace_bvh", k) for k in (
     "warp_closest_kernel", "warp_any_kernel", "primary_kernel",
     "closest_full_kernel", "closest_kernel", "dense_any_kernel",
     "dense_closest_kernel", "dense_cull_kernel")) + tuple(
     ("shade_tiles", k) for k in ("shade_kernel", "shade_walk_kernel")) + tuple(
     ("trace_flat", k) for k in ("flat_kernel<false>", "flat_kernel<true>",
-                                "flat_any_kernel"))
+                                "flat_any_kernel")) + tuple(
+    ("bench_kernels", k) for k in ("x2_moller_kernel",
+                                   "x2_plucker_kernel<false>",
+                                   "x2_plucker_kernel<true>",
+                                   "moller_chain_kernel"))
 # the measurement forms of K5 and K10, which no frame may launch; nor may
 # a frame call trace_flat.flat_walk_counts, the walk counts of K6 and K8
 MEASUREMENT_FORMS = ("shade_walk_counts", "dense_cull_counts")
@@ -272,7 +285,8 @@ PORT_KERNEL_SYMBOLS = ("primary_kernel", "warp_closest_kernel",
                        "flat_any_kernel", "dense_any_kernel",
                        "dense_closest_kernel", "pairs_kernel",
                        "closest8_kernel", "closest8_full_kernel",
-                       "any8_kernel", "walk_kernel", "isect_loop_kernel",
+                       "any8_kernel", "walk_kernel", "x2_moller_kernel",
+                       "x2_plucker_kernel", "moller_chain_kernel",
                        "loop_flat_kernel", "loop_nested_kernel",
                        "loop_cond_kernel", "loop_vec_kernel")
 # the glTF World scene: plate-2048's plates, the last 64 as instances
@@ -311,6 +325,9 @@ LANES = 128  # triangles per cluster slab
 # reciprocal, select, t, u, v, five range tests, u + v, select, min) at
 # 67 TFLOP/s. A one-block loop is held to one of the 132 SMs' share.
 SLAB_OPS = 25
+# an X2 loop at 2 NV iterations takes at least this many times its time
+# at NV: every iteration's tests stay in the loop
+TWICE_NV_RATIO = 1.8
 TF32_OPS_PER_S = 495e12
 PLUCKER_PRODUCT_OPS = 36
 PLUCKER_EPILOGUE_OPS = 17
@@ -1177,15 +1194,16 @@ def recording_tracer(module, which):
         yield calls
 
 
-def walk_means(args, rows) -> dict:
-    """trace_flat.flat_walk_counts of a K6 or K8 call's rays and rows:
-    the mean tile list length per ray, and per live ray (t_max > t_min)
-    the mean of the listed clusters it enters and of those it enters no
-    later than its final t (the least any walk of the list tests)."""
+def walk_means(args, t_hit) -> dict:
+    """trace_flat.flat_walk_counts of a flat kernel call's rays, each
+    ray's final t t_hit (K6, K8: the rows' t; K7: t_max): the mean tile
+    list length per ray, and per live ray (t_max > t_min) the mean of the
+    listed clusters it enters before t_max and of those it enters no
+    later than t_hit (the least any walk of the list tests)."""
     from prosper_tpu_torch.ops import trace_flat as tf
 
     slabs, mn, mx, o, d, t_min, t_max = args
-    counts = tf.flat_walk_counts(mn, mx, o, d, t_min, t_max, rows[:, 0])
+    counts = tf.flat_walk_counts(mn, mx, o, d, t_min, t_max, t_hit)
     live = t_max > t_min
     per_live = counts[live].double().mean(0) if bool(live.any()) else (
         torch.zeros(3, dtype=torch.float64))
@@ -1210,7 +1228,7 @@ def check_flat_call(label, kern, plain, args, attr_cols):
     ok &= equal
     live_rays = int((t_max > t_min).sum())
     live_clusters = int((~(mn > mx).any(dim=-1)).sum())
-    walk = walk_means(args, want)
+    walk = walk_means(args, want[:, 0])
     print(f"{label}: ok={ok} rows equal bit for bit {equal}; live rays "
           f"{live_rays}, live clusters {live_clusters} of {mn.shape[0]}; "
           f"{counts}; walk per ray: listed {walk['list']:.1f}, per live "
@@ -1299,7 +1317,8 @@ def check_flat_kernels(dev):
               k2_same_rays_ms=device_ms(
                   lambda: tb.trace_closest_bvh(*bvh_args), 5),
               vs_k2_max_abs_err=err, unmasked_walk=walk_means(
-                  (*flat_args[:6], tb.as_tmax(t_max, o.shape[0], dev)), got))
+                  (*flat_args[:6], tb.as_tmax(t_max, o.shape[0], dev)),
+                  got[:, 0]))
     print(f"K6 over the unmasked AABBs vs K2 on the same rays: ok={ok} "
           f"{counts}; rows equal the plain version's bit for bit {equal}; "
           f"K6 {k6['unmasked_ms']:.3f} ms, K2 "
@@ -1477,8 +1496,11 @@ def capture_shadow_rays(fn, scene, cam):
 def check_any_call(label, kern, plain, args, boxes, k3_args=None):
     """An any-hit kernel on one whole shadow set (args = scene arrays, o,
     d, t_min, t_max) against its plain version and, given k3_args (K3's
-    slabs, bounds, meta), against K3 on the same rays -> (ok, record)."""
+    slabs, bounds, meta), against K3 on the same rays -> (ok, record);
+    K7's record also holds the list length and the clusters a live ray
+    enters before t_max (walk_means at t_hit = t_max)."""
     from prosper_tpu_torch.ops import trace_bvh as tb
+    from prosper_tpu_torch.ops import trace_flat as tf
 
     *head, o, d, t_min, t_max = args
     t_min = float(t_min)
@@ -1505,6 +1527,9 @@ def check_any_call(label, kern, plain, args, boxes, k3_args=None):
         boxes, o[free], d[free], t_max[free]))
     rec.update(ms=device_ms(lambda: kern(*args), 5), plain_ms=plain_ms,
                **bound(nbytes(*args, got), ops))
+    if kern is tf.trace_any_flat:
+        walk = walk_means(args, args[-1])
+        rec["walk"] = {"list": walk["list"], "entered": walk["entered"]}
     print(f"{label}: ok={ok} {rec}")
     return ok, rec
 
@@ -1719,18 +1744,24 @@ def check_pt_flat_kernels(fn, scene, cam, dev):
         "K8 pt bvh=False first bounce set", tf.trace_closest_flat_full,
         tf.trace_closest_flat_full_plain, bounces[0], list(range(2, 13)))
     frame = scene["frame"]
-    ok7, k7 = check_any_call(
-        "K7 pt bvh=False first shadow set", tf.trace_any_flat,
-        tf.trace_any_flat_plain, any_calls[0][1],
-        (frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]))
-
-    # K2 on the same bounce rays, over the BVH arrays of the same scene
+    # K2 and K3 on the same rays, over the BVH arrays of the same scene
     _, (scene_b, _, _) = port_entry.entry(
         dev, scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
         max_bounces=BOUNCES)
+    bvh = (scene_b["frame"]["bvh_bounds"], scene_b["frame"]["bvh_meta"])
+    shadow = any_calls[0][1]
+    packed9 = scene_b["geom"]["packed9"]
+    same7 = torch.equal(shadow[0][:, :9], packed9[:, :9])
+    ok7, k7 = check_any_call(
+        "K7 pt bvh=False first shadow set", tf.trace_any_flat,
+        tf.trace_any_flat_plain, shadow,
+        (frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]), (packed9, *bvh))
+    print(f"K7 pt bvh=False first shadow set vs K3 on the same rays: "
+          f"same slabs {same7}; K7 {k7['ms']:.3f} ms, K3 "
+          f"{k7['k3_same_rays_ms']:.3f} ms")
+
     slabs, _, _, o, d, t_min, t_max = bounces[0]
     same = torch.equal(slabs, scene_b["geom"]["packed_full"])
-    bvh = (scene_b["frame"]["bvh_bounds"], scene_b["frame"]["bvh_meta"])
     k2_args = (slabs, *bvh, o, d, t_min, t_max)
     k2 = tb.trace_closest_bvh(*k2_args)
     tb.check_stack_overflow(dev)
@@ -1744,10 +1775,11 @@ def check_pt_flat_kernels(fn, scene, cam, dev):
     ok_tie = check_flat_tie("K8", tf.trace_closest_flat_full,
                             tf.trace_closest_flat_full_plain, dev, 40)
     keep = ("live_rays", "ms", "plain_ms", "bound_ms", "bound_by")
-    return ok and ok7 and ok2 and same and ok_tie, {
+    return ok and ok7 and same7 and ok2 and same and ok_tie, {
         "trace_closest_flat_full": {k: k8[k] for k in (
             *keep, "k2_same_rays_ms", "walk")},
-        "trace_any_flat": {k: k7[k] for k in keep}}
+        "trace_any_flat": {k: k7[k] for k in (
+            *keep, "occluded", "vs_k3_mismatch", "k3_same_rays_ms", "walk")}}
 
 
 def run_pt_flat(smi, dev, records):
@@ -2442,12 +2474,13 @@ def check_isect_loops(mxu, dev):
     """X2's three loops against their plain versions at one block (the
     script's 256 rays) and at full card (bench_mxu_isect.block_cols'
     distinct rays), NV iterations: the entry point's best and a keep_t
-    launch's best and last t. Möller equal. The tensor-core Plücker loops:
-    best equal, and against the TF32 plain block (ops/plucker.py
-    tf32_agreement) no hit/miss mismatch off the border and, where both
-    hit, t within rtol 1e-5 plus the bound of a reordered sum; at one
-    block also against Möller by the script's bar, 99.95% of the pairs
-    and t within rtol 1e-2 -> (ok, records)."""
+    launch's best and last t; each loop also timed at NV and 2 NV
+    iterations, the ratio at least TWICE_NV_RATIO. Möller equal. The
+    tensor-core Plücker loops: best equal, and against the TF32 plain
+    block (ops/plucker.py tf32_agreement) no hit/miss mismatch off the
+    border and, where both hit, t within rtol 1e-5 plus the bound of a
+    reordered sum; at one block also against Möller by the script's bar,
+    99.95% of the pairs and t within rtol 1e-2 -> (ok, records)."""
     from prosper_tpu_torch.experiments import bench_mxu_isect as bmi
     from prosper_tpu_torch.ops import bench_kernels as bk
     from prosper_tpu_torch.ops.plucker import plucker_rows_from_slab
@@ -2471,9 +2504,16 @@ def check_isect_loops(mxu, dev):
             both = torch.isfinite(t) & torch.isfinite(want_t)
             err = max(err, float(torch.where(both, (t - want_t).abs(),
                                              0.0).amax()))
+            # twice the iterations must take about twice the time: no
+            # iteration's work was hoisted out of the loop
+            twice = {n: bmi.run(variant, blocks, dev, n)["ms"]
+                     for n in (bmi.NV, 2 * bmi.NV)}
+            ratio = twice[2 * bmi.NV] / twice[bmi.NV]
+            ok &= ratio >= TWICE_NV_RATIO
             part = {"rays": TILE_RAYS * blocks, "iters": bmi.NV,
                     "ms": run["ms"], "us_per_visit": run["us_per_visit"],
-                    "plain_ms": plain_ms,
+                    "plain_ms": plain_ms, "ms_nv": twice[bmi.NV],
+                    "ms_2nv": twice[2 * bmi.NV], "ratio_2nv": ratio,
                     **loop_bound(variant, TILE_RAYS * blocks, bmi.NV,
                                  blocks == 1)}
             if variant == "moller":
@@ -2505,6 +2545,10 @@ def check_isect_loops(mxu, dev):
               f"per block); plain {rec['plain_ms']:.1f} ms, "
               f"{full['plain_ms']:.1f} ms; bound {rec['bound_ms']:.3f} ms one "
               f"block, {full['bound_ms']:.3f} ms full; max abs t err {err:.3g}")
+        for label, part in (("one block", rec), ("full card", full)):
+            print(f"  {label}: {part['ms_nv']:.3f} ms at NV = {bmi.NV}, "
+                  f"{part['ms_2nv']:.3f} ms at 2 NV, ratio "
+                  f"{part['ratio_2nv']:.3f} (at least {TWICE_NV_RATIO})")
         if variant != "moller":
             for label, part in (("one block", rec), ("full card", full)):
                 print(f"  vs TF32 plain, {label}: {part['vs_tf32_plain']}")

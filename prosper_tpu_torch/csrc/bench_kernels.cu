@@ -1,15 +1,13 @@
 // Measurement kernels for Hopper (sm_90a): the port of the Pallas TPU
 // loops of the repo's triangle-test and loop-overhead benchmarks.
 //
-//   isect_loop_kernel<MOLLER, CHAIN_X2>   replaces experiments/
-//       bench_mxu_isect.py run (:130, loop_kernel :94, pallas_call :137),
-//       variant "moller";
-//   isect_loop_kernel<PLUCKER, CHAIN_X2>  the same, "plucker" (feature
-//       rows made from the 9-row slab in the kernel);
-//   isect_loop_kernel<PLUCKER_PRE, CHAIN_X2>  the same, "plucker_pre"
-//       (the 22 rows given);
-//   isect_loop_kernel<MOLLER, CHAIN_X3B>  replaces scripts/
-//       bench_visit_breakdown.py moller_loop_kernel (:179, :198);
+//   x2_moller_kernel         replaces experiments/bench_mxu_isect.py run
+//       (:130, loop_kernel :94, pallas_call :137), variant "moller";
+//   x2_plucker_kernel<false> the same, "plucker" (feature rows made from
+//       the 9-row slab in the kernel);
+//   x2_plucker_kernel<true>  the same, "plucker_pre" (the 22 rows given);
+//   moller_chain_kernel      replaces scripts/bench_visit_breakdown.py
+//       moller_loop_kernel (:179, :198);
 //   loop_flat_kernel, loop_nested_kernel, loop_cond_kernel,
 //   loop_vec_kernel  replace scripts/bench_loop_overhead.py flat_kernel
 //       (:49, :59), nested_kernel (:71, :89), cond_kernel (:98, :114),
@@ -19,20 +17,40 @@
 // slab staged in shared memory, `iters` times over, each block's minimum
 // t per ray fed into the next through a chain, as the TPU kernels do:
 // X2 keeps best = tmin < -1 ? tmin : best (t_upper stays inf), X3b best =
-// min(best, tmin + 1e-7). The Möller variants give each thread a ray and
-// run csrc/ray_common.cuh moller_tri on the FMA units, 53 float32
-// operations a test. The Plücker variants do what the TPU did on its MXU
-// on the tensor cores: per warp 32 rays (two 16-row tiles) against the
-// 128 triangles in 16 eight-column tiles, four mma.sync m16n8k8 TF32
+// min(best, tmin + 1e-7). The chain makes each iteration's tests depend
+// on the one before, so none is hoisted out of the loop. The Möller
+// variants run csrc/ray_common.cuh moller_tri on the FMA units, 53
+// float32 operations a test; the Plücker variants do what the TPU did on
+// its MXU on the tensor cores: per warp 16-row ray tiles against
+// eight-column triangle tiles, four mma.sync m16n8k8 TF32
 // products per tile (the sides of edges AB and CA, K = 6 padded to 8,
 // and the plane terms n.d and n.o, K = 3 padded to 8), then the epilogue
-// of experiments/trace_plucker.py:107-121 in float32 on the fragments. The
-// products' operands are rounded to TF32 (cvt.rna), so the Plücker loops
-// agree with the Möller loops on hits, not to the bit. The bound: FP32
-// throughput (Möller, and the Plücker epilogue) and TF32 tensor-core
-// throughput (the products), held to one SM's share for one block; the
-// loops move almost no bytes. wgmma, which needs 64-row tiles in shared
-// memory, is later work.
+// of experiments/trace_plucker.py:107-121 in float32 on the fragments.
+// The products' operands are rounded to TF32 (cvt.rna), so the Plücker
+// loops agree with the Möller loops on hits, not to the bit. The bound:
+// FP32 throughput (Möller, and the Plücker epilogue with its
+// reciprocal) and TF32 tensor-core throughput (the products), held to one
+// SM's share for one block; the loops move almost no bytes.
+//
+// X2's design. What held the first port back was occupancy and latency:
+// one block was 8 warps, each thread ran its ray's 128 tests in a row,
+// and the IEEE division of every test (1 / det, 1 / den) compiled to a
+// range check and a branch around a slow-path call, a region the
+// scheduler cannot overlap with the next test. Now: Möller, 1024 threads
+// a block, four neighbouring lanes a ray (lane part takes triangles part
+// + 4i, four tests in flight), the slab triangle-major in shared memory
+// (two float4 loads and one float a test; a load's four triangles lie in
+// distinct banks), a two-step shuffle min at the end of an iteration.
+// Plücker, 512 threads a block, a warp a 16-ray tile against all 128
+// triangles (no warp waits for another after the staging), eight
+// column tiles in flight. Both take 1 / x from ray_common.cuh
+// rcp_normal, no branch, which gives IEEE division's value for every
+// normal |x| < 2^126 (a test's |det| > 1e-10 and |den| > 1e-9 are
+// normal), so the Möller loop still equals its plain version bit for
+// bit. Both write the last iteration's t from a separate instance of the
+// loop body, so the other iterations carry no store. X3b keeps its first
+// port: one thread a ray, the 128 tests in a row, IEEE division.
+// wgmma, which needs 64-row tiles in shared memory, is later work.
 //
 // The loop probes. One thread (flat, nested, cond) adds s[i % 128], read
 // from shared memory through a volatile pointer so that every iteration
@@ -52,6 +70,9 @@
 #define PLU_ROWS 22
 #define PLU_DET_EPS 1e-9f
 #define TF_STRIDE 136  // tf32 row stride: conflict-free B fragment loads
+#define M_SPLIT 4  // X2 Möller: threads a ray, neighbouring lanes
+#define M_THREADS (M_SPLIT * TILE)
+#define P_THREADS (32 * TILE / 16)  // X2 Plücker: a warp a 16-ray tile
 
 enum { MOLLER = 0, PLUCKER = 1, PLUCKER_PRE = 2 };
 enum { CHAIN_X2 = 0, CHAIN_X3B = 1 };
@@ -113,155 +134,235 @@ __device__ void plucker_rows(const float* s, int j, float* p) {
     for (int f = 0; f < PLU_ROWS; ++f) p[f * LANES + j] = row[f];
 }
 
-// cols (B, 6, 256): ox oy oz dx dy dz of block b's rays. slab: (9, 128)
-// v0 | e1 | e2, or for PLUCKER_PRE the (22, 128) feature rows. best (B *
-// 256,); t_out (B * 256, 128), the last iteration's t (inf on a miss),
-// or nullptr.
-template <int VARIANT, int CHAIN>
+// X3b: one thread a ray, the 128 tests one after the other, X3b's
+// chain. cols (B, 6, 256): ox oy oz dx dy dz of block b's rays. slab (9,
+// 128) v0 | e1 | e2. best (B * 256,); t_out (B * 256, 128), the last
+// iteration's t (inf on a miss), or nullptr.
 __global__ void __launch_bounds__(TILE)
-isect_loop_kernel(const float* __restrict__ slab,
-                  const float* __restrict__ cols, int iters, float t_min,
-                  float* __restrict__ best_out, float* __restrict__ t_out) {
-    __shared__ float s_raw[9 * LANES];         // the Möller slab
-    __shared__ float s_rows[PLU_ROWS * LANES];  // the Plücker rows, f32
-    __shared__ uint32_t s_tf[15 * TF_STRIDE];  // rows 0:6, 12:18, 18:21 tf32
+moller_chain_kernel(const float* __restrict__ slab,
+                    const float* __restrict__ cols, int iters, float t_min,
+                    float* __restrict__ best_out, float* __restrict__ t_out) {
+    __shared__ float s_raw[9 * LANES];
     const int tid = threadIdx.x;
     const float* c = cols + (size_t)blockIdx.x * 6 * TILE;
     const size_t ray0 = (size_t)blockIdx.x * TILE;
-
-    if (VARIANT == MOLLER) {
-        for (int i = tid; i < 9 * LANES; i += TILE) s_raw[i] = slab[i];
-        __syncthreads();
-        Ray r;
-        r.ox = c[tid];
-        r.oy = c[TILE + tid];
-        r.oz = c[2 * TILE + tid];
-        r.dx = c[3 * TILE + tid];
-        r.dy = c[4 * TILE + tid];
-        r.dz = c[5 * TILE + tid];
-        float best = INF;
-        for (int it = 0; it < iters; ++it) {
-            const bool last = t_out != nullptr && it == iters - 1;
-            float tmin = INF;
-            for (int j = 0; j < LANES; ++j) {
-                float t, u, v;
-                const bool hit = moller_tri(
-                    s_raw[j], s_raw[LANES + j], s_raw[2 * LANES + j],
-                    s_raw[3 * LANES + j], s_raw[4 * LANES + j],
-                    s_raw[5 * LANES + j], s_raw[6 * LANES + j],
-                    s_raw[7 * LANES + j], s_raw[8 * LANES + j], r, t_min,
-                    best, t, u, v);
-                const float tt = hit ? t : INF;
-                tmin = fminf(tmin, tt);
-                if (last) t_out[(ray0 + tid) * LANES + j] = tt;
-            }
-            best = chain<CHAIN>(best, tmin);
-        }
-        best_out[ray0 + tid] = best;
-        return;
-    }
-
-    // Plücker: stage the feature rows, f32 and TF32
-    if (VARIANT == PLUCKER) {
-        for (int i = tid; i < 9 * LANES; i += TILE) s_raw[i] = slab[i];
-        __syncthreads();
-        if (tid < LANES) plucker_rows(s_raw, tid, s_rows);
-    } else {
-        for (int i = tid; i < PLU_ROWS * LANES; i += TILE) s_rows[i] = slab[i];
-    }
+    for (int i = tid; i < 9 * LANES; i += TILE) s_raw[i] = slab[i];
     __syncthreads();
-    for (int i = tid; i < 15 * LANES; i += TILE) {
-        const int q = i / LANES, j = i % LANES;
-        const int src = q < 6 ? q : q + 6;  // 0:6, then 12:18 and 18:21
-        s_tf[q * TF_STRIDE + j] = tf32(s_rows[src * LANES + j]);
-    }
-    __syncthreads();
-
-    const int lane = tid & 31, warp = tid >> 5;
-    const int g = lane >> 2, tg = lane & 3;
-    // A fragments of the warp's two 16-ray tiles: [d | o x d | 0 0], d
-    // and o; rows g and g + 8 of a tile, columns tg and tg + 4
-    uint32_t a_side[2][4], a_d[2][4], a_o[2][4];
-    float best[2][2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int k = 32 * warp + 16 * mt + 8 * h + g;
-            const float ox = c[k], oy = c[TILE + k], oz = c[2 * TILE + k];
-            const float dx = c[3 * TILE + k], dy = c[4 * TILE + k],
-                        dz = c[5 * TILE + k];
-            const float mx = oy * dz - oz * dy, my = oz * dx - ox * dz,
-                        mz = ox * dy - oy * dx;
-            a_side[mt][h] = tf32(pick4(dx, dy, dz, mx, tg));
-            a_side[mt][2 + h] = tf32(pick4(my, mz, 0.0f, 0.0f, tg));
-            a_d[mt][h] = tf32(pick4(dx, dy, dz, 0.0f, tg));
-            a_o[mt][h] = tf32(pick4(ox, oy, oz, 0.0f, tg));
-            a_d[mt][2 + h] = a_o[mt][2 + h] = 0u;
-            best[mt][h] = INF;
-        }
-    }
+    Ray r;
+    r.ox = c[tid];
+    r.oy = c[TILE + tid];
+    r.oz = c[2 * TILE + tid];
+    r.dx = c[3 * TILE + tid];
+    r.dy = c[4 * TILE + tid];
+    r.dz = c[5 * TILE + tid];
+    float best = INF;
     for (int it = 0; it < iters; ++it) {
         const bool last = t_out != nullptr && it == iters - 1;
-        float tmin[2][2] = {{INF, INF}, {INF, INF}};
-        for (int nt = 0; nt < LANES / 8; ++nt) {
-            const int col = 8 * nt + g;
-            const uint32_t b_ab0 = s_tf[tg * TF_STRIDE + col];
-            const uint32_t b_ab1 =
-                tg < 2 ? s_tf[(tg + 4) * TF_STRIDE + col] : 0u;
-            const uint32_t b_ca0 = s_tf[(6 + tg) * TF_STRIDE + col];
-            const uint32_t b_ca1 =
-                tg < 2 ? s_tf[(10 + tg) * TF_STRIDE + col] : 0u;
-            const uint32_t b_n0 =
-                tg < 3 ? s_tf[(12 + tg) * TF_STRIDE + col] : 0u;
-            const int j0 = 8 * nt + 2 * tg;
-            const float c0 = s_rows[21 * LANES + j0];
-            const float c1 = s_rows[21 * LANES + j0 + 1];
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-                float s1[4], s3[4], den[4], on[4];
-                mma_tf32(s1, a_side[mt], b_ab0, b_ab1);
-                mma_tf32(s3, a_side[mt], b_ca0, b_ca1);
-                mma_tf32(den, a_d[mt], b_n0, 0u);
-                mma_tf32(on, a_o[mt], b_n0, 0u);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int h = e >> 1;  // row g or g + 8
-                    const bool ok = fabsf(den[e]) > PLU_DET_EPS;
-                    const float inv = ok ? 1.0f / den[e] : 0.0f;
-                    const float t = ((e & 1 ? c1 : c0) - on[e]) * inv;
-                    const float u = s3[e] * inv;
-                    const float v = s1[e] * inv;
-                    const bool hit = ok && u >= 0.0f && v >= 0.0f &&
-                                     u + v <= 1.0f && t > t_min &&
-                                     t < best[mt][h];
-                    const float tt = hit ? t : INF;
-                    tmin[mt][h] = fminf(tmin[mt][h], tt);
-                    if (last) {
-                        const size_t k =
-                            ray0 + 32 * warp + 16 * mt + 8 * h + g;
-                        t_out[k * LANES + j0 + (e & 1)] = tt;
-                    }
-                }
-            }
+        float tmin = INF;
+        for (int j = 0; j < LANES; ++j) {
+            float t, u, v;
+            const bool hit = moller_tri(
+                s_raw[j], s_raw[LANES + j], s_raw[2 * LANES + j],
+                s_raw[3 * LANES + j], s_raw[4 * LANES + j],
+                s_raw[5 * LANES + j], s_raw[6 * LANES + j],
+                s_raw[7 * LANES + j], s_raw[8 * LANES + j], r, t_min, best,
+                t, u, v);
+            const float tt = hit ? t : INF;
+            tmin = fminf(tmin, tt);
+            if (last) t_out[(ray0 + tid) * LANES + j] = tt;
         }
+        best = chain<CHAIN_X3B>(best, tmin);
+    }
+    best_out[ray0 + tid] = best;
+}
+
+// One X2 Möller iteration of one thread: its M_SPLIT-th of the ray's 128
+// tests against the triangle-major slab s (triangle j: v0 e1 | e2 x y z
+// at float4s 3j, 3j + 1 and float 12j + 8), t_upper = best, four tests
+// in flight, 1 / det by rcp_normal; the minimum over the ray's M_SPLIT
+// threads (lanes next to each other) goes through X2's chain. STORE: the
+// last iteration also writes each t (inf on a miss) to t_row[j].
+template <bool STORE>
+__device__ __forceinline__ float x2_moller_step(const float4* s, int part,
+                                                const Ray& r, float t_min,
+                                                float best, float* t_row) {
+    float tmin = INF;
+#pragma unroll 4
+    for (int i = 0; i < LANES / M_SPLIT; ++i) {
+        const int j = part + M_SPLIT * i;
+        const float4 a = s[3 * j], b = s[3 * j + 1];
+        const float e2z = reinterpret_cast<const float*>(s)[12 * j + 8];
+        float t, u, v;
+        const bool hit = moller_tri<true>(a.x, a.y, a.z, a.w, b.x, b.y, b.z,
+                                          b.w, e2z, r, t_min, best, t, u, v);
+        const float tt = hit ? t : INF;
+        tmin = fminf(tmin, tt);
+        if (STORE) t_row[j] = tt;
+    }
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
+    for (int off = 1; off < M_SPLIT; off <<= 1)
+        tmin = fminf(tmin, __shfl_xor_sync(FULL_MASK, tmin, off));
+    return chain<CHAIN_X2>(best, tmin);
+}
+
+// X2 "moller": 256 rays x 128 triangles a block, M_SPLIT threads a ray.
+__global__ void __launch_bounds__(M_THREADS)
+x2_moller_kernel(const float* __restrict__ slab,
+                 const float* __restrict__ cols, int iters, float t_min,
+                 float* __restrict__ best_out, float* __restrict__ t_out) {
+    __shared__ float4 s_tri[3 * LANES];
+    const int tid = threadIdx.x;
+    if (tid < LANES) {
+        float* f = reinterpret_cast<float*>(s_tri) + 12 * tid;
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                float m = tmin[mt][h];
-                m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-                m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-                best[mt][h] = chain<CHAIN>(best[mt][h], m);
-            }
+        for (int q = 0; q < 9; ++q) f[q] = slab[q * LANES + tid];
+        f[9] = f[10] = f[11] = 0.0f;
+    }
+    __syncthreads();
+    // ray tid / M_SPLIT of the block's 256, triangles part + M_SPLIT i
+    const int ray = tid / M_SPLIT, part = tid % M_SPLIT;
+    const size_t k = (size_t)blockIdx.x * TILE + ray;
+    const float* c = cols + (size_t)blockIdx.x * 6 * TILE;
+    Ray r;
+    r.ox = c[ray];
+    r.oy = c[TILE + ray];
+    r.oz = c[2 * TILE + ray];
+    r.dx = c[3 * TILE + ray];
+    r.dy = c[4 * TILE + ray];
+    r.dz = c[5 * TILE + ray];
+    float best = INF;
+    const int plain_iters = t_out != nullptr ? iters - 1 : iters;
+    for (int it = 0; it < plain_iters; ++it)
+        best = x2_moller_step<false>(s_tri, part, r, t_min, best, nullptr);
+    if (t_out != nullptr)
+        best = x2_moller_step<true>(s_tri, part, r, t_min, best,
+                                    t_out + k * LANES);
+    if (part == 0) best_out[k] = best;
+}
+
+// The Plücker feature rows of the slab in shared memory, f32 (rows) and
+// TF32 (tf: rows 0:6, 12:18, 18:21 at TF_STRIDE): PRE takes the 22 rows
+// given, else makes them from the 9-row slab (raw).
+template <bool PRE>
+__device__ __forceinline__ void plucker_stage(const float* __restrict__ slab,
+                                              float* raw, float* rows,
+                                              uint32_t* tf) {
+    const int tid = threadIdx.x;
+    if (PRE) {
+        for (int i = tid; i < PLU_ROWS * LANES; i += blockDim.x)
+            rows[i] = slab[i];
+    } else {
+        for (int i = tid; i < 9 * LANES; i += blockDim.x) raw[i] = slab[i];
+        __syncthreads();
+        if (tid < LANES) plucker_rows(raw, tid, rows);
+    }
+    __syncthreads();
+    for (int i = tid; i < 15 * LANES; i += blockDim.x) {
+        const int q = i / LANES, j = i % LANES;
+        const int src = q < 6 ? q : q + 6;  // 0:6, then 12:18 and 18:21
+        tf[q * TF_STRIDE + j] = tf32(rows[src * LANES + j]);
+    }
+    __syncthreads();
+}
+
+// One X2 Plücker iteration of one warp: its 16 rays against the 128
+// triangles, sixteen eight-column tiles, eight in flight, 1 / den by
+// rcp_normal; the minimum t of each of the lane's two rays (rows g and g
+// + 8), the lane's quad reduced, goes through X2's chain into best.
+// STORE: the last iteration also writes each t (inf on a miss) to t_out.
+template <bool STORE>
+__device__ __forceinline__ void x2_plucker_step(
+    const uint32_t* tf, const float* rows, const uint32_t (&a_side)[4],
+    const uint32_t (&a_d)[4], const uint32_t (&a_o)[4], float (&best)[2],
+    float t_min, float* t_out, size_t ray0) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+    float tmin[2] = {INF, INF};
+#pragma unroll 8
+    for (int nt = 0; nt < LANES / 8; ++nt) {
+        const int col = 8 * nt + g;
+        const uint32_t b_ab0 = tf[tg * TF_STRIDE + col];
+        const uint32_t b_ab1 = tg < 2 ? tf[(tg + 4) * TF_STRIDE + col] : 0u;
+        const uint32_t b_ca0 = tf[(6 + tg) * TF_STRIDE + col];
+        const uint32_t b_ca1 = tg < 2 ? tf[(10 + tg) * TF_STRIDE + col] : 0u;
+        const uint32_t b_n0 = tg < 3 ? tf[(12 + tg) * TF_STRIDE + col] : 0u;
+        const int j0 = 8 * nt + 2 * tg;
+        const float c0 = rows[21 * LANES + j0];
+        const float c1 = rows[21 * LANES + j0 + 1];
+        float s1[4], s3[4], den[4], on[4];
+        mma_tf32(s1, a_side, b_ab0, b_ab1);
+        mma_tf32(s3, a_side, b_ca0, b_ca1);
+        mma_tf32(den, a_d, b_n0, 0u);
+        mma_tf32(on, a_o, b_n0, 0u);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;  // row g or g + 8
+            const bool ok = fabsf(den[e]) > PLU_DET_EPS;
+            const float inv = ok ? rcp_normal(den[e]) : 0.0f;
+            const float t = ((e & 1 ? c1 : c0) - on[e]) * inv;
+            const float u = s3[e] * inv;
+            const float v = s1[e] * inv;
+            const bool hit = ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+                             t > t_min && t < best[h];
+            const float tt = hit ? t : INF;
+            tmin[h] = fminf(tmin[h], tt);
+            if (STORE) t_out[(ray0 + 8 * h + g) * LANES + j0 + (e & 1)] = tt;
         }
     }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        float m = fminf(tmin[h], __shfl_xor_sync(FULL_MASK, tmin[h], 1));
+        m = fminf(m, __shfl_xor_sync(FULL_MASK, m, 2));
+        best[h] = chain<CHAIN_X2>(best[h], m);
+    }
+}
+
+// X2 "plucker" (PRE = false: rows made from the 9-row slab in the kernel)
+// and "plucker_pre" (PRE = true: the 22 rows given). Warp w takes rays
+// 16w .. 16w + 15 against the whole slab, so no warp waits for another
+// after the staging.
+template <bool PRE>
+__global__ void __launch_bounds__(P_THREADS)
+x2_plucker_kernel(const float* __restrict__ slab,
+                  const float* __restrict__ cols, int iters, float t_min,
+                  float* __restrict__ best_out, float* __restrict__ t_out) {
+    __shared__ float s_raw[PRE ? 1 : 9 * LANES];  // the Möller slab
+    __shared__ float s_rows[PLU_ROWS * LANES];     // the Plücker rows, f32
+    __shared__ uint32_t s_tf[15 * TF_STRIDE];      // rows 0:6, 12:18, 18:21
+    plucker_stage<PRE>(slab, s_raw, s_rows, s_tf);
+
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, tg = lane & 3;
+    const float* c = cols + (size_t)blockIdx.x * 6 * TILE;
+    const size_t ray0 = (size_t)blockIdx.x * TILE + 16 * warp;
+    // A fragments of the warp's 16-ray tile: [d | o x d | 0 0], d and o;
+    // rows g and g + 8, columns tg and tg + 4
+    uint32_t a_side[4], a_d[4], a_o[4];
+    float best[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int k = 16 * warp + 8 * h + g;
+        const float ox = c[k], oy = c[TILE + k], oz = c[2 * TILE + k];
+        const float dx = c[3 * TILE + k], dy = c[4 * TILE + k],
+                    dz = c[5 * TILE + k];
+        const float mx = oy * dz - oz * dy, my = oz * dx - ox * dz,
+                    mz = ox * dy - oy * dx;
+        a_side[h] = tf32(pick4(dx, dy, dz, mx, tg));
+        a_side[2 + h] = tf32(pick4(my, mz, 0.0f, 0.0f, tg));
+        a_d[h] = tf32(pick4(dx, dy, dz, 0.0f, tg));
+        a_o[h] = tf32(pick4(ox, oy, oz, 0.0f, tg));
+        a_d[2 + h] = a_o[2 + h] = 0u;
+        best[h] = INF;
+    }
+    const int plain_iters = t_out != nullptr ? iters - 1 : iters;
+    for (int it = 0; it < plain_iters; ++it)
+        x2_plucker_step<false>(s_tf, s_rows, a_side, a_d, a_o, best, t_min,
+                               nullptr, ray0);
+    if (t_out != nullptr)
+        x2_plucker_step<true>(s_tf, s_rows, a_side, a_d, a_o, best, t_min,
+                              t_out, ray0);
     if (tg == 0) {
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-                best_out[ray0 + 32 * warp + 16 * mt + 8 * h + g] = best[mt][h];
+        for (int h = 0; h < 2; ++h) best_out[ray0 + 8 * h + g] = best[h];
     }
 }
 
@@ -334,12 +435,13 @@ loop_vec_kernel(const float* __restrict__ v, int nv, float* __restrict__ out) {
     for (int i = e; i < 8 * 128; i += TILE) out[i] = a;
 }
 
-template <int VARIANT, int CHAIN>
-int launch_isect(const float* slab, const float* cols, int blocks, int iters,
-                 float t_min, float* best, float* t_out, cudaStream_t stream) {
+template <typename K>
+int launch_isect(K kernel, int threads, const float* slab, const float* cols,
+                 int blocks, int iters, float t_min, float* best,
+                 float* t_out, cudaStream_t stream) {
     if (blocks > 0)
-        isect_loop_kernel<VARIANT, CHAIN><<<blocks, TILE, 0, stream>>>(
-            slab, cols, iters, t_min, best, t_out);
+        kernel<<<blocks, threads, 0, stream>>>(slab, cols, iters, t_min, best,
+                                               t_out);
     return (int)cudaGetLastError();
 }
 
@@ -357,19 +459,19 @@ extern "C" int isect_loop(int variant, int chain_rule, const float* slab,
     cudaStream_t st = (cudaStream_t)stream;
     if (chain_rule == CHAIN_X3B) {
         if (variant != MOLLER) return (int)cudaErrorInvalidValue;
-        return launch_isect<MOLLER, CHAIN_X3B>(slab, cols, blocks, iters,
-                                               t_min, best, t_out, st);
+        return launch_isect(moller_chain_kernel, TILE, slab, cols, blocks,
+                            iters, t_min, best, t_out, st);
     }
     switch (variant) {
         case MOLLER:
-            return launch_isect<MOLLER, CHAIN_X2>(slab, cols, blocks, iters,
-                                                  t_min, best, t_out, st);
+            return launch_isect(x2_moller_kernel, M_THREADS, slab, cols,
+                                blocks, iters, t_min, best, t_out, st);
         case PLUCKER:
-            return launch_isect<PLUCKER, CHAIN_X2>(slab, cols, blocks, iters,
-                                                   t_min, best, t_out, st);
+            return launch_isect(x2_plucker_kernel<false>, P_THREADS, slab,
+                                cols, blocks, iters, t_min, best, t_out, st);
         case PLUCKER_PRE:
-            return launch_isect<PLUCKER_PRE, CHAIN_X2>(
-                slab, cols, blocks, iters, t_min, best, t_out, st);
+            return launch_isect(x2_plucker_kernel<true>, P_THREADS, slab,
+                                cols, blocks, iters, t_min, best, t_out, st);
     }
     return (int)cudaErrorInvalidValue;
 }

@@ -250,8 +250,9 @@ __device__ __forceinline__ int next_leaf(const float* __restrict__ bounds,
 // The warp-shared leaf test of K1-K4 and K10. Every lane of the warp
 // calls it with the same src, the owner: lane src's ray, with best t
 // h.t, is tested against cluster `leaf` of lane src. ANY=true: returns
-// on every lane whether some triangle hits (t_min < t < best), and the
-// owner sets h.tri = leaf * LANES (occluded). Otherwise returns whether
+// on every lane whether some triangle hits (t_min < t < best;
+// ray_common.cuh warp_any, which K7 shares), and the owner sets h.tri =
+// leaf * LANES (occluded). Otherwise returns whether
 // the owner's row changed, and the owner takes the hit.
 //
 // Lane l tests triangles l + 32q (q = 0..3) against the owner's ray with
@@ -268,28 +269,15 @@ __device__ __forceinline__ bool warp_leaf(const float* __restrict__ slabs,
                                           int rows, int leaf, int src,
                                           const Ray& r, float t_min, Hit& h) {
     const int lane = threadIdx.x & 31;
-    Ray q;  // the owner's ray; Möller reads no reciprocal
-    q.ox = __shfl_sync(FULL_MASK, r.ox, src);
-    q.oy = __shfl_sync(FULL_MASK, r.oy, src);
-    q.oz = __shfl_sync(FULL_MASK, r.oz, src);
-    q.dx = __shfl_sync(FULL_MASK, r.dx, src);
-    q.dy = __shfl_sync(FULL_MASK, r.dy, src);
-    q.dz = __shfl_sync(FULL_MASK, r.dz, src);
-    q.ix = q.iy = q.iz = 0.0f;
+    const Ray q = owner_ray(r, src);
     const float best = __shfl_sync(FULL_MASK, h.t, src);
     const int c = __shfl_sync(FULL_MASK, leaf, src);
-    const float* s = slabs + (size_t)c * rows * LANES + lane;
     if (ANY) {
-        bool hit = false;
-#pragma unroll
-        for (int j = 0; j < LANES; j += 32) {
-            float t, u, v;
-            hit |= moller(s, j, q, t_min, best, t, u, v);
-        }
-        const bool any = __any_sync(FULL_MASK, hit);
+        const bool any = warp_any(slabs, rows, c, q, t_min, best);
         if (any && lane == src) h.tri = c * LANES;
         return any;
     }
+    const float* s = slabs + (size_t)c * rows * LANES + lane;
     float bt = best, bu = 0.0f, bv = 0.0f;
     int bj = -1;
 #pragma unroll

@@ -63,31 +63,33 @@
 // earlier visit; the flat list is ordered by packet entry, not by id),
 // so the rows equal the plain version's bit for bit in any walk order.
 //
-// The any-hit kernel (K7) runs steps 1, 2 and a block-wide walk on the
-// same lists, in id order (the order is free for an any hit, so step 3
-// is left out), with the per-ray test "enters the box before t_max": it
-// stages each cluster some lane enters, the 9x128 Möller rows (4.5 KB),
-// in shared memory and each entering thread tests the 128 triangles
-// alone; a lane is done once occluded or when its t_max is not above
-// t_min (no hit can occlude it). The walk stops when every lane of the
-// block is done (_any_kernel :371-373); counting disabled lanes as done
-// keeps a tile of lanes that trace nothing from walking its whole list.
+// The any-hit kernel (K7) runs steps 1, 2, 4 and the walk of step 5 on
+// the same lists, in id order (the order is free for an any hit, so step
+// 3 is left out), with the owner test "enters the box before t_max"
+// (enter <= exit, enter < t_max) in place of "before the best hit". A
+// lane is live while it is active, has t_max above t_min (else no hit
+// can occlude it) and is not yet occluded; the warp tests each entered
+// cluster together (ray_common.cuh warp_any, K3's and K10's test: lane
+// l takes triangles l + 32q, and __any_sync decides), an occluded owner
+// takes none of its pending entries, and the warp leaves the list once
+// no lane is live. The mask equals the plain version's bit for bit in
+// any ray order.
 //
 // The list holds the next power of two above C entries (8 KB of ids and
-// 8 KB of keys at C = 2048; K6 and K8 add 24 bytes of chunk box for
-// every 32 entries, K7 its staged slab); the host side
-// refuses a C whose list does not fit in the 227 KB of shared memory a
-// block can have, so no overlapping cluster is ever dropped.
+// 8 KB of keys at C = 2048) and 24 bytes of chunk box for every 32
+// entries; the host side refuses a C whose list does not fit in the
+// 227 KB of shared memory a block can have (C <= 16384), so no
+// overlapping cluster is ever dropped.
 //
-// What bounds K6 and K8 on the H100: on an incoherent tile (up to C
+// What bounds the three on the H100: on an incoherent tile (up to C
 // listed clusters, each ray entering a few), the chunk tests (C / 32 a
 // lane) and the owner-by-owner entry tests of the chunks a ray enters;
 // on a coherent one, the Möller tests (53 float operations each, 4 a
-// lane for each cluster an owner enters before its hit). The slab reads
-// are coalesced lines shared through L2 by the tile's rays.
-// K7 is bound by its block barriers and its 128 dependent tests a lane.
-// The Möller test is ray_common.cuh's, operation for operation the plain
-// PyTorch version (built with --fmad=false), so hits agree bit for bit.
+// lane for each cluster an owner enters before its hit, or for K7 before
+// its first occluder). The slab reads are coalesced lines shared through
+// L2 by the tile's rays. The Möller test is ray_common.cuh's, operation
+// for operation the plain PyTorch version (built with --fmad=false), so
+// hits agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,9 +98,8 @@
 
 #define TILE 256      // rays per block
 #define WARPS (TILE / 32)
-#define CHUNK 32      // list entries under one chunk box (K6, K8)
-#define MIN_BLOCKS 4  // K6, K8 blocks an SM must hold: <= 64 registers
-#define SLAB_ROWS 9   // Möller rows K7 stages per cluster
+#define CHUNK 32      // list entries under one chunk box
+#define MIN_BLOCKS 4  // blocks an SM must hold: <= 64 registers
 #define BIG 3e38f     // entry / exit of a box no packet overlaps
 #define MAX_SHARED 232448  // dynamic shared memory a block can have
 
@@ -130,18 +131,6 @@ __device__ __forceinline__ void ray_box(const float* __restrict__ wc_min,
     const float* b = wc_max + 3 * c;
     en = slab_enter(__ldg(a), __ldg(a + 1), __ldg(a + 2), __ldg(b),
                     __ldg(b + 1), __ldg(b + 2), r, ex);
-}
-
-// Möller-Trumbore against triangle j of a slab staged in shared memory
-// (K7).
-__device__ __forceinline__ bool moller_staged(const float* s, int j,
-                                              const Ray& r, float t_min,
-                                              float t_upper, float& t,
-                                              float& u, float& v) {
-    return moller_tri(s[0 * LANES + j], s[1 * LANES + j], s[2 * LANES + j],
-                      s[3 * LANES + j], s[4 * LANES + j], s[5 * LANES + j],
-                      s[6 * LANES + j], s[7 * LANES + j], s[8 * LANES + j],
-                      r, t_min, t_upper, t, u, v);
 }
 
 template <bool FULL>
@@ -255,6 +244,42 @@ __device__ __forceinline__ int cull_clusters(
     return count;
 }
 
+// Step 4: the chunk boxes of a list of `count` entries, the union of
+// the AABBs of entries 32j .. 32j + 31, min and max taken exactly, one
+// warp a chunk, into s_cbox (6 rows of cstride).
+__device__ __forceinline__ void chunk_boxes(int count,
+                                            const float* __restrict__ wc_min,
+                                            const float* __restrict__ wc_max,
+                                            const int* s_id, float* s_cbox,
+                                            int cstride) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int j = warp; j < chunks(count); j += WARPS) {
+        const int e = CHUNK * j + lane;
+        float b[6] = {INF, INF, INF, -INF, -INF, -INF};
+        if (e < count) {
+            const int c = s_id[e];
+#pragma unroll
+            for (int a = 0; a < 3; ++a) {
+                b[a] = __ldg(wc_min + 3 * c + a);
+                b[3 + a] = __ldg(wc_max + 3 * c + a);
+            }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+            for (int a = 0; a < 3; ++a) {
+                b[a] = fminf(b[a], __shfl_xor_sync(FULL_MASK, b[a], off));
+                b[3 + a] =
+                    fmaxf(b[3 + a], __shfl_xor_sync(FULL_MASK, b[3 + a], off));
+            }
+        }
+        if (lane == 0) {
+#pragma unroll
+            for (int a = 0; a < 6; ++a) s_cbox[a * cstride + j] = b[a];
+        }
+    }
+}
+
 // The block's ray: lanes past R take the tile's first ray, so the packet
 // bounds are those of the tile's rays alone.
 __device__ __forceinline__ Ray tile_ray(const float* __restrict__ ray_o,
@@ -290,14 +315,7 @@ __device__ __forceinline__ void flat_leaf(const float* __restrict__ slabs,
                                           float t_min, float& best,
                                           int& best_tri) {
     const int lane = threadIdx.x & 31;
-    Ray q;  // the owner's ray; Möller reads no reciprocal
-    q.ox = __shfl_sync(FULL_MASK, r.ox, src);
-    q.oy = __shfl_sync(FULL_MASK, r.oy, src);
-    q.oz = __shfl_sync(FULL_MASK, r.oz, src);
-    q.dx = __shfl_sync(FULL_MASK, r.dx, src);
-    q.dy = __shfl_sync(FULL_MASK, r.dy, src);
-    q.dz = __shfl_sync(FULL_MASK, r.dz, src);
-    q.ix = q.iy = q.iz = 0.0f;
+    const Ray q = owner_ray(r, src);
     const float t_upper = __shfl_sync(FULL_MASK, tmax_ray, src);
     float bt = __shfl_sync(FULL_MASK, best, src);
     int btri = __shfl_sync(FULL_MASK, best_tri, src);
@@ -343,7 +361,7 @@ flat_kernel(const float* __restrict__ slabs, int rows, int C,
     __shared__ float s_pkt[13];
     __shared__ int s_wcount[WARPS];
 
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int tid = threadIdx.x, lane = tid & 31;
     const int first = blockIdx.x * TILE;
     const int k = first + tid;
     const bool active = k < R;
@@ -399,34 +417,9 @@ flat_kernel(const float* __restrict__ slabs, int rows, int C,
         }
     }
 
-    // 4. the chunk boxes: the union of the AABBs of list entries 32j ..
-    // 32j + 31, min and max taken exactly, one warp a chunk
+    // 4. the chunk boxes
+    chunk_boxes(count, wc_min, wc_max, s_id, s_cbox, cstride);
     const int n_chunks = chunks(count);
-    for (int j = warp; j < n_chunks; j += WARPS) {
-        const int e = CHUNK * j + lane;
-        float b[6] = {INF, INF, INF, -INF, -INF, -INF};
-        if (e < count) {
-            const int c = s_id[e];
-#pragma unroll
-            for (int a = 0; a < 3; ++a) {
-                b[a] = __ldg(wc_min + 3 * c + a);
-                b[3 + a] = __ldg(wc_max + 3 * c + a);
-            }
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-            for (int a = 0; a < 3; ++a) {
-                b[a] = fminf(b[a], __shfl_xor_sync(FULL_MASK, b[a], off));
-                b[3 + a] =
-                    fmaxf(b[3 + a], __shfl_xor_sync(FULL_MASK, b[3 + a], off));
-            }
-        }
-        if (lane == 0) {
-#pragma unroll
-            for (int a = 0; a < 6; ++a) s_cbox[a * cstride + j] = b[a];
-        }
-    }
     __syncthreads();  // no thread writes shared memory after this
 
     // 5. the walk, warp by warp, chunk by chunk. A lane is live while a hit
@@ -517,8 +510,11 @@ flat_kernel(const float* __restrict__ slabs, int rows, int C,
     write_row<FULL>(slabs, rows, k, best, best_tri, bu, bv, out);
 }
 
-// K7: the any hit over the same lists, walked in id order.
-__global__ void __launch_bounds__(TILE)
+// K7: the any hit over the same lists, in id order, walked warp by warp
+// under the chunk boxes. A lane is live while it can still be occluded:
+// it is active, has t_max > t_min and has no hit yet. Every lane stays
+// in the loop to the warp's end, so each _sync takes the full mask.
+__global__ void __launch_bounds__(TILE, MIN_BLOCKS)
 flat_any_kernel(const float* __restrict__ slabs, int rows, int C,
                 const float* __restrict__ wc_min,
                 const float* __restrict__ wc_max,
@@ -527,14 +523,15 @@ flat_any_kernel(const float* __restrict__ slabs, int rows, int C,
                 const float* __restrict__ t_max, int R, float t_min, int cap,
                 uint8_t* __restrict__ occ) {
     extern __shared__ float smem[];
-    float* s_slab = smem;                      // SLAB_ROWS x LANES
-    float* s_key = smem + SLAB_ROWS * LANES;   // cap
-    int* s_id = (int*)(s_key + cap);           // cap
+    float* s_key = smem;                      // cap
+    int* s_id = (int*)(s_key + cap);          // cap
+    float* s_cbox = (float*)(s_id + cap);     // 6 x chunks(cap)
+    const int cstride = chunks(cap);
     __shared__ float s_red[13][WARPS];
     __shared__ float s_pkt[13];
     __shared__ int s_wcount[WARPS];
 
-    const int tid = threadIdx.x;
+    const int tid = threadIdx.x, lane = tid & 31;
     const int first = blockIdx.x * TILE;
     const int k = first + tid;
     const bool active = k < R;
@@ -550,49 +547,86 @@ flat_any_kernel(const float* __restrict__ slabs, int rows, int C,
     }
     const int count = cull_clusters(C, wc_min, wc_max, s_pkt, tile_tmax,
                                     s_key, s_id, s_wcount);
+    chunk_boxes(count, wc_min, wc_max, s_id, s_cbox, cstride);
+    const int n_chunks = chunks(count);
+    __syncthreads();  // no thread writes shared memory after this
 
-    // the walk: a lane is done once occluded, or from the start when it
-    // has no t in (t_min, t_max) or lies past R. The barrier at the top
-    // also keeps the last staged slab until all threads have tested it.
-    bool done = !(active && tmax_ray > t_min), hit = false;
-    for (int i = 0; i < count; ++i) {
-        if (__syncthreads_and(done)) break;
-        const int c = s_id[i];
-        bool need = false;
-        if (!done) {
-            float en, ex;
-            ray_box(wc_min, wc_max, c, r, en, ex);
-            need = en <= ex && en < tmax_ray;
-        }
-        if (!__syncthreads_or(need)) continue;
-        const float* s = slabs + (size_t)c * rows * LANES;
-        for (int j = tid; j < SLAB_ROWS * LANES; j += TILE)
-            s_slab[j] = __ldg(s + j);
-        __syncthreads();
-        if (need) {
-            for (int j = 0; j < LANES; ++j) {
-                float t, u, v;
-                if (moller_staged(s_slab, j, r, t_min, tmax_ray, t, u, v)) {
-                    hit = done = true;
-                    break;
+    const bool can_hit = active && tmax_ray > t_min;
+    bool hit = false;
+    for (int j = 0; j < n_chunks; ++j) {
+        if (__all_sync(FULL_MASK, !can_hit || hit)) break;
+        float ex;
+        const float en = slab_enter(
+            s_cbox[j], s_cbox[cstride + j], s_cbox[2 * cstride + j],
+            s_cbox[3 * cstride + j], s_cbox[4 * cstride + j],
+            s_cbox[5 * cstride + j], r, ex);
+        unsigned owners = __ballot_sync(
+            FULL_MASK, can_hit && !hit && en <= ex && en < tmax_ray);
+        if (owners == 0) continue;
+        const int n_entries = min(CHUNK, count - CHUNK * j);
+        if (__popc(owners) > n_entries) {
+            // more owners than entries: entry by entry, each owner lane
+            // testing its own ray, until every owner is occluded
+            const bool owner = (owners >> lane) & 1u;
+            for (int e = CHUNK * j; e < CHUNK * j + n_entries; ++e) {
+                const bool want = owner && !hit;
+                if (__all_sync(FULL_MASK, !want)) break;
+                const int c_e = s_id[e];
+                float e_en, e_ex;
+                ray_box(wc_min, wc_max, c_e, r, e_en, e_ex);
+                unsigned tests = __ballot_sync(
+                    FULL_MASK, want && e_en <= e_ex && e_en < tmax_ray);
+                while (tests != 0) {  // lowest lane first
+                    const int t = __ffs(tests) - 1;
+                    tests &= tests - 1;
+                    if (warp_any(slabs, rows, c_e, owner_ray(r, t), t_min,
+                                 __shfl_sync(FULL_MASK, tmax_ray, t)) &&
+                        lane == t)
+                        hit = true;
                 }
             }
+            continue;
         }
+        // fewer owners than entries: owner by owner, lane l holding entry
+        // 32j + l (its box read again for each owner, from L1: registers
+        // kept for the cluster tests)
+        const int e = CHUNK * j + lane;
+        const bool listed = e < count;
+        const int c = listed ? s_id[e] : 0;
+        do {  // owner by owner, lowest lane first
+            const int owner = __ffs(owners) - 1;
+            owners &= owners - 1;
+            Ray q = owner_ray(r, owner);  // and its reciprocal, for the box
+            q.ix = __shfl_sync(FULL_MASK, r.ix, owner);
+            q.iy = __shfl_sync(FULL_MASK, r.iy, owner);
+            q.iz = __shfl_sync(FULL_MASK, r.iz, owner);
+            const float q_tmax = __shfl_sync(FULL_MASK, tmax_ray, owner);
+            float q_en, q_ex;
+            ray_box(wc_min, wc_max, c, q, q_en, q_ex);
+            unsigned pending = __ballot_sync(
+                FULL_MASK, listed && q_en <= q_ex && q_en < q_tmax);
+            while (pending != 0) {  // the owner's entries in list order
+                const int w = __ffs(pending) - 1;
+                pending &= pending - 1;
+                if (warp_any(slabs, rows, __shfl_sync(FULL_MASK, c, w), q,
+                             t_min, q_tmax)) {
+                    if (lane == owner) hit = true;
+                    break;  // occluded: the owner's other entries go
+                }
+            }
+        } while (owners != 0);
     }
     if (active) occ[k] = hit ? 1 : 0;
 }
 
 // Dynamic shared memory of one block, or 0 when it exceeds a block's;
 // sets the kernel's limit above 48 KB. The (key, id) list of the next
-// power of two above C entries, then K6's and K8's chunk boxes (6 floats
-// a chunk) or, for K7 (STAGED), its staged slab.
-template <bool STAGED, typename K>
+// power of two above C entries, then the chunk boxes (6 floats a chunk).
+template <typename K>
 size_t list_smem(K kernel, int C, int& cap, cudaError_t& err) {
     cap = 1;
     while (cap < C) cap <<= 1;
-    size_t bytes =
-        sizeof(float) * (2 * (size_t)cap +
-                         (STAGED ? SLAB_ROWS * LANES : 6 * (size_t)chunks(cap)));
+    size_t bytes = sizeof(float) * (2 * (size_t)cap + 6 * (size_t)chunks(cap));
     err = cudaSuccess;
     if (bytes > MAX_SHARED) {
         err = cudaErrorInvalidConfiguration;
@@ -612,7 +646,7 @@ int launch(const float* slabs, int rows, int C, const float* wc_min,
     if (R <= 0) return 0;
     int cap;
     cudaError_t e;
-    size_t bytes = list_smem<false>(flat_kernel<FULL>, C, cap, e);
+    size_t bytes = list_smem(flat_kernel<FULL>, C, cap, e);
     if (e != cudaSuccess) return (int)e;
     flat_kernel<FULL><<<(R + TILE - 1) / TILE, TILE, bytes, stream>>>(
         slabs, rows, C, wc_min, wc_max, ray_o, ray_d, t_max, R, t_min, cap,
@@ -652,7 +686,7 @@ extern "C" int trace_any_flat(const float* slabs, int rows, int C,
     if (R <= 0) return 0;
     int cap;
     cudaError_t e;
-    size_t bytes = list_smem<true>(flat_any_kernel, C, cap, e);
+    size_t bytes = list_smem(flat_any_kernel, C, cap, e);
     if (e != cudaSuccess) return (int)e;
     flat_any_kernel<<<(R + TILE - 1) / TILE, TILE, bytes,
                       (cudaStream_t)stream>>>(slabs, rows, C, wc_min, wc_max,

@@ -99,12 +99,12 @@ def check(device="cuda"):
             "plucker_hits": h1}
 
 
-def run(variant: str, blocks: int = 1, device="cuda"):
-    """Loop one variant NV times over `block_cols(blocks)` -> {"variant",
-    "blocks", "iters", "ms", "us_per_visit", "best"}: ms per call, us per
-    256 x 128 block visit (per block, so a throughput at blocks > 1), None
-    where the device is not a card; best the loop's output."""
-    iters = NV
+def run(variant: str, blocks: int = 1, device="cuda", iters: int = NV):
+    """Loop one variant `iters` times over `block_cols(blocks)` ->
+    {"variant", "blocks", "iters", "ms", "us_per_visit", "best"}: ms per
+    call, us per 256 x 128 block visit (per block, so a throughput at
+    blocks > 1), None where the device is not a card; best the loop's
+    output."""
     slab, c = block_cols(blocks, device)
     a = loop_input(variant, slab)
     fn = LOOPS[variant]

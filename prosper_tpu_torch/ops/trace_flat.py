@@ -33,18 +33,19 @@ decides speed, not the result; callers give rays in 16x16 pixel blocks.
 The per-tile lists of the Pallas kernels, their SMEM copies and slab DMA
 ring are TPU devices; `cull_lists` gives the order the CUDA kernels walk
 a tile's list in (front to back, as trace_pallas._cull_lists; K7 walks
-it in id order, since any order gives the same mask). K6 and K8 walk it
+it in id order, since any order gives the same mask). All three walk it
 warp by warp under chunk boxes (the exact union of 32 consecutive
 entries' AABBs, which a ray must enter to enter any of them) and test
-each cluster a lane enters before its best hit with the whole warp;
-since exact t ties go to the lowest triangle id over all clusters, the
-rows equal the plain versions' bit for bit whatever order a cluster is
-reached in.
+each cluster a lane enters with the whole warp: K6 and K8 those it
+enters before its best hit, K7 those it enters before its t_max until
+it is occluded. Since exact t ties go to the lowest triangle id over
+all clusters, the rows equal the plain versions' bit for bit whatever
+order a cluster is reached in, and so does K7's mask.
 
-`flat_walk_counts` is a measurement of K6's and K8's walk in plain
-PyTorch (no kernel): per ray, its tile's list length, the listed
-clusters it enters and those it enters no later than its final hit, the
-least any walk of that list must test. Only chip_smoke.py calls it; it
+`flat_walk_counts` is a measurement of the walk in plain PyTorch (no
+kernel): per ray, its tile's list length, the listed clusters it enters
+and those it enters no later than its final hit, the least any walk of
+that list must test (K7's walk: t_hit = t_max). Only chip_smoke.py calls it; it
 counts its calls in `.calls`, and a frame that called it fails that run.
 
 Dispatch: a wrapper runs the plain version only because its tensors lie
@@ -75,8 +76,7 @@ from .trace_bvh import (
     expect_tensor,
 )
 
-SLAB_FLOATS = ROWS_PLAIN * CLUSTER_PAD  # the Möller rows K7 stages
-CHUNK = 32  # list entries under one chunk box of K6's and K8's walk
+CHUNK = 32  # list entries under one chunk box of the walk
 TILES_PER_CHUNK = 512  # tiles per packet-cull chunk of the plain version
 RAYS_PER_CHUNK = 16384  # rays per slab-test chunk of flat_walk_counts
 
@@ -158,13 +158,14 @@ def trace_any_flat_plain(slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max):
 
 
 def flat_walk_counts(wc_min, wc_max, ray_o, ray_d, t_min, t_max, t_hit):
-    """What K6's and K8's walk faces, per ray -> (R, 3) i32: its tile's
+    """What the flat walk faces, per ray -> (R, 3) i32: its tile's
     list length (packet_overlap); the listed clusters whose AABB it
     enters before its t_max (enter <= exit, enter < t_max), the owner
     test of a walk that has found no hit yet; and of those, the ones it
     enters no later than t_hit (R,), its final t (t_max on a miss), the
-    least any walk of the list must test. A ray with t_max <= t_min
-    enters nothing. Plain PyTorch, for measurement only."""
+    least any walk of the list must test (for K7, given t_hit = t_max,
+    the clusters a free ray tests). A ray with t_max <= t_min enters
+    nothing. Plain PyTorch, for measurement only."""
     flat_walk_counts.calls += 1
     R = ray_o.shape[0]
     t_max = as_tmax(t_max, R, ray_o.device)
@@ -198,17 +199,16 @@ _ARGTYPES = [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int,
              ctypes.c_float, _P]
 
 
-def list_bytes(n_clusters: int, staged: bool = False) -> int:
+def list_bytes(n_clusters: int) -> int:
     """Shared memory of one block (csrc/trace_flat.cu list_smem): a
     (key, id) list of the next power of two above n_clusters entries,
-    then K6's and K8's chunk boxes (6 floats for every CHUNK entries) or,
-    staged=True, K7's staged slab."""
+    then the chunk boxes (6 floats for every CHUNK entries)."""
     cap = 1 << max(0, int(n_clusters) - 1).bit_length()
-    return 4 * (2 * cap + (SLAB_FLOATS if staged else 6 * -(-cap // CHUNK)))
+    return 4 * (2 * cap + 6 * -(-cap // CHUNK))
 
 
 def _launch(name, slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max,
-            min_rows, out_shape, out_dtype=torch.float32, staged=False):
+            min_rows, out_shape, out_dtype=torch.float32):
     dev = ray_o.device
     R = ray_o.shape[0]
     C = slabs.shape[0]
@@ -220,10 +220,10 @@ def _launch(name, slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max,
     expect_tensor(wc_max, "wc_max", torch.float32, dev, (C, 3))
     expect_tensor(ray_o, "ray_o", torch.float32, dev, (R, 3))
     expect_tensor(ray_d, "ray_d", torch.float32, dev, (R, 3))
-    if list_bytes(C, staged) > MAX_SHARED:
+    if list_bytes(C) > MAX_SHARED:
         raise ValueError(
             f"{name}: the cull list of {C} clusters needs "
-            f"{list_bytes(C, staged)} bytes of shared memory, more than a "
+            f"{list_bytes(C)} bytes of shared memory, more than a "
             f"block has ({MAX_SHARED})")
     out = torch.empty(out_shape, dtype=out_dtype, device=dev)
     from . import cuda_build
@@ -286,8 +286,7 @@ def trace_any_flat(slabs, wc_min, wc_max, ray_o, ray_d, t_min, t_max):
     if dev.type != "cuda":
         raise ValueError(f"trace_any_flat: unsupported device {dev}")
     out = _launch("trace_any_flat", slabs, wc_min, wc_max, ray_o, ray_d,
-                  t_min, t_max, ROWS_PLAIN, (ray_o.shape[0],), torch.bool,
-                  staged=True)
+                  t_min, t_max, ROWS_PLAIN, (ray_o.shape[0],), torch.bool)
     trace_any_flat.launches += 1
     return out
 

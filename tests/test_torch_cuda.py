@@ -437,13 +437,16 @@ def test_any_kernels_match_plain_and_k3_on_card(cuda, kind):
 
 def test_any_wrappers_refuse_too_many_clusters(cuda):
     """A list larger than a block's shared memory raises instead of
-    dropping clusters."""
+    dropping clusters: K7's list and chunk boxes (no staged slab) at C =
+    16385, the first C over the limit, and K10's at 60000."""
     n = 60000
     slabs = torch.zeros((n, 9, 128), device=cuda)
     box = torch.zeros((n, 3), device=cuda)
     o = torch.zeros((4, 3), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        tf.trace_any_flat(slabs, box, box, o, o + 1.0, 0.1, 1.0)
+    assert tf.list_bytes(16385) > tb.MAX_SHARED >= tf.list_bytes(16384)
+    with pytest.raises(ValueError, match="16385 clusters needs 286720 bytes"):
+        tf.trace_any_flat(slabs[:16385], box[:16385], box[:16385], o, o + 1.0,
+                          0.1, 1.0)
     bounds = torch.zeros((1, 6), device=cuda)
     meta = torch.tensor([[-1, -1, 0]], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
@@ -967,6 +970,24 @@ def test_moller_loops_match_plain_on_card(cuda, loop):
     assert int(torch.isfinite(t).sum()) > 10
 
 
+@pytest.mark.parametrize("scale", [1e-3, 1e3, 1e6])
+def test_x2_moller_loop_matches_plain_across_scales_on_card(cuda, scale):
+    """X2's Möller loop takes 1 / det from rcp_normal (no branch), IEEE
+    division's value for a normal |det| < 2^126: with the scene and its
+    rays scaled by 1e-3, 1e3 and 1e6, det spans binades from about 1e-7
+    to 1e12, and best and the last t still equal the plain version's bit
+    for bit over eight blocks."""
+    slab, cols = bmi.block_cols(8, cuda)
+    slab = slab * scale
+    cols = cols.clone()
+    cols[:, 0:3] *= scale
+    best, t = bk.isect_loop_moller(slab, cols, 2, keep_t=True)
+    want_best, want_t = bk.isect_loop_plain(bk.MOLLER, bk.CHAIN_X2, slab,
+                                            cols, 2, keep_t=True)
+    assert torch.equal(best, want_best) and torch.equal(t, want_t)
+    assert int(torch.isfinite(t).sum()) > 100
+
+
 @pytest.mark.parametrize("variant", ["plucker", "plucker_pre"])
 def test_plucker_loops_on_card(cuda, variant):
     """The tensor-core Plücker loops against their TF32 plain version on
@@ -1266,3 +1287,122 @@ def test_flat_walk_near_the_list_limit_on_card(cuda, full):
     with pytest.raises(ValueError, match="shared memory"):
         kern(over, torch.cat([mn, mn[:4]]), torch.cat([mx, mx[:4]]), o, d,
              1e-4, t_max)
+
+
+@pytest.mark.parametrize("R", [1, 31, 33, 1031])
+def test_warp_flat_any_walk_matches_plain_and_k3_on_card(cuda, R):
+    """K7 walks the tile's list warp by warp under the chunk boxes: the
+    mask equals its plain version's bit for bit at R = 1, 31, 33 and 1031
+    (a partial last warp and tile), over the cluster AABBs and masked
+    ones, with t_max 0 and t_max = t_min lanes among live ones (never
+    occluded), rays that miss every box and (R = 1031) a first tile whose
+    t_max are all <= t_min; over the unmasked AABBs it equals K3 on the
+    same rays, over masked ones it is a subset of K3's."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32)
+    slabs, frame = sc["geom"]["packed9"], sc["frame"]
+    bvh = (frame["bvh_bounds"], frame["bvh_meta"])
+    mn, mx = frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]
+    keep = torch.as_tensor(np.random.default_rng(R).random(64) > 0.3,
+                           device=cuda)
+    o, d, t_max = _mixed_rays(sc, R, R, cuda)
+    t_max[1::11] = 0.1  # = t_min: no hit
+    if R > 256:
+        t_max[:256] = torch.where(t_max[:256] > 0.1, 0.1, t_max[:256])
+    k3 = tb.trace_any_bvh(slabs, *bvh, o, d, 0.1, t_max)
+    tb.check_stack_overflow(cuda)
+    tf.trace_any_flat.launches = 0
+    for masked in (False, True):
+        bmin, bmax = (gbuffer._masked_aabbs(mn, mx, keep) if masked
+                      else (mn, mx))
+        got = tf.trace_any_flat(slabs, bmin, bmax, o, d, 0.1, t_max)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tf.trace_any_flat_plain(slabs, bmin, bmax, o,
+                                                        d, 0.1, t_max))
+        assert not got[t_max <= 0.1].any()
+        if R > 256:
+            assert not got[:256].any()
+        if masked:
+            assert bool((got <= k3).all())
+        else:
+            assert torch.equal(got, k3)
+    if R > 31:
+        assert k3.any() and not k3.all()
+    assert tf.trace_any_flat.launches == 2
+
+
+def test_flat_any_walk_finds_an_occluder_in_the_last_chunk_on_card(cuda):
+    """A tile lists 100 clusters whose AABBs every ray enters; only the
+    last, in the last chunk (entries 96-99), holds an occluder (a square
+    at z = 0), the others triangles far off every ray. K7's mask equals
+    its plain version's and the mask of the last cluster alone, bit for
+    bit, at R = 1031 with t_max <= t_min lanes."""
+    C = 100
+    rng = np.random.default_rng(7)
+    slabs = np.zeros((C, 9, 128), np.float32)
+    slabs[:, 0:3] = 100.0 + rng.random((C, 3, 128), dtype=np.float32)
+    slabs[:, 3:6] = rng.uniform(-0.5, 0.5, (C, 3, 128)).astype(np.float32)
+    slabs[:, 6:9] = rng.uniform(-0.5, 0.5, (C, 3, 128)).astype(np.float32)
+    # cluster C - 1, lanes 0 and 1: the square [-1, 1]^2 at z = 0
+    for lane, (v0, e1, e2) in enumerate((
+            ((-1, -1, 0), (2, 0, 0), (0, 2, 0)),
+            ((1, 1, 0), (-2, 0, 0), (0, -2, 0)))):
+        slabs[C - 1, 0:3, lane] = v0
+        slabs[C - 1, 3:6, lane] = e1
+        slabs[C - 1, 6:9, lane] = e2
+    mn = np.full((C, 3), -10.0, np.float32)
+    mx = np.full((C, 3), 10.0, np.float32)
+    mn[C - 1], mx[C - 1] = (-1.0, -1.0, -0.01), (1.0, 1.0, 0.01)
+    R = 1031
+    o = np.zeros((R, 3), np.float32)
+    o[:, 0:2] = rng.uniform(-2.0, 2.0, (R, 2))
+    o[:, 2] = -5.0
+    d = np.zeros((R, 3), np.float32)
+    d[:, 0:2] = rng.uniform(-0.05, 0.05, (R, 2))
+    d[:, 2] = 1.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = np.full((R,), 8.0, np.float32)
+    t_max[3::13] = 0.1
+    slabs, mn, mx, o, d, t_max = (torch.as_tensor(a, device=cuda)
+                                  for a in (slabs, mn, mx, o, d, t_max))
+    got = tf.trace_any_flat(slabs, mn, mx, o, d, 0.1, t_max)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tf.trace_any_flat_plain(slabs, mn, mx, o, d, 0.1,
+                                                    t_max))
+    last = tf.trace_any_flat(slabs[C - 1:].contiguous(), mn[C - 1:],
+                             mx[C - 1:], o, d, 0.1, t_max)
+    assert torch.equal(got, last)
+    assert got.sum() > 100 and not got.all()
+    assert not got[t_max <= 0.1].any()
+    lists, counts, _ = tf.cull_lists(o, d, 0.1, t_max, mn, mx)
+    assert (counts == C).all() and (lists[:, C - 1] == C - 1).all()
+
+
+def test_flat_any_walk_near_the_list_limit_on_card(cuda):
+    """K7 at C = 16381 (the list's power of two, 16384, is the most a
+    block's shared memory holds; C not a multiple of 256): plate-64's
+    clusters repeated 256 times. The mask equals the plain version's, the
+    plain version's over the 64 clusters and K3's, bit for bit; C = 16385
+    is refused."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32)
+    slabs, frame = sc["geom"]["packed9"], sc["frame"]
+    bvh = (frame["bvh_bounds"], frame["bvh_meta"])
+    C = 16381
+    big = slabs.repeat(256, 1, 1)[:C].contiguous()
+    mn = frame["wc_aabb_min_w"].repeat(256, 1)[:C].contiguous()
+    mx = frame["wc_aabb_max_w"].repeat(256, 1)[:C].contiguous()
+    o, d, t_max = _mixed_rays(sc, 1031, 3, cuda)
+    got = tf.trace_any_flat(big, mn, mx, o, d, 0.1, t_max)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tf.trace_any_flat_plain(big, mn, mx, o, d, 0.1,
+                                                    t_max))
+    assert torch.equal(got, tf.trace_any_flat_plain(
+        slabs, frame["wc_aabb_min_w"], frame["wc_aabb_max_w"], o, d, 0.1,
+        t_max))
+    assert torch.equal(got, tb.trace_any_bvh(slabs, *bvh, o, d, 0.1, t_max))
+    assert got.any() and not got.all()
+    over = torch.cat([big, slabs[:4]])
+    with pytest.raises(ValueError, match="shared memory"):
+        tf.trace_any_flat(over, torch.cat([mn, mn[:4]]),
+                          torch.cat([mx, mx[:4]]), o, d, 0.1, t_max)

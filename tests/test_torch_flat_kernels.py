@@ -240,5 +240,5 @@ def test_flat_wrapper_dispatch(case):
             fn(*meta, 1e-4, float("inf"))
     assert trace_flat.list_bytes(2048) == 4 * (2 * 2048 + 6 * 64)
     assert trace_flat.list_bytes(2049) == 4 * (2 * 4096 + 6 * 128)
-    assert trace_flat.list_bytes(2048, staged=True) == 4 * (9 * 128 + 2 * 2048)
-    assert trace_flat.list_bytes(2049, staged=True) == 4 * (9 * 128 + 2 * 4096)
+    assert trace_flat.list_bytes(1) == 4 * (2 + 6)
+    assert trace_flat.list_bytes(16385) == 4 * (2 * 32768 + 6 * 1024)

@@ -19,9 +19,9 @@
   later than its final t, against a loop over tiles, rays and clusters
   in numpy float32 with the packet cull's and the slab test's operations
   in the kernels' order. Exact.
-- The shared-memory limit of the cull list: K6 and K8 hold the list
-  alone, K7 the list and its staged slab; both refuse the first C whose
-  list does not fit.
+- The shared-memory limit of the cull list: K6, K8 and K7 hold the
+  list and its chunk boxes alone, and refuse the first C whose list does
+  not fit.
 """
 
 import jax.numpy as jnp
@@ -205,12 +205,12 @@ def test_flat_walk_counts_match_a_loop(walk_case, boxes):
 
 
 def test_list_limits_follow_the_shared_memory():
-    """K6 and K8 keep a (key, id) list of the next power of two above C
-    entries, K7 its staged slab besides; C = 16384 fits a block's shared
-    memory, 16385 does not (the wrappers refuse it on the card)."""
+    """K6, K8 and K7 keep a (key, id) list of the next power of two above
+    C entries and 6 floats of chunk box for every 32 of them, no staged
+    slab; C = 16384 fits a block's shared memory, 16385 does not (the
+    wrappers refuse it on the card)."""
     assert tf.list_bytes(2048) == 4 * (2 * 2048 + 6 * 64)
     assert tf.list_bytes(1) == 4 * (2 + 6)
-    assert tf.list_bytes(2048, staged=True) == 4 * (9 * 128 + 2 * 2048)
-    for staged in (False, True):
-        assert tf.list_bytes(16384, staged) <= tb.MAX_SHARED
-        assert tf.list_bytes(16385, staged) > tb.MAX_SHARED
+    assert tf.list_bytes(16384) == 4 * (2 * 16384 + 6 * 512)
+    assert tf.list_bytes(16384) <= tb.MAX_SHARED
+    assert tf.list_bytes(16385) > tb.MAX_SHARED
