@@ -19,26 +19,26 @@ entry points of the experiments and scripts (X1-X3). Phases:
    csrc/trace_flat.cu, csrc/trace_leafmajor.cu, csrc/trace_wavefront.cu
    and csrc/bench_kernels.cu for sm_90a, one nvcc each, in parallel
    (timed), and print the ptxas line (registers, stack frame, spills)
-   of K1-K4 (the warp walk), X3a (the one-thread walk), K10 and K9 (the
-   dense cull), K10's cull form, K5 and K5's walk form, K6, K8 and K7
-   (the flat warp walk, flat_kernel<false> and <true>, flat_any_kernel),
-   the X2 loops (x2_moller_kernel, x2_plucker_kernel<false> and <true>)
-   and X3b (moller_chain_kernel);
+   of K1-K4 and X3a (the warp walk; K2 and X3a are
+   warp_closest_kernel<false> and <true>), K10 and K9 (the dense cull),
+   K10's cull form, K5 and K5's walk form, K6, K8 and K7 (the flat warp
+   walk, flat_kernel<false> and <true>, flat_any_kernel), the X2 loops
+   (x2_moller_kernel<0>, x2_plucker_kernel<false> and <true>) and X3b
+   (x2_moller_kernel<1>, the same loop under X3b's chain);
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the whole inputs of one frame, with kernel and plain times and
    the bound (the least time an H100 could take for the same work):
    K1 on every primary ray of the path tracer and on every pixel of the
-   G-buffer, K2 on the first bounce set (also against X3a, the
-   one-thread walk: rows 0-5 equal bit for bit, both timed), K3 on the
-   first shadow set, K4 on both culling phases of a culled G-buffer, K5
-   on the G-buffer of a deferred frame (with its walk form, the walk
-   without the shading, against its plain counts: per pixel the list
-   entries its color needs and its warp walks, and the warp's shading
-   union, timed beside K5); K1 and K4 also against the
-   one-thread walk on the same rays, bit for bit (K1: X3a's rows 0-3 on
-   raygen_plain's rays, through the attribute interpolation; K4's
-   masked phases: the lockstep plain walk with the same mask), with
-   X3a's time on the same unmasked rays beside theirs;
+   G-buffer, K2 on the first bounce set (also against the lockstep
+   plain walk and X3a, K2 counting its walk: rows 0-5 equal bit for
+   bit, X3a timed), K3 on the first shadow set, K4 on both culling
+   phases of a culled G-buffer, K5 on the G-buffer of a deferred frame
+   (with its walk form, the walk without the shading, against its plain
+   counts: per pixel the list entries its color needs and its warp
+   walks, and the warp's shading union, timed beside K5); K1 and K4
+   also against the lockstep plain walk on the same rays (K4's masked
+   phases under the same mask), rows 0-15 bit for bit through the
+   attribute interpolation (K1 on raygen_plain's rays);
 4. pt: the path tracer's frame call (sample, accumulate, tone map), 2
    warm-up + 8 timed frames, launch counts, memory, a profile of one
    frame; the CUDA frame against the CPU frame on the 64x64 test scene;
@@ -116,8 +116,8 @@ entry points of the experiments and scripts (X1-X3). Phases:
    deferred frame's K4 phases and K5 as phase 3 checks them;
 14. kernels: 8-wide: the World's 8-wide table on the rays of
    scripts/bench_bvh8.py: K12 on the 1080p block-order pinhole rays
-   against its plain version and K4 (K4 there also against X3a, as phase
-   3); on the cosine bounce set from
+   against its plain version and K4 (K4 there also against the lockstep
+   plain walk, as phase 3); on the cosine bounce set from
    those hits (sorted by cluster and octant) K11 against its plain
    version and K2, K12 against its plain version and K4, and, with t_max
    8, K13 against its plain version and K3; each with its time, the
@@ -131,14 +131,15 @@ entry points of the experiments and scripts (X1-X3). Phases:
    X2 loops at one block and at 8 blocks per SM, each also timed at NV
    and 2 NV iterations: the ratio must be at least 1.8, so no iteration
    was hoisted out of the loop) and
-   scripts/bench_loop_overhead.main (X3c-f); then X1, X3a, the Möller
-   loops and X3c-f against their plain versions (equal) on the shapes the
-   entry points ran, the Plücker loops against their TF32 plain version
-   (no hit/miss mismatch off ops/plucker.tf32_agreement's border, t
-   within rtol 1e-5 plus the bound of a reordered sum) and at one block
-   against Möller (the script's bar:
-   99.95% of pairs, t within rtol 1e-2), with times, bounds and the
-   yardstick torch.matmul of the Plücker products.
+   scripts/bench_loop_overhead.main (X3c-f); then X1, X3a (rows 0-5
+   also against K2's), the Möller loops and X3c-f against their plain
+   versions (equal) on the shapes the entry points ran, X3b also timed
+   at K and 2 K iterations (the same ratio), the Plücker loops against
+   their TF32 plain version (no hit/miss mismatch off
+   ops/plucker.tf32_agreement's border, t within rtol 1e-5 plus the
+   bound of a reordered sum) and at one block against Möller (the
+   script's bar: 99.95% of pairs, t within rtol 1e-2), with times,
+   bounds and the yardstick torch.matmul of the Plücker products.
 
 Every launch count is set to 0 just before a path is driven and read
 just after; a kernel of the path that never launched fails the run, and
@@ -223,22 +224,22 @@ EXPERIMENT_PATH = ("walk_leaves", "trace_closest_bvh_visits",
                    "isect_loop_plucker_pre", "moller_chain_loop", "loop_flat",
                    "loop_nested", "loop_cond", "loop_vec")
 PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
-# the kernels whose ptxas line phase 2 prints, (source, symbol): K2, K3,
-# K1 and K4 on the warp walk, X3a on the one-thread walk, K10 (its walk
-# on the warp-shared leaf test) and K9 over the dense cull, K10's cull
-# form, K5 and its walk form, K6, K8 and K7 (the flat warp walk), the X2
-# loops and X3b
+# the kernels whose ptxas line phase 2 prints, (source, symbol): K2, X3a
+# (K2 counting), K3, K1 and K4 on the warp walk, K10 (its walk on the
+# warp-shared leaf test) and K9 over the dense cull, K10's cull form, K5
+# and its walk form, K6, K8 and K7 (the flat warp walk), the X2 loops and
+# X3b (x2_moller_kernel<1>, the X2 Möller loop under X3b's chain)
 PTXAS_KERNELS = tuple(("trace_bvh", k) for k in (
-    "warp_closest_kernel", "warp_any_kernel", "primary_kernel",
-    "closest_full_kernel", "closest_kernel", "dense_any_kernel",
-    "dense_closest_kernel", "dense_cull_kernel")) + tuple(
+    "warp_closest_kernel<false>", "warp_closest_kernel<true>",
+    "warp_any_kernel", "primary_kernel", "closest_full_kernel",
+    "dense_any_kernel", "dense_closest_kernel", "dense_cull_kernel")) + tuple(
     ("shade_tiles", k) for k in ("shade_kernel", "shade_walk_kernel")) + tuple(
     ("trace_flat", k) for k in ("flat_kernel<false>", "flat_kernel<true>",
                                 "flat_any_kernel")) + tuple(
-    ("bench_kernels", k) for k in ("x2_moller_kernel",
+    ("bench_kernels", k) for k in ("x2_moller_kernel<0>",
                                    "x2_plucker_kernel<false>",
                                    "x2_plucker_kernel<true>",
-                                   "moller_chain_kernel"))
+                                   "x2_moller_kernel<1>"))
 # the measurement forms of K5 and K10, which no frame may launch; nor may
 # a frame call trace_flat.flat_walk_counts, the walk counts of K6 and K8
 MEASUREMENT_FORMS = ("shade_walk_counts", "dense_cull_counts")
@@ -280,13 +281,12 @@ LEAFMAJOR_CELLS = {
                           "trace_any_bvh")),
 }
 PORT_KERNEL_SYMBOLS = ("primary_kernel", "warp_closest_kernel",
-                       "warp_any_kernel", "closest_kernel",
-                       "closest_full_kernel", "shade_kernel", "flat_kernel",
-                       "flat_any_kernel", "dense_any_kernel",
-                       "dense_closest_kernel", "pairs_kernel",
-                       "closest8_kernel", "closest8_full_kernel",
-                       "any8_kernel", "walk_kernel", "x2_moller_kernel",
-                       "x2_plucker_kernel", "moller_chain_kernel",
+                       "warp_any_kernel", "closest_full_kernel",
+                       "shade_kernel", "flat_kernel", "flat_any_kernel",
+                       "dense_any_kernel", "dense_closest_kernel",
+                       "pairs_kernel", "closest8_kernel",
+                       "closest8_full_kernel", "any8_kernel", "walk_kernel",
+                       "x2_moller_kernel", "x2_plucker_kernel",
                        "loop_flat_kernel", "loop_nested_kernel",
                        "loop_cond_kernel", "loop_vec_kernel")
 # the glTF World scene: plate-2048's plates, the last 64 as instances
@@ -360,10 +360,14 @@ def ptxas_line(log: str, symbol: str) -> str:
     registers, stack frame and spills, from the block of the entry
     function whose mangled name holds <length><symbol> (for a kernel
     template of one bool, "name<false>" or "name<true>", followed by
-    ILb0E or ILb1E)."""
+    ILb0E or ILb1E; of one int, "name<n>", by ILinE)."""
     name, _, arg = symbol.partition("<")
-    key = f"{len(name)}{name}" + (
-        f"ILb{int(arg == 'true>')}E" if arg else "")
+    arg = arg.rstrip(">")
+    if arg in ("false", "true"):
+        arg = f"ILb{int(arg == 'true')}E"
+    elif arg:
+        arg = f"ILi{int(arg)}E"
+    key = f"{len(name)}{name}{arg}"
     for block in log.split("Compiling entry function '")[1:]:
         mangled = block.split("'", 1)[0]
         if key not in mangled:
@@ -548,29 +552,21 @@ def capture_wavefronts(pt, fn, scene, cam):
 
 
 def walk_twins(label, slabs, bvh, rays, got, mask=None):
-    """K1's or K4's rows `got` against the one-thread walk on the same
-    rays (o, d, t_min, t_max), bit for bit: without a mask X3a's rows 0-3
-    through the attribute interpolation (_full_rows), with one the
-    lockstep plain walk's under the same mask. Returns the record: rows
-    equal, and without a mask X3a's ms on the same rays (with one X3a
-    would test the leaves the mask drops, so its time is not kept)."""
+    """K1's or K4's rows `got` against the lockstep plain walk on the same
+    rays (o, d, t_min, t_max) and under the same mask, through the
+    attribute interpolation (_full_rows), bit for bit. Returns the
+    record: rows equal, and the plain walk's ms."""
     from prosper_tpu_torch.ops import trace_bvh as tb
 
     o, d, t_min, t_max = rays
     args = (slabs, *bvh, o, d, t_min, t_max)
-    if mask is not None:
-        walk = tb.trace_closest_bvh_visits_plain(*args, skip_mask=mask)
-        eq = torch.equal(got, tb._full_rows(slabs, walk))
-        print(f"{label} vs the masked lockstep plain walk on the same "
-              f"rays: rows equal {eq}")
-        return {"walk_rows_equal": eq}
-    walk = tb.trace_closest_bvh_visits(*args)
-    tb.check_stack_overflow(o.device)
-    eq = torch.equal(got, tb._full_rows(slabs, walk))
-    x3a_ms = device_ms(lambda: tb.trace_closest_bvh_visits(*args), 5)
-    print(f"{label} vs X3a on the same rays: rows equal {eq}; X3a "
-          f"{x3a_ms:.3f} ms")
-    return {"walk_rows_equal": eq, "x3a_same_rays_ms": x3a_ms}
+    walk = []
+    ms = elapsed_ms(lambda: walk.append(
+        tb.trace_closest_bvh_visits_plain(*args, skip_mask=mask)))
+    eq = torch.equal(got, tb._full_rows(slabs, walk[0]))
+    print(f"{label} vs the {'masked ' if mask is not None else ''}lockstep "
+          f"plain walk on the same rays: rows equal {eq} (walk {ms:.1f} ms)")
+    return {"walk_rows_equal": eq, "walk_plain_ms": ms}
 
 
 def check_primary(label, scene, cols, cam_vec, frame_index, t_min):
@@ -603,7 +599,8 @@ def check_pt_kernels(label, fn, scene, cam, width, height):
     """The path tracer's kernels against their plain versions on the
     whole wavefront the frame gives each (K1 every pixel, K2 the first
     bounce set, K3 the first shadow set), with both times and the
-    bounds; K2 also against X3a's rows 0-5, bit for bit, with its time.
+    bounds; K2 also against the lockstep plain walk's rows 0-5 and
+    X3a's, bit for bit, with X3a's time.
     Returns (ok, per-kernel records, primary coverage)."""
     from prosper_tpu_torch.ops import trace_bvh as tb
     from prosper_tpu_torch.render import pt
@@ -636,17 +633,24 @@ def check_pt_kernels(label, fn, scene, cam, width, height):
         if key == "closest":
             ok, counts, err = compare_rows(got, want, [2, 3])
             ops = closest_ops(leaf_boxes(scene), o, d, want, t_max)
-            # the one-thread walk (X3a, K2's old design) on the same rays:
-            # rows 0-5 equal bit for bit, tri on exact ties included
+            # the lockstep plain walk on the same rays: rows 0-5 equal bit
+            # for bit, tri on exact ties included; X3a (K2 counting its
+            # walk) must leave those rows alone
+            walk = []
+            walk_ms = elapsed_ms(lambda: walk.append(
+                tb.trace_closest_bvh_visits_plain(*args)))
             x3a = tb.trace_closest_bvh_visits(*args)
             tb.check_stack_overflow(dev)
-            same = torch.equal(got[:, 0:6], x3a[:, 0:6])
-            ok &= same
-            extra["x3a_rows_equal"] = same
+            same = torch.equal(got[:, 0:6], walk[0][:, 0:6])
+            x3a_same = torch.equal(got[:, 0:6], x3a[:, 0:6])
+            ok &= same and x3a_same
+            extra.update({"walk_rows_equal": same, "walk_plain_ms": walk_ms,
+                          "x3a_rows_equal": x3a_same})
             extra["x3a_same_rays_ms"] = device_ms(
                 lambda: tb.trace_closest_bvh_visits(*args), 5)
-            print(f"K2 {label} vs X3a (the one-thread walk) on the same "
-                  f"rays: rows 0-5 equal {same}; K2 {ms:.3f} ms, X3a "
+            print(f"K2 {label} vs the lockstep plain walk on the same rays: "
+                  f"rows 0-5 equal {same} (walk {walk_ms:.1f} ms); X3a rows "
+                  f"0-5 equal {x3a_same}; K2 {ms:.3f} ms, X3a "
                   f"{extra['x3a_same_rays_ms']:.3f} ms")
         else:
             mism = int((got != want).sum())
@@ -2280,7 +2284,7 @@ def check_bvh8_kernels(smi, scene, cam):
     """Phase 14 on the World scene's arrays: K12 on the block-order
     pinhole rays, K11 and K12 on the cosine bounce set, K13 on it with
     t_max 8, each against its plain version and its BVH2 twin; K4 on the
-    pinhole rays against X3a (walk_twins).
+    pinhole rays against the lockstep plain walk (walk_twins).
     Returns (ok, records, K4's record)."""
     from prosper_tpu_torch.ops import trace_bvh as tb
     from prosper_tpu_torch.scripts.bench_visit_breakdown import (
@@ -2565,14 +2569,16 @@ def check_moller_unit(label, tensors, rec):
     """X3b on one bounce set, cluster 0's slab: the chain loop on the
     first 256 rays at K = 1024 and on the whole set at K = 32, as the
     entry point ran it, against its plain version: the entry point's
-    best and a keep_t launch's best and last t equal -> (ok, record)."""
+    best and a keep_t launch's best and last t equal; each also timed at
+    K and 2 K iterations, the ratio at least TWICE_NV_RATIO, so no
+    iteration was hoisted or skipped -> (ok, record)."""
     from prosper_tpu_torch.ops import bench_kernels as bk
     from prosper_tpu_torch.scripts import bench_visit_breakdown as bvb
 
     o, d, _ = tensors["rays"]
     slab = tensors["unit_slab"]
     cols = bk.cols_from_rays(o, d)
-    ok, err, plain = True, 0.0, {}
+    ok, err, plain, twice = True, 0.0, {}, {}
     for key, c, k in (("256_rays", cols[0:1], bvb.K_UNIT),
                       ("set", cols, bvb.K_SET)):
         best, t = bk.moller_chain_loop(slab, c, k, keep_t=True)
@@ -2582,26 +2588,36 @@ def check_moller_unit(label, tensors, rec):
                and torch.equal(tensors["unit_best"][key], want_b))
         fin = torch.isfinite(want_t)
         err = max(err, float(torch.where(fin, (t - want_t).abs(), 0.0).amax()))
+        ms = {n: device_ms(lambda: bk.moller_chain_loop(slab, c, n), 3)
+              for n in (k, 2 * k)}
+        twice[key] = {"ms_k": ms[k], "ms_2k": ms[2 * k],
+                      "ratio_2k": ms[2 * k] / ms[k]}
+        ok &= twice[key]["ratio_2k"] >= TWICE_NV_RATIO
     unit = rec["moller_unit"]
     one, whole = unit["256_rays"], unit["set"]
     out = {"max_abs_err": err, "rays": one["rays"], "iters": one["k"],
            "ms": one["ms"], "ns_per_ray_visit": one["ns_per_ray_visit"],
-           "plain_ms": plain["256_rays"],
+           "plain_ms": plain["256_rays"], **twice["256_rays"],
            **loop_bound("moller", one["rays"], one["k"], True),
            "set": {"rays": whole["rays"], "iters": whole["k"],
                    "ms": whole["ms"],
                    "ns_per_ray_visit": whole["ns_per_ray_visit"],
-                   "plain_ms": plain["set"],
+                   "plain_ms": plain["set"], **twice["set"],
                    **loop_bound("moller", whole["rays"], whole["k"], False)},
            "est_moller_share_ms": rec["est_moller_share_ms"]}
     print(f"X3b moller unit {label}: ok={ok} {one['ms']:.3f} ms for 256 rays "
           f"x {one['k']} ({one['ns_per_ray_visit']:.4f} ns per ray visit), "
           f"{whole['ms']:.3f} ms for {whole['rays']} rays x {whole['k']} "
           f"({whole['ns_per_ray_visit']:.5f} ns); est Möller share of K2 "
-          f"{rec['est_moller_share_ms']:.3f} ms of {rec['k2_ms']:.3f}; plain "
+          f"with a branch-free 1 / det {rec['est_moller_share_ms']:.3f} ms of "
+          f"{rec['k2_ms']:.3f}; plain "
           f"{plain['256_rays']:.1f} ms, {plain['set']:.1f} ms the set; bound "
           f"{out['bound_ms']:.3f} ms one block, {out['set']['bound_ms']:.3f} "
           f"ms the set")
+    for key, part in (("256 rays", out), ("set", out["set"])):
+        print(f"  {key}: {part['ms_k']:.3f} ms at K = {part['iters']}, "
+              f"{part['ms_2k']:.3f} ms at 2 K, ratio {part['ratio_2k']:.3f} "
+              f"(at least {TWICE_NV_RATIO})")
     return ok, out
 
 

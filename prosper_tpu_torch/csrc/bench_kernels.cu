@@ -1,13 +1,13 @@
 // Measurement kernels for Hopper (sm_90a): the port of the Pallas TPU
 // loops of the repo's triangle-test and loop-overhead benchmarks.
 //
-//   x2_moller_kernel         replaces experiments/bench_mxu_isect.py run
-//       (:130, loop_kernel :94, pallas_call :137), variant "moller";
+//   x2_moller_kernel<CHAIN_X2>  replaces experiments/bench_mxu_isect.py
+//       run (:130, loop_kernel :94, pallas_call :137), variant "moller";
 //   x2_plucker_kernel<false> the same, "plucker" (feature rows made from
 //       the 9-row slab in the kernel);
 //   x2_plucker_kernel<true>  the same, "plucker_pre" (the 22 rows given);
-//   moller_chain_kernel      replaces scripts/bench_visit_breakdown.py
-//       moller_loop_kernel (:179, :198);
+//   x2_moller_kernel<CHAIN_X3B> (X3b) replaces
+//       scripts/bench_visit_breakdown.py moller_loop_kernel (:179, :198);
 //   loop_flat_kernel, loop_nested_kernel, loop_cond_kernel,
 //   loop_vec_kernel  replace scripts/bench_loop_overhead.py flat_kernel
 //       (:49, :59), nested_kernel (:71, :89), cond_kernel (:98, :114),
@@ -17,8 +17,10 @@
 // slab staged in shared memory, `iters` times over, each block's minimum
 // t per ray fed into the next through a chain, as the TPU kernels do:
 // X2 keeps best = tmin < -1 ? tmin : best (t_upper stays inf), X3b best =
-// min(best, tmin + 1e-7). The chain makes each iteration's tests depend
-// on the one before, so none is hoisted out of the loop. The Möller
+// min(best, tmin + 1e-7), each iteration's t_upper. The chain makes each
+// iteration's tests depend on the one before, so none is hoisted out of
+// the loop or skipped, though X3b's best stops changing after the first
+// iteration: the compiler cannot know it. The Möller
 // variants run csrc/ray_common.cuh moller_tri on the FMA units, 53
 // float32 operations a test; the Plücker variants do what the TPU did on
 // its MXU on the tensor cores: per warp 16-row ray tiles against
@@ -32,25 +34,26 @@
 // reciprocal) and TF32 tensor-core throughput (the products), held to one
 // SM's share for one block; the loops move almost no bytes.
 //
-// X2's design. What held the first port back was occupancy and latency:
-// one block was 8 warps, each thread ran its ray's 128 tests in a row,
-// and the IEEE division of every test (1 / det, 1 / den) compiled to a
-// range check and a branch around a slow-path call, a region the
-// scheduler cannot overlap with the next test. Now: Möller, 1024 threads
-// a block, four neighbouring lanes a ray (lane part takes triangles part
-// + 4i, four tests in flight), the slab triangle-major in shared memory
-// (two float4 loads and one float a test; a load's four triangles lie in
-// distinct banks), a two-step shuffle min at the end of an iteration.
-// Plücker, 512 threads a block, a warp a 16-ray tile against all 128
-// triangles (no warp waits for another after the staging), eight
-// column tiles in flight. Both take 1 / x from ray_common.cuh
-// rcp_normal, no branch, which gives IEEE division's value for every
-// normal |x| < 2^126 (a test's |det| > 1e-10 and |den| > 1e-9 are
-// normal), so the Möller loop still equals its plain version bit for
-// bit. Both write the last iteration's t from a separate instance of the
-// loop body, so the other iterations carry no store. X3b keeps its first
-// port: one thread a ray, the 128 tests in a row, IEEE division.
-// wgmma, which needs 64-row tiles in shared memory, is later work.
+// The design. What bounds a loop is occupancy and latency: with one thread
+// running its ray's 128 tests in a row, 8 warps a block, and the IEEE
+// division of every test (1 / det, 1 / den) compiled to a range check and a
+// branch around a slow-path call, a region the scheduler cannot overlap with
+// the next test, most of an SM idles. So: Möller (X2 and X3b, one kernel
+// templated on the chain), 1024 threads a block, four neighbouring lanes a
+// ray (lane part takes triangles part + 4i, four tests in flight), the slab
+// triangle-major in shared memory (two float4 loads and one float a test; a
+// load's four triangles lie in distinct banks), a two-step shuffle min at
+// the end of an iteration, which X3b's next tests wait for (their t_upper);
+// the FP32 issue rate of the SM bounds it, with 32 warps to hide each test's
+// latency. Plücker, 512 threads a block, a warp a 16-ray tile against all
+// 128 triangles (no warp waits for another after the staging), eight column
+// tiles in flight. Both take 1 / x from ray_common.cuh rcp_normal, no
+// branch, which gives IEEE division's value for every normal |x| < 2^126 (a
+// test's |det| > 1e-10 and |den| > 1e-9 are normal), so the Möller loop
+// still equals its plain version bit for bit. Both write the last
+// iteration's t from a separate instance of the loop body, so the other
+// iterations carry no store. wgmma, which needs 64-row tiles in shared
+// memory, is later work.
 //
 // The loop probes. One thread (flat, nested, cond) adds s[i % 128], read
 // from shared memory through a volatile pointer so that every iteration
@@ -134,55 +137,14 @@ __device__ void plucker_rows(const float* s, int j, float* p) {
     for (int f = 0; f < PLU_ROWS; ++f) p[f * LANES + j] = row[f];
 }
 
-// X3b: one thread a ray, the 128 tests one after the other, X3b's
-// chain. cols (B, 6, 256): ox oy oz dx dy dz of block b's rays. slab (9,
-// 128) v0 | e1 | e2. best (B * 256,); t_out (B * 256, 128), the last
-// iteration's t (inf on a miss), or nullptr.
-__global__ void __launch_bounds__(TILE)
-moller_chain_kernel(const float* __restrict__ slab,
-                    const float* __restrict__ cols, int iters, float t_min,
-                    float* __restrict__ best_out, float* __restrict__ t_out) {
-    __shared__ float s_raw[9 * LANES];
-    const int tid = threadIdx.x;
-    const float* c = cols + (size_t)blockIdx.x * 6 * TILE;
-    const size_t ray0 = (size_t)blockIdx.x * TILE;
-    for (int i = tid; i < 9 * LANES; i += TILE) s_raw[i] = slab[i];
-    __syncthreads();
-    Ray r;
-    r.ox = c[tid];
-    r.oy = c[TILE + tid];
-    r.oz = c[2 * TILE + tid];
-    r.dx = c[3 * TILE + tid];
-    r.dy = c[4 * TILE + tid];
-    r.dz = c[5 * TILE + tid];
-    float best = INF;
-    for (int it = 0; it < iters; ++it) {
-        const bool last = t_out != nullptr && it == iters - 1;
-        float tmin = INF;
-        for (int j = 0; j < LANES; ++j) {
-            float t, u, v;
-            const bool hit = moller_tri(
-                s_raw[j], s_raw[LANES + j], s_raw[2 * LANES + j],
-                s_raw[3 * LANES + j], s_raw[4 * LANES + j],
-                s_raw[5 * LANES + j], s_raw[6 * LANES + j],
-                s_raw[7 * LANES + j], s_raw[8 * LANES + j], r, t_min, best,
-                t, u, v);
-            const float tt = hit ? t : INF;
-            tmin = fminf(tmin, tt);
-            if (last) t_out[(ray0 + tid) * LANES + j] = tt;
-        }
-        best = chain<CHAIN_X3B>(best, tmin);
-    }
-    best_out[ray0 + tid] = best;
-}
-
-// One X2 Möller iteration of one thread: its M_SPLIT-th of the ray's 128
+// One Möller iteration of one thread: its M_SPLIT-th of the ray's 128
 // tests against the triangle-major slab s (triangle j: v0 e1 | e2 x y z
 // at float4s 3j, 3j + 1 and float 12j + 8), t_upper = best, four tests
 // in flight, 1 / det by rcp_normal; the minimum over the ray's M_SPLIT
-// threads (lanes next to each other) goes through X2's chain. STORE: the
-// last iteration also writes each t (inf on a miss) to t_row[j].
-template <bool STORE>
+// threads (lanes next to each other) goes through CHAIN's rule, so the
+// next iteration's tests wait for it. STORE: the last iteration also
+// writes each t (inf on a miss) to t_row[j].
+template <int CHAIN, bool STORE>
 __device__ __forceinline__ float x2_moller_step(const float4* s, int part,
                                                 const Ray& r, float t_min,
                                                 float best, float* t_row) {
@@ -202,10 +164,12 @@ __device__ __forceinline__ float x2_moller_step(const float4* s, int part,
 #pragma unroll
     for (int off = 1; off < M_SPLIT; off <<= 1)
         tmin = fminf(tmin, __shfl_xor_sync(FULL_MASK, tmin, off));
-    return chain<CHAIN_X2>(best, tmin);
+    return chain<CHAIN>(best, tmin);
 }
 
-// X2 "moller": 256 rays x 128 triangles a block, M_SPLIT threads a ray.
+// X2 "moller" (CHAIN_X2) and X3b (CHAIN_X3B): 256 rays x 128 triangles
+// a block, M_SPLIT threads a ray.
+template <int CHAIN>
 __global__ void __launch_bounds__(M_THREADS)
 x2_moller_kernel(const float* __restrict__ slab,
                  const float* __restrict__ cols, int iters, float t_min,
@@ -233,10 +197,11 @@ x2_moller_kernel(const float* __restrict__ slab,
     float best = INF;
     const int plain_iters = t_out != nullptr ? iters - 1 : iters;
     for (int it = 0; it < plain_iters; ++it)
-        best = x2_moller_step<false>(s_tri, part, r, t_min, best, nullptr);
+        best = x2_moller_step<CHAIN, false>(s_tri, part, r, t_min, best,
+                                            nullptr);
     if (t_out != nullptr)
-        best = x2_moller_step<true>(s_tri, part, r, t_min, best,
-                                    t_out + k * LANES);
+        best = x2_moller_step<CHAIN, true>(s_tri, part, r, t_min, best,
+                                           t_out + k * LANES);
     if (part == 0) best_out[k] = best;
 }
 
@@ -459,13 +424,13 @@ extern "C" int isect_loop(int variant, int chain_rule, const float* slab,
     cudaStream_t st = (cudaStream_t)stream;
     if (chain_rule == CHAIN_X3B) {
         if (variant != MOLLER) return (int)cudaErrorInvalidValue;
-        return launch_isect(moller_chain_kernel, TILE, slab, cols, blocks,
-                            iters, t_min, best, t_out, st);
+        return launch_isect(x2_moller_kernel<CHAIN_X3B>, M_THREADS, slab,
+                            cols, blocks, iters, t_min, best, t_out, st);
     }
     switch (variant) {
         case MOLLER:
-            return launch_isect(x2_moller_kernel, M_THREADS, slab, cols,
-                                blocks, iters, t_min, best, t_out, st);
+            return launch_isect(x2_moller_kernel<CHAIN_X2>, M_THREADS, slab,
+                                cols, blocks, iters, t_min, best, t_out, st);
         case PLUCKER:
             return launch_isect(x2_plucker_kernel<false>, P_THREADS, slab,
                                 cols, blocks, iters, t_min, best, t_out, st);

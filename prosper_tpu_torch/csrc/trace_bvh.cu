@@ -12,7 +12,8 @@
 //                           (:1050): closest hit, (R, 8) rows.
 //   trace_closest_bvh_visits  replaces K2's body under DEBUG_VISITS
 //                           (scripts/bench_visit_breakdown.py:148): K2's
-//                           rows with per-ray node and leaf counts.
+//                           rows with per-ray node and leaf counts
+//                           (X3a, warp_closest_kernel<true>).
 //   trace_closest_bvh_full  replaces trace_bvh.py trace_closest_bvh_full
 //                           (:1211): closest hit of given rays with an
 //                           optional per-cluster skip mask (the culled
@@ -38,33 +39,31 @@
 // the XLA reference tracer (ops/trace.py) does; callers pass the value
 // they mean.
 //
-// The first design (`walk`) is one thread per ray: a per-thread stack of
-// STACK_CAP nodes in local memory, near-first ordered descent with
-// pruning against the ray's best t, and at each leaf the thread alone
-// loops over the cluster's 128 triangles, with the Möller test written
-// operation for operation as the plain PyTorch version (compiled with
-// --fmad=false) so hits agree bit for bit. What bounds it on the H100 is
-// the leaf loop, not the arithmetic (Möller is about an eighth of K2's
-// time): each test issues 9 scalar loads of the thread's own cluster, so
-// in a warp whose lanes sit in up to 32 different clusters every load
-// touches up to 32 cache lines (a leaf round up to 147 KB, served from
-// L2), and the warp runs a 128-test round whenever any lane is at a leaf
-// while the others idle, so each lane pays at least (the warp's largest
-// leaf count) x 128 tests. Only X3a (K2's counting form, the old
-// design's yardstick) keeps it.
-//
-// K1-K4 (`warp_walk`) keep that walk and share the leaf tests: a lane
-// walks its own ray's interior nodes until it pops a leaf, which it holds
-// pending (K4 drops a leaf of a masked cluster on pop, unread, as `walk`
-// did); when every lane holds one or is done, the warp tests the pending
-// leaves one owner at a time, all 32 lanes on each, 4 triangles a lane
-// and every slab load one full 128-byte line across the warp. A warp's
-// tests then scale with the leaves its rays visit, not with 128 times the
-// most any lane visits. Each ray's pops, prunes and leaf tests stay
-// `walk`'s, so the rows equal its bit for bit. K10 tests the clusters of
-// its dense list with the same warp-shared leaf test (warp_leaf); K9 and
-// K11-K13 are their own kernels. Node layouts, persistent threads, ray
-// reordering and wgmma are later work.
+// The walk. Each ray walks the BVH near-first on its own stack of STACK_CAP
+// nodes in local memory, pruning against its best t, with the Möller test
+// written operation for operation as the plain PyTorch version (compiled
+// with --fmad=false) so hits agree bit for bit. A leaf's 128 tests must not
+// run on the ray's own thread: each test would issue 9 scalar loads of that
+// thread's cluster, so in a warp whose lanes sit in up to 32 clusters a load
+// would touch up to 32 cache lines, and the warp would run a 128-test round
+// whenever any lane is at a leaf while the others idle. K1-K4 and X3a
+// (`warp_walk`) share the leaf tests instead: a lane walks its own ray's
+// interior nodes until it pops a leaf, which it holds pending (K4 drops a
+// leaf of a masked cluster on pop, unread); when every lane holds one or is
+// done, the warp tests the pending leaves one owner at a time, all 32 lanes
+// on each, 4 triangles a lane and every slab load one full 128-byte line
+// across the warp. A warp's tests then scale with the leaves its rays visit,
+// not with 128 times the most any lane visits. Each ray's pops, prunes and
+// leaf tests stay those of its own walk, so the rows equal the lockstep
+// plain walk's (ops/trace_bvh.py trace_closest_bvh_visits_plain) bit for
+// bit, and X3a's counts, kept by the same code (COUNT), equal its counts.
+// What bounds the walk is the leaf tests' FP32 work, in which each test's
+// IEEE division keeps its branch, and the lanes' dependent node loads, which
+// the warp's other lanes overlap only while they too are walking; X3a adds
+// two counters in registers. K10 tests the clusters of its dense list with
+// the same warp-shared leaf test (warp_leaf); K9 and K11-K13 are their own
+// kernels. Node layouts, persistent threads, ray reordering and wgmma are
+// later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,67 +92,10 @@ struct Hit {
     int tri;
 };
 
-// Near-first ordered BVH2 walk, one thread per ray, closest hit, for
-// X3a: counts into n[0] the interior nodes it expands (pops that pass the
-// prune) and into n[1] the leaves it tests. Returns false on stack
-// overflow.
-__device__ bool walk(const float* __restrict__ slabs, int rows,
-                     const float* __restrict__ bounds,
-                     const int* __restrict__ meta, const Ray& r, float t_min,
-                     Hit& h, int* n) {
-    int stack_node[STACK_CAP];
-    float stack_enter[STACK_CAP];
-    int sp = 0;
-    float en;
-    if (node_test(bounds, 0, r, h.t, en)) {
-        stack_node[0] = 0;
-        stack_enter[0] = en;
-        sp = 1;
-    }
-    while (sp > 0) {
-        --sp;
-        int i = stack_node[sp];
-        if (stack_enter[sp] >= h.t) continue;  // pruned by a closer hit
-        int leaf = __ldg(meta + 3 * i + 2);
-        if (leaf >= 0) {
-            ++n[1];
-            const float* s = slabs + (size_t)leaf * rows * LANES;
-            for (int j = 0; j < LANES; ++j) {
-                float t, u, v;
-                // strict t < h.t: within a cluster the lowest lane wins
-                // a tie, across clusters the earlier visit keeps it
-                if (moller(s, j, r, t_min, h.t, t, u, v)) {
-                    h.t = t;
-                    h.u = u;
-                    h.v = v;
-                    h.tri = leaf * LANES + j;
-                }
-            }
-            continue;
-        }
-        ++n[0];
-        int l = __ldg(meta + 3 * i), rc = __ldg(meta + 3 * i + 1);
-        float el, er;
-        bool hl = node_test(bounds, l, r, h.t, el);
-        bool hr = node_test(bounds, rc, r, h.t, er);
-        if (sp + (int)hl + (int)hr > STACK_CAP) return false;
-        bool left_near = el <= er;
-        // push the far child first so the near one pops next
-        if (hl && hr) {
-            stack_node[sp] = left_near ? rc : l;
-            stack_enter[sp] = left_near ? er : el;
-            ++sp;
-            stack_node[sp] = left_near ? l : rc;
-            stack_enter[sp] = left_near ? el : er;
-            ++sp;
-        } else if (hl || hr) {
-            stack_node[sp] = hl ? l : rc;
-            stack_enter[sp] = hl ? el : er;
-            ++sp;
-        }
-    }
-    return true;
-}
+// A ray's walk counts (X3a): interior nodes expanded, leaves tested.
+struct Visits {
+    int nodes, leaves;
+};
 
 __device__ __forceinline__ void load_ray(const float* __restrict__ ray_o,
                                          const float* __restrict__ ray_d,
@@ -167,50 +109,20 @@ __device__ __forceinline__ void load_ray(const float* __restrict__ ray_o,
     set_inv(r);
 }
 
-// X3a, K2 with DEBUG_VISITS (scripts/bench_visit_breakdown.py:148,
-// trace_bvh.py:941), on `walk`: K2's (R, 8) rows t | tri | u | v | pad,
-// with the interior nodes the ray expands in pad row 6 and the leaves it
-// tests in pad row 7 (JAX writes each packet's leaf visits into row 7).
-// Rows 0-5 equal K2's.
-__global__ void closest_kernel(const float* __restrict__ slabs, int rows,
-                               const float* __restrict__ bounds,
-                               const int* __restrict__ meta,
-                               const float* __restrict__ ray_o,
-                               const float* __restrict__ ray_d,
-                               const float* __restrict__ t_max, int R,
-                               float t_min, float* __restrict__ out,
-                               int* __restrict__ err) {
-    int k = blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= R) return;
-    Ray r;
-    load_ray(ray_o, ray_d, k, r);
-    Hit h = {t_max[k], 0.0f, 0.0f, -1};
-    int n[2] = {0, 0};
-    if (h.t > 0.0f && !walk(slabs, rows, bounds, meta, r, t_min, h, n))
-        atomicExch(err, 1);
-    float* o = out + 8 * (size_t)k;
-    o[0] = h.t;
-    o[1] = (float)h.tri;
-    o[2] = h.u;
-    o[3] = h.v;
-    o[4] = o[5] = 0.0f;
-    o[6] = (float)n[0];
-    o[7] = (float)n[1];
-}
-
-// `walk`'s loop up to its next leaf: pops, prunes against best, tests
-// and pushes an interior node's children as `walk` does, until it pops a
-// leaf, whose cluster it returns, or its stack is empty (-1). LIVE: a
-// popped leaf whose cluster has live[cluster] == 0 is dropped there,
-// unread (live == nullptr: every cluster is live). On stack overflow sets
-// ok = false and empties the stack.
-template <bool LIVE>
+// One lane's near-first walk up to its next leaf: pops, prunes an entry
+// against best, tests an interior node's two children against best and
+// pushes the far one first, until it pops a leaf, whose cluster it
+// returns, or its stack is empty (-1). LIVE: a popped leaf whose cluster
+// has live[cluster] == 0 is dropped there, unread (live == nullptr: every
+// cluster is live). COUNT: adds each interior node it expands to
+// n->nodes. On stack overflow sets ok = false and empties the stack.
+template <bool LIVE, bool COUNT>
 __device__ __forceinline__ int next_leaf(const float* __restrict__ bounds,
                                          const int* __restrict__ meta,
                                          const uint8_t* __restrict__ live,
                                          const Ray& r, float best,
                                          int* stack_node, float* stack_enter,
-                                         int& sp, bool& ok) {
+                                         int& sp, bool& ok, Visits* n) {
     while (sp > 0) {
         --sp;
         const int i = stack_node[sp];
@@ -220,6 +132,7 @@ __device__ __forceinline__ int next_leaf(const float* __restrict__ bounds,
             if (LIVE && live != nullptr && __ldg(live + leaf) == 0) continue;
             return leaf;
         }
+        if (COUNT) ++n->nodes;
         const int l = __ldg(meta + 3 * i), rc = __ldg(meta + 3 * i + 1);
         float el, er;
         const bool hl = node_test(bounds, l, r, best, el);
@@ -259,7 +172,7 @@ __device__ __forceinline__ int next_leaf(const float* __restrict__ bounds,
 // t_upper = best, every slab load one full 128-byte line across the
 // warp, and keeps its lowest t, the lowest j among equal t; the warp
 // takes the minimum key of t, then the lowest j among the lanes at that
-// key. `walk`'s loop over j = 0..127 with a strict t < best keeps the
+// key. A loop over j = 0..127 with a strict t < best would keep the
 // same triangle: the lowest t below best and, among equal t, the lowest
 // j. Every hit lies below best, so the owner always takes it, and a
 // later cluster's equal t never replaces it: the earlier visit keeps a
@@ -308,18 +221,20 @@ __device__ __forceinline__ bool warp_leaf(const float* __restrict__ slabs,
     return true;
 }
 
-// K1-K4's walk: `walk` per lane, the leaf tests by the whole warp
-// (warp_leaf). Every thread of the warp calls it, a lane without a ray
-// with h.t = 0 (it never enters the root), and stays to the end: each
-// _sync takes the full mask. ANY=true: the owner of a leaf with any hit
-// is done, and h.tri >= 0 marks it occluded (K3). LIVE: the skip mask
-// `live` (K4). Sets *err on stack overflow.
-template <bool ANY, bool LIVE>
+// K1-K4's and X3a's walk: next_leaf per lane, the leaf tests by the
+// whole warp (warp_leaf). Every thread of the warp calls it, a lane
+// without a ray with h.t = 0 (it never enters the root), and stays to
+// the end: each _sync takes the full mask. ANY=true: the owner of a leaf
+// with any hit is done, and h.tri >= 0 marks it occluded (K3). LIVE: the
+// skip mask `live` (K4). COUNT: the lane's counts in *n (X3a; n may be
+// null otherwise). Sets *err on stack overflow.
+template <bool ANY, bool LIVE, bool COUNT = false>
 __device__ void warp_walk(const float* __restrict__ slabs, int rows,
                           const float* __restrict__ bounds,
                           const int* __restrict__ meta, const Ray& r,
                           float t_min, const uint8_t* __restrict__ live,
-                          Hit& h, int* __restrict__ err) {
+                          Hit& h, int* __restrict__ err,
+                          Visits* n = nullptr) {
     const int lane = threadIdx.x & 31;
     int stack_node[STACK_CAP];
     float stack_enter[STACK_CAP];
@@ -333,13 +248,14 @@ __device__ void warp_walk(const float* __restrict__ slabs, int rows,
     bool ok = true;
     for (;;) {
         // each lane walks until it holds a leaf or is done
-        const int leaf = next_leaf<LIVE>(bounds, meta, live, r, h.t,
-                                         stack_node, stack_enter, sp, ok);
+        const int leaf = next_leaf<LIVE, COUNT>(
+            bounds, meta, live, r, h.t, stack_node, stack_enter, sp, ok, n);
         unsigned pending = __ballot_sync(FULL_MASK, leaf >= 0);
         if (pending == 0) break;
         do {  // the pending leaves, lowest owner lane first
             const int src = __ffs(pending) - 1;
             pending &= pending - 1;
+            if (COUNT && lane == src) ++n->leaves;
             if (warp_leaf<ANY>(slabs, rows, leaf, src, r, t_min, h) && ANY &&
                 lane == src)
                 sp = 0;  // occluded: the owner is done
@@ -361,7 +277,15 @@ __device__ __forceinline__ void load_lane(const float* __restrict__ ray_o,
     }
 }
 
-// K2: (R, 8) rows t | tri | u | v | pad; a miss has t = t_max, tri = -1.
+// K2 (COUNT = false): (R, 8) rows t | tri | u | v | pad; a miss has t =
+// t_max, tri = -1. X3a (COUNT = true, K2 with DEBUG_VISITS,
+// scripts/bench_visit_breakdown.py:148, trace_bvh.py:941): the same rows
+// with the interior nodes the ray expands in pad row 6 and the leaves it
+// tests in pad row 7 (JAX writes each packet's leaf visits into row 7).
+// A lane holds its popped leaf until the warp has tested it, so its best
+// t is the same at the pop and at the test, and its pops, prunes and
+// tests, and so its counts, are those of the ray's own walk.
+template <bool COUNT>
 __global__ void warp_closest_kernel(const float* __restrict__ slabs,
                                     int rows,
                                     const float* __restrict__ bounds,
@@ -374,16 +298,19 @@ __global__ void warp_closest_kernel(const float* __restrict__ slabs,
     const int k = blockIdx.x * blockDim.x + threadIdx.x;
     Ray r;
     Hit h;
+    Visits n = {0, 0};
     load_lane(ray_o, ray_d, t_max, R, k, r, h);
-    warp_walk<false, false>(slabs, rows, bounds, meta, r, t_min, nullptr, h,
-                            err);
+    warp_walk<false, false, COUNT>(slabs, rows, bounds, meta, r, t_min,
+                                   nullptr, h, err, &n);
     if (k >= R) return;
     float* o = out + 8 * (size_t)k;
     o[0] = h.t;
     o[1] = (float)h.tri;
     o[2] = h.u;
     o[3] = h.v;
-    o[4] = o[5] = o[6] = o[7] = 0.0f;
+    o[4] = o[5] = 0.0f;
+    o[6] = COUNT ? (float)n.nodes : 0.0f;
+    o[7] = COUNT ? (float)n.leaves : 0.0f;
 }
 
 // K3: (R,) occlusion, a hit being t_min < t < t_max.
@@ -1031,8 +958,10 @@ extern "C" int trace_closest_bvh(const float* slabs, int rows,
                                  const float* t_max, int R, float t_min,
                                  float* out, int* err, void* stream) {
     if (R > 0)
-        warp_closest_kernel<<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
-            slabs, rows, bounds, meta, ray_o, ray_d, t_max, R, t_min, out, err);
+        warp_closest_kernel<false>
+            <<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
+                slabs, rows, bounds, meta, ray_o, ray_d, t_max, R, t_min, out,
+                err);
     return (int)cudaGetLastError();
 }
 
@@ -1045,8 +974,10 @@ extern "C" int trace_closest_bvh_visits(const float* slabs, int rows,
                                         float t_min, float* out, int* err,
                                         void* stream) {
     if (R > 0)
-        closest_kernel<<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
-            slabs, rows, bounds, meta, ray_o, ray_d, t_max, R, t_min, out, err);
+        warp_closest_kernel<true>
+            <<<blocks(R), BLOCK, 0, (cudaStream_t)stream>>>(
+                slabs, rows, bounds, meta, ray_o, ray_d, t_max, R, t_min, out,
+                err);
     return (int)cudaGetLastError();
 }
 

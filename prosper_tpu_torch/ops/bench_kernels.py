@@ -11,7 +11,10 @@ and a launch counter:
   9-row slab in the kernel or given as the 22 feature rows.
 - `moller_chain_loop` (X3b, scripts/bench_visit_breakdown.py
   moller_loop_kernel :179, pallas_call :198): Möller with X3b's chain
-  best = min(best, tmin + 1e-7), the per-visit Möller cost.
+  best = min(best, tmin + 1e-7), each iteration's t_upper, the
+  per-visit Möller cost; the same kernel as X2's Möller loop
+  (x2_moller_kernel, four lanes a ray, 1 / det without a branch),
+  templated on the chain.
 - `loop_flat`, `loop_nested`, `loop_cond`, `loop_vec` (X3c-f,
   scripts/bench_loop_overhead.py :58, :88, :113, :143): loop fixed costs.
 

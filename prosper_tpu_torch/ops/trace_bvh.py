@@ -10,13 +10,15 @@ hand-written CUDA kernel in csrc/trace_bvh.cu with a plain PyTorch twin:
   closest hit, attributes at the final hit -> (T*256, 16) rows.
 - `trace_closest_bvh` (K2, trace_bvh.py:1050): closest hit -> (R, 8) rows.
   K1-K4 walk one ray per lane and test each leaf with the whole warp
-  (csrc/trace_bvh.cu warp_walk); their rows equal the one-thread walk's
-  (X3a's, the lockstep plain walk's; K1's and K4's through _full_rows,
-  K4's under its skip mask) bit for bit.
+  (csrc/trace_bvh.cu warp_walk); their rows equal the lockstep plain
+  walk's (trace_closest_bvh_visits_plain; K1's and K4's through
+  _full_rows, K4's under its skip mask) bit for bit.
 - `trace_closest_bvh_visits` (X3a, K2's body under DEBUG_VISITS,
   scripts/bench_visit_breakdown.py:148): K2's rows with the interior
-  nodes each ray expands in row 6 and the leaves it tests in row 7. Its
-  plain version walks the BVH as the kernel does, so the counts agree.
+  nodes each ray expands in row 6 and the leaves it tests in row 7, on
+  K2's own warp walk (warp_closest_kernel<true>), so rows 0-5 are K2's.
+  Its plain version walks the BVH as the kernels do, so the counts
+  agree.
 - `trace_closest_bvh_full` (K4, trace_bvh.py:1211): closest hit of given
   rays with an optional per-cluster `skip_mask` (the two-phase meshlet
   cull's draw list) and attributes at the final hit -> (R, 16) rows.
@@ -353,16 +355,16 @@ def trace_closest_bvh_visits_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
     expands and row 7 = leaves it tests.
 
     Unlike K2's plain version this one walks the BVH as the kernels do
-    (csrc/trace_bvh.cu walk, and warp_walk per lane), every ray in
-    lockstep: the root test, a pop per step, the prune of an entry >=
-    the best t, a leaf's Möller over its 128 lanes with a strict t <
-    best (the lowest lane among equal t), an interior node's two
-    children tested against the best t and pushed far first (ties to
-    the left child), a stack of STACK_CAP entries. So its counts equal
-    X3a's and its rows K1's, K2's and K4's, ties included. skip_mask (C,)
-    bool: a popped leaf whose cluster is marked False is dropped
-    unread and uncounted, as K4 drops it. A ray that would overflow the
-    stack raises."""
+    (csrc/trace_bvh.cu warp_walk, per lane), every ray in lockstep: the
+    root test, a pop per step, the prune of an entry >= the best t, a
+    leaf's Möller over its 128 lanes with a strict t < best (the lowest
+    lane among equal t), an interior node's two children tested against
+    the best t and pushed far first (ties to the left child), a stack of
+    STACK_CAP entries. So its counts equal X3a's and its rows K1's,
+    K2's and K4's, ties included: the independent twin those kernels are
+    held to. skip_mask (C,) bool: a popped leaf whose cluster is marked
+    False is dropped unread and uncounted, as K4 drops it. A ray that
+    would overflow the stack raises."""
     dev = ray_o.device
     R = ray_o.shape[0]
     t_max = t_max.to(dev, torch.float32).expand(R)

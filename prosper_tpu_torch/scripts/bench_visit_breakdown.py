@@ -23,7 +23,11 @@ plate scene as one), at 1920x1080:
 4. X3b: the Möller unit, `moller_chain_loop` over one cluster's slab: ns
    per (ray, 128-triangle) visit on the first 256 rays (K = 1024, the
    script's) and on the whole set (K = 32), and the estimated Möller
-   share of K2, unit x total visits (:210-211).
+   share of K2, unit x total visits (:210-211). The unit runs X2's loop
+   (four lanes a ray, 1 / det without a branch) while K2 tests a leaf
+   with 32 lanes on one ray and IEEE division, so the estimate is the
+   Möller share of K2 with a branch-free reciprocal, not with K2's own
+   division.
 
 Times are CUDA events on the card; on a CPU device the plain versions
 run and no time is taken.

@@ -218,6 +218,32 @@ def test_x3b_chain_equals_a_loop_over_the_pallas_block():
     assert t.shape == (256, 128)
 
 
+@pytest.mark.parametrize("iters", [1, 2, 8])
+def test_x3b_chain_reaches_its_fixed_point(iters):
+    """X3b's best after its first iteration, min(tmin + 1e-7, inf), is a
+    fixed point of the chain: the plain loop gives the same best at K =
+    1, 2 and 8, each equal to a K-iteration loop over the Pallas
+    _moller_block, and its keep_t rows equal that block's t at the last
+    iteration's t_upper (the previous best: inf at K = 1, then only hits
+    below t + 1e-7 stay, those whose t is small enough to move by 1e-7)."""
+    slab, o, d = _scene(1)
+    cols = bk.cols_from_rays(torch.as_tensor(o), torch.as_tensor(d))
+    best = jnp.full((256, 1), jnp.inf, jnp.float32)
+    for _ in range(iters):
+        t_upper = best
+        _, t, _, _ = _moller_block(jnp.asarray(slab), *_jax_cols(o, d),
+                                   bk.T_MIN, t_upper)
+        best = jnp.minimum(best, jnp.min(t, axis=1, keepdims=True) + 1e-7)
+    got, got_t = bk.moller_chain_loop(torch.as_tensor(slab), cols, iters,
+                                      keep_t=True)
+    first, _ = bk.moller_chain_loop(torch.as_tensor(slab), cols, 1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(best)[:, 0])
+    np.testing.assert_array_equal(got.numpy(), first.numpy())
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(t))
+    hits = int(np.isfinite(np.asarray(t)).sum())
+    assert hits > 20 if iters == 1 else 0 < hits < 20, hits
+
+
 def test_loop_probes_equal_the_jax_script():
     """scripts/bench_loop_overhead.py main() in interpret mode against the
     port's plain probes at the script's counts: equal exactly."""

@@ -730,20 +730,28 @@ def test_walk_leaves_matches_plain_on_card(cuda, l_cap):
     assert int(got[1].max()) > 2 and tw.walk_leaves.launches == 1
 
 
-def test_visits_kernel_matches_plain_on_card(cuda):
-    """X3a against its plain version (the lockstep walk): rows and counts
-    equal; rows 0-5 equal K2's on the same rays."""
+@pytest.mark.parametrize("R", [1, 31, 33, 3000])
+def test_visits_kernel_matches_plain_on_card(cuda, R):
+    """X3a (K2's warp walk counting each lane's nodes and leaves) against
+    its plain version (the lockstep walk) at R = 1, 31, 33 (a partial
+    last warp, _mixed_rays' lanes) and on 3000 incoherent rays: rows and
+    counts equal; rows 0-5 equal K2's on the same rays."""
     fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
                              height=32)
     geom, frame = sc["geom"], sc["frame"]
     bvh = (frame["bvh_bounds"], frame["bvh_meta"])
-    o, d, t_max = _incoherent_rays(sc, 3000, 5, cuda)
-    t_max[::9] = 0.0
+    if R == 3000:
+        o, d, t_max = _incoherent_rays(sc, 3000, 5, cuda)
+        t_max[::9] = 0.0
+    else:
+        o, d, t_max = _mixed_rays(sc, R, R + 7, cuda)
     got = tb.trace_closest_bvh_visits(geom["packed9"], *bvh, o, d, 1e-4, t_max)
     tb.check_stack_overflow(cuda)
     want = tb.trace_closest_bvh_visits_plain(geom["packed9"], *bvh, o, d,
                                              1e-4, t_max)
-    assert torch.equal(got, want) and float(got[:, 7].max()) > 1
+    assert torch.equal(got, want)
+    if R > 31:
+        assert float(got[:, 7].max()) > 1
     k2 = tb.trace_closest_bvh(geom["packed9"], *bvh, o, d, 1e-4, t_max)
     assert torch.equal(got[:, 0:6], k2[:, 0:6])
 
@@ -770,10 +778,10 @@ def _mixed_rays(sc, R, seed, device):
 @pytest.mark.parametrize("R", [1, 31, 33, 1031])
 def test_warp_k2_k3_match_the_walk_on_card(cuda, R):
     """K2 and K3 share each leaf's tests across the warp: K2's rows 0-5
-    equal the lockstep plain walk's and X3a's (the one-thread walk) bit
-    for bit, K3's occlusion its plain version's, at R = 1, 31, 33 and
-    1031 (a partial last warp), with t_max 0 lanes and rays that miss
-    the root."""
+    equal the lockstep plain walk's bit for bit, and X3a's (K2 counting
+    its walk, which must leave the rows alone), K3's occlusion its plain
+    version's, at R = 1, 31, 33 and 1031 (a partial last warp), with
+    t_max 0 lanes and rays that miss the root."""
     fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
                              height=32)
     slabs = sc["geom"]["packed9"]
@@ -804,7 +812,8 @@ def test_warp_k2_keeps_the_walk_order_on_ties_on_card(cuda):
     """testing.make_tie_scene: one triangle copied into several lanes of
     two clusters, up and down rays alternating in each warp. K2 keeps the
     lowest copy of the cluster each ray visits first, as the plain walk
-    and X3a do; K3 occludes below and not above the tie's t."""
+    does; X3a's rows and counts equal the plain walk's; K3 occludes below
+    and not above the tie's t."""
     slabs, bounds, meta, o, d, want = (
         torch.as_tensor(a, device=cuda) for a in make_tie_scene(100))
     args = (slabs, bounds, meta, o, d, 1e-4)
@@ -812,10 +821,10 @@ def test_warp_k2_keeps_the_walk_order_on_ties_on_card(cuda):
     got = tb.trace_closest_bvh(*args, inf)
     x3a = tb.trace_closest_bvh_visits(*args, inf)
     tb.check_stack_overflow(cuda)
+    walk = tb.trace_closest_bvh_visits_plain(*args, inf)
     assert torch.equal(got[:, 1].long(), want)
-    assert torch.equal(got[:, 0:6], x3a[:, 0:6])
-    assert torch.equal(got[:, 0:6],
-                       tb.trace_closest_bvh_visits_plain(*args, inf)[:, 0:6])
+    assert torch.equal(got[:, 0:6], walk[:, 0:6])
+    assert torch.equal(x3a, walk) and float(x3a[:, 7].min()) >= 1
     for t_max, occluded in ((6.0, True), (4.0, False)):
         occ = tb.trace_any_bvh(slabs, bounds, meta, o, d, 0.1, t_max)
         assert bool(occ.all()) if occluded else not occ.any()
@@ -828,8 +837,8 @@ def test_warp_k4_matches_the_walk_on_card(cuda, R):
     """K4 on the warp walk, without and with a random skip mask, at R =
     1, 31, 33 and 1031 with t_max 0 lanes and rays that miss the root:
     rows 0-15 equal the lockstep plain walk's under the same mask through
-    _full_rows; unmasked, also X3a's rows 0-3 through _full_rows (t, tri
-    and the u, v the attributes are interpolated at), bit for bit."""
+    _full_rows (t, tri and the u, v the attributes are interpolated at),
+    bit for bit."""
     fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
                              height=32)
     slabs = sc["geom"]["packed_full"]
@@ -852,13 +861,9 @@ def test_warp_k4_matches_the_walk_on_card(cuda, R):
         assert (got[away | (t_max == 0), 1] == -1).all()
         if R > 31:
             assert (got[:, 1] >= 0).any()
-    x3a = tb.trace_closest_bvh_visits(slabs, *bvh, o, d, 1e-4, t_max)
-    unmasked = tb.trace_closest_bvh_full(slabs, *bvh, o, d, 1e-4, t_max)
-    tb.check_stack_overflow(cuda)
-    assert torch.equal(unmasked, tb._full_rows(slabs, x3a))
     tri = got[:, 1].long()
     assert mask[tri[tri >= 0] // 128].all()
-    assert tb.trace_closest_bvh_full.launches == 3
+    assert tb.trace_closest_bvh_full.launches == 2
 
 
 def _k1_frame(form, cam, device):
@@ -877,9 +882,8 @@ def _k1_frame(form, cam, device):
 @pytest.mark.parametrize("form", ["pt", "gbuffer"])
 def test_warp_k1_matches_the_walk_on_card(cuda, form):
     """K1 on the warp walk, both forms, on a 33x31 frame of plate-64:
-    rows 0-15 equal the lockstep plain walk's and X3a's on
-    raygen_plain's rays through _full_rows, bit for bit; pad lanes miss
-    with t = 0."""
+    rows 0-15 equal the lockstep plain walk's on raygen_plain's rays
+    through _full_rows, bit for bit; pad lanes miss with t = 0."""
     fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=33,
                              height=31)
     slabs = sc["geom"]["packed_full"]
@@ -891,9 +895,6 @@ def test_warp_k1_matches_the_walk_on_card(cuda, form):
     o, d, t_max = tb.raygen_plain(cols, vec, 7)
     o = o.contiguous()
     walk = tb.trace_closest_bvh_visits_plain(slabs, *bvh, o, d, 0.0, t_max)
-    x3a = tb.trace_closest_bvh_visits(slabs, *bvh, o, d, 0.0, t_max)
-    tb.check_stack_overflow(cuda)
-    assert torch.equal(x3a, walk)
     assert torch.equal(got, tb._full_rows(slabs, walk))
     _rows_agree(got, tb.trace_primary_bvh_full_plain(slabs, *bvh, cols, vec,
                                                      7, 0.0))
@@ -968,6 +969,38 @@ def test_moller_loops_match_plain_on_card(cuda, loop):
                                             keep_t=True)
     assert torch.equal(best, want_best) and torch.equal(t, want_t)
     assert int(torch.isfinite(t).sum()) > 10
+
+
+@pytest.mark.parametrize("iters", [1, 2, 33])
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 1e6])
+def test_x3b_chain_loop_matches_plain_on_card(cuda, scale, iters):
+    """X3b's chain on X2's Möller loop (four lanes a ray, rcp_normal):
+    best and the last t equal the plain version's bit for bit over eight
+    blocks, at 1 iteration (the last, storing, one alone), 2 and 33, with
+    the scene and its rays scaled by 1e-3, 1 and 1e6 (det spans binades
+    from about 1e-7 to 1e12)."""
+    slab, cols = bmi.block_cols(8, cuda)
+    slab = slab * scale
+    cols = cols.clone()
+    cols[:, 0:3] *= scale
+    best, t = bk.moller_chain_loop(slab, cols, iters, keep_t=True)
+    want_best, want_t = bk.isect_loop_plain(bk.MOLLER, bk.CHAIN_X3B, slab,
+                                            cols, iters, keep_t=True)
+    assert torch.equal(best, want_best) and torch.equal(t, want_t)
+    assert int(torch.isfinite(best).sum()) > 100
+
+
+def test_x3b_chain_loop_takes_twice_the_time_at_twice_the_iterations_on_card(
+        cuda):
+    """X3b's best stops changing after its first iteration, but every
+    iteration's tests take the previous one's best as t_upper: at 2 K
+    iterations one block and 1056 blocks take at least 1.8x their time at
+    K, so no iteration is hoisted or skipped."""
+    for blocks, k in ((1, 1024), (1056, 32)):
+        slab, cols = bmi.block_cols(blocks, cuda)
+        ms = {n: bk.event_ms(lambda: bk.moller_chain_loop(slab, cols, n))
+              for n in (k, 2 * k)}
+        assert ms[2 * k] / ms[k] >= 1.8, (blocks, ms)
 
 
 @pytest.mark.parametrize("scale", [1e-3, 1e3, 1e6])

@@ -10,10 +10,9 @@
   have entry points and launch counts of their own.
 - The visit order the closest-hit kernels keep on exact t ties, on
   testing.make_tie_scene: the lockstep plain walk (trace_bvh's
-  trace_closest_bvh_visits_plain, the one-thread walk of
-  csrc/trace_bvh.cu that K2's warp-shared leaf tests must reproduce)
-  keeps the lowest lane of a cluster and, across clusters, the one it
-  visits first. Exact: tri ids, t, u, v bit for bit."""
+  trace_closest_bvh_visits_plain, each ray's own walk, which K2's and
+  X3a's warp-shared leaf tests must reproduce) keeps the lowest lane of
+  a cluster and, across clusters, the one it visits first. Exact: tri ids, t, u, v bit for bit."""
 
 import ctypes
 import re

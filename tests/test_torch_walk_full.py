@@ -1,6 +1,6 @@
-"""The lockstep plain walk under a cluster skip mask: the one-thread walk
-that K1 and K4 (csrc/trace_bvh.cu warp_walk) must reproduce bit for bit,
-with attributes through _full_rows, on the CPU.
+"""The lockstep plain walk under a cluster skip mask: each ray's own walk,
+which K1 and K4 (csrc/trace_bvh.cu warp_walk) must reproduce bit for
+bit, with attributes through _full_rows, on the CPU.
 
 - testing.make_tie_scene with attribute rows: exact t ties, where a
   walk keeps the lowest lane of the cluster it visits first; a mask

@@ -2,8 +2,9 @@
 the per-ray walk (prosper_tpu_torch/experiments/trace_wavefront.py)
 against experiments/trace_wavefront.py, and the visit-counting K2's
 plain version (ops/trace_bvh.trace_closest_bvh_visits_plain) against
-K2's plain version, brute-force leaf bounds and the Pallas K2's per-packet
-visit counts (DEBUG_VISITS) in interpret mode.
+K2's plain version, brute-force leaf bounds, the Pallas K2's per-packet
+visit counts (DEBUG_VISITS) in interpret mode and a numpy recursive walk
+(rows and counts bit for bit).
 
 Tolerances: the tables are equal bit for bit (NaN padding included); the
 walk's leaves and counts are equal exactly to the Pallas kernel's and
@@ -27,6 +28,7 @@ from prosper_tpu.accel import bvh as jbvh
 from prosper_tpu.ops import trace_bvh as jtb
 from prosper_tpu.ops import trace_pallas
 from prosper_tpu_torch.accel import bvh as tbvh
+from prosper_tpu_torch.entry import entry
 from prosper_tpu_torch.experiments import trace_wavefront as tw
 from prosper_tpu_torch.ops import trace_bvh as tb
 from tests.test_trace import _random_scene
@@ -217,3 +219,118 @@ def test_jax_packet_visits_cover_the_needed_leaves():
         needed = set(need_l[sl].flatten().tolist()) - {-1}
         entered = set(ent_l[sl].flatten().tolist()) - {-1}
         assert len(needed) <= count[0] <= len(entered), (p, count[0])
+
+
+def _np_slab(o, inv, lo, hi):
+    """ops/intersect.slab_enter_exit of one ray and one box in float32."""
+    t0 = (lo - o) * inv
+    t1 = (hi - o) * inv
+    tn, tf = np.minimum(t0, t1), np.maximum(t0, t1)
+    enter = np.maximum(np.maximum(tn[0], tn[1]),
+                       np.maximum(tn[2], np.float32(0.0)))
+    return enter, np.minimum(np.minimum(tf[0], tf[1]), tf[2])
+
+
+def _np_moller(slab, o, d, t_min, t_upper):
+    """ops/intersect.moller_trumbore of one ray against a (9, 128) slab,
+    operation for operation in float32 -> (hit, t, u, v) per lane."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = slab
+    px = d[1] * e2z - d[2] * e2y
+    py = d[2] * e2x - d[0] * e2z
+    pz = d[0] * e2y - d[1] * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    ok = np.abs(det) > np.float32(1e-10)
+    inv = np.where(ok, np.float32(1.0) / np.where(ok, det, np.float32(1.0)),
+                   np.float32(0.0))
+    tx, ty, tz = o[0] - v0x, o[1] - v0y, o[2] - v0z
+    u = (tx * px + ty * py + tz * pz) * inv
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (d[0] * qx + d[1] * qy + d[2] * qz) * inv
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv
+    hit = (ok & (u >= 0) & (v >= 0) & (u + v <= np.float32(1.0))
+           & (t > t_min) & (t < t_upper))
+    return hit, t, u, v
+
+
+def _np_walk(slabs, bounds, meta, o, d, t_min, t_max):
+    """One ray's closest hit by a recursive near-first BVH2 walk: a node
+    whose entry is no longer below the best t is pruned, an interior
+    node's two children are tested against the best t and the near one
+    (the left on equal entries) is walked first, a leaf's 128 lanes are
+    tested with a strict t < best (the lowest lane among equal t) ->
+    the (8,) row t | tri | u | v | 0 0 | interior nodes expanded | leaves
+    tested."""
+    inv = np.where(np.abs(d) > np.float32(1e-12),
+                   np.float32(1.0) / np.where(d == 0, np.float32(1.0), d),
+                   np.float32(1e30)).astype(np.float32)
+    st = {"t": t_max, "tri": -1, "u": np.float32(0), "v": np.float32(0),
+          "nodes": 0, "leaves": 0}
+
+    def test(i):
+        enter, exit_ = _np_slab(o, inv, bounds[i, 0:3], bounds[i, 3:6])
+        return enter <= exit_ and enter < st["t"], enter
+
+    def visit(i, enter):
+        if enter >= st["t"]:
+            return
+        c = meta[i, 2]
+        if c >= 0:
+            st["leaves"] += 1
+            hit, t, u, v = _np_moller(slabs[c, 0:9], o, d, t_min, st["t"])
+            if hit.any():
+                t = np.where(hit, t, np.float32(np.inf))
+                j = int(np.argmin(t))  # the first lane at the minimum
+                st.update(t=t[j], tri=int(c) * 128 + j, u=u[j], v=v[j])
+            return
+        st["nodes"] += 1
+        left, right = meta[i, 0], meta[i, 1]
+        kids = [(*test(left), left), (*test(right), right)]
+        if kids[0][1] > kids[1][1]:  # the near child first, left on ties
+            kids.reverse()
+        for ok, enter_c, child in kids:
+            if ok:
+                visit(child, enter_c)
+
+    if t_max > 0:
+        ok, enter = test(0)
+        if ok:
+            visit(0, enter)
+    return np.array([st["t"], st["tri"], st["u"], st["v"], 0, 0, st["nodes"],
+                     st["leaves"]], np.float32)
+
+
+@pytest.mark.parametrize("n_clusters,seed", [(16, 0), (48, 1)])
+def test_visits_plain_counts_equal_a_recursive_walk(n_clusters, seed):
+    """The lockstep plain walk's rows, counts included, equal a numpy
+    recursive walk's ray by ray, bit for bit, on a small plate scene:
+    the count contract X3a (K2's warp walk with per-ray counts) keeps.
+    Rays from random points of the scene's bounds in random directions,
+    a bundle from outside the grid along its diagonal, t_max 0, finite
+    and inf lanes."""
+    _, (sc, _, _) = entry("cpu", scene="plate", n_clusters=n_clusters,
+                          width=16, height=16)
+    slabs = sc["geom"]["packed9"]
+    bounds, meta = sc["frame"]["bvh_bounds"], sc["frame"]["bvh_meta"]
+    lo = sc["frame"]["wc_aabb_min_w"].amin(0).numpy()
+    hi = sc["frame"]["wc_aabb_max_w"].amax(0).numpy()
+    R = 160
+    rng = np.random.default_rng(seed)
+    o = (lo + (hi - lo) * rng.random((R, 3))).astype(np.float32)
+    d = rng.normal(size=(R, 3))
+    o[:40] = lo - 1.0
+    d[:40] = (hi - lo) / np.linalg.norm(hi - lo) + 0.05 * d[:40]
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    d[::13, 2] = 0.0
+    t_max = np.full(R, np.inf, np.float32)
+    t_max[::9] = 0.0
+    t_max[1::7] = 3.0
+    got = tb.trace_closest_bvh_visits_plain(
+        slabs, bounds, meta, _t(o), _t(d), T_CLOSEST, _t(t_max)).numpy()
+    s, b, m = slabs.numpy(), bounds.numpy(), meta.numpy()
+    want = np.stack([_np_walk(s, b, m, o[r], d[r], np.float32(T_CLOSEST),
+                              t_max[r]) for r in range(R)])
+    np.testing.assert_array_equal(got, want)
+    assert want[:, 7].max() > 1 and want[:, 6].max() > 2
+    assert (want[:, 1] >= 0).sum() > 20
