@@ -23,8 +23,12 @@ entry points of the experiments and scripts (X1-X3). Phases:
    warp_closest_kernel<false> and <true>), K10 and K9 (the dense cull),
    K10's cull form, K5 and K5's walk form, K6, K8 and K7 (the flat warp
    walk, flat_kernel<false> and <true>, flat_any_kernel), the X2 loops
-   (x2_moller_kernel<0>, x2_plucker_kernel<false> and <true>) and X3b
-   (x2_moller_kernel<1>, the same loop under X3b's chain);
+   (x2_moller_kernel<0>, x2_plucker_kernel<false> and <true>), X3b
+   (x2_moller_kernel<1>, the same loop under X3b's chain), X3d
+   (loop_nested_kernel<4>, the script's inner trip count fixed at
+   compile time, and <0>, read at run time) and X1 (walk_kernel<true>
+   from shared memory, walk_kernel<false> from device memory and the
+   repack_kernel that feeds it);
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the whole inputs of one frame, with kernel and plain times and
    the bound (the least time an H100 could take for the same work):
@@ -133,8 +137,12 @@ entry points of the experiments and scripts (X1-X3). Phases:
    was hoisted out of the loop) and
    scripts/bench_loop_overhead.main (X3c-f); then X1, X3a (rows 0-5
    also against K2's), the Möller loops and X3c-f against their plain
-   versions (equal) on the shapes the entry points ran, X3b also timed
-   at K and 2 K iterations (the same ratio), the Plücker loops against
+   versions (equal) on the shapes the entry points ran, X1 also on the
+   threaded table of make_plate_scene(8192) (128 chunks, over a block's
+   shared memory, so walked from a device-memory copy) and that scene's
+   bounce set, X3d also through its generic instance, X3b also timed
+   at K and 2 K iterations and X3d's two instances at M and 2 M (the
+   same ratio), the Plücker loops against
    their TF32 plain version (no hit/miss mismatch off
    ops/plucker.tf32_agreement's border, t within rtol 1e-5 plus the
    bound of a reordered sum) and at one block against Möller (the
@@ -227,8 +235,11 @@ PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
 # the kernels whose ptxas line phase 2 prints, (source, symbol): K2, X3a
 # (K2 counting), K3, K1 and K4 on the warp walk, K10 (its walk on the
 # warp-shared leaf test) and K9 over the dense cull, K10's cull form, K5
-# and its walk form, K6, K8 and K7 (the flat warp walk), the X2 loops and
-# X3b (x2_moller_kernel<1>, the X2 Möller loop under X3b's chain)
+# and its walk form, K6, K8 and K7 (the flat warp walk), the X2 loops,
+# X3b (x2_moller_kernel<1>, the X2 Möller loop under X3b's chain), X3d's
+# two instances (the inner trip count 4 fixed at compile time, and read
+# at run time) and X1 (its walk from shared and from device memory, and
+# the repack the second reads)
 PTXAS_KERNELS = tuple(("trace_bvh", k) for k in (
     "warp_closest_kernel<false>", "warp_closest_kernel<true>",
     "warp_any_kernel", "primary_kernel", "closest_full_kernel",
@@ -239,7 +250,11 @@ PTXAS_KERNELS = tuple(("trace_bvh", k) for k in (
     ("bench_kernels", k) for k in ("x2_moller_kernel<0>",
                                    "x2_plucker_kernel<false>",
                                    "x2_plucker_kernel<true>",
-                                   "x2_moller_kernel<1>"))
+                                   "x2_moller_kernel<1>",
+                                   "loop_nested_kernel<4>",
+                                   "loop_nested_kernel<0>")) + tuple(
+    ("trace_wavefront", k) for k in ("walk_kernel<true>",
+                                     "walk_kernel<false>", "repack_kernel"))
 # the measurement forms of K5 and K10, which no frame may launch; nor may
 # a frame call trace_flat.flat_walk_counts, the walk counts of K6 and K8
 MEASUREMENT_FORMS = ("shade_walk_counts", "dense_cull_counts")
@@ -286,6 +301,7 @@ PORT_KERNEL_SYMBOLS = ("primary_kernel", "warp_closest_kernel",
                        "dense_any_kernel", "dense_closest_kernel",
                        "pairs_kernel", "closest8_kernel",
                        "closest8_full_kernel", "any8_kernel", "walk_kernel",
+                       "repack_kernel",
                        "x2_moller_kernel", "x2_plucker_kernel",
                        "loop_flat_kernel", "loop_nested_kernel",
                        "loop_cond_kernel", "loop_vec_kernel")
@@ -338,14 +354,20 @@ TILE_RAYS = 256
 # of csrc/bench_kernels.cu (cuobjdump -sass), with assumed latencies in
 # cycles: 4 for a dependent integer or float32 add, multiply or min, 23
 # for a warp shuffle and for a shared-memory load, 20 for a
-# shared-memory store and for a block barrier. nvcc unrolls flat and
-# nested 16 times and carries the sum through eight three-input adds
-# (IADD3) per 16 iterations; cond's else branch folds into one IADD3 of
-# s[i] + 3 per four iterations; vec carries sub, mul, min, five shuffle
-# and min steps, the store, the barrier, a load, seven mins and the add.
+# shared-memory store and for a block barrier. nvcc unrolls flat 16
+# times and carries the sum through eight three-input adds (IADD3) per
+# 16 iterations. nested's loop_nested_kernel<4> (the script's K) takes
+# two entries a trip of its rolled outer loop, each entry's four trips
+# unrolled, and carries the sum through four IADD3 per eight
+# iterations; loop_nested_kernel<0> (k read at run time) keeps its
+# inner loop rolled, one IADD3 an iteration. cond's else branch folds
+# into one IADD3 of s[i] + 3 per four iterations; vec carries sub, mul,
+# min, five shuffle and min steps, the store, the barrier, a load, seven
+# mins and the add.
 LAT_ALU, LAT_SHFL, LAT_LDS, LAT_STS, LAT_BAR = 4, 23, 23, 20, 20
 PROBE_CHAIN_CYCLES = {
-    "loop_flat": 8 * LAT_ALU / 16, "loop_nested": 8 * LAT_ALU / 16,
+    "loop_flat": 8 * LAT_ALU / 16, "loop_nested": 4 * LAT_ALU / 8,
+    "loop_nested_generic": LAT_ALU,
     "loop_cond": LAT_ALU / 4,
     "loop_vec": (3 * LAT_ALU + 5 * (LAT_SHFL + LAT_ALU) + LAT_STS + LAT_BAR
                  + LAT_LDS + 7 * LAT_ALU + LAT_ALU),
@@ -2355,9 +2377,10 @@ def sm_clock_mhz() -> tuple[float, float]:
     return float(cur), float(top)
 
 
-def check_walk(label, table, rays, rec):
+def check_walk(label, table, rays, entry_ms=None):
     """X1 on one bounce set against its plain version (leaves and counts
-    equal) -> (ok, record)."""
+    equal) -> (ok, record); entry_ms: the entry point's time of the same
+    walk, where an entry point ran it."""
     from prosper_tpu_torch.experiments import trace_wavefront as tw
 
     o, d, t_max = rays
@@ -2369,6 +2392,8 @@ def check_walk(label, table, rays, rec):
     c = got_c[live].double()
     out = {"max_abs_err": float((got_c - want_c).abs().max()),
            "rays": int(o.shape[0]), "live_rays": int(live.sum()),
+           "chunks": int(table.shape[0]),
+           "path": tw.walk_path(table.shape[0]),
            "leaves_per_ray_mean": float(c.mean()),
            "leaves_per_ray_max": int(c.max()),
            "overflow_share": float((c > tw.L_CAP).double().mean()),
@@ -2377,12 +2402,38 @@ def check_walk(label, table, rays, rec):
            "plain_ms": plain_ms,
            **bound(nbytes(table, o, d, t_max, got_l, got_c),
                    SLAB_OPS * int(steps.sum()))}
-    print(f"X1 walk_leaves {label}: ok={ok} leaves/ray mean "
+    at_entry = ("" if entry_ms is None
+                else f"; entry point: {entry_ms:.3f} ms")
+    print(f"X1 walk_leaves {label}: ok={ok} path {out['path']} "
+          f"({out['chunks']} chunks), steps/ray mean "
+          f"{out['steps_per_ray_mean']:.3f}, leaves/ray mean "
           f"{out['leaves_per_ray_mean']:.3f} max {out['leaves_per_ray_max']}, "
           f"overflow share {out['overflow_share']:.5f}; {out['ms']:.3f} ms, "
           f"plain {plain_ms:.1f} ms, bound {out['bound_ms']:.3f} ms "
-          f"({out['bound_by']}); entry point: {rec['walk_ms']:.3f} ms")
+          f"({out['bound_by']}){at_entry}")
     return ok, out
+
+
+def over_limit_walk_set(dev):
+    """X1's table over a block's shared memory: the threaded table of
+    make_plate_scene(8192) (128 chunks; 56 fit) and that scene's sorted
+    cosine bounce set at 1080p, made as bench_visit_breakdown makes its
+    sets (K4 primary rays, bounce_rays) -> (table, (o, d, t_max))."""
+    from prosper_tpu_torch.entry import entry
+    from prosper_tpu_torch.ops import trace_bvh as tb
+    from prosper_tpu_torch.scripts import bench_visit_breakdown as bvb
+
+    _, (sc, cam, _) = entry(dev, scene="plate", n_clusters=4 * N_CLUSTERS,
+                            width=W, height=H)
+    o, d = bvb.primary_rays(cam, W, H, dev)
+    inf = torch.full((o.shape[0],), float("inf"), device=dev)
+    frame = sc["frame"]
+    primary = tb.trace_closest_bvh_full(
+        sc["geom"]["packed_full"], frame["bvh_bounds"], frame["bvh_meta"], o,
+        d, bvb.T_MIN, inf)
+    tb.check_stack_overflow(dev)
+    ob, db, tmax, _ = bvb.bounce_rays(o, d, primary)
+    return bvb.threaded_table(sc), (ob, db, tmax)
 
 
 def check_visits(label, scene, rays, rows, rec):
@@ -2659,9 +2710,44 @@ def check_probes(loops, dev):
               f"({rec['ns_per_iter']:.3f} ns/iter), plain {plain_ms:.1f} ms, "
               f"bound {rec['bound_ms']:.3f} ms ({chain} cycles/iter at "
               f"{cur:.0f} MHz, max {top:.0f})")
+        if fn is bk.loop_nested:
+            ok &= check_nested(x, xs, counts, rec, cur)
         ok_all &= ok
         records[fn.__name__] = rec
     return ok_all, records
+
+
+def check_nested(s, seeded, counts, rec, clock_mhz) -> bool:
+    """X3d's two kernel instances at the script's counts (M, K): the
+    generic one (k read at run time) against the plain version on the
+    script's and the seeded s, timed; each instance at 2 M outer
+    iterations takes at least TWICE_NV_RATIO x its time at M, so no
+    entry was folded away. Adds the generic instance's record and both
+    ratios to rec; returns ok."""
+    from prosper_tpu_torch.ops import bench_kernels as bk
+
+    m, k = counts
+    ok = all(torch.equal(bk.loop_nested(x, m, k, 0),
+                         bk.loop_nested_plain(x, m, k)) for x in (s, seeded))
+    ms = {(kt, n): device_ms(lambda: bk.loop_nested(s, n, k, kt), 5)
+          for kt in (bk.K_STATIC, 0) for n in (m, 2 * m)}
+    chain = PROBE_CHAIN_CYCLES["loop_nested_generic"]
+    rec["ms_2m"] = ms[bk.K_STATIC, 2 * m]
+    rec["ratio_2m"] = ms[bk.K_STATIC, 2 * m] / ms[bk.K_STATIC, m]
+    rec["generic"] = {
+        "ms": ms[0, m], "ns_per_iter": ms[0, m] * 1e6 / (m * k),
+        "ms_2m": ms[0, 2 * m], "ratio_2m": ms[0, 2 * m] / ms[0, m],
+        "bound_ms": m * k * chain / (clock_mhz * 1e6) * 1e3,
+        "chain_cycles_per_iter": chain}
+    g = rec["generic"]
+    ok &= min(rec["ratio_2m"], g["ratio_2m"]) >= TWICE_NV_RATIO
+    print(f"  X3d loop_nested_kernel<{bk.K_STATIC}>: {rec['ms']:.3f} ms at "
+          f"M = {m}, {rec['ms_2m']:.3f} at 2 M, ratio {rec['ratio_2m']:.3f}; "
+          f"loop_nested_kernel<0>: ok={ok} {g['ms']:.3f} ms "
+          f"({g['ns_per_iter']:.3f} ns/iter), {g['ms_2m']:.3f} at 2 M, ratio "
+          f"{g['ratio_2m']:.3f} (at least {TWICE_NV_RATIO}), bound "
+          f"{g['bound_ms']:.3f} ms ({chain} cycles/iter)")
+    return ok
 
 
 def run_experiments(dev, world_path):
@@ -2692,7 +2778,8 @@ def run_experiments(dev, world_path):
     ok_all, records = True, {}
     for label, (rec, t) in visits.items():
         for name, (ok, r) in (
-                ("walk_leaves", check_walk(label, t["table"], t["rays"], rec)),
+                ("walk_leaves", check_walk(label, t["table"], t["rays"],
+                                           rec["walk_ms"])),
                 ("trace_closest_bvh_visits",
                  check_visits(label, t["scene"], t["rays"], t["rows"], rec)),
                 ("moller_chain_loop", check_moller_unit(label, t, rec))):
@@ -2703,6 +2790,14 @@ def run_experiments(dev, world_path):
                     records[name]["max_abs_err"], r["max_abs_err"])
             else:
                 records[name] = r
+    table, rays = over_limit_walk_set(dev)
+    ok, r = check_walk("plate-8192 (over the shared-memory limit)", table,
+                       rays)
+    ok_all &= ok
+    records["walk_leaves"]["over_limit"] = r
+    records["walk_leaves"]["max_abs_err"] = max(
+        records["walk_leaves"]["max_abs_err"], r["max_abs_err"])
+    del table, rays
     ok, r = check_isect_loops(mxu, dev)
     ok_all &= ok
     records.update(r)

@@ -8,7 +8,7 @@
 //   x2_plucker_kernel<true>  the same, "plucker_pre" (the 22 rows given);
 //   x2_moller_kernel<CHAIN_X3B> (X3b) replaces
 //       scripts/bench_visit_breakdown.py moller_loop_kernel (:179, :198);
-//   loop_flat_kernel, loop_nested_kernel, loop_cond_kernel,
+//   loop_flat_kernel, loop_nested_kernel<4> and <0>, loop_cond_kernel,
 //   loop_vec_kernel  replace scripts/bench_loop_overhead.py flat_kernel
 //       (:49, :59), nested_kernel (:71, :89), cond_kernel (:98, :114),
 //       vec_kernel (:126, :144).
@@ -62,6 +62,21 @@
 // block-wide min per iteration (warp shuffles, then shared memory and one
 // __syncthreads, double-buffered). Bound: the dependence chain of one
 // iteration times the iteration count.
+//
+// The nested probe asks what it costs to enter an inner loop. Its inner
+// trip count is a template parameter, as the Pallas kernel's K is a
+// Python constant: loop_nested_kernel<4> runs the script's K = 4 and
+// loop_nested_kernel<0> any other k, read at run time. With k read at
+// run time nvcc makes each entry a trip-count computation, a peeled
+// remainder and a branch tree over bodies unrolled 16, 8 and 4 times,
+// which also rereads the shared window's base (S2UR), and the entry's
+// adds wait out its loads (about 23 cycles). <KT> loads outer iteration
+// i + 1's KT values into a register buffer before it adds iteration i's
+// (the inner loop unrolled, as a static trip count allows), and <0>
+// keeps a rolled inner loop one trip's load ahead of its add. The only
+// loop-carried chain left is the sum's; the outer loop enters the inner
+// loop M times, so what the probe takes over the flat loop is the cost
+// of those entries.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,6 +88,7 @@
 #define PLU_ROWS 22
 #define PLU_DET_EPS 1e-9f
 #define TF_STRIDE 136  // tf32 row stride: conflict-free B fragment loads
+#define K_STATIC 4  // the nested probe's compile-time inner trip count
 #define M_SPLIT 4  // X2 Möller: threads a ray, neighbouring lanes
 #define M_THREADS (M_SPLIT * TILE)
 #define P_THREADS (32 * TILE / 16)  // X2 Plücker: a warp a 16-ray tile
@@ -347,15 +363,59 @@ __global__ void loop_flat_kernel(const int* __restrict__ s, int n,
     fill_int(out, a);
 }
 
+// KT > 0: k == KT trips an entry, from a register double buffer: x
+// holds entry i's KT values and y entry i + 1's, and after an entry's
+// adds the buffer it emptied takes the loads of the entry two ahead (the
+// outer loop takes two entries a trip, so the buffers trade roles
+// without a copy; an odd m adds the last entry after the loop). KT == 0:
+// k trips read at run time, a rolled inner loop whose trip adds the
+// value the trip before loaded. Reads past the last entry stay inside
+// s_s and are never added.
+template <int KT>
+__device__ __forceinline__ void load_entry(const volatile int* vs, int e,
+                                           int (&buf)[KT]) {
+    static_assert(128 % KT == 0, "an entry's trips do not wrap s");
+    const int base = (e * KT) & 127;
+#pragma unroll
+    for (int j = 0; j < KT; ++j) buf[j] = vs[base + j];
+}
+
+template <int KT>
+__device__ __forceinline__ void add_entry(unsigned& a, const int (&buf)[KT]) {
+#pragma unroll
+    for (int j = 0; j < KT; ++j) a += (unsigned)buf[j];
+}
+
+template <int KT>
 __global__ void loop_nested_kernel(const int* __restrict__ s, int m, int k,
                                    int* __restrict__ out) {
     __shared__ int s_s[128];
     for (int i = 0; i < 128; ++i) s_s[i] = s[i];
     volatile int* vs = s_s;
     unsigned a = 0u;
-    for (int i = 0; i < m; ++i) {
-        const int j0 = i * k;
-        for (int j = j0; j < j0 + k; ++j) a += (unsigned)vs[j & 127];
+    if constexpr (KT > 0) {
+        int x[KT], y[KT];
+        load_entry(vs, 0, x);
+        load_entry(vs, 1, y);
+        int i = 0;
+#pragma unroll 1
+        for (; i + 2 <= m; i += 2) {
+            add_entry(a, x);
+            load_entry(vs, i + 2, x);
+            add_entry(a, y);
+            load_entry(vs, i + 3, y);
+        }
+        if (i < m) add_entry(a, x);
+    } else {
+        int next = vs[0], j = 0;
+#pragma unroll 1
+        for (int i = 0; i < m; ++i) {
+#pragma unroll 1
+            for (int t = 0; t < k; ++t) {
+                a += (unsigned)next;
+                next = vs[++j & 127];
+            }
+        }
     }
     fill_int(out, a);
 }
@@ -446,9 +506,16 @@ extern "C" int loop_flat(const int* s, int n, int* out, void* stream) {
     return (int)cudaGetLastError();
 }
 
-extern "C" int loop_nested(const int* s, int m, int k, int* out,
+// kt: the instance, K_STATIC (k must equal it) or 0 (any k).
+extern "C" int loop_nested(const int* s, int m, int k, int kt, int* out,
                            void* stream) {
-    loop_nested_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(s, m, k, out);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (kt == K_STATIC && k == K_STATIC)
+        loop_nested_kernel<K_STATIC><<<1, 1, 0, st>>>(s, m, k, out);
+    else if (kt == 0)
+        loop_nested_kernel<0><<<1, 1, 0, st>>>(s, m, k, out);
+    else
+        return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,10 @@ the starting point ROADMAP.md names for a Hopper traversal.
   for bit the same table.
 - `walk_leaves(table, ray_o, ray_d, t_max, l_cap)`: the kernel's wrapper
   (csrc/trace_wavefront.cu `walk_kernel`); on CPU tensors its plain
-  version `walk_leaves_plain`, a lockstep walk of all rays at once.
+  version `walk_leaves_plain`, a lockstep walk of all rays at once. The
+  kernel restages the table node-major, 32 bytes a node; `walk_path`
+  says where: in a block's shared memory ("shared") when it fits, else
+  in a device-memory copy the wrapper allocates ("global").
 
 A ray enters a node when enter <= exit and enter < t_max (the slab test
 of ops/intersect.slab_enter_exit, 1/d = 1e30 where |d| <= 1e-12); a ray
@@ -34,6 +37,8 @@ from ..ops.trace_bvh import as_tmax, expect_tensor
 
 L_CAP = 32  # per-ray leaf list capacity (experiments/trace_wavefront.py:47)
 CHUNK = 128  # nodes per table chunk
+NODE_BYTES = 32  # a node restaged node-major: two float4s
+SHARED_BYTES_MAX = 232_448  # dynamic shared memory a block takes on sm_90
 
 
 def pack_threaded(bvh: Bvh) -> np.ndarray:
@@ -137,9 +142,17 @@ def walk_leaves_plain(table, ray_o, ray_d, t_max, l_cap: int = L_CAP):
     return leaves, counts
 
 
+def walk_path(n_chunks: int) -> str:
+    """Where the kernel walks a table of n_chunks chunks: "shared" when
+    its node-major copy fits a block's shared memory (up to 56 chunks),
+    else "global" (a node-major copy in device memory)."""
+    fits = n_chunks * CHUNK * NODE_BYTES <= SHARED_BYTES_MAX
+    return "shared" if fits else "global"
+
+
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p]
 
 
 def walk_leaves(table, ray_o, ray_d, t_max, l_cap: int = L_CAP):
@@ -162,12 +175,16 @@ def walk_leaves(table, ray_o, ray_d, t_max, l_cap: int = L_CAP):
     expect_tensor(ray_d, "ray_d", torch.float32, dev, (R, 3))
     if l_cap < 1:
         raise ValueError(f"walk_leaves: l_cap must be >= 1, got {l_cap}")
+    n_chunks = table.shape[0]
     leaves = torch.empty((R, l_cap), dtype=torch.int32, device=dev)
     counts = torch.empty((R,), dtype=torch.int32, device=dev)
+    nodes = (torch.empty((2, n_chunks * CHUNK, 4), dtype=torch.float32,
+                         device=dev)
+             if walk_path(n_chunks) == "global" else None)
     cuda_build.launch("trace_wavefront", "walk_leaves", _ARGTYPES, dev, (
-        table.data_ptr(), table.shape[0], ray_o.data_ptr(), ray_d.data_ptr(),
+        table.data_ptr(), n_chunks, ray_o.data_ptr(), ray_d.data_ptr(),
         t_max.data_ptr(), R, int(l_cap), leaves.data_ptr(),
-        counts.data_ptr()))
+        counts.data_ptr(), 0 if nodes is None else nodes.data_ptr()))
     walk_leaves.launches += 1
     return leaves, counts
 

@@ -17,6 +17,8 @@ and a launch counter:
   templated on the chain.
 - `loop_flat`, `loop_nested`, `loop_cond`, `loop_vec` (X3c-f,
   scripts/bench_loop_overhead.py :58, :88, :113, :143): loop fixed costs.
+  X3d has two kernel instances: the inner trip count K_STATIC fixed at
+  compile time (the script's K) and any k read at run time.
 
 The triangle loops take cols (B, 6, 256) f32, rows ox oy oz dx dy dz of
 block b's 256 rays, and return (best (B * 256,), t) with t (B * 256,
@@ -43,6 +45,7 @@ LANES = 128  # triangles per slab
 T_MIN = 1e-4  # the scripts' t_min (bench_mxu_isect.py:112)
 MOLLER, PLUCKER, PLUCKER_PRE = 0, 1, 2
 CHAIN_X2, CHAIN_X3B = 0, 1
+K_STATIC = 4  # X3d's compile-time inner trip count (K of the script)
 PLAIN_BLOCKS = 512  # blocks of rays the plain loops take at once
 
 
@@ -211,7 +214,7 @@ def loop_vec_plain(v, nv: int):
 _PROBE_ARGS = {
     "loop_flat": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
     "loop_nested": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p],
+                    ctypes.c_int, ctypes.c_void_p],
     "loop_cond": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
     "loop_vec": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
 }
@@ -242,9 +245,23 @@ def loop_flat(s, n: int):
     return _probe(loop_flat, s, (n,), loop_flat_plain)
 
 
-def loop_nested(s, m: int, k: int):
-    """X3d: m outer iterations, each entering an inner loop of k."""
-    return _probe(loop_nested, s, (m, k), loop_nested_plain)
+def nested_instance(k: int, instance=None) -> int:
+    """The loop_nested_kernel instance that runs k trips an entry: the
+    compile-time K_STATIC for k == K_STATIC, else the generic 0; an
+    explicit instance is K_STATIC (k must equal it) or 0."""
+    if instance is None:
+        return K_STATIC if k == K_STATIC else 0
+    if instance not in (0, K_STATIC) or (instance and k != instance):
+        raise ValueError(f"loop_nested: no instance {instance} for k = {k}")
+    return instance
+
+
+def loop_nested(s, m: int, k: int, instance=None):
+    """X3d: m outer iterations, each entering an inner loop of k; on the
+    card the kernel instance nested_instance(k, instance) runs."""
+    kt = nested_instance(k, instance)
+    return _probe(loop_nested, s, (m, k, kt),
+                  lambda x, m, k, _: loop_nested_plain(x, m, k))
 
 
 def loop_cond(s, n: int):

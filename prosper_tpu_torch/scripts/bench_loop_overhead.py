@@ -10,7 +10,8 @@ script's counts:
 1. flat: N = 200,000 dependent iterations of a += s[i % 128] (one
    thread, s in shared memory);
 2. nested: M = 50,000 outer iterations, each entering an inner loop of
-   K = 4 (M * K = N);
+   K = 4 (M * K = N; the kernel's instance with K fixed at compile time,
+   as the script's K is a constant);
 3. cond: the flat loop with a branch per iteration ((i & 3) == 0);
 4. vec: NV = 20,000 iterations of two (2, 128) FMA chains and a min over
    the block (one 256-thread block).

@@ -283,6 +283,43 @@ def test_loop_probes_on_seeded_inputs():
     assert got.shape == (8, 128) and bool((got == float(a)).all())
 
 
+def test_nested_instance_choice():
+    """X3d's kernel instance: the compile-time K_STATIC (the script's K)
+    for k == 4, the generic one for any other k or when asked; an
+    instance that cannot run k trips is refused."""
+    assert bk.K_STATIC == blo.K == 4
+    assert [bk.nested_instance(k) for k in (0, 1, 3, 4, 5)] == [0, 0, 0, 4, 0]
+    assert bk.nested_instance(4, 0) == 0 and bk.nested_instance(4, 4) == 4
+    s = torch.arange(128, dtype=torch.int32)
+    for k, kt in ((3, 4), (5, 4), (4, 2)):
+        with pytest.raises(ValueError, match="no instance"):
+            bk.loop_nested(s, 7, k, kt)
+
+
+@pytest.mark.parametrize("k", [0, 1, 3, 4, 5])
+def test_loop_nested_over_trip_counts(k):
+    """The nested probe at k in {0, 1, 3, 4, 5} and m in {0, 1, 7,
+    50,000}, either instance (on the CPU the plain version), on the
+    script's s and a seeded one: the flat sum over m * k iterations, as
+    a Python loop of m entries of k trips gives it (at m = 50,000 the
+    same sum by whole turns of s and the rest)."""
+    rng = np.random.default_rng(k)
+    seeded = rng.integers(-2**31, 2**31 - 1, 128, dtype=np.int64)
+    for s in (np.arange(128, dtype=np.int64), seeded):
+        st = torch.as_tensor(s.astype(np.int32))
+        for m in (0, 1, 7, 50_000):
+            if m <= 7:
+                want = sum(int(s[j % 128]) for i in range(m)
+                           for j in range(i * k, i * k + k))
+            else:
+                n = m * k
+                want = int(s.sum()) * (n // 128) + int(s[: n % 128].sum())
+            want = (want + 2**31) % 2**32 - 2**31
+            for kt in {0, bk.nested_instance(k)}:
+                got = bk.loop_nested(st, m, k, kt)
+                assert got.shape == (8, 128) and bool((got == want).all())
+
+
 def _summed_in(order, rows, o, d):
     """The TF32 Plücker block's t with its products summed in another
     order: "exact" (float64, rounded once) or "reversed" (float32, last

@@ -710,16 +710,22 @@ def test_bvh8_stack_overflow_raises_on_card(cuda):
     tb.check_stack_overflow(cuda)  # cleared
 
 
+def _walk_table(sc, device):
+    """The threaded table of the scene's cluster AABBs."""
+    frame = sc["frame"]
+    return torch.as_tensor(tw.pack_threaded(build_bvh(
+        frame["wc_aabb_min_w"].cpu().numpy(),
+        frame["wc_aabb_max_w"].cpu().numpy(), max_leaf_size=1)),
+        device=device)
+
+
 @pytest.mark.parametrize("l_cap", [2, tw.L_CAP])
 def test_walk_leaves_matches_plain_on_card(cuda, l_cap):
     """X1 against its plain version: leaves and counts equal, with l_cap
     2 so that counts pass it; dead rays and zero direction components."""
     fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
                              height=32)
-    frame = sc["frame"]
-    table = torch.as_tensor(tw.pack_threaded(build_bvh(
-        frame["wc_aabb_min_w"].cpu().numpy(),
-        frame["wc_aabb_max_w"].cpu().numpy(), max_leaf_size=1)), device=cuda)
+    table = _walk_table(sc, cuda)
     o, d, t_max = _incoherent_rays(sc, 3000, 4, cuda)
     d[::7, 0] = 0.0
     t_max[::5] = 0.0
@@ -728,6 +734,97 @@ def test_walk_leaves_matches_plain_on_card(cuda, l_cap):
     want = tw.walk_leaves_plain(table, o, d, t_max, l_cap)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(got[1].max()) > 2 and tw.walk_leaves.launches == 1
+
+
+@pytest.mark.parametrize("l_cap", [1, 5, 32])
+@pytest.mark.parametrize("n_clusters,path", [(64, "shared"),
+                                             (8192, "global")])
+def test_walk_leaves_paths_match_plain_on_card(cuda, n_clusters, path,
+                                               l_cap):
+    """X1 from shared memory (plate-64, 1 chunk) and from its node-major
+    copy in device memory (plate-8192, 128 chunks, over a block's shared
+    memory) against the plain walk: leaves and counts equal, at l_cap 1,
+    5 (rows that share 16-byte groups) and 32, with dead rays, zero
+    direction components and 3001 rays (not a multiple of the block)."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=n_clusters,
+                             width=32, height=32)
+    table = _walk_table(sc, cuda)
+    assert tw.walk_path(table.shape[0]) == path
+    o, d, t_max = _incoherent_rays(sc, 3001, 4, cuda)
+    d[::7, 0] = 0.0
+    t_max[::5] = 0.0
+    tw.walk_leaves.launches = 0
+    got = tw.walk_leaves(table, o, d, t_max, l_cap)
+    want = tw.walk_leaves_plain(table, o, d, t_max, l_cap)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].max()) > min(l_cap, 5)  # plate-8192 passes 32
+    assert tw.walk_leaves.launches == 1
+    assert bool((got[1][t_max == 0] == 0).all())
+
+
+@pytest.mark.parametrize("n_boxes,path", [(3584, "shared"),
+                                          (3585, "global")])
+def test_walk_leaves_at_the_shared_memory_limit_on_card(cuda, n_boxes,
+                                                        path):
+    """Tables of 56 chunks (229,376 bytes node-major, the most a block's
+    shared memory takes) and 57 (the first over it) walked by 140,001
+    rays, more than the persistent blocks hold at once, so each thread
+    walks several: leaves and counts equal the plain walk's."""
+    rng = np.random.default_rng(n_boxes)
+    c = rng.uniform(-1, 1, (n_boxes, 3)).astype(np.float32)
+    h = rng.uniform(0.01, 0.08, (n_boxes, 3)).astype(np.float32)
+    table = torch.as_tensor(tw.pack_threaded(build_bvh(
+        c - h, c + h, max_leaf_size=1)), device=cuda)
+    assert table.shape[0] == 56 + (path == "global")
+    assert tw.walk_path(table.shape[0]) == path
+    R = 140_001
+    o = torch.as_tensor(rng.uniform(-1.5, 1.5, (R, 3)), dtype=torch.float32,
+                        device=cuda)
+    d = torch.as_tensor(rng.normal(size=(R, 3)), dtype=torch.float32,
+                        device=cuda)
+    d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    t_max = torch.full((R,), float("inf"), device=cuda)
+    t_max[::9] = 0.0
+    t_max[1::7] = 0.5
+    got = tw.walk_leaves(table, o, d, t_max, 7)
+    want = tw.walk_leaves_plain(table, o, d, t_max, 7)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].max()) > 7
+
+
+@pytest.mark.parametrize("m", [0, 1, 7, 50_000])
+@pytest.mark.parametrize("k", [0, 1, 3, 4, 5])
+def test_loop_nested_instances_match_plain_on_card(cuda, k, m):
+    """X3d's generic instance (k read at run time) at every k, and the
+    compile-time instance at k = 4, on the script's s and a seeded one:
+    equal to the plain version; the compile-time instance refuses any
+    other k."""
+    rng = np.random.default_rng(k * 100 + m % 97)
+    seeded = torch.as_tensor(rng.integers(-2**31, 2**31 - 1, 128),
+                             dtype=torch.int32, device=cuda)
+    script = torch.arange(128, dtype=torch.int32, device=cuda)
+    instances = (0, bk.K_STATIC) if k == bk.K_STATIC else (0,)
+    bk.loop_nested.launches = 0
+    for s in (script, seeded):
+        want = bk.loop_nested_plain(s, m, k)
+        for kt in instances:
+            assert torch.equal(bk.loop_nested(s, m, k, kt), want), (kt, s[0])
+    assert bk.loop_nested.launches == 2 * len(instances)
+    if k != bk.K_STATIC:
+        with pytest.raises(ValueError, match="no instance"):
+            bk.loop_nested(script, m, k, bk.K_STATIC)
+
+
+def test_loop_nested_takes_twice_the_time_at_twice_the_entries_on_card(
+        cuda):
+    """Each X3d instance at 2 M outer iterations (the script's M = 50,000,
+    K = 4) takes at least 1.8x its time at M: no entry is folded away."""
+    s = torch.arange(128, dtype=torch.int32, device=cuda)
+    m = 50_000
+    for kt in (bk.K_STATIC, 0):
+        ms = {n: bk.event_ms(lambda: bk.loop_nested(s, n, 4, kt), 5)
+              for n in (m, 2 * m)}
+        assert ms[2 * m] / ms[m] >= 1.8, (kt, ms)
 
 
 @pytest.mark.parametrize("R", [1, 31, 33, 3000])

@@ -16,6 +16,7 @@ experiments/trace_wavefront.py:242 `pack_threaded` uses `np` and `Bvh`
 without importing them; the tests patch both into the module.
 """
 
+import functools
 from unittest import mock
 
 import jax.numpy as jnp
@@ -109,6 +110,40 @@ def test_walk_plain_equals_jax_walk(n, seed, size):
     ref_l, ref_c = jtw.walk_leaves_ref(table, o, d, tmax, l_cap=4)
     np.testing.assert_array_equal(got_l.numpy(), ref_l)
     np.testing.assert_array_equal(got_c.numpy(), ref_c)
+
+
+@functools.lru_cache(maxsize=None)
+def _limit_case(n):
+    """n seeded boxes and JAX's threaded table of them."""
+    rng = np.random.default_rng(n)
+    c = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    h = rng.uniform(0.01, 0.08, (n, 3)).astype(np.float32)
+    return c - h, c + h, jax_pack_threaded(c - h, c + h)
+
+
+@pytest.mark.parametrize("l_cap", [1, 5, 32])
+@pytest.mark.parametrize("n,path", [(3584, "shared"), (3585, "global")])
+def test_walk_path_and_walk_at_the_shared_memory_limit(n, path, l_cap):
+    """Tables either side of a block's shared memory: JAX's pack_threaded
+    of 3584 boxes gives 56 chunks (229,376 bytes node-major: the kernel
+    walks it from shared memory), of 3585 boxes 57 (over: from a copy in
+    device memory). The port's table equals JAX's bit for bit, walk_path
+    picks by its size, and the walk (on the CPU the plain walk, which
+    the card tests hold both kernel paths to) equals walk_leaves_ref at
+    l_cap 1, 5 and 32."""
+    lo, hi, table = _limit_case(n)
+    got_table = tw.pack_threaded(tbvh.build_bvh(lo, hi, max_leaf_size=1))
+    np.testing.assert_array_equal(got_table, table)
+    assert table.shape[0] == 56 + (path == "global")
+    assert tw.walk_path(table.shape[0]) == path
+    assert [tw.walk_path(c) for c in (1, 56, 57, 128)] == [
+        "shared", "shared", "global", "global"]
+    o, d, tmax = _rays(96, n, spread=1.2)
+    got_l, got_c = tw.walk_leaves(_t(table), _t(o), _t(d), _t(tmax), l_cap)
+    ref_l, ref_c = jtw.walk_leaves_ref(table, o, d, tmax, l_cap=l_cap)
+    np.testing.assert_array_equal(got_l.numpy(), ref_l)
+    np.testing.assert_array_equal(got_c.numpy(), ref_c)
+    assert int(got_c.max()) > min(l_cap, 5)
 
 
 def _brute_leaves(bmin, bmax, o, d, tmax):
