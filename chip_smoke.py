@@ -22,7 +22,9 @@ entry points of the experiments and scripts (X1-X3). Phases:
    of K1-K4 and X3a (the warp walk; K2 and X3a are
    warp_closest_kernel<false> and <true>), K10 and K9 (the dense cull),
    K10's cull form, K5 and K5's walk form, K6, K8 and K7 (the flat warp
-   walk, flat_kernel<false> and <true>, flat_any_kernel), the X2 loops
+   walk, flat_kernel<false> and <true>, flat_any_kernel), K14
+   (pair_blocks_kernel<false> and <true>, the persistent pair-block
+   kernel), X3c (loop_flat_kernel), the X2 loops
    (x2_moller_kernel<0>, x2_plucker_kernel<false> and <true>), X3b
    (x2_moller_kernel<1>, the same loop under X3b's chain), X3d
    (loop_nested_kernel<4>, the script's inner trip count fixed at
@@ -100,9 +102,11 @@ entry points of the experiments and scripts (X1-X3). Phases:
    path-traced frame and the shadow set of a ReSTIR frame, as the frames
    hand them to the hybrid under config.policy.bounce_tracer =
    "leafmajor": their heavy shares, tiles over VIS_CAP, valid pairs and
-   blocks; K14 against its plain version on the hybrid's pair blocks and
-   on the blocks of every ray's first 8 candidates (closest hit on the
-   bounce set, any hit on the shadow sets); the hybrid against K2 or K3
+   live and empty blocks; K14 against its plain version, every slot bit
+   for bit, on the hybrid's pair blocks and on the blocks of every ray's
+   first 8 candidates (closest hit on the bounce set, any hit on the
+   shadow sets), and on each set with every block empty (timed: the
+   floor below the live work); the hybrid against K2 or K3
    on the same rays; K9 on the bounce set against its plain version and
    K2, without and with a random skip mask;
 12. leafmajor: the path tracer (K1, K14, K2, K3) and ReSTIR (K1, K14,
@@ -141,8 +145,8 @@ entry points of the experiments and scripts (X1-X3). Phases:
    threaded table of make_plate_scene(8192) (128 chunks, over a block's
    shared memory, so walked from a device-memory copy) and that scene's
    bounce set, X3d also through its generic instance, X3b also timed
-   at K and 2 K iterations and X3d's two instances at M and 2 M (the
-   same ratio), the Plücker loops against
+   at K and 2 K iterations, X3d's two instances at M and 2 M and X3c at
+   N and 2 N (the same ratio), the Plücker loops against
    their TF32 plain version (no hit/miss mismatch off
    ops/plucker.tf32_agreement's border, t within rtol 1e-5 plus the
    bound of a reordered sum) and at one block against Möller (the
@@ -176,6 +180,9 @@ W, H, BOUNCES = 1920, 1080, 3
 N_CLUSTERS = 2048
 N_LIGHTS = 1024  # bench.py's deferred stage: 1024 scattered point lights
 WARMUP, TIMED = 2, 8
+# device_ms queues its timed calls behind a sleep of this many SM cycles
+# (about 20 ms at 1980 MHz)
+QUEUE_CYCLES = 40_000_000
 PLAIN_FRAME_BUDGET_S = 120.0
 SOURCES = {
     "trace_bvh": "prosper_tpu_torch/csrc/trace_bvh.cu",
@@ -235,7 +242,8 @@ PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
 # the kernels whose ptxas line phase 2 prints, (source, symbol): K2, X3a
 # (K2 counting), K3, K1 and K4 on the warp walk, K10 (its walk on the
 # warp-shared leaf test) and K9 over the dense cull, K10's cull form, K5
-# and its walk form, K6, K8 and K7 (the flat warp walk), the X2 loops,
+# and its walk form, K6, K8 and K7 (the flat warp walk), K14's two forms
+# (the persistent pair-block kernel), X3c, the X2 loops,
 # X3b (x2_moller_kernel<1>, the X2 Möller loop under X3b's chain), X3d's
 # two instances (the inner trip count 4 fixed at compile time, and read
 # at run time) and X1 (its walk from shared and from device memory, and
@@ -247,7 +255,9 @@ PTXAS_KERNELS = tuple(("trace_bvh", k) for k in (
     ("shade_tiles", k) for k in ("shade_kernel", "shade_walk_kernel")) + tuple(
     ("trace_flat", k) for k in ("flat_kernel<false>", "flat_kernel<true>",
                                 "flat_any_kernel")) + tuple(
-    ("bench_kernels", k) for k in ("x2_moller_kernel<0>",
+    ("trace_leafmajor", k) for k in ("pair_blocks_kernel<false>",
+                                     "pair_blocks_kernel<true>")) + tuple(
+    ("bench_kernels", k) for k in ("loop_flat_kernel", "x2_moller_kernel<0>",
                                    "x2_plucker_kernel<false>",
                                    "x2_plucker_kernel<true>",
                                    "x2_moller_kernel<1>",
@@ -299,7 +309,7 @@ PORT_KERNEL_SYMBOLS = ("primary_kernel", "warp_closest_kernel",
                        "warp_any_kernel", "closest_full_kernel",
                        "shade_kernel", "flat_kernel", "flat_any_kernel",
                        "dense_any_kernel", "dense_closest_kernel",
-                       "pairs_kernel", "closest8_kernel",
+                       "pair_blocks_kernel", "closest8_kernel",
                        "closest8_full_kernel", "any8_kernel", "walk_kernel",
                        "repack_kernel",
                        "x2_moller_kernel", "x2_plucker_kernel",
@@ -354,9 +364,13 @@ TILE_RAYS = 256
 # of csrc/bench_kernels.cu (cuobjdump -sass), with assumed latencies in
 # cycles: 4 for a dependent integer or float32 add, multiply or min, 23
 # for a warp shuffle and for a shared-memory load, 20 for a
-# shared-memory store and for a block barrier. nvcc unrolls flat 16
-# times and carries the sum through eight three-input adds (IADD3) per
-# 16 iterations. nested's loop_nested_kernel<4> (the script's K) takes
+# shared-memory store and for a block barrier. flat's loop_flat_kernel
+# adds runs of 64 values from a register double buffer, two runs a trip
+# of its loop, and carries the sum through 32 three-input adds (IADD3)
+# per 64 iterations; ptxas interleaves 64 of a trip's 128 loads with
+# those adds and issues the other 64 back to back, so one warp's issue
+# of shared-memory loads, not this chain, sets its floor (PERF.md).
+# nested's loop_nested_kernel<4> (the script's K) takes
 # two entries a trip of its rolled outer loop, each entry's four trips
 # unrolled, and carries the sum through four IADD3 per eight
 # iterations; loop_nested_kernel<0> (k read at run time) keeps its
@@ -366,7 +380,7 @@ TILE_RAYS = 256
 # mins and the add.
 LAT_ALU, LAT_SHFL, LAT_LDS, LAT_STS, LAT_BAR = 4, 23, 23, 20, 20
 PROBE_CHAIN_CYCLES = {
-    "loop_flat": 8 * LAT_ALU / 16, "loop_nested": 4 * LAT_ALU / 8,
+    "loop_flat": 32 * LAT_ALU / 64, "loop_nested": 4 * LAT_ALU / 8,
     "loop_nested_generic": LAT_ALU,
     "loop_cond": LAT_ALU / 4,
     "loop_vec": (3 * LAT_ALU + 5 * (LAT_SHFL + LAT_ALU) + LAT_STS + LAT_BAR
@@ -426,14 +440,21 @@ def elapsed_ms(fn) -> float:
 
 
 def device_ms(fn, reps: int) -> float:
-    """Mean time of fn() over reps calls, after one warm-up call."""
+    """Mean device time of fn() over reps calls, after one warm-up call.
+    The calls are queued behind a sleep on the card (QUEUE_CYCLES), so
+    that the events time the card's work and not the host's launch rate:
+    a wrapper's host time can exceed a short kernel's (K14's any form)."""
     fn()
-
-    def loop():
-        for _ in range(reps):
-            fn()
-
-    return elapsed_ms(loop) / reps
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def timed_call(fn):
@@ -711,9 +732,9 @@ def frames_agree(label, a, b):
 
 def breakdown(fn, scene, cam, frame_index, state=None, top=12):
     """One frame under torch.profiler: device time by kernel, the port's
-    CUDA kernels' share, and the device's idle share of the frame's wall
-    time (profiling adds host overhead, so the idle share is an upper
-    bound)."""
+    CUDA kernels' share and each one's time a launch, and the device's
+    idle share of the frame's wall time (profiling adds host overhead, so
+    the idle share is an upper bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -733,6 +754,10 @@ def breakdown(fn, scene, cam, frame_index, state=None, top=12):
           f"in {sum(r[2] for r in rows)} launches")
     for name, ms, count in rows[:top]:
         print(f"  {ms:9.3f} ms {count:5d}x {name[:90]}")
+    print("  port kernels of the frame: " + "; ".join(
+        f"{name[:60]} {ms:.3f} ms / {count} = {ms / count:.4f} ms a launch"
+        for name, ms, count in rows
+        if any(k in name for k in PORT_KERNEL_SYMBOLS)))
 
 
 def drive(fn, scene, cam, path, label, smi):
@@ -1905,7 +1930,10 @@ def check_run_pairs(label, slabs, blocks, o, d, t_min, t_max, any_hit):
     hit: one test for a slot that hits); the bytes the function must
     move on this data: block_leaf, the slot arrays of the non-empty
     blocks, each slotted ray's origin, direction and t_max and each
-    listed leaf's 9 Möller rows once, and the whole output."""
+    listed leaf's 9 Möller rows once, and the whole output. Also K14 on
+    the same set with every block empty (all_empty_ms beside the bound of
+    block_leaf and the output): the part of ms that is not the live
+    blocks' work."""
     from prosper_tpu_torch.ops import trace_leafmajor as lm
 
     args = (slabs, *blocks, o, d, t_min, t_max, any_hit)
@@ -1913,10 +1941,11 @@ def check_run_pairs(label, slabs, blocks, o, d, t_min, t_max, any_hit):
     got = lm.run_pairs(*args)
     block_leaf, slot_ray, _ = blocks
     live_blocks = block_leaf >= 0
+    n_live = int(live_blocks.sum())
     valid = blocks[2] & live_blocks[:, None]
     n_valid = int(valid.sum())
     n_bytes = (nbytes(block_leaf, got)
-               + int(live_blocks.sum()) * lm.BLOCK * 5
+               + n_live * lm.BLOCK * 5
                + torch.unique(slot_ray[valid]).numel() * 28
                + torch.unique(block_leaf[live_blocks]).numel() * 9 * LANES * 4)
     if any_hit:
@@ -1932,13 +1961,32 @@ def check_run_pairs(label, slabs, blocks, o, d, t_min, t_max, any_hit):
         err = float((g - w).abs().amax()) if n_valid else 0.0
         hits = int((w[:, 1] >= 0).sum())
         tests = LANES * n_valid
-    rec = {"max_abs_err": err, "mismatch": mism, "valid_pairs": n_valid,
-           "blocks": int((blocks[0] >= 0).sum()),
-           "block_capacity": int(blocks[0].shape[0]), "slot_hits": hits,
+    # every slot of the output, valid or not, bit for bit
+    if any_hit:
+        off_bits = int((got != want).sum())
+    else:
+        off_bits = int((got.view(torch.int32) != want.view(torch.int32))
+                       .any(1).sum())
+    # the same set with every block empty: the floor of the scan for
+    # live items, the miss stores and the launch, every slot bit for bit
+    empty = (slabs, torch.full_like(block_leaf, -1), *blocks[1:], o, d,
+             t_min, t_max, any_hit)
+    got_e, want_e = lm.run_pairs(*empty), lm.run_pairs_plain(*empty)
+    if not any_hit:
+        got_e, want_e = got_e.view(torch.int32), want_e.view(torch.int32)
+    off_bits += int((got_e != want_e).sum())
+    rec = {"max_abs_err": err, "mismatch": mism,
+           "slots_not_bit_for_bit": off_bits, "valid_pairs": n_valid,
+           "blocks": n_live,
+           "empty_blocks": int(block_leaf.shape[0]) - n_live,
+           "block_capacity": int(block_leaf.shape[0]), "slot_hits": hits,
            "ms": device_ms(lambda: lm.run_pairs(*args), 5),
-           "plain_ms": plain_ms, **bound(n_bytes, MOLLER_OPS * tests)}
-    print(f"K14 {label}: ok={mism == 0} {rec}")
-    return mism == 0, rec
+           "plain_ms": plain_ms, **bound(n_bytes, MOLLER_OPS * tests),
+           "all_empty_ms": device_ms(lambda: lm.run_pairs(*empty), 5),
+           "all_empty_bound_ms": bound(nbytes(block_leaf, got), 0)["bound_ms"]}
+    ok = mism == 0 and off_bits == 0
+    print(f"K14 {label}: ok={ok} {rec}")
+    return ok, rec
 
 
 def check_trace_set(label, args, any_hit):
@@ -2710,11 +2758,28 @@ def check_probes(loops, dev):
               f"({rec['ns_per_iter']:.3f} ns/iter), plain {plain_ms:.1f} ms, "
               f"bound {rec['bound_ms']:.3f} ms ({chain} cycles/iter at "
               f"{cur:.0f} MHz, max {top:.0f})")
+        if fn is bk.loop_flat:
+            ok &= check_loop_flat(x, counts, rec)
         if fn is bk.loop_nested:
             ok &= check_nested(x, xs, counts, rec, cur)
         ok_all &= ok
         records[fn.__name__] = rec
     return ok_all, records
+
+
+def check_loop_flat(s, counts, rec) -> bool:
+    """X3c at 2 N iterations takes at least TWICE_NV_RATIO x its time at
+    the script's N, so no iteration was folded away. Adds both times and
+    the ratio to rec; returns ok."""
+    from prosper_tpu_torch.ops import bench_kernels as bk
+
+    (n,) = counts
+    ms = {k: device_ms(lambda: bk.loop_flat(s, k), 5) for k in (n, 2 * n)}
+    rec.update(ms_n=ms[n], ms_2n=ms[2 * n], ratio_2n=ms[2 * n] / ms[n])
+    print(f"  X3c loop_flat_kernel: {ms[n]:.3f} ms at N = {n}, "
+          f"{ms[2 * n]:.3f} at 2 N, ratio {rec['ratio_2n']:.3f} (at least "
+          f"{TWICE_NV_RATIO})")
+    return rec["ratio_2n"] >= TWICE_NV_RATIO
 
 
 def check_nested(s, seeded, counts, rec, clock_mhz) -> bool:

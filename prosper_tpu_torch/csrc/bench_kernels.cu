@@ -63,6 +63,13 @@
 // __syncthreads, double-buffered). Bound: the dependence chain of one
 // iteration times the iteration count.
 //
+// The flat probe. loop_flat_kernel adds runs of FLAT_RUN values from a
+// register double buffer (runs_sum, below) whose loads are issued a run
+// ahead at compile-time offsets from the run's window base: one
+// volatile 32-bit load and one add into one sum an iteration. Its floor
+// is one warp's issue of those shared-memory loads, about 4 cycles a
+// load, not the chain's 2 cycles an iteration (PERF.md).
+//
 // The nested probe asks what it costs to enter an inner loop. Its inner
 // trip count is a template parameter, as the Pallas kernel's K is a
 // Python constant: loop_nested_kernel<4> runs the script's K = 4 and
@@ -89,6 +96,7 @@
 #define PLU_DET_EPS 1e-9f
 #define TF_STRIDE 136  // tf32 row stride: conflict-free B fragment loads
 #define K_STATIC 4  // the nested probe's compile-time inner trip count
+#define FLAT_RUN 64  // the flat probe's iterations a run
 #define M_SPLIT 4  // X2 Möller: threads a ray, neighbouring lanes
 #define M_THREADS (M_SPLIT * TILE)
 #define P_THREADS (32 * TILE / 16)  // X2 Plücker: a warp a 16-ray tile
@@ -353,39 +361,64 @@ __device__ __forceinline__ void fill_int(int* out, unsigned a) {
     for (int i = 0; i < 8 * 128; ++i) out[i] = (int)a;
 }
 
-__global__ void loop_flat_kernel(const int* __restrict__ s, int n,
-                                 int* __restrict__ out) {
-    __shared__ int s_s[128];
-    for (int i = 0; i < 128; ++i) s_s[i] = s[i];
-    volatile int* vs = s_s;
-    unsigned a = 0u;
-    for (int i = 0; i < n; ++i) a += (unsigned)vs[i & 127];
-    fill_int(out, a);
-}
-
-// KT > 0: k == KT trips an entry, from a register double buffer: x
-// holds entry i's KT values and y entry i + 1's, and after an entry's
-// adds the buffer it emptied takes the loads of the entry two ahead (the
-// outer loop takes two entries a trip, so the buffers trade roles
-// without a copy; an odd m adds the last entry after the loop). KT == 0:
-// k trips read at run time, a rolled inner loop whose trip adds the
-// value the trip before loaded. Reads past the last entry stay inside
-// s_s and are never added.
+// m runs of KT iterations of a += s[i % 128] from a register double
+// buffer: x holds run e's KT values and y run e + 1's, and after a run's
+// adds the buffer it emptied takes the loads of the run two ahead, from
+// the window base (e KT) mod 128 at compile-time offsets (the loop takes
+// two runs a trip, so the buffers trade roles without a copy; an odd m
+// adds the last run after the loop). Each iteration keeps its one
+// volatile 32-bit load and its add into the one sum; the loads run a
+// run ahead of the adds. Reads past the last run stay inside the
+// window and are never added.
 template <int KT>
-__device__ __forceinline__ void load_entry(const volatile int* vs, int e,
-                                           int (&buf)[KT]) {
-    static_assert(128 % KT == 0, "an entry's trips do not wrap s");
+__device__ __forceinline__ void load_run(const volatile int* vs, int e,
+                                         int (&buf)[KT]) {
+    static_assert(128 % KT == 0, "a run does not wrap s");
     const int base = (e * KT) & 127;
 #pragma unroll
     for (int j = 0; j < KT; ++j) buf[j] = vs[base + j];
 }
 
 template <int KT>
-__device__ __forceinline__ void add_entry(unsigned& a, const int (&buf)[KT]) {
+__device__ __forceinline__ void add_run(unsigned& a, const int (&buf)[KT]) {
 #pragma unroll
     for (int j = 0; j < KT; ++j) a += (unsigned)buf[j];
 }
 
+template <int KT>
+__device__ __forceinline__ unsigned runs_sum(const volatile int* vs, int m) {
+    unsigned a = 0u;
+    int x[KT], y[KT];
+    load_run(vs, 0, x);
+    load_run(vs, 1, y);
+    int i = 0;
+#pragma unroll 1
+    for (; i + 2 <= m; i += 2) {
+        add_run(a, x);
+        load_run(vs, i + 2, x);
+        add_run(a, y);
+        load_run(vs, i + 3, y);
+    }
+    if (i < m) add_run(a, x);
+    return a;
+}
+
+// X3c: n iterations, n / FLAT_RUN runs of FLAT_RUN, then the rest one by
+// one.
+__global__ void loop_flat_kernel(const int* __restrict__ s, int n,
+                                 int* __restrict__ out) {
+    __shared__ int s_s[128];
+    for (int i = 0; i < 128; ++i) s_s[i] = s[i];
+    volatile int* vs = s_s;
+    const int runs = n / FLAT_RUN;
+    unsigned a = runs_sum<FLAT_RUN>(vs, runs);
+    for (int i = runs * FLAT_RUN; i < n; ++i) a += (unsigned)vs[i & 127];
+    fill_int(out, a);
+}
+
+// KT > 0: k == KT trips an entry, each entry a run of runs_sum. KT == 0:
+// k trips read at run time, a rolled inner loop whose trip adds the
+// value the trip before loaded.
 template <int KT>
 __global__ void loop_nested_kernel(const int* __restrict__ s, int m, int k,
                                    int* __restrict__ out) {
@@ -394,18 +427,7 @@ __global__ void loop_nested_kernel(const int* __restrict__ s, int m, int k,
     volatile int* vs = s_s;
     unsigned a = 0u;
     if constexpr (KT > 0) {
-        int x[KT], y[KT];
-        load_entry(vs, 0, x);
-        load_entry(vs, 1, y);
-        int i = 0;
-#pragma unroll 1
-        for (; i + 2 <= m; i += 2) {
-            add_entry(a, x);
-            load_entry(vs, i + 2, x);
-            add_entry(a, y);
-            load_entry(vs, i + 3, y);
-        }
-        if (i < m) add_entry(a, x);
+        a = runs_sum<KT>(vs, m);
     } else {
         int next = vs[0], j = 0;
 #pragma unroll 1

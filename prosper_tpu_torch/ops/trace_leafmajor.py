@@ -17,8 +17,11 @@ block's rays. The minimum t over a ray's pairs is its closest hit.
   stable sort by leaf, and the 256-slot blocks, B = P // 256 + C.
 - `run_pairs` (K14, replaces `_run_pairs` :397, kernel `_pairs_kernel`
   :275): Möller of each block's rays against its leaf. Hand-written
-  CUDA in csrc/trace_leafmajor.cu with the plain twin `run_pairs_plain`.
-  The kernel reads each slot's ray by index (slot_ray), not from the
+  CUDA in csrc/trace_leafmajor.cu with the plain twin `run_pairs_plain`:
+  one persistent launch that tests the live quarter blocks, four threads
+  a slot, then writes the empty blocks' misses in 16-byte stores (on
+  incoherent sets almost every one of the B blocks is empty). The
+  kernel reads each slot's ray by index (slot_ray), not from the
   gathered (B, 8, 256) columns of the Pallas kernel.
 - `closest_from_pairs` / `any_from_pairs` (:487, :564): the per-ray
   combine, a scatter-min over the slots (smallest t, then lowest tri).

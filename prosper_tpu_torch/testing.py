@@ -12,6 +12,11 @@ scene has alpha-masked plates), and `cam_fn(w, h)` camera uniforms.
 triangle copied into several lanes of two clusters under a two-leaf
 BVH2, with rays that visit either cluster first.
 
+`make_pair_layout` builds pair-block sets for K14 (the leaf-major pair
+blocks) in the layouts the tests hold it to: all empty, live blocks at
+the front (as build_blocks makes them), live blocks between and after
+empty ones, and partly valid slots.
+
 `write_gltf` writes a glTF 2.0 file (.gltf with a .bin buffer, or .glb)
 from a document whose accessors and images are numpy arrays;
 `write_plate_gltf` writes the plate scene's triangles, lights and camera
@@ -414,6 +419,45 @@ def make_tie_scene(n_rays: int = 64, seed: int = 0, rows: int = 9):
     slabs[:, 9:] = rng.uniform(-1.0, 1.0, (2, rows - 9, CLUSTER_TRI_PAD))
     want = np.where(up, CLUSTER_TRI_PAD + TIE_LANES[1][0], TIE_LANES[0][0])
     return slabs, bounds, meta, o, d, want.astype(np.int64)
+
+
+PAIR_LAYOUTS = ("empty", "front", "scattered", "partial")
+
+
+def make_pair_layout(kind: str, n_blocks: int, n_clusters: int, n_rays: int,
+                     seed: int = 0):
+    """A set of n_blocks 256-slot pair blocks (ops/trace_leafmajor.py
+    build_blocks' contract) -> numpy (block_leaf (B,) i32, -1 for an empty
+    block; slot_ray (B, 256) i32; slot_valid (B, 256) bool).
+
+    kind: "empty", no live block; "front", the first third live (at least
+    one, at most 4096), each with its first 1-256 slots valid, as
+    build_blocks leaves them; "scattered", a third of the blocks live at
+    random places, the last one live, each with a valid prefix;
+    "partial", the front's blocks with each slot valid at random. Live
+    blocks take random leaves of n_clusters, valid slots random rays of
+    n_rays; every other slot names a random ray too, which a kernel must
+    not test."""
+    rng = np.random.default_rng(seed)
+    B = n_blocks
+    if kind == "empty":
+        live = np.zeros(B, bool)
+    elif kind in ("front", "partial"):
+        live = np.arange(B) < min(4096, max(1, B // 3))
+    elif kind == "scattered":
+        live = rng.random(B) < 1 / 3
+        live[-1] = True
+    else:
+        raise ValueError(f"make_pair_layout: unknown layout {kind!r}")
+    block_leaf = np.where(live, rng.integers(0, n_clusters, B), -1)
+    if kind == "partial":
+        valid = rng.random((B, 256)) < 0.5
+    else:
+        width = rng.integers(1, 257, B)
+        valid = np.arange(256)[None, :] < width[:, None]
+    slot_ray = rng.integers(0, n_rays, (B, 256))
+    return (block_leaf.astype(np.int32), slot_ray.astype(np.int32),
+            valid & live[:, None])
 
 
 # ---------------------------------------------------------------------------

@@ -283,6 +283,23 @@ def test_loop_probes_on_seeded_inputs():
     assert got.shape == (8, 128) and bool((got == float(a)).all())
 
 
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 129,
+                               200_000, 200_001])
+def test_loop_flat_plain_equals_its_closed_form(n):
+    """X3c's plain version (what loop_flat runs on the CPU) at counts
+    around the kernel's 64-iteration runs and the 128-entry window:
+    whole turns of s plus the first n mod 128 entries, wrapped to int32."""
+    rng = np.random.default_rng(n % 997)
+    s = rng.integers(-2**31, 2**31 - 1, 128, dtype=np.int64)
+    turns, rest = divmod(n, 128)
+    want = turns * int(s.sum()) + int(s[:rest].sum())
+    want = (want + 2**31) % 2**32 - 2**31
+    bk.loop_flat.launches = 0
+    got = bk.loop_flat(torch.as_tensor(s.astype(np.int32)), n)
+    assert bk.loop_flat.launches == 0  # CPU: the plain version
+    assert got.shape == (8, 128) and bool((got == want).all())
+
+
 def test_nested_instance_choice():
     """X3d's kernel instance: the compile-time K_STATIC (the script's K)
     for k == 4, the generic one for any other k or when asked; an

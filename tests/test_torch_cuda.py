@@ -44,7 +44,11 @@ from prosper_tpu_torch.scene.camera import (
     CameraTransform,
 )
 from prosper_tpu_torch.scene.convert import camera_tensors
-from prosper_tpu_torch.testing import make_tie_scene
+from prosper_tpu_torch.testing import (
+    PAIR_LAYOUTS,
+    make_pair_layout,
+    make_tie_scene,
+)
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -536,14 +540,76 @@ def test_run_pairs_matches_plain_on_card(cuda, any_hit):
     torch.cuda.synchronize()
     want = lm.run_pairs_plain(slabs, *blocks, o, d, t_min, t_max, any_hit)
     assert lm.run_pairs.launches == 1
+    _assert_slots_equal(got, want, any_hit)
     valid = blocks[2]
     if any_hit:
-        assert torch.equal(got & valid, want & valid) and (got & valid).any()
+        assert (got & valid).any()
     else:
-        assert torch.equal(got[:, :2], want[:, :2])
-        torch.testing.assert_close(got[:, 2:], want[:, 2:], rtol=0,
-                                   atol=1e-6)
         assert (got[:, 1] >= 0).any()
+
+
+def _assert_slots_equal(got, want, any_hit):
+    """Every slot of K14's output, valid or not, bit for bit."""
+    if any_hit:
+        assert torch.equal(got, want)
+    else:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.fixture(scope="module")
+def plate64_rays():
+    """The plate-64 scene's slabs (with attribute rows) and 5000
+    incoherent rays with t_max per ray (zeros, 6 and inf)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    dev = torch.device("cuda")
+    _, (sc, _, _) = entry(dev, scene="plate", n_clusters=64, width=32,
+                          height=32)
+    return (sc["geom"]["packed_full"], *_incoherent_rays(sc, 5000, 6, dev))
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("B", [1, 31, 33, 66_848])
+@pytest.mark.parametrize("layout", [*PAIR_LAYOUTS, "ties"])
+def test_pair_block_layouts_match_plain_on_card(cuda, plate64_rays, layout,
+                                                B, any_hit):
+    """K14 against its plain version, every slot bit for bit, on B blocks
+    laid out by testing.make_pair_layout (all empty; live at the front;
+    live between and after empty blocks; partly valid slots); 66,848 is
+    the block count of a 1080p set on plate-2048. "ties": the front
+    layout on testing.make_tie_scene, each ray meeting every copy of its
+    leaf's triangle at one t, where K14 keeps the lowest copy (lane 9 of
+    cluster 0, lane 40 of cluster 1). One launch."""
+    if layout == "ties":
+        slabs, _, _, o, d, _ = (torch.as_tensor(a, device=cuda)
+                                for a in make_tie_scene(64))
+        t_max = torch.full((64,), float("inf"), device=cuda)
+        t_max[::5] = 4.0  # before the plane z = 5: no hit
+        kind = "front"
+    else:
+        slabs, o, d, t_max = plate64_rays
+        kind = layout
+    blocks = [torch.as_tensor(a, device=cuda) for a in make_pair_layout(
+        kind, B, slabs.shape[0], o.shape[0], seed=B)]
+    t_min = 0.1 if any_hit else 1e-4
+    lm.run_pairs.launches = 0
+    got = lm.run_pairs(slabs, *blocks, o, d, t_min, t_max, any_hit)
+    torch.cuda.synchronize()
+    assert lm.run_pairs.launches == 1
+    want = lm.run_pairs_plain(slabs, *blocks, o, d, t_min, t_max, any_hit)
+    _assert_slots_equal(got, want, any_hit)
+    hits = int(got.sum()) if any_hit else int((got[:, 1] >= 0).sum())
+    assert hits == 0 if layout == "empty" else B == 1 or hits > 0
+    if layout != "ties":
+        return
+    block_leaf, slot_ray, slot_valid = blocks
+    live = slot_valid & (t_max[slot_ray.long()] > 5.0)
+    if any_hit:
+        assert torch.equal(got, live)
+        return
+    lowest = torch.where(block_leaf == 0, 9, 128 + 40).float()[:, None]
+    assert torch.equal(got[:, 1][live], lowest.expand(-1, 256)[live])
+    assert bool((got[:, 1][~live] == -1).all())
 
 
 def test_hybrid_matches_k2_k3_on_card(cuda):
@@ -825,6 +891,32 @@ def test_loop_nested_takes_twice_the_time_at_twice_the_entries_on_card(
         ms = {n: bk.event_ms(lambda: bk.loop_nested(s, n, 4, kt), 5)
               for n in (m, 2 * m)}
         assert ms[2 * m] / ms[m] >= 1.8, (kt, ms)
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 129,
+                               200_000, 200_001])
+def test_loop_flat_matches_plain_on_card(cuda, n):
+    """X3c at counts around its 64-iteration runs and the 128-entry
+    window, and at the script's N = 200,000: equal to its plain version
+    on the script's s and a seeded one."""
+    rng = np.random.default_rng(n % 997)
+    seeded = torch.as_tensor(rng.integers(-2**31, 2**31 - 1, 128),
+                             dtype=torch.int32, device=cuda)
+    script = torch.arange(128, dtype=torch.int32, device=cuda)
+    bk.loop_flat.launches = 0
+    for s in (script, seeded):
+        assert torch.equal(bk.loop_flat(s, n), bk.loop_flat_plain(s, n))
+    assert bk.loop_flat.launches == 2
+
+
+def test_loop_flat_takes_twice_the_time_at_twice_the_iterations_on_card(
+        cuda):
+    """X3c at 2 N iterations (the script's N = 200,000) takes at least
+    1.8x its time at N: no iteration is folded away."""
+    s = torch.arange(128, dtype=torch.int32, device=cuda)
+    n = 200_000
+    ms = {k: bk.event_ms(lambda: bk.loop_flat(s, k), 5) for k in (n, 2 * n)}
+    assert ms[2 * n] / ms[n] >= 1.8, ms
 
 
 @pytest.mark.parametrize("R", [1, 31, 33, 3000])

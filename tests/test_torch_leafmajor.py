@@ -219,6 +219,63 @@ def test_run_pairs_plain_matches_pallas(any_hit):
     assert T.run_pairs.launches == 0  # CPU: the plain version
 
 
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("layout", [*ttesting.PAIR_LAYOUTS, "ties"])
+def test_run_pairs_layouts_match_pallas(layout, any_hit):
+    """K14's plain version (what run_pairs runs on the CPU) against
+    `_run_pairs` in interpret mode on every slot of 40 blocks (any hit:
+    every slot of the live blocks, and 0 on the empty ones) laid out by
+    testing.make_pair_layout (all empty; live at the front; live between
+    and after empty blocks; partly valid slots), t_max per ray with
+    zeros and finite values, on the random scene; "ties": the front
+    layout on make_tie_scene, every ray meeting every copy of its leaf's
+    triangle at one t, where the lowest copy wins."""
+    if layout == "ties":
+        packed, _, _, o, d, _ = ttesting.make_tie_scene(64)
+        kind = "front"
+    else:
+        packed, _, _, _, _, o, d, _ = _scene("random")
+        kind = layout
+    C, R = packed.shape[0], o.shape[0]
+    block_leaf, slot_ray, slot_valid = ttesting.make_pair_layout(
+        kind, 40, C, R, seed=len(layout))
+    t_max = np.full(R, np.inf, np.float32)
+    t_max[::9] = 0.0
+    t_max[1::7] = 3.0
+    t_min = 1e-4
+    cols = J._pack_cols(_j(o), _j(d), t_min, _j(t_max), _j(slot_ray),
+                        _j(slot_valid))
+    with interpret_mode():
+        want = np.asarray(J._run_pairs(_j(packed), _j(block_leaf), cols,
+                                       any_hit))
+    got = T.run_pairs(_t(packed), _t(block_leaf), _t(slot_ray),
+                      _t(slot_valid), _t(o), _t(d), t_min, _t(t_max),
+                      any_hit).numpy()
+    assert T.run_pairs.launches == 0  # CPU: the plain version
+    if any_hit:
+        # the Pallas kernel writes an empty block's closest-hit miss rows
+        # (t 3e38 in row 0) in its any form too; the port writes 0
+        live = (block_leaf >= 0)[:, None]
+        np.testing.assert_array_equal(got, (want[:, 0] > 0) & live)
+        assert got.any() == (layout != "empty")
+        return
+    np.testing.assert_array_equal(got[:, 1], want[:, 1])
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-5, atol=1e-6)
+    hit = got[:, 1] >= 0
+    for row in (2, 3):
+        np.testing.assert_allclose(got[:, row][hit], want[:, row][hit],
+                                   rtol=1e-5, atol=1e-5)
+        assert (got[:, row][~hit] == 0).all()
+    assert (got[:, 0][~hit] == 3e38).all()
+    assert hit.any() == (layout != "empty")
+    if layout == "ties":
+        # the lowest copy: lane 9 of cluster 0, lane 40 of cluster 1
+        lowest = np.where(block_leaf == 0, 9, 128 + 40)[:, None]
+        np.testing.assert_array_equal(
+            got[:, 1][hit], np.broadcast_to(lowest, hit.shape)[hit])
+        assert hit.sum() > 100
+
+
 @pytest.mark.parametrize("kind", ["random", "overlap", "plate"])
 def test_hybrid_matches_jax_safe(kind):
     """trace_closest_leafmajor_safe and trace_any_leafmajor_safe against
