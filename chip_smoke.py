@@ -24,7 +24,7 @@ entry points of the experiments and scripts (X1-X3). Phases:
    K10's cull form, K5 and K5's walk form, K6, K8 and K7 (the flat warp
    walk, flat_kernel<false> and <true>, flat_any_kernel), K14
    (pair_blocks_kernel<false> and <true>, the persistent pair-block
-   kernel), X3c (loop_flat_kernel), the X2 loops
+   kernel), X3c (loop_flat_kernel), X3e (loop_cond_kernel), the X2 loops
    (x2_moller_kernel<0>, x2_plucker_kernel<false> and <true>), X3b
    (x2_moller_kernel<1>, the same loop under X3b's chain), X3d
    (loop_nested_kernel<4>, the script's inner trip count fixed at
@@ -107,8 +107,12 @@ entry points of the experiments and scripts (X1-X3). Phases:
    first 8 candidates (closest hit on the bounce set, any hit on the
    shadow sets), and on each set with every block empty (timed: the
    floor below the live work); the hybrid against K2 or K3
-   on the same rays; K9 on the bounce set against its plain version and
-   K2, without and with a random skip mask;
+   on the same rays; K9 on the bounce set against its plain version
+   (rows bit for bit) and K2, without and with a random skip mask, each
+   with the packet list length, K10's cull form timed beside it (the
+   cull's share of K9) and the owners per entered cluster of its walk
+   (trace_bvh.dense_walk_counts), and on the tie scene (tri 9 for every
+   ray);
 12. leafmajor: the path tracer (K1, K14, K2, K3) and ReSTIR (K1, K14,
    K3) under "leafmajor", each checked as phase 9 checks its frames; the
    policy is restored after the phase;
@@ -145,8 +149,8 @@ entry points of the experiments and scripts (X1-X3). Phases:
    threaded table of make_plate_scene(8192) (128 chunks, over a block's
    shared memory, so walked from a device-memory copy) and that scene's
    bounce set, X3d also through its generic instance, X3b also timed
-   at K and 2 K iterations, X3d's two instances at M and 2 M and X3c at
-   N and 2 N (the same ratio), the Plücker loops against
+   at K and 2 K iterations, X3d's two instances at M and 2 M and X3c and
+   X3e at N and 2 N (the same ratio), the Plücker loops against
    their TF32 plain version (no hit/miss mismatch off
    ops/plucker.tf32_agreement's border, t within rtol 1e-5 plus the
    bound of a reordered sum) and at one block against Möller (the
@@ -156,7 +160,7 @@ entry points of the experiments and scripts (X1-X3). Phases:
 Every launch count is set to 0 just before a path is driven and read
 just after; a kernel of the path that never launched fails the run, and
 so does a frame that launched a measurement form or called
-trace_flat.flat_walk_counts. Any
+trace_flat.flat_walk_counts or trace_bvh.dense_walk_counts. Any
 failed phase exits non-zero. The last line is the result object, the
 line before it the per-kernel record. Needs no network and one card.
 """
@@ -243,7 +247,7 @@ PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
 # (K2 counting), K3, K1 and K4 on the warp walk, K10 (its walk on the
 # warp-shared leaf test) and K9 over the dense cull, K10's cull form, K5
 # and its walk form, K6, K8 and K7 (the flat warp walk), K14's two forms
-# (the persistent pair-block kernel), X3c, the X2 loops,
+# (the persistent pair-block kernel), X3c, X3e, the X2 loops,
 # X3b (x2_moller_kernel<1>, the X2 Möller loop under X3b's chain), X3d's
 # two instances (the inner trip count 4 fixed at compile time, and read
 # at run time) and X1 (its walk from shared and from device memory, and
@@ -257,7 +261,8 @@ PTXAS_KERNELS = tuple(("trace_bvh", k) for k in (
                                 "flat_any_kernel")) + tuple(
     ("trace_leafmajor", k) for k in ("pair_blocks_kernel<false>",
                                      "pair_blocks_kernel<true>")) + tuple(
-    ("bench_kernels", k) for k in ("loop_flat_kernel", "x2_moller_kernel<0>",
+    ("bench_kernels", k) for k in ("loop_flat_kernel", "loop_cond_kernel",
+                                   "x2_moller_kernel<0>",
                                    "x2_plucker_kernel<false>",
                                    "x2_plucker_kernel<true>",
                                    "x2_moller_kernel<1>",
@@ -266,7 +271,8 @@ PTXAS_KERNELS = tuple(("trace_bvh", k) for k in (
     ("trace_wavefront", k) for k in ("walk_kernel<true>",
                                      "walk_kernel<false>", "repack_kernel"))
 # the measurement forms of K5 and K10, which no frame may launch; nor may
-# a frame call trace_flat.flat_walk_counts, the walk counts of K6 and K8
+# a frame call trace_flat.flat_walk_counts, the walk counts of K6 and K8,
+# or trace_bvh.dense_walk_counts, K9's
 MEASUREMENT_FORMS = ("shade_walk_counts", "dense_cull_counts")
 DEFERRED_PATH = {False: ("trace_primary_bvh_full", "shade_clustered_tiles"),
                  True: ("trace_closest_bvh_full", "shade_clustered_tiles")}
@@ -374,8 +380,15 @@ TILE_RAYS = 256
 # two entries a trip of its rolled outer loop, each entry's four trips
 # unrolled, and carries the sum through four IADD3 per eight
 # iterations; loop_nested_kernel<0> (k read at run time) keeps its
-# inner loop rolled, one IADD3 an iteration. cond's else branch folds
-# into one IADD3 of s[i] + 3 per four iterations; vec carries sub, mul,
+# inner loop rolled, one IADD3 an iteration. cond's loop_cond_kernel
+# adds runs of 128 from the same double buffer, 32 loads a run (one
+# every fourth iteration); ptxas sums two loaded values an IADD3 and
+# folds the 96 adds of 1 of each run into one add of 192 a trip of two
+# runs (33 adds per 256 iterations), and issues a trip's 64 loads, half
+# interleaved with those adds and half back to back, so one warp's load
+# issue, about 5 cycles a load (1.3 cycles an iteration), is its floor;
+# the bound keeps the chain of the Pallas kernel's one accumulator, one
+# add of s[i] + 3 per four iterations; vec carries sub, mul,
 # min, five shuffle and min steps, the store, the barrier, a load, seven
 # mins and the add.
 LAT_ALU, LAT_SHFL, LAT_LDS, LAT_STS, LAT_BAR = 4, 23, 23, 20, 20
@@ -764,11 +777,12 @@ def drive(fn, scene, cam, path, label, smi):
     """The main path of one mode: counts to 0, 2 warm-up + 8 timed
     frames, counts read. Returns (ms/frame, launches, last image, last
     state, per-frame stats)."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
     from prosper_tpu_torch.ops import trace_flat as tf
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    walk_calls = tf.flat_walk_counts.calls
+    walk_calls = (tf.flat_walk_counts.calls, tb.dense_walk_counts.calls)
     reset_counts()
     state = None
     for i in range(WARMUP):
@@ -797,8 +811,10 @@ def drive(fn, scene, cam, path, label, smi):
         raise RuntimeError(f"{label}: kernels of the path never launched: "
                            f"{missing}")
     stray = [k for k in MEASUREMENT_FORMS if launches[k] != 0]
-    if tf.flat_walk_counts.calls != walk_calls:
+    if tf.flat_walk_counts.calls != walk_calls[0]:
         stray.append("flat_walk_counts")
+    if tb.dense_walk_counts.calls != walk_calls[1]:
+        stray.append("dense_walk_counts")
     if stray:
         raise RuntimeError(f"{label}: the frame launched the measurement "
                            f"forms {stray}")
@@ -2055,8 +2071,13 @@ def check_trace_set(label, args, any_hit):
 
 def check_k9(o, d, t_min, t_max, scene):
     """K9 on the path tracer's first bounce set against its plain version
-    and K2, without and with a random skip mask -> (ok, record)."""
+    (rows bit for bit) and K2, without and with a random skip mask, and
+    on the tie scene (every ray the lowest copy, tri 9); the packet list
+    length and K10's cull form timed beside K9 (the cull's share of it),
+    and the owners per entered cluster (trace_bvh.dense_walk_counts) ->
+    (ok, record)."""
     from prosper_tpu_torch.ops import trace_bvh as tb
+    from prosper_tpu_torch.testing import make_tie_scene
 
     frame, slabs = scene["frame"], scene["geom"]["packed9"]
     args = (slabs, frame["bvh_bounds"], frame["bvh_meta"], o, d, t_min, t_max)
@@ -2071,6 +2092,8 @@ def check_k9(o, d, t_min, t_max, scene):
             lambda: tb.trace_closest_bvh_dense_plain(*args, skip_mask=mask))
         got = tb.trace_closest_bvh_dense(*args, skip_mask=mask)
         ok, counts, err = compare_rows(got, want, [2, 3])
+        bits = bool(torch.equal(got, want))
+        ok &= bits
         tri = got[:, 1].long()
         if mask is None:
             ok_k2, vs_k2, _ = compare_rows(got, k2, [2, 3])
@@ -2084,14 +2107,26 @@ def check_k9(o, d, t_min, t_max, scene):
             ok_k2, vs_k2, _ = compare_rows(got[kept], k2[kept], [2, 3])
             vs_k2["hits_in_masked_clusters"] = in_masked
             ok_k2 &= in_masked == 0
-        print(f"K9 PT first bounce set, {name}: ok={ok} {counts}; vs K2 "
-              f"ok={ok_k2} {vs_k2}")
+        ms = device_ms(lambda: tb.trace_closest_bvh_dense(
+            *args, skip_mask=mask), 5)
+        listed = tb.dense_cull_counts(*args, skip_mask=mask)
+        cull_ms = device_ms(lambda: tb.dense_cull_counts(
+            *args, skip_mask=mask), 5)
+        owned, entered = tb.dense_walk_counts(*args, skip_mask=mask)
+        walk = {"packet_list_mean": float(listed.float().mean()),
+                "packet_list_max": int(listed.max()),
+                "owners_per_entered_cluster":
+                    float(owned.sum()) / max(1, int(entered.sum())),
+                "owned_per_ray": float(owned.float().mean()),
+                "entered_per_warp": float(entered.float().mean()),
+                "cull_ms": cull_ms, "cull_share": cull_ms / ms}
+        print(f"K9 PT first bounce set, {name}: ok={ok} rows bit for bit "
+              f"{bits} {counts}; vs K2 ok={ok_k2} {vs_k2}; walk {walk}")
         ok_all &= ok and ok_k2
         r = {"max_abs_err": err, "rays": int(got.shape[0]),
              "live_clusters": C if mask is None else int(mask.sum()),
-             "ms": device_ms(
-                 lambda: tb.trace_closest_bvh_dense(*args, skip_mask=mask), 5),
-             "plain_ms": plain_ms,
+             "rows_bit_for_bit": bits, "ms": ms, "plain_ms": plain_ms,
+             **walk,
              **bound(nbytes(*args, mask, got),
                      closest_ops(leaf_boxes(scene), o, d, want, t_max, mask))}
         if rec is None:
@@ -2100,8 +2135,18 @@ def check_k9(o, d, t_min, t_max, scene):
         else:
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             rec["skip_mask"] = {k: r[k] for k in (
-                "live_clusters", "ms", "plain_ms", "bound_ms", "bound_by")}
-    return ok_all, rec
+                "live_clusters", "rows_bit_for_bit", "ms", "plain_ms",
+                "bound_ms", "bound_by", *walk)}
+    tie = [torch.as_tensor(a, device=o.device) for a in make_tie_scene(4096)]
+    tie_args = (*tie[:5], t_min, torch.full((4096,), float("inf"),
+                                            device=o.device))
+    got = tb.trace_closest_bvh_dense(*tie_args)
+    ok = (bool(torch.equal(got, tb.trace_closest_bvh_dense_plain(*tie_args)))
+          and bool((got[:, 1] == 9).all()))
+    print(f"K9 tie scene, 4096 rays up and down: ok={ok} (rows bit for bit "
+          f"the plain version's, every ray tri 9, the lowest copy)")
+    rec["tie_scene_ok"] = ok
+    return ok_all and ok, rec
 
 
 def check_leafmajor_kernels(dev):
@@ -2758,8 +2803,8 @@ def check_probes(loops, dev):
               f"({rec['ns_per_iter']:.3f} ns/iter), plain {plain_ms:.1f} ms, "
               f"bound {rec['bound_ms']:.3f} ms ({chain} cycles/iter at "
               f"{cur:.0f} MHz, max {top:.0f})")
-        if fn is bk.loop_flat:
-            ok &= check_loop_flat(x, counts, rec)
+        if fn in (bk.loop_flat, bk.loop_cond):
+            ok &= check_twice(fn, x, counts, rec)
         if fn is bk.loop_nested:
             ok &= check_nested(x, xs, counts, rec, cur)
         ok_all &= ok
@@ -2767,16 +2812,14 @@ def check_probes(loops, dev):
     return ok_all, records
 
 
-def check_loop_flat(s, counts, rec) -> bool:
-    """X3c at 2 N iterations takes at least TWICE_NV_RATIO x its time at
-    the script's N, so no iteration was folded away. Adds both times and
-    the ratio to rec; returns ok."""
-    from prosper_tpu_torch.ops import bench_kernels as bk
-
+def check_twice(fn, s, counts, rec) -> bool:
+    """X3c or X3e (fn) at 2 N iterations takes at least TWICE_NV_RATIO x
+    its time at the script's N, so no iteration was folded away. Adds
+    both times and the ratio to rec; returns ok."""
     (n,) = counts
-    ms = {k: device_ms(lambda: bk.loop_flat(s, k), 5) for k in (n, 2 * n)}
+    ms = {k: device_ms(lambda: fn(s, k), 5) for k in (n, 2 * n)}
     rec.update(ms_n=ms[n], ms_2n=ms[2 * n], ratio_2n=ms[2 * n] / ms[n])
-    print(f"  X3c loop_flat_kernel: {ms[n]:.3f} ms at N = {n}, "
+    print(f"  {fn.__name__}_kernel: {ms[n]:.3f} ms at N = {n}, "
           f"{ms[2 * n]:.3f} at 2 N, ratio {rec['ratio_2n']:.3f} (at least "
           f"{TWICE_NV_RATIO})")
     return rec["ratio_2n"] >= TWICE_NV_RATIO

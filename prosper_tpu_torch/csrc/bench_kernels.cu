@@ -57,10 +57,10 @@
 //
 // The loop probes. One thread (flat, nested, cond) adds s[i % 128], read
 // from shared memory through a volatile pointer so that every iteration
-// loads, into an unsigned (wrapping) sum; the vector probe is one
-// 256-thread block, one element of the (2, 128) pair per thread, with a
-// block-wide min per iteration (warp shuffles, then shared memory and one
-// __syncthreads, double-buffered). Bound: the dependence chain of one
+// that reads s loads, into an unsigned (wrapping) sum; the vector probe is
+// one 256-thread block, one element of the (2, 128) pair per thread, with
+// a block-wide min per iteration (warp shuffles, then shared memory and
+// one __syncthreads, double-buffered). Bound: the dependence chain of one
 // iteration times the iteration count.
 //
 // The flat probe. loop_flat_kernel adds runs of FLAT_RUN values from a
@@ -69,6 +69,14 @@
 // volatile 32-bit load and one add into one sum an iteration. Its floor
 // is one warp's issue of those shared-memory loads, about 4 cycles a
 // load, not the chain's 2 cycles an iteration (PERF.md).
+//
+// The conditional probe. loop_cond_kernel adds s[i % 128] where i % 4 ==
+// 0 and 1 elsewhere, so a quarter of its iterations load; it runs the
+// same double buffer with STEP 4 (runs_sum<COND_RUN, 4>): a run's
+// COND_RUN / 4 volatile loads issued a run ahead of its adds, one sum.
+// The rolled loop it replaced waited out each load's latency on the sum;
+// now one warp's issue of the loads, about 5 cycles a load (1.3 cycles an
+// iteration), is the floor (PERF.md).
 //
 // The nested probe asks what it costs to enter an inner loop. Its inner
 // trip count is a template parameter, as the Pallas kernel's K is a
@@ -97,6 +105,7 @@
 #define TF_STRIDE 136  // tf32 row stride: conflict-free B fragment loads
 #define K_STATIC 4  // the nested probe's compile-time inner trip count
 #define FLAT_RUN 64  // the flat probe's iterations a run
+#define COND_RUN 128  // the conditional probe's iterations a run
 #define M_SPLIT 4  // X2 Möller: threads a ray, neighbouring lanes
 #define M_THREADS (M_SPLIT * TILE)
 #define P_THREADS (32 * TILE / 16)  // X2 Plücker: a warp a 16-ray tile
@@ -362,44 +371,51 @@ __device__ __forceinline__ void fill_int(int* out, unsigned a) {
 }
 
 // m runs of KT iterations of a += s[i % 128] from a register double
-// buffer: x holds run e's KT values and y run e + 1's, and after a run's
-// adds the buffer it emptied takes the loads of the run two ahead, from
-// the window base (e KT) mod 128 at compile-time offsets (the loop takes
-// two runs a trip, so the buffers trade roles without a copy; an odd m
-// adds the last run after the loop). Each iteration keeps its one
-// volatile 32-bit load and its add into the one sum; the loads run a
-// run ahead of the adds. Reads past the last run stay inside the
-// window and are never added.
-template <int KT>
+// buffer: x holds run e's loaded values and y run e + 1's, and after a
+// run's adds the buffer it emptied takes the loads of the run two ahead,
+// from the window base (e KT) mod 128 at compile-time offsets (the loop
+// takes two runs a trip, so the buffers trade roles without a copy; an
+// odd m adds the last run after the loop). STEP = 1 (X3c, X3d): each
+// iteration keeps its one volatile 32-bit load and its add into the one
+// sum. STEP = 4 (X3e): iteration i loads s[i % 128] when i % 4 == 0 and
+// adds 1 otherwise, so a run holds KT / 4 loads, at base + 4q, each with
+// its three adds of 1 after it. The loads run a run ahead of the adds.
+// Reads past the last run stay inside the window and are never added.
+template <int KT, int STEP>
 __device__ __forceinline__ void load_run(const volatile int* vs, int e,
-                                         int (&buf)[KT]) {
-    static_assert(128 % KT == 0, "a run does not wrap s");
+                                         int (&buf)[KT / STEP]) {
+    static_assert(128 % KT == 0 && KT % STEP == 0, "a run does not wrap s");
     const int base = (e * KT) & 127;
 #pragma unroll
-    for (int j = 0; j < KT; ++j) buf[j] = vs[base + j];
+    for (int j = 0; j < KT / STEP; ++j) buf[j] = vs[base + STEP * j];
 }
 
-template <int KT>
-__device__ __forceinline__ void add_run(unsigned& a, const int (&buf)[KT]) {
+template <int KT, int STEP>
+__device__ __forceinline__ void add_run(unsigned& a,
+                                        const int (&buf)[KT / STEP]) {
 #pragma unroll
-    for (int j = 0; j < KT; ++j) a += (unsigned)buf[j];
+    for (int j = 0; j < KT / STEP; ++j) {
+        a += (unsigned)buf[j];
+#pragma unroll
+        for (int t = 1; t < STEP; ++t) a += 1u;
+    }
 }
 
-template <int KT>
+template <int KT, int STEP = 1>
 __device__ __forceinline__ unsigned runs_sum(const volatile int* vs, int m) {
     unsigned a = 0u;
-    int x[KT], y[KT];
-    load_run(vs, 0, x);
-    load_run(vs, 1, y);
+    int x[KT / STEP], y[KT / STEP];
+    load_run<KT, STEP>(vs, 0, x);
+    load_run<KT, STEP>(vs, 1, y);
     int i = 0;
 #pragma unroll 1
     for (; i + 2 <= m; i += 2) {
-        add_run(a, x);
-        load_run(vs, i + 2, x);
-        add_run(a, y);
-        load_run(vs, i + 3, y);
+        add_run<KT, STEP>(a, x);
+        load_run<KT, STEP>(vs, i + 2, x);
+        add_run<KT, STEP>(a, y);
+        load_run<KT, STEP>(vs, i + 3, y);
     }
-    if (i < m) add_run(a, x);
+    if (i < m) add_run<KT, STEP>(a, x);
     return a;
 }
 
@@ -442,18 +458,17 @@ __global__ void loop_nested_kernel(const int* __restrict__ s, int m, int k,
     fill_int(out, a);
 }
 
+// X3e: n iterations, n / COND_RUN runs of COND_RUN (runs_sum's STEP 4),
+// then the rest one by one, the condition on the absolute i.
 __global__ void loop_cond_kernel(const int* __restrict__ s, int n,
                                  int* __restrict__ out) {
     __shared__ int s_s[128];
     for (int i = 0; i < 128; ++i) s_s[i] = s[i];
     volatile int* vs = s_s;
-    unsigned a = 0u;
-    for (int i = 0; i < n; ++i) {
-        if ((i & 3) == 0)
-            a += (unsigned)vs[i & 127];
-        else
-            a += 1u;
-    }
+    const int runs = n / COND_RUN;
+    unsigned a = runs_sum<COND_RUN, 4>(vs, runs);
+    for (int i = runs * COND_RUN; i < n; ++i)
+        a += (i & 3) == 0 ? (unsigned)vs[i & 127] : 1u;
     fill_int(out, a);
 }
 

@@ -60,9 +60,9 @@
 // What bounds the walk is the leaf tests' FP32 work, in which each test's
 // IEEE division keeps its branch, and the lanes' dependent node loads, which
 // the warp's other lanes overlap only while they too are walking; X3a adds
-// two counters in registers. K10 tests the clusters of its dense list with
-// the same warp-shared leaf test (warp_leaf); K9 and K11-K13 are their own
-// kernels. Node layouts, persistent threads, ray reordering and wgmma are
+// two counters in registers. K10 and K9 test the clusters of their dense
+// list with the same warp-shared leaf test (warp_leaf); K11-K13 are their
+// own kernels. Node layouts, persistent threads, ray reordering and wgmma are
 // later work.
 
 #include <cuda_runtime.h>
@@ -160,7 +160,7 @@ __device__ __forceinline__ int next_leaf(const float* __restrict__ bounds,
     return -1;
 }
 
-// The warp-shared leaf test of K1-K4 and K10. Every lane of the warp
+// The warp-shared leaf test of K1-K4, K9 and K10. Every lane of the warp
 // calls it with the same src, the owner: lane src's ray, with best t
 // h.t, is tested against cluster `leaf` of lane src. ANY=true: returns
 // on every lane whether some triangle hits (t_min < t < best;
@@ -602,6 +602,39 @@ __device__ __forceinline__ int dense_cull(
     return count;
 }
 
+// Step 3 of K10 and K9, the walk: each warp walks the packet's list in
+// id order on its own, with no block barrier. A listed cluster's owners
+// are the lanes still walking (can_hit; ANY: not yet occluded) whose
+// retest of its leaf box (node_test on node_of[c], the test K2-K4 make
+// at that leaf) enters before their own best t (t_max for an any hit);
+// for each owner, lowest lane first, the whole warp tests the owner's
+// ray against the cluster's 128 triangles (warp_leaf<ANY>: 4 a lane, on
+// full 128-byte slab lines). A warp leaves the list once none of its
+// lanes is walking.
+template <bool ANY>
+__device__ __forceinline__ void dense_walk(const float* __restrict__ slabs,
+                                           int rows,
+                                           const float* __restrict__ bounds,
+                                           const int* __restrict__ node_of,
+                                           const int* s_list, int count,
+                                           const Ray& r, bool can_hit,
+                                           float t_min, Hit& h) {
+    for (int i = 0; i < count; ++i) {
+        const bool done = !can_hit || (ANY && h.tri >= 0);
+        if (__all_sync(FULL_MASK, done)) break;
+        const int c = s_list[i];
+        float en;
+        unsigned owners = __ballot_sync(
+            FULL_MASK,
+            !done && node_test(bounds, __ldg(node_of + c), r, h.t, en));
+        while (owners != 0) {
+            const int src = __ffs(owners) - 1;
+            owners &= owners - 1;
+            warp_leaf<ANY>(slabs, rows, c, src, r, t_min, h);
+        }
+    }
+}
+
 __global__ void __launch_bounds__(DENSE_TILE)
 dense_any_kernel(const float* __restrict__ slabs, int rows, int C,
                  const float* __restrict__ bounds,
@@ -627,23 +660,9 @@ dense_any_kernel(const float* __restrict__ slabs, int rows, int C,
         dense_cull(C, bounds, meta, node_of, live, r, can_hit, tmax, s_list,
                    reinterpret_cast<unsigned*>(s_list + C), sh);
 
-    // 3. the walk, warp by warp, each listed cluster's owners tested by
-    // the whole warp
     Hit h = {tmax, 0.0f, 0.0f, -1};  // h.tri >= 0: occluded
-    for (int i = 0; i < count; ++i) {
-        const bool done = !can_hit || h.tri >= 0;
-        if (__all_sync(FULL_MASK, done)) break;
-        const int c = s_list[i];
-        float en;
-        unsigned owners = __ballot_sync(
-            FULL_MASK,
-            !done && node_test(bounds, __ldg(node_of + c), r, tmax, en));
-        while (owners != 0) {  // lowest owner lane first
-            const int src = __ffs(owners) - 1;
-            owners &= owners - 1;
-            warp_leaf<true>(slabs, rows, c, src, r, t_min, h);
-        }
-    }
+    dense_walk<true>(slabs, rows, bounds, node_of, s_list, count, r,
+                     can_hit, t_min, h);
     if (active) occ[k] = h.tri >= 0 ? 1 : 0;
 }
 
@@ -677,15 +696,20 @@ dense_cull_kernel(int C, const float* __restrict__ bounds,
 
 // K9, the dense-cull closest hit (trace_bvh.py trace_closest_bvh_dense
 // :1144, _closest_body(dense=True), _make_descent_dense :370): K10's
-// steps 1 and 2, then each warp walks the list in id order with no block
-// barrier; a lane retests the cluster's leaf box against its own best t
-// (node_test, the test K2 makes at that leaf) and, when it enters before
-// it, runs Möller over the 128 triangles with a strict t < best. The
-// list in id order and the lanes in order give the lowest tri among
-// exact t ties. JAX pops the clusters nearest first and stops once the
-// nearest entry lies beyond every ray's best t; the id order tests more
-// clusters and finds the same hit. Output: K2's (R, 8) rows, a miss has
-// t = t_max and tri = -1.
+// steps 1 and 2, then K10's walk with the closest-hit leaf test
+// (dense_walk<false>): each warp walks the list in id order; the lanes
+// whose retest of the cluster's leaf box enters before their own best t
+// are its owners, and the whole warp tests each owner's ray against the
+// cluster's 128 triangles (warp_leaf<false> keeps the lowest j among
+// equal t). An owner's hit lies below its best, so it always takes
+// it, and a later cluster's equal t never replaces it: with the list in
+// id order each ray keeps the lowest tri among exact t ties, the rows of
+// a loop over the list and the 128 lanes with a strict t < best. JAX
+// pops the clusters nearest first and stops once the nearest entry
+// lies beyond every ray's best t; the id order tests more clusters and
+// finds the same hit. What bounds it: the owners' tests (FP32 work, each
+// IEEE division with its branch) and the cull. Output: K2's (R, 8) rows,
+// a miss has t = t_max and tri = -1.
 __global__ void __launch_bounds__(DENSE_TILE)
 dense_closest_kernel(const float* __restrict__ slabs, int rows, int C,
                      const float* __restrict__ bounds,
@@ -712,25 +736,8 @@ dense_closest_kernel(const float* __restrict__ slabs, int rows, int C,
                    reinterpret_cast<unsigned*>(s_list + C), sh);
 
     Hit h = {tmax, 0.0f, 0.0f, -1};
-    for (int i = 0; i < count; ++i) {
-        const int c = s_list[i];
-        float en;
-        const bool need =
-            can_hit && node_test(bounds, __ldg(node_of + c), r, h.t, en);
-        if (!__any_sync(0xffffffffu, need)) continue;
-        if (need) {
-            const float* s = slabs + (size_t)c * rows * LANES;
-            for (int j = 0; j < LANES; ++j) {
-                float t, u, v;
-                if (moller(s, j, r, t_min, h.t, t, u, v)) {
-                    h.t = t;
-                    h.u = u;
-                    h.v = v;
-                    h.tri = c * LANES + j;
-                }
-            }
-        }
-    }
+    dense_walk<false>(slabs, rows, bounds, node_of, s_list, count, r,
+                      can_hit, t_min, h);
     if (!active) return;
     float* o = out + 8 * (size_t)k;
     o[0] = h.t;

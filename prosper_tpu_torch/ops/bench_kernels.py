@@ -18,7 +18,8 @@ and a launch counter:
 - `loop_flat`, `loop_nested`, `loop_cond`, `loop_vec` (X3c-f,
   scripts/bench_loop_overhead.py :58, :88, :113, :143): loop fixed costs.
   X3d has two kernel instances: the inner trip count K_STATIC fixed at
-  compile time (the script's K) and any k read at run time.
+  compile time (the script's K) and any k read at run time. X3e adds
+  runs of COND_RUN iterations, then the rest one by one.
 
 The triangle loops take cols (B, 6, 256) f32, rows ox oy oz dx dy dz of
 block b's 256 rays, and return (best (B * 256,), t) with t (B * 256,
@@ -46,6 +47,7 @@ T_MIN = 1e-4  # the scripts' t_min (bench_mxu_isect.py:112)
 MOLLER, PLUCKER, PLUCKER_PRE = 0, 1, 2
 CHAIN_X2, CHAIN_X3B = 0, 1
 K_STATIC = 4  # X3d's compile-time inner trip count (K of the script)
+COND_RUN = 128  # X3e's iterations a run (csrc/bench_kernels.cu COND_RUN)
 PLAIN_BLOCKS = 512  # blocks of rays the plain loops take at once
 
 

@@ -30,8 +30,13 @@ hand-written CUDA kernel in csrc/trace_bvh.cu with a plain PyTorch twin:
   K4's. The policy config.policy.any_tracer = "dense" selects it
   (ops/trace.make_tracer).
 - `trace_closest_bvh_dense` (K9, trace_bvh.py:1144): K2's closest hit
-  through K10's dense cull -> (R, 8) rows, with K10's `skip_mask`. No
-  frame calls it, in the JAX package either; chip_smoke.py checks it.
+  through K10's dense cull -> (R, 8) rows, with K10's `skip_mask`; its
+  walk is K10's (each listed cluster's owners tested by the whole warp)
+  with the closest-hit leaf test, so its rows equal its plain version's
+  bit for bit. No frame calls it, in the JAX package either;
+  chip_smoke.py checks it and prints `dense_walk_counts` (plain
+  PyTorch, for measurement only: the clusters K9's walk tests per ray
+  and per warp).
 - `dense_cull_counts`: K10's measurement form (csrc/trace_bvh.cu
   `dense_cull_kernel`, which chip_smoke.py alone calls; no frame selects
   it): the dense cull alone -> (ceil(R / 128),) i32, each packet's list
@@ -521,6 +526,58 @@ def trace_closest_bvh_dense_plain(slabs, bounds, meta, ray_o, ray_d, t_min,
     _, cmin, cmax, dead = dense_aux(slabs.shape[0], bounds, meta, skip_mask)
     return _closest_rows(slabs, cmin, cmax, ray_o, ray_d, t_min, t_max,
                          live=~dead)
+
+
+def dense_walk_counts(slabs, bounds, meta, ray_o, ray_d, t_min, t_max,
+                      skip_mask=None):
+    """What K9's walk tests -> (owned (R,) i32, the clusters each ray
+    owns; entered (ceil(R / 32),) i32, per warp of 32 consecutive rays
+    the clusters some lane owns, each of which the walk enters). A ray
+    with t_max > t_min owns live cluster c when it enters c's leaf box
+    before its best t over the clusters before c in id order (the walk's
+    ballot, node_test against h.t); the whole warp then tests c once for
+    each owner. The best t is the running minimum of every entered
+    cluster's nearest hit, which equals the walk's unless a hit's
+    rounded t lies below its own box's rounded entry. Plain PyTorch, for
+    measurement only; inputs as trace_closest_bvh_dense."""
+    dense_walk_counts.calls += 1
+    dev = ray_o.device
+    R, C = ray_o.shape[0], slabs.shape[0]
+    t_max = as_tmax(t_max, R, dev)
+    _, cmin, cmax, dead = dense_aux(C, bounds, meta, skip_mask)
+    inv = safe_inv_dir(ray_d)
+    owned = torch.zeros((R,), dtype=torch.int32, device=dev)
+    entered = torch.zeros((-(-R // 32),), dtype=torch.int32, device=dev)
+    ray_chunk, pair_chunk = _chunks(dev)  # ray_chunk: whole warps
+    for r0 in range(0, R, ray_chunk):
+        r1 = min(R, r0 + ray_chunk)
+        tm = t_max[r0:r1]
+        enter, exit_ = slab_enter_exit(ray_o[r0:r1, None], inv[r0:r1, None],
+                                       cmin[None], cmax[None])
+        ok = ((enter <= exit_) & (enter < tm[:, None])
+              & (tm > t_min)[:, None] & ~dead[None])
+        near = torch.full(ok.shape, float("inf"), device=dev)
+        ri, ci = torch.nonzero(ok, as_tuple=True)
+        for p0 in range(0, ri.shape[0], pair_chunk):
+            rl, c = ri[p0:p0 + pair_chunk], ci[p0:p0 + pair_chunk]
+            r = rl + r0
+            s = slabs[c, 0:ROWS_PLAIN, :]
+            hit, t, _, _ = moller_trumbore(
+                ray_o[r][:, None, :], ray_d[r][:, None, :],
+                s[:, 0:3].transpose(1, 2), s[:, 3:6].transpose(1, 2),
+                s[:, 6:9].transpose(1, 2), t_min, t_max[r][:, None])
+            near[rl, c] = torch.where(hit, t, float("inf")).min(dim=1).values
+        best = torch.minimum(near, tm[:, None]).cummin(dim=1).values
+        before = torch.cat([tm[:, None], best[:, :-1]], dim=1)
+        own = ok & (enter < before)
+        owned[r0:r1] = own.sum(1, dtype=torch.int32)
+        own = torch.nn.functional.pad(own, (0, 0, 0, -(r1 - r0) % 32))
+        entered[r0 // 32:r0 // 32 + own.shape[0] // 32] = (
+            own.reshape(-1, 32, C).any(dim=1).sum(1, dtype=torch.int32))
+    return owned, entered
+
+
+dense_walk_counts.calls = 0
 
 
 def nodes8_leaf_boxes(nodes8: torch.Tensor, n_clusters: int):

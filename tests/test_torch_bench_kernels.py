@@ -300,6 +300,45 @@ def test_loop_flat_plain_equals_its_closed_form(n):
     assert got.shape == (8, 128) and bool((got == want).all())
 
 
+_KT = bk.COND_RUN
+
+
+@pytest.mark.parametrize("n", sorted({0, 1, 3, 4, 5, 128, _KT - 1, _KT,
+                                      _KT + 1, 2 * _KT - 1, 2 * _KT + 1,
+                                      200_000}))
+def test_loop_cond_plain_equals_its_closed_form(n):
+    """X3e's plain version (what loop_cond runs on the CPU) at counts
+    around the kernel's COND_RUN-iteration runs: one add of 1 for each i
+    with i % 4 != 0, and s[i % 128] for each i % 4 == 0, that is whole
+    turns of s[0::4] plus its first entries, wrapped to int32. The
+    seeded s is large enough that the sum at 200,000 iterations leaves
+    int32."""
+    rng = np.random.default_rng(n % 991)
+    s = rng.integers(-2**31, 2**31 - 1, 128, dtype=np.int64)
+    loads = -(-n // 4)  # i = 0, 4, 8, ... below n
+    turns, rest = divmod(loads, 32)
+    window = s[0::4]
+    total = (n - loads) + turns * int(window.sum()) + int(window[:rest].sum())
+    want = (total + 2**31) % 2**32 - 2**31
+    if n == 200_000:
+        assert want != total  # the wrap is exercised
+    bk.loop_cond.launches = 0
+    got = bk.loop_cond(torch.as_tensor(s.astype(np.int32)), n)
+    assert bk.loop_cond.launches == 0  # CPU: the plain version
+    assert got.shape == (8, 128) and bool((got == want).all())
+
+
+def test_cond_run_is_the_kernels():
+    """bk.COND_RUN, the run length the card tests count around, is the
+    kernel's, a multiple of 4 that divides the 128-entry window."""
+    src = open(os.path.join(REPO, "prosper_tpu_torch", "csrc",
+                            "bench_kernels.cu")).read()
+    line = next(ln for ln in src.splitlines()
+                if ln.startswith("#define COND_RUN "))
+    assert int(line.split()[2]) == bk.COND_RUN
+    assert bk.COND_RUN % 4 == 0 and 128 % bk.COND_RUN == 0
+
+
 def test_nested_instance_choice():
     """X3d's kernel instance: the compile-time K_STATIC (the script's K)
     for k == 4, the generic one for any other k or when asked; an

@@ -8,7 +8,8 @@ there run
 Tolerances as chip_smoke.py states them: hit/miss and occlusion equal,
 tri equal except exact t ties, t within rtol 1e-5, attributes 1e-4; the
 shading kernel within rtol 1e-5 / atol 1e-6 of its plain version; the
-pair-block kernel's slots equal to its plain version's; K2's rows 0-5
+pair-block kernel's slots equal to its plain version's; K9's rows equal
+to its plain version's bit for bit, ties included; K2's rows 0-5
 equal to the lockstep plain walk's and the counting K2's bit for bit,
 ties included, and K1's and K4's rows 0-15 to the lockstep plain walk's
 (under K4's skip mask) and the counting K2's through the attribute
@@ -640,8 +641,10 @@ def test_hybrid_matches_k2_k3_on_card(cuda):
 
 @pytest.mark.parametrize("skip", [False, True], ids=["all", "skip_mask"])
 def test_dense_closest_matches_plain_on_card(cuda, skip):
-    """K9 against its plain version, and over every cluster against K2,
-    on incoherent rays; with a skip mask no hit on a masked cluster."""
+    """K9 against its plain version, bit for bit, and over every cluster
+    against K2 (exact t ties may differ: K2 keeps the first-visited
+    cluster's copy), on incoherent rays; with a skip mask no hit on a
+    masked cluster."""
     fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
                              height=32)
     frame, slabs = sc["frame"], sc["geom"]["packed9"]
@@ -655,7 +658,7 @@ def test_dense_closest_matches_plain_on_card(cuda, skip):
     got = tb.trace_closest_bvh_dense(slabs, *bvh, o, d, 1e-4, t_max,
                                      skip_mask=mask)
     torch.cuda.synchronize()
-    _rows_agree(got, tb.trace_closest_bvh_dense_plain(
+    assert torch.equal(got, tb.trace_closest_bvh_dense_plain(
         slabs, *bvh, o, d, 1e-4, t_max, skip_mask=mask))
     tri = got[:, 1].long()
     assert (tri >= 0).any()
@@ -665,6 +668,44 @@ def test_dense_closest_matches_plain_on_card(cuda, skip):
         _rows_agree(got, tb.trace_closest_bvh(slabs, *bvh, o, d, 1e-4, t_max))
         tb.check_stack_overflow(cuda)
     assert tb.trace_closest_bvh_dense.launches == 1
+
+
+@pytest.mark.parametrize("skip", ["none", "keep_both", "drop_0"])
+def test_dense_closest_takes_the_lowest_copy_on_ties_on_card(cuda, skip):
+    """testing.make_tie_scene (one triangle copied into lanes of clusters
+    0 and 1, up and down rays alternating in each warp): K9 gives every
+    ray the lowest copy over the live clusters (tri 9, or 168 when the
+    mask drops cluster 0), its rows its plain version's bit for bit."""
+    slabs, bounds, meta, o, d, _ = (
+        torch.as_tensor(a, device=cuda) for a in make_tie_scene(100))
+    mask = {"none": None,
+            "keep_both": torch.ones(2, dtype=torch.bool, device=cuda),
+            "drop_0": torch.tensor([False, True], device=cuda)}[skip]
+    args = (slabs, bounds, meta, o, d, 1e-4,
+            torch.full((100,), float("inf"), device=cuda))
+    got = tb.trace_closest_bvh_dense(*args, skip_mask=mask)
+    assert torch.equal(got, tb.trace_closest_bvh_dense_plain(
+        *args, skip_mask=mask))
+    assert bool((got[:, 1] == (168 if skip == "drop_0" else 9)).all())
+    assert bool((got[:, 0] == 5.0).all())
+
+
+def test_dense_closest_misses_when_the_mask_drops_every_cluster_on_card(
+        cuda):
+    """K9 with a skip mask that keeps no cluster: every ray misses, t =
+    its t_max and tri = -1, as the plain version gives."""
+    fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=64, width=32,
+                             height=32)
+    frame, slabs = sc["frame"], sc["geom"]["packed9"]
+    o, d, t_max = _incoherent_rays(sc, 1031, 5, cuda)
+    args = (slabs, frame["bvh_bounds"], frame["bvh_meta"], o, d, 1e-4,
+            t_max)
+    none = torch.zeros(64, dtype=torch.bool, device=cuda)
+    got = tb.trace_closest_bvh_dense(*args, skip_mask=none)
+    assert torch.equal(got, tb.trace_closest_bvh_dense_plain(
+        *args, skip_mask=none))
+    assert torch.equal(got[:, 0], t_max) and bool((got[:, 1] == -1).all())
+    assert bool((tb.trace_closest_bvh_dense(*args)[:, 1] >= 0).any())
 
 
 @pytest.mark.parametrize("mode", ["pt", "restir"])
@@ -916,6 +957,36 @@ def test_loop_flat_takes_twice_the_time_at_twice_the_iterations_on_card(
     s = torch.arange(128, dtype=torch.int32, device=cuda)
     n = 200_000
     ms = {k: bk.event_ms(lambda: bk.loop_flat(s, k), 5) for k in (n, 2 * n)}
+    assert ms[2 * n] / ms[n] >= 1.8, ms
+
+
+_KT = bk.COND_RUN
+
+
+@pytest.mark.parametrize("n", sorted({0, 1, 3, 4, 5, 128, _KT - 1, _KT,
+                                      _KT + 1, 2 * _KT - 1, 2 * _KT + 1,
+                                      200_000}))
+def test_loop_cond_matches_plain_on_card(cuda, n):
+    """X3e at counts around its COND_RUN-iteration runs and at the
+    script's N = 200,000: equal to its plain version on the script's s
+    and a seeded one."""
+    rng = np.random.default_rng(n % 991)
+    seeded = torch.as_tensor(rng.integers(-2**31, 2**31 - 1, 128),
+                             dtype=torch.int32, device=cuda)
+    script = torch.arange(128, dtype=torch.int32, device=cuda)
+    bk.loop_cond.launches = 0
+    for s in (script, seeded):
+        assert torch.equal(bk.loop_cond(s, n), bk.loop_cond_plain(s, n))
+    assert bk.loop_cond.launches == 2
+
+
+def test_loop_cond_takes_twice_the_time_at_twice_the_iterations_on_card(
+        cuda):
+    """X3e at 2 N iterations (the script's N = 200,000) takes at least
+    1.8x its time at N: no iteration is folded away."""
+    s = torch.arange(128, dtype=torch.int32, device=cuda)
+    n = 200_000
+    ms = {k: bk.event_ms(lambda: bk.loop_cond(s, k), 5) for k in (n, 2 * n)}
     assert ms[2 * n] / ms[n] >= 1.8, ms
 
 

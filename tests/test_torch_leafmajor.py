@@ -407,6 +407,38 @@ def test_k9_plain_matches_pallas(skip):
     assert trace_bvh.trace_closest_bvh_dense.launches == 0
 
 
+@pytest.mark.parametrize("skip", ["none", "keep_both", "drop_0"])
+def test_k9_plain_takes_the_lowest_copy_on_ties(skip):
+    """testing.make_tie_scene: one triangle copied into several lanes of
+    clusters 0 and 1, up and down rays alternating. K9's plain version
+    (what its kernel equals bit for bit on the card) gives every ray the
+    lowest copy over the live clusters: tri 9, or tri 168 when the skip
+    mask drops cluster 0. The Pallas kernel in interpret mode pops the
+    packet's nearest cluster first (cluster 1, entered at t = 1 by the up
+    rays) and keeps its lowest copy, 168, at the same t: hit, t, u and v
+    equal, tri an exact tie."""
+    slabs, bounds, meta, o, d, _ = ttesting.make_tie_scene(64)
+    mask = {"none": None, "keep_both": np.ones(2, bool),
+            "drop_0": np.array([False, True])}[skip]
+    t_max = np.full(64, np.inf, np.float32)
+    got = trace_bvh.trace_closest_bvh_dense(
+        *(_t(a) for a in (slabs, bounds, meta, o, d)), 1e-4, _t(t_max),
+        skip_mask=None if mask is None else _t(mask))
+    with interpret_mode():
+        want = jtrace_bvh.trace_closest_bvh_dense(
+            *(_j(a) for a in (slabs, bounds, meta, o, d)), 1e-4, _j(t_max),
+            skip_mask=None if mask is None else _j(mask.astype(np.int32)))
+    lowest = 168 if skip == "drop_0" else 9
+    np.testing.assert_array_equal(got[:, 1].numpy(), lowest)
+    np.testing.assert_array_equal(np.asarray(want["tri"]), 168)
+    np.testing.assert_array_equal(got[:, 0].numpy(), np.asarray(want["t"]))
+    np.testing.assert_array_equal(got[:, 0].numpy(), 5.0)
+    for col, key in ((2, "u"), (3, "v")):
+        np.testing.assert_array_equal(got[:, col].numpy(),
+                                      np.asarray(want[key]))
+    assert trace_bvh.trace_closest_bvh_dense.launches == 0
+
+
 def test_bounce_policy(monkeypatch):
     """make_bounce_tracer: None under "packet", without BVH arrays and
     above LEAFMAJOR_MAX_CLUSTERS; the knob is read at each call; an

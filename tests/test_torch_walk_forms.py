@@ -1,4 +1,5 @@
-"""The measurement forms of K5 and K10 as their plain versions on the CPU.
+"""The measurement forms of K5 and K10 as their plain versions on the CPU,
+and K9's walk counts.
 
 - `shade_tiles.shade_walk_counts` (K5's walk without the shading): on a
   hand-built G-buffer whose warps straddle two z-slices, lanes reach
@@ -10,6 +11,9 @@
   the number of live clusters whose leaf box some live ray enters,
   against a loop over rays and clusters in numpy float32 with the slab
   test's operations in the kernel's order. Exact.
+- `trace_bvh.dense_walk_counts` (plain PyTorch: the clusters K9's walk
+  tests per ray and per warp): against a walk of each ray's clusters in
+  id order, best t lowered only by the clusters it owns. Exact.
 """
 
 import numpy as np
@@ -168,3 +172,54 @@ def test_cull_counts_match_a_loop_over_rays(cull_case, masked):
                                 torch.as_tensor(d), 5.0,
                                 torch.as_tensor(t_max), skip_mask=mask)
     assert (none == 0).all()
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "skip_mask"])
+def test_dense_walk_counts_match_a_walk_in_id_order(cull_case, masked):
+    """`trace_bvh.dense_walk_counts` (what K9's walk tests) against a
+    loop over each ray's live clusters in id order: the ray owns a
+    cluster whose leaf box it enters before its best t so far, and only
+    an owned cluster's nearest hit (the plain closest hit over that one
+    cluster) lowers the best; a warp enters the clusters some lane owns.
+    Exact."""
+    scene, o, d, t_max = cull_case
+    frame, slabs = scene["frame"], scene["geom"]["packed9"]
+    bounds, meta = frame["bvh_bounds"], frame["bvh_meta"]
+    C, R = slabs.shape[0], o.shape[0]
+    live = np.ones(C, bool)
+    if masked:
+        live = np.random.default_rng(4).random(C) > 0.4
+    args = (slabs, bounds, meta, torch.as_tensor(o), torch.as_tensor(d),
+            0.1, torch.as_tensor(t_max))
+    calls = tb.dense_walk_counts.calls
+    owned, entered = tb.dense_walk_counts(
+        *args, skip_mask=torch.as_tensor(live) if masked else None)
+    assert tb.dense_walk_counts.calls == calls + 1
+    near = np.full((R, C), np.inf, np.float32)
+    for c in np.flatnonzero(live):
+        only = torch.zeros(C, dtype=torch.bool)
+        only[c] = True
+        rows = tb.trace_closest_bvh_dense_plain(*args, skip_mask=only)
+        hit = rows[:, 1].numpy() >= 0
+        near[hit, c] = rows[hit, 0].numpy()
+    _, cmin, cmax, _ = tb.dense_aux(C, bounds, meta)
+    inv = tb.safe_inv_dir(torch.as_tensor(d))
+    enter, exit_ = tb.slab_enter_exit(torch.as_tensor(o)[:, None],
+                                      inv[:, None], cmin[None], cmax[None])
+    enter, exit_ = enter.numpy(), exit_.numpy()
+    want = np.zeros((R, C), bool)
+    for k in range(R):
+        if not t_max[k] > 0.1:
+            continue
+        best = t_max[k]
+        for c in np.flatnonzero(live):
+            if enter[k, c] <= exit_[k, c] and enter[k, c] < best:
+                want[k, c] = True
+                best = min(best, near[k, c])
+    pad = np.zeros((-R % 32, C), bool)
+    by_warp = np.concatenate([want, pad]).reshape(-1, 32, C).any(axis=1)
+    assert owned.dtype == entered.dtype == torch.int32
+    np.testing.assert_array_equal(owned.numpy(), want.sum(1))
+    np.testing.assert_array_equal(entered.numpy(), by_warp.sum(1))
+    assert entered.shape == (10,) and 0 < owned.sum() < want.size
+    assert (owned.numpy() < (enter <= exit_).sum(1)).any()
