@@ -1,7 +1,7 @@
 // BVH ray-trace kernels for Hopper (sm_90a): the port of the six Pallas
 // TPU kernels of ops/trace_bvh.py over BVH2 node arrays and of its three
 // over 8-wide node tables (trace_closest_bvh8, trace_closest_bvh8_full,
-// trace_any_bvh8, at walk8 below).
+// trace_any_bvh8: K11-K13 below).
 //
 //   trace_primary_bvh_full  replaces prosper_tpu/ops/trace_bvh.py
 //                           trace_primary_bvh_full (:1431): in-kernel
@@ -61,9 +61,13 @@
 // IEEE division keeps its branch, and the lanes' dependent node loads, which
 // the warp's other lanes overlap only while they too are walking; X3a adds
 // two counters in registers. K10 and K9 test the clusters of their dense
-// list with the same warp-shared leaf test (warp_leaf); K11-K13 are their
-// own kernels. Node layouts, persistent threads, ray reordering and wgmma are
-// later work.
+// list with the same warp-shared leaf test (warp_leaf). K11 and K12
+// (warp_walk8) walk 8-wide nodes per lane and share the same leaf round
+// (leaf_round) under the (t, tri) tie rule of their plain versions, bound
+// by the lanes' 8-wide interior steps and the leaf tests; K13 keeps the
+// one-thread 8-wide walk, bound by its lanes' serial 128-test leaf loops,
+// until its own redesign. Node layouts, persistent threads, ray reordering
+// and wgmma are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -160,13 +164,13 @@ __device__ __forceinline__ int next_leaf(const float* __restrict__ bounds,
     return -1;
 }
 
-// The warp-shared leaf test of K1-K4, K9 and K10. Every lane of the warp
+// The warp-shared leaf test of K1-K4, K9-K12. Every lane of the warp
 // calls it with the same src, the owner: lane src's ray, with best t
 // h.t, is tested against cluster `leaf` of lane src. ANY=true: returns
 // on every lane whether some triangle hits (t_min < t < best;
 // ray_common.cuh warp_any, which K7 shares), and the owner sets h.tri =
-// leaf * LANES (occluded). Otherwise returns whether
-// the owner's row changed, and the owner takes the hit.
+// leaf * LANES (occluded). Otherwise returns whether some triangle hits,
+// and the owner takes the hit by the rule below.
 //
 // Lane l tests triangles l + 32q (q = 0..3) against the owner's ray with
 // t_upper = best, every slab load one full 128-byte line across the
@@ -176,8 +180,16 @@ __device__ __forceinline__ int next_leaf(const float* __restrict__ bounds,
 // same triangle: the lowest t below best and, among equal t, the lowest
 // j. Every hit lies below best, so the owner always takes it, and a
 // later cluster's equal t never replaces it: the earlier visit keeps a
-// tie across clusters.
-template <bool ANY>
+// tie across clusters (K1-K4, K9, X3a).
+//
+// LEXMIN (K11, K12): the (t, tri) rule of the 8-wide walk, whose rows
+// are the lexicographic minimum of (t, tri) over every entered leaf box.
+// The lanes test with t_upper = INF, so the warp's pick is the cluster's
+// lowest (t, j), and the owner takes it when t < h.t, or t == h.t and
+// the tri is lower than a hit it holds: what a loop over j = 0..127 with
+// that comparison and t_upper = INF keeps, since a triangle the pick
+// beats in (t, tri) could not have replaced the pick.
+template <bool ANY, bool LEXMIN = false>
 __device__ __forceinline__ bool warp_leaf(const float* __restrict__ slabs,
                                           int rows, int leaf, int src,
                                           const Ray& r, float t_min, Hit& h) {
@@ -190,13 +202,14 @@ __device__ __forceinline__ bool warp_leaf(const float* __restrict__ slabs,
         if (any && lane == src) h.tri = c * LANES;
         return any;
     }
+    const float t_upper = LEXMIN ? INF : best;
     const float* s = slabs + (size_t)c * rows * LANES + lane;
-    float bt = best, bu = 0.0f, bv = 0.0f;
+    float bt = t_upper, bu = 0.0f, bv = 0.0f;
     int bj = -1;
 #pragma unroll
     for (int j = 0; j < LANES; j += 32) {
         float t, u, v;
-        if (moller(s, j, q, t_min, best, t, u, v) && t < bt) {
+        if (moller(s, j, q, t_min, t_upper, t, u, v) && t < bt) {
             bt = t;
             bu = u;
             bv = v;
@@ -212,12 +225,38 @@ __device__ __forceinline__ bool warp_leaf(const float* __restrict__ slabs,
     const float t = __shfl_sync(FULL_MASK, bt, w);
     const float u = __shfl_sync(FULL_MASK, bu, w);
     const float v = __shfl_sync(FULL_MASK, bv, w);
-    if (lane == src) {
+    const int tri = c * LANES + (int)j;
+    if (lane == src &&
+        (!LEXMIN || t < h.t || (t == h.t && h.tri >= 0 && tri < h.tri))) {
         h.t = t;
         h.u = u;
         h.v = v;
-        h.tri = c * LANES + (int)j;
+        h.tri = tri;
     }
+    return true;
+}
+
+// A leaf round of the warp walks: when some lane holds a pending leaf
+// (leaf >= 0), the warp tests each, lowest owner lane first, with
+// warp_leaf<ANY, LEXMIN>, and returns true; false when no lane holds
+// one. ANY: an owner with a hit is occluded, and its stack is emptied.
+// COUNT: the owner adds the leaf to n->leaves.
+template <bool ANY, bool LEXMIN, bool COUNT>
+__device__ __forceinline__ bool leaf_round(const float* __restrict__ slabs,
+                                           int rows, int leaf, const Ray& r,
+                                           float t_min, Hit& h, int& sp,
+                                           Visits* n) {
+    const int lane = threadIdx.x & 31;
+    unsigned pending = __ballot_sync(FULL_MASK, leaf >= 0);
+    if (pending == 0) return false;
+    do {  // the pending leaves, lowest owner lane first
+        const int src = __ffs(pending) - 1;
+        pending &= pending - 1;
+        if (COUNT && lane == src) ++n->leaves;
+        if (warp_leaf<ANY, LEXMIN>(slabs, rows, leaf, src, r, t_min, h) &&
+            ANY && lane == src)
+            sp = 0;  // occluded: the owner is done
+    } while (pending != 0);
     return true;
 }
 
@@ -235,7 +274,6 @@ __device__ void warp_walk(const float* __restrict__ slabs, int rows,
                           float t_min, const uint8_t* __restrict__ live,
                           Hit& h, int* __restrict__ err,
                           Visits* n = nullptr) {
-    const int lane = threadIdx.x & 31;
     int stack_node[STACK_CAP];
     float stack_enter[STACK_CAP];
     int sp = 0;
@@ -250,16 +288,9 @@ __device__ void warp_walk(const float* __restrict__ slabs, int rows,
         // each lane walks until it holds a leaf or is done
         const int leaf = next_leaf<LIVE, COUNT>(
             bounds, meta, live, r, h.t, stack_node, stack_enter, sp, ok, n);
-        unsigned pending = __ballot_sync(FULL_MASK, leaf >= 0);
-        if (pending == 0) break;
-        do {  // the pending leaves, lowest owner lane first
-            const int src = __ffs(pending) - 1;
-            pending &= pending - 1;
-            if (COUNT && lane == src) ++n->leaves;
-            if (warp_leaf<ANY>(slabs, rows, leaf, src, r, t_min, h) && ANY &&
-                lane == src)
-                sp = 0;  // occluded: the owner is done
-        } while (pending != 0);
+        if (!leaf_round<ANY, false, COUNT>(slabs, rows, leaf, r, t_min, h, sp,
+                                           n))
+            break;
     }
     if (!ok) atomicExch(err, 1);
 }
@@ -753,24 +784,43 @@ dense_closest_kernel(const float* __restrict__ slabs, int rows, int C,
 // :1977). nodes8 (N8, 8, 8) f32: node n, slot c = [min.xyz | max.xyz | enc
 // | 0], enc >= 0 an internal child's node, enc < 0 leaf cluster -(enc+1),
 // an empty slot NaN bounds and enc 0. The Pallas kernels test the 8 slots
-// against 128 rays in one (8, 128) op and sort key frames; here one thread
-// walks one ray: it loads a node's 8 slots (256 B, as float4s), slab-tests
-// each against its current best t, skips an empty slot by its NaN (fminf
-// and fmaxf return the non-NaN operand, so an empty slot's entry is 0, as
-// a box the ray starts in; only its NaN exit keeps the slab test from
-// entering it, and the walk would re-enter the root at enc 0), orders the
-// entered children near-first with a 19-comparator network in registers
-// and pushes them farthest first. A leaf runs Möller over the cluster's
-// 128 lanes. The closest walks keep the lexicographic minimum of (t, tri):
-// a node whose entry equals the best t is still visited and a tie goes to
-// the lower tri id, so the result is the plain brute force's, whatever the
-// visit order. Bound as K2-K4: divergent walks and scattered slab reads.
+// against 128 rays in one (8, 128) op and sort key frames; here each lane
+// walks its own ray's interior nodes (expand8): it loads a node's 8 slots
+// (256 B, as float4s), slab-tests each against its current best, skips an
+// empty slot by its NaN (fminf and fmaxf return the non-NaN operand, so an
+// empty slot's entry is 0, as a box the ray starts in; only its NaN exit
+// keeps the slab test from entering it, and the walk would re-enter the
+// root at enc 0), orders the entered children near-first with a
+// 19-comparator network in registers and pushes them farthest first, on a
+// stack of STACK8_CAP entries in local memory (1 KB a lane).
+//
+// K11 and K12 (warp_walk8) test leaves as K1-K4 do: a lane walks until it
+// pops a leaf and holds it; when every lane holds one or is done, the warp
+// tests the pending leaves one owner at a time, all 32 lanes on each, 4
+// triangles a lane on full 128-byte slab lines (leaf_round). The rows keep
+// the lexicographic minimum of (t, tri) over every entered leaf box, the
+// plain brute force's whatever the visit order: a box whose entry equals a
+// best t that is a hit is still entered (enters8), and the leaf test runs
+// under the (t, tri) rule (warp_leaf<false, true>) where K2 lets the first
+// visited cluster keep a tie. A lane holds its popped leaf until the warp
+// has tested it, so its pops, prunes and tests are those of its own walk.
+// What bounds them now: the lanes' interior steps (16 scattered float4
+// loads a node, the sort, the local-memory stack) and the leaf tests' FP32
+// work. K13 (walk8) keeps the one-thread walk, in which a lane runs its
+// leaf's 128 tests alone, each with 9 scalar loads of its own cluster:
+// that serial leaf loop bounds it, until its own redesign.
 #define STACK8_CAP 128  // >= 7 * (8-wide depth) + 1 (trace_bvh.STACK8_CAP)
 #define NO_CHILD (-2147483647 - 1)
 
+// Whether an entry en passes the prune: below the best t, or for the
+// closest walks equal to a best t that is a hit (it may still win a tie).
+template <bool ANY>
+__device__ __forceinline__ bool enters8(float en, const Hit& h) {
+    return en < h.t || (!ANY && h.tri >= 0 && en == h.t);
+}
+
 // Slab test of one slot (a = min.xyz | max.x, b = max.yz | enc | 0)
-// against the ray's best t: node_test's arithmetic, with the closest
-// walks also keeping an entry equal to a best t that is a hit.
+// against the ray's best: node_test's arithmetic, with enters8's prune.
 template <bool ANY>
 __device__ __forceinline__ bool slot_test(const float4& a, const float4& b,
                                           const Ray& r, const Hit& h,
@@ -786,7 +836,7 @@ __device__ __forceinline__ bool slot_test(const float4& a, const float4& b,
     float ex = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
                      fmaxf(t0z, t1z));
     enter = en;
-    return en <= ex && (en < h.t || (!ANY && h.tri >= 0 && en == h.t));
+    return en <= ex && enters8<ANY>(en, h);
 }
 
 // enc rides as f32: the sign first, then a rounding cast of |enc|.
@@ -804,9 +854,53 @@ __device__ __forceinline__ int slot_enc(float e) {
         val[j] = tv;                                                  \
     }
 
-// The 8-wide walk. ANY=true stops at the first hit. Returns false on
-// stack overflow.
+// One interior step of the 8-wide walks: tests node enc's 8 slots against
+// the ray's best and pushes the entered children farthest first, so the
+// nearest pops next. Returns false on stack overflow.
 template <bool ANY>
+__device__ __forceinline__ bool expand8(const float4* __restrict__ nodes8,
+                                        int enc, const Ray& r, const Hit& h,
+                                        int* stack_enc, float* stack_enter,
+                                        int& sp) {
+    const float4* nd = nodes8 + (size_t)enc * 16;
+    float key[8];
+    int val[8];
+    int n = 0;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+        const float4 a = __ldg(nd + 2 * c);
+        const float4 b = __ldg(nd + 2 * c + 1);
+        float en;
+        const bool in = !isnan(a.x) && slot_test<ANY>(a, b, r, h, en);
+        key[c] = in ? en : INF;
+        val[c] = in ? slot_enc(b.z) : NO_CHILD;
+        n += in ? 1 : 0;
+    }
+    if (n == 0) return true;
+    if (sp + n > STACK8_CAP) return false;
+    // near first: ascending entry t
+    CE(0, 2) CE(1, 3) CE(4, 6) CE(5, 7)
+    CE(0, 4) CE(1, 5) CE(2, 6) CE(3, 7)
+    CE(0, 1) CE(2, 3) CE(4, 5) CE(6, 7)
+    CE(2, 4) CE(3, 5)
+    CE(1, 4) CE(3, 6)
+    CE(1, 2) CE(3, 4) CE(5, 6)
+    // push the farthest first so the nearest pops next
+#pragma unroll
+    for (int c = 7; c >= 0; --c) {
+        if (val[c] != NO_CHILD) {
+            stack_enc[sp] = val[c];
+            stack_enter[sp] = key[c];
+            ++sp;
+        }
+    }
+    return true;
+}
+#undef CE
+
+// K13's one-thread 8-wide any-hit walk: stops at the first hit t_min < t
+// < h.t, the owner lane testing each leaf's 128 triangles alone. Returns
+// false on stack overflow.
 __device__ bool walk8(const float* __restrict__ slabs, int rows,
                       const float4* __restrict__ nodes8, const Ray& r,
                       float t_min, Hit& h) {
@@ -818,69 +912,73 @@ __device__ bool walk8(const float* __restrict__ slabs, int rows,
     while (sp > 0) {
         --sp;
         const int enc = stack_enc[sp];
-        const float en0 = stack_enter[sp];
-        // pruned by a closer hit (an equal one may still lose a tie)
-        if (!(en0 < h.t || (!ANY && h.tri >= 0 && en0 == h.t))) continue;
+        if (!enters8<true>(stack_enter[sp], h)) continue;
         if (enc < 0) {
             const int leaf = -enc - 1;
             const float* s = slabs + (size_t)leaf * rows * LANES;
             for (int j = 0; j < LANES; ++j) {
                 float t, u, v;
-                if (ANY) {
-                    if (moller(s, j, r, t_min, h.t, t, u, v)) {
-                        h.tri = leaf * LANES + j;
-                        return true;
-                    }
-                } else if (moller(s, j, r, t_min, INF, t, u, v)) {
-                    const int tri = leaf * LANES + j;
-                    if (t < h.t || (t == h.t && h.tri >= 0 && tri < h.tri)) {
-                        h.t = t;
-                        h.u = u;
-                        h.v = v;
-                        h.tri = tri;
-                    }
+                if (moller(s, j, r, t_min, h.t, t, u, v)) {
+                    h.tri = leaf * LANES + j;
+                    return true;
                 }
             }
             continue;
         }
-        const float4* nd = nodes8 + (size_t)enc * 16;
-        float key[8];
-        int val[8];
-        int n = 0;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-            const float4 a = __ldg(nd + 2 * c);
-            const float4 b = __ldg(nd + 2 * c + 1);
-            float en;
-            const bool in = !isnan(a.x) && slot_test<ANY>(a, b, r, h, en);
-            key[c] = in ? en : INF;
-            val[c] = in ? slot_enc(b.z) : NO_CHILD;
-            n += in ? 1 : 0;
-        }
-        if (n == 0) continue;
-        if (sp + n > STACK8_CAP) return false;
-        // near first: ascending entry t
-        CE(0, 2) CE(1, 3) CE(4, 6) CE(5, 7)
-        CE(0, 4) CE(1, 5) CE(2, 6) CE(3, 7)
-        CE(0, 1) CE(2, 3) CE(4, 5) CE(6, 7)
-        CE(2, 4) CE(3, 5)
-        CE(1, 4) CE(3, 6)
-        CE(1, 2) CE(3, 4) CE(5, 6)
-        // push the farthest first so the nearest pops next
-#pragma unroll
-        for (int c = 7; c >= 0; --c) {
-            if (val[c] != NO_CHILD) {
-                stack_enc[sp] = val[c];
-                stack_enter[sp] = key[c];
-                ++sp;
-            }
-        }
+        if (!expand8<true>(nodes8, enc, r, h, stack_enc, stack_enter, sp))
+            return false;
     }
     return true;
 }
-#undef CE
+
+// One lane's 8-wide closest walk up to its next leaf: pops, prunes an
+// entry by enters8, expands an interior node (expand8), until it pops a
+// leaf, whose cluster it returns, or its stack is empty (-1). On stack
+// overflow sets ok = false and empties the stack.
+__device__ __forceinline__ int next_leaf8(const float4* __restrict__ nodes8,
+                                          const Ray& r, const Hit& h,
+                                          int* stack_enc, float* stack_enter,
+                                          int& sp, bool& ok) {
+    while (sp > 0) {
+        --sp;
+        const int enc = stack_enc[sp];
+        if (!enters8<false>(stack_enter[sp], h)) continue;
+        if (enc < 0) return -enc - 1;
+        if (!expand8<false>(nodes8, enc, r, h, stack_enc, stack_enter, sp)) {
+            ok = false;
+            sp = 0;
+            return -1;
+        }
+    }
+    return -1;
+}
+
+// K11's and K12's walk: next_leaf8 per lane, the leaf tests by the whole
+// warp under the (t, tri) rule (leaf_round, warp_leaf<false, true>).
+// Every thread of the warp calls it, a lane without a ray with h.t = 0
+// (it never enters the root), and stays to the end: each _sync takes the
+// full mask. Sets *err on stack overflow.
+__device__ void warp_walk8(const float* __restrict__ slabs, int rows,
+                           const float4* __restrict__ nodes8, const Ray& r,
+                           float t_min, Hit& h, int* __restrict__ err) {
+    int stack_enc[STACK8_CAP];
+    float stack_enter[STACK8_CAP];
+    stack_enc[0] = 0;  // the root node: its slots carry the boxes
+    stack_enter[0] = 0.0f;
+    int sp = h.t > 0.0f ? 1 : 0;
+    bool ok = true;
+    for (;;) {
+        const int leaf =
+            next_leaf8(nodes8, r, h, stack_enc, stack_enter, sp, ok);
+        if (!leaf_round<false, true, false>(slabs, rows, leaf, r, t_min, h,
+                                            sp, nullptr))
+            break;
+    }
+    if (!ok) atomicExch(err, 1);
+}
 
 // K11: (R, 8) rows t | tri | u | v | pad; a miss has t = t_max, tri = -1.
+// A lane past R (h.t = 0) only takes part in the walk.
 __global__ void closest8_kernel(const float* __restrict__ slabs, int rows,
                                 const float4* __restrict__ nodes8,
                                 const float* __restrict__ ray_o,
@@ -888,13 +986,12 @@ __global__ void closest8_kernel(const float* __restrict__ slabs, int rows,
                                 const float* __restrict__ t_max, int R,
                                 float t_min, float* __restrict__ out,
                                 int* __restrict__ err) {
-    int k = blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= R) return;
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
     Ray r;
-    load_ray(ray_o, ray_d, k, r);
-    Hit h = {t_max[k], 0.0f, 0.0f, -1};
-    if (h.t > 0.0f && !walk8<false>(slabs, rows, nodes8, r, t_min, h))
-        atomicExch(err, 1);
+    Hit h;
+    load_lane(ray_o, ray_d, t_max, R, k, r, h);
+    warp_walk8(slabs, rows, nodes8, r, t_min, h, err);
+    if (k >= R) return;
     float* o = out + 8 * (size_t)k;
     o[0] = h.t;
     o[1] = (float)h.tri;
@@ -912,14 +1009,13 @@ __global__ void closest8_full_kernel(const float* __restrict__ slabs,
                                      const float* __restrict__ t_max, int R,
                                      float t_min, float* __restrict__ out,
                                      int* __restrict__ err) {
-    int k = blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= R) return;
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
     Ray r;
-    load_ray(ray_o, ray_d, k, r);
-    Hit h = {t_max[k], 0.0f, 0.0f, -1};
-    if (h.t > 0.0f && !walk8<false>(slabs, rows, nodes8, r, t_min, h))
-        atomicExch(err, 1);
-    write_full(slabs, rows, h.t, h.tri, h.u, h.v, out + 16 * (size_t)k);
+    Hit h;
+    load_lane(ray_o, ray_d, t_max, R, k, r, h);
+    warp_walk8(slabs, rows, nodes8, r, t_min, h, err);
+    if (k < R)
+        write_full(slabs, rows, h.t, h.tri, h.u, h.v, out + 16 * (size_t)k);
 }
 
 // K13: (R,) occlusion, a hit being t_min < t < t_max.
@@ -935,7 +1031,7 @@ __global__ void any8_kernel(const float* __restrict__ slabs, int rows,
     Ray r;
     load_ray(ray_o, ray_d, k, r);
     Hit h = {t_max[k], 0.0f, 0.0f, -1};
-    if (h.t > 0.0f && !walk8<true>(slabs, rows, nodes8, r, t_min, h))
+    if (h.t > 0.0f && !walk8(slabs, rows, nodes8, r, t_min, h))
         atomicExch(err, 1);
     occ[k] = h.tri >= 0 ? 1 : 0;
 }

@@ -421,6 +421,20 @@ def make_tie_scene(n_rays: int = 64, seed: int = 0, rows: int = 9):
     return slabs, bounds, meta, o, d, want.astype(np.int64)
 
 
+def tie_nodes8(bounds: np.ndarray, meta: np.ndarray) -> np.ndarray:
+    """The 8-wide table over make_tie_scene's BVH2 (bounds, meta): one
+    root node whose slots 0 and 1 hold its two leaf boxes, in node order,
+    with enc -(cluster + 1), and six empty slots (NaN bounds, enc 0), as
+    accel/bvh.pack_nodes8 packs a two-leaf BVH -> (1, 8, 8) f32. An up
+    ray enters cluster 1's slot first, a down ray cluster 0's."""
+    nodes8 = np.zeros((1, 8, 8), np.float32)
+    nodes8[0, :, 0:6] = np.nan
+    for slot, child in enumerate(meta[0, 0:2]):
+        nodes8[0, slot, 0:6] = bounds[child]
+        nodes8[0, slot, 6] = -(float(meta[child, 2]) + 1.0)
+    return nodes8
+
+
 PAIR_LAYOUTS = ("empty", "front", "scattered", "partial")
 
 

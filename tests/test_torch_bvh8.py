@@ -10,7 +10,10 @@ Tolerances: the 8-wide table is equal bit for bit, NaN slots included;
 hit/miss, tri and occlusion are equal; t within rtol 1e-5 (atol 1e-6)
 against Pallas and brute force, whose Möller arithmetic differs in
 order; the full rows within 1e-5 of Pallas's and equal to K4's plain
-version (the same brute force and interpolation).
+version (the same brute force and interpolation). On the tie scene
+(testing.make_tie_scene, testing.tie_nodes8) the plain versions keep the
+brute-force (t, tri) minimum exactly, and the Pallas kernels another copy
+at the same t: t, u, v equal, tri an exact tie.
 
 The Pallas kernels discard t_min and hard-code 1e-4 (closest) and 0.1
 (any); the port honours it, so these tests pass those values.
@@ -26,6 +29,7 @@ from prosper_tpu.ops import trace, trace_pallas
 from prosper_tpu.ops import trace_bvh as jtb
 from prosper_tpu.ops.trace_pallas_full import pack_tris_full
 from prosper_tpu.testing import make_test_scene
+from prosper_tpu_torch import testing as ttesting
 from prosper_tpu_torch.accel import bvh as tbvh
 from prosper_tpu_torch.ops import trace_bvh as tb
 from tests.test_trace import _brute_force, _random_scene
@@ -262,3 +266,55 @@ def test_nodes8_leaf_boxes_are_the_bvh2_leaf_boxes():
     want = tb._leaf_boxes(_t(bounds), _t(meta), C)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("t_max", [np.inf, 5.0])
+def test_closest8_plain_takes_the_lowest_copy_on_ties(t_max):
+    """testing.make_tie_scene under testing.tie_nodes8 (one root, the two
+    leaf boxes in its slots), attribute rows from rows=40: every ray
+    meets every copy of one triangle at t = 5. K11's and K12's plain
+    versions (what their kernels equal bit for bit on the card) keep the
+    brute-force minimum of (t, tri), tri 9, on every ray, with tri 9's
+    attributes; at t_max = 5 every ray misses (a hit needs t < t_max).
+    The Pallas K11 and K12 in interpret mode pop the nearest slot first
+    and keep the copy they meet first at t = 5, 168 (cluster 1's lowest)
+    on every ray: hit, t, u and v equal, tri an exact tie, and K12's
+    attributes those of tri 168."""
+    slabs, bounds, meta, o, d, _ = ttesting.make_tie_scene(64, rows=40)
+    nodes8 = ttesting.tie_nodes8(bounds, meta)
+    assert np.isnan(nodes8[0, 2:, 0:6]).all() and (nodes8[0, 2:, 6] == 0).all()
+    R = o.shape[0]
+    tris = {k: slabs[:, 3 * i:3 * i + 3].transpose(0, 2, 1).reshape(-1, 3)
+            for i, k in enumerate(("v0", "e1", "e2"))}
+    b_tri, b_t = _brute_force(tris, o, d, T_CLOSEST, t_max)
+    hit = t_max > 5.0
+    np.testing.assert_array_equal(b_tri, 9 if hit else -1)
+
+    args = (_t(slabs), _t(nodes8), _t(o), _t(d), T_CLOSEST,
+            _t(np.full(R, t_max, np.float32)))
+    got = tb.trace_closest_bvh8(*args)
+    full = tb.trace_closest_bvh8_full(*args)
+    np.testing.assert_array_equal(got[:, 1].numpy(), b_tri)
+    np.testing.assert_array_equal(got[:, 0].numpy(), 5.0 if hit else t_max)
+    torch.testing.assert_close(full[:, 0:2], got[:, 0:2], rtol=0, atol=0)
+    torch.testing.assert_close(full, tb._full_rows(_t(slabs), got), rtol=0,
+                               atol=0)
+    with interpret_mode():
+        want = jtb.trace_closest_bvh8(
+            jnp.asarray(slabs[:, 0:9]), jnp.asarray(nodes8), jnp.asarray(o),
+            jnp.asarray(d), T_CLOSEST, t_max)
+        want_full = np.asarray(jtb.trace_closest_bvh8_full(
+            jnp.asarray(slabs), jnp.asarray(nodes8), jnp.asarray(o),
+            jnp.asarray(d), T_CLOSEST, t_max, packed=True))
+    np.testing.assert_array_equal(np.asarray(want["tri"]),
+                                  168 if hit else -1)
+    np.testing.assert_array_equal(want_full[:, 1], 168 if hit else -1)
+    if not hit:
+        return
+    for col, key in ((0, "t"), (2, "u"), (3, "v")):
+        np.testing.assert_array_equal(got[:, col].numpy(),
+                                      np.asarray(want[key]))
+    other = got.clone()
+    other[:, 1] = 168.0
+    np.testing.assert_allclose(want_full, tb._full_rows(_t(slabs), other),
+                               rtol=1e-5, atol=1e-5)

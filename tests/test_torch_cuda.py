@@ -49,6 +49,7 @@ from prosper_tpu_torch.testing import (
     PAIR_LAYOUTS,
     make_pair_layout,
     make_tie_scene,
+    tie_nodes8,
 )
 
 torch.set_num_threads(2)
@@ -790,6 +791,30 @@ def test_bvh8_kernels_match_plain_on_card(cuda, n):
     assert [f.launches for f in (tb.trace_closest_bvh8,
                                  tb.trace_closest_bvh8_full,
                                  tb.trace_any_bvh8)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("t_max", [float("inf"), 5.0])
+def test_bvh8_closest_takes_the_lowest_copy_on_ties_on_card(cuda, t_max):
+    """testing.make_tie_scene with attribute rows under testing.tie_nodes8
+    (one triangle copied into lanes of clusters 0 and 1, up and down rays
+    alternating in each warp, 100 rays: the last block's lanes past R take
+    part in the warp walk): K11 and K12 give every ray the lowest copy over
+    both clusters, tri 9 at t = 5, or a miss at t_max = 5; their rows,
+    attributes included, equal their plain versions' bit for bit."""
+    slabs, bounds, meta, o, d, _ = make_tie_scene(100, rows=40)
+    nodes8 = tie_nodes8(bounds, meta)
+    slabs, nodes8, o, d = (torch.as_tensor(a, device=cuda)
+                           for a in (slabs, nodes8, o, d))
+    args = (slabs, nodes8, o, d, 1e-4,
+            torch.full((100,), t_max, device=cuda))
+    got = tb.trace_closest_bvh8(*args)
+    full = tb.trace_closest_bvh8_full(*args)
+    tb.check_stack_overflow(cuda)
+    assert torch.equal(got, tb.trace_closest_bvh8_plain(*args))
+    assert torch.equal(full, tb.trace_closest_bvh8_full_plain(*args))
+    hit = t_max > 5.0
+    assert bool((got[:, 1] == (9 if hit else -1)).all())
+    assert bool((got[:, 0] == (5.0 if hit else t_max)).all())
 
 
 def test_bvh8_stack_overflow_raises_on_card(cuda):
