@@ -30,9 +30,8 @@ entry points of the experiments and scripts (X1-X3). Phases:
    (loop_nested_kernel<4>, the script's inner trip count fixed at
    compile time, and <0>, read at run time), X1 (walk_kernel<true>
    from shared memory, walk_kernel<false> from device memory and the
-   repack_kernel that feeds it) and K11-K13 (closest8_kernel and
-   closest8_full_kernel on the 8-wide warp walk, any8_kernel on the
-   one-thread 8-wide walk);
+   repack_kernel that feeds it) and K11-K13 (closest8_kernel,
+   closest8_full_kernel and any8_kernel on the 8-wide warp walk);
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the whole inputs of one frame, with kernel and plain times and
    the bound (the least time an H100 could take for the same work):
@@ -135,11 +134,12 @@ entry points of the experiments and scripts (X1-X3). Phases:
    those hits (sorted by cluster and octant) K11 against its plain
    version and K2, K12 against its plain version and K4, and, with t_max
    8, K13 against its plain version and K3; each with its time, the
-   plain version's and the BVH2 kernel's on the same rays, K11 and K12
-   also as a ratio to K2's and K4's time (K11 and K12 walk 8-wide nodes
-   per lane and test leaves with the whole warp, as K2 and K4 do, under
+   plain version's and the BVH2 kernel's on the same rays, and as a
+   ratio to K2's, K4's and K3's time (K11-K13 walk 8-wide nodes per lane
+   and test leaves with the whole warp, as K2-K4 do; K11 and K12 under
    their plain versions' (t, tri) tie rule: rows bit for bit, max_abs_err
-   0);
+   0; K13 with K3's any-hit test: occlusion equal to its plain version's
+   and K3's);
 15. kernels: experiments: the port's measurement entry points, run while
    the World file still exists: scripts/bench_visit_breakdown.main on
    plate-2048 and on the World (K4 primary rays, the cosine bounce set,
@@ -257,8 +257,7 @@ PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
 # X3b (x2_moller_kernel<1>, the X2 Möller loop under X3b's chain), X3d's
 # two instances (the inner trip count 4 fixed at compile time, and read
 # at run time), X1 (its walk from shared and from device memory, and
-# the repack the second reads) and K11-K13 (K11 and K12 on the 8-wide
-# warp walk, K13 on the one-thread 8-wide walk)
+# the repack the second reads) and K11-K13 (the 8-wide warp walk)
 PTXAS_KERNELS = tuple(("trace_bvh", k) for k in (
     "warp_closest_kernel<false>", "warp_closest_kernel<true>",
     "warp_any_kernel", "primary_kernel", "closest_full_kernel",
@@ -2465,6 +2464,7 @@ def check_bvh8_kernels(smi, scene, cam):
                       (k11, "trace_closest_bvh"),
                       (k12["bounce_set"], "trace_closest_bvh_full")):
         rec[f"ratio_to_{twin}"] = rec["ms"] / rec[f"{twin}_same_rays_ms"]
+    k13["ratio_to_trace_any_bvh"] = k13["ms"] / k13["k3_same_rays_ms"]
     print("8-wide against BVH2 on the same rays: K12/K4 primary "
           f"{k12['ms']:.3f}/{k12['trace_closest_bvh_full_same_rays_ms']:.3f}"
           f" ms = {k12['ratio_to_trace_closest_bvh_full']:.3f}x, K11/K2 "
@@ -2474,7 +2474,8 @@ def check_bvh8_kernels(smi, scene, cam):
           f"{k12b['ms']:.3f}/{k12b['trace_closest_bvh_full_same_rays_ms']:.3f}"
           f" ms = {k12['bounce_set']['ratio_to_trace_closest_bvh_full']:.3f}x"
           f", K13/K3 bounce t_max 8 {k13['ms']:.3f}/"
-          f"{k13['k3_same_rays_ms']:.3f} ms; card: {smi}")
+          f"{k13['k3_same_rays_ms']:.3f} ms = "
+          f"{k13['ratio_to_trace_any_bvh']:.3f}x; card: {smi}")
     return ok_all, {"trace_closest_bvh8": k11, "trace_closest_bvh8_full": k12,
                     "trace_any_bvh8": k13}, k4
 

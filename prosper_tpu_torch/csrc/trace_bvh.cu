@@ -61,13 +61,12 @@
 // IEEE division keeps its branch, and the lanes' dependent node loads, which
 // the warp's other lanes overlap only while they too are walking; X3a adds
 // two counters in registers. K10 and K9 test the clusters of their dense
-// list with the same warp-shared leaf test (warp_leaf). K11 and K12
+// list with the same warp-shared leaf test (warp_leaf). K11-K13
 // (warp_walk8) walk 8-wide nodes per lane and share the same leaf round
-// (leaf_round) under the (t, tri) tie rule of their plain versions, bound
-// by the lanes' 8-wide interior steps and the leaf tests; K13 keeps the
-// one-thread 8-wide walk, bound by its lanes' serial 128-test leaf loops,
-// until its own redesign. Node layouts, persistent threads, ray reordering
-// and wgmma are later work.
+// (leaf_round): K11 and K12 under the (t, tri) tie rule of their plain
+// versions, K13 with K3's any-hit test; they are bound by the lanes'
+// 8-wide interior steps and the leaf tests. Node layouts, persistent
+// threads, ray reordering and wgmma are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -164,7 +163,7 @@ __device__ __forceinline__ int next_leaf(const float* __restrict__ bounds,
     return -1;
 }
 
-// The warp-shared leaf test of K1-K4, K9-K12. Every lane of the warp
+// The warp-shared leaf test of K1-K4, K9-K13. Every lane of the warp
 // calls it with the same src, the owner: lane src's ray, with best t
 // h.t, is tested against cluster `leaf` of lane src. ANY=true: returns
 // on every lane whether some triangle hits (t_min < t < best;
@@ -790,25 +789,27 @@ dense_closest_kernel(const float* __restrict__ slabs, int rows, int C,
 // empty slot by its NaN (fminf and fmaxf return the non-NaN operand, so an
 // empty slot's entry is 0, as a box the ray starts in; only its NaN exit
 // keeps the slab test from entering it, and the walk would re-enter the
-// root at enc 0), orders the entered children near-first with a
-// 19-comparator network in registers and pushes them farthest first, on a
-// stack of STACK8_CAP entries in local memory (1 KB a lane).
+// root at enc 0), for the closest walks orders the entered children
+// near-first with a 19-comparator network in registers, and pushes them
+// farthest first (the any-hit walk in slot order), on a stack of
+// STACK8_CAP entries in local memory (1 KB a lane).
 //
-// K11 and K12 (warp_walk8) test leaves as K1-K4 do: a lane walks until it
+// K11-K13 (warp_walk8) test leaves as K1-K4 do: a lane walks until it
 // pops a leaf and holds it; when every lane holds one or is done, the warp
 // tests the pending leaves one owner at a time, all 32 lanes on each, 4
-// triangles a lane on full 128-byte slab lines (leaf_round). The rows keep
-// the lexicographic minimum of (t, tri) over every entered leaf box, the
-// plain brute force's whatever the visit order: a box whose entry equals a
-// best t that is a hit is still entered (enters8), and the leaf test runs
-// under the (t, tri) rule (warp_leaf<false, true>) where K2 lets the first
-// visited cluster keep a tie. A lane holds its popped leaf until the warp
-// has tested it, so its pops, prunes and tests are those of its own walk.
-// What bounds them now: the lanes' interior steps (16 scattered float4
-// loads a node, the sort, the local-memory stack) and the leaf tests' FP32
-// work. K13 (walk8) keeps the one-thread walk, in which a lane runs its
-// leaf's 128 tests alone, each with 9 scalar loads of its own cluster:
-// that serial leaf loop bounds it, until its own redesign.
+// triangles a lane on full 128-byte slab lines (leaf_round). K11's and
+// K12's rows keep the lexicographic minimum of (t, tri) over every entered
+// leaf box, the plain brute force's whatever the visit order: a box whose
+// entry equals a best t that is a hit is still entered (enters8), and the
+// leaf test runs under the (t, tri) rule (warp_leaf<false, true>) where K2
+// lets the first visited cluster keep a tie. K13 tests with K3's any-hit
+// test (warp_leaf<true>, t_min < t < t_max) and prunes at t_max alone,
+// since its best never shrinks, and pushes a node's entered children in
+// slot order; an occluded lane empties its stack. A lane holds its popped
+// leaf until the warp has tested it, so its pops, prunes and tests are
+// those of its own walk. What bounds them now: the lanes' interior steps
+// (16 scattered float4 loads a node, K11's and K12's sort, the
+// local-memory stack) and the leaf tests' FP32 work.
 #define STACK8_CAP 128  // >= 7 * (8-wide depth) + 1 (trace_bvh.STACK8_CAP)
 #define NO_CHILD (-2147483647 - 1)
 
@@ -855,8 +856,12 @@ __device__ __forceinline__ int slot_enc(float e) {
     }
 
 // One interior step of the 8-wide walks: tests node enc's 8 slots against
-// the ray's best and pushes the entered children farthest first, so the
-// nearest pops next. Returns false on stack overflow.
+// the ray's best and pushes the entered children, the closest walks
+// farthest first, so the nearest pops next. The any-hit walk (ANY) pushes
+// them in slot order: any occluder ends it and its prune is t_max alone,
+// so the order changes no result, and slot order measured 6% faster than
+// near-first order on an H100 (PERF.md, K13). Returns false on stack
+// overflow.
 template <bool ANY>
 __device__ __forceinline__ bool expand8(const float4* __restrict__ nodes8,
                                         int enc, const Ray& r, const Hit& h,
@@ -878,14 +883,15 @@ __device__ __forceinline__ bool expand8(const float4* __restrict__ nodes8,
     }
     if (n == 0) return true;
     if (sp + n > STACK8_CAP) return false;
-    // near first: ascending entry t
-    CE(0, 2) CE(1, 3) CE(4, 6) CE(5, 7)
-    CE(0, 4) CE(1, 5) CE(2, 6) CE(3, 7)
-    CE(0, 1) CE(2, 3) CE(4, 5) CE(6, 7)
-    CE(2, 4) CE(3, 5)
-    CE(1, 4) CE(3, 6)
-    CE(1, 2) CE(3, 4) CE(5, 6)
-    // push the farthest first so the nearest pops next
+    if (!ANY) {  // near first: ascending entry t
+        CE(0, 2) CE(1, 3) CE(4, 6) CE(5, 7)
+        CE(0, 4) CE(1, 5) CE(2, 6) CE(3, 7)
+        CE(0, 1) CE(2, 3) CE(4, 5) CE(6, 7)
+        CE(2, 4) CE(3, 5)
+        CE(1, 4) CE(3, 6)
+        CE(1, 2) CE(3, 4) CE(5, 6)
+    }
+    // push the last first, so the nearest (ANY: slot 0's) pops next
 #pragma unroll
     for (int c = 7; c >= 0; --c) {
         if (val[c] != NO_CHILD) {
@@ -898,43 +904,11 @@ __device__ __forceinline__ bool expand8(const float4* __restrict__ nodes8,
 }
 #undef CE
 
-// K13's one-thread 8-wide any-hit walk: stops at the first hit t_min < t
-// < h.t, the owner lane testing each leaf's 128 triangles alone. Returns
-// false on stack overflow.
-__device__ bool walk8(const float* __restrict__ slabs, int rows,
-                      const float4* __restrict__ nodes8, const Ray& r,
-                      float t_min, Hit& h) {
-    int stack_enc[STACK8_CAP];
-    float stack_enter[STACK8_CAP];
-    stack_enc[0] = 0;  // the root node: its slots carry the boxes
-    stack_enter[0] = 0.0f;
-    int sp = 1;
-    while (sp > 0) {
-        --sp;
-        const int enc = stack_enc[sp];
-        if (!enters8<true>(stack_enter[sp], h)) continue;
-        if (enc < 0) {
-            const int leaf = -enc - 1;
-            const float* s = slabs + (size_t)leaf * rows * LANES;
-            for (int j = 0; j < LANES; ++j) {
-                float t, u, v;
-                if (moller(s, j, r, t_min, h.t, t, u, v)) {
-                    h.tri = leaf * LANES + j;
-                    return true;
-                }
-            }
-            continue;
-        }
-        if (!expand8<true>(nodes8, enc, r, h, stack_enc, stack_enter, sp))
-            return false;
-    }
-    return true;
-}
-
-// One lane's 8-wide closest walk up to its next leaf: pops, prunes an
-// entry by enters8, expands an interior node (expand8), until it pops a
+// One lane's 8-wide walk up to its next leaf: pops, prunes an entry by
+// enters8<ANY>, expands an interior node (expand8<ANY>), until it pops a
 // leaf, whose cluster it returns, or its stack is empty (-1). On stack
 // overflow sets ok = false and empties the stack.
+template <bool ANY>
 __device__ __forceinline__ int next_leaf8(const float4* __restrict__ nodes8,
                                           const Ray& r, const Hit& h,
                                           int* stack_enc, float* stack_enter,
@@ -942,9 +916,9 @@ __device__ __forceinline__ int next_leaf8(const float4* __restrict__ nodes8,
     while (sp > 0) {
         --sp;
         const int enc = stack_enc[sp];
-        if (!enters8<false>(stack_enter[sp], h)) continue;
+        if (!enters8<ANY>(stack_enter[sp], h)) continue;
         if (enc < 0) return -enc - 1;
-        if (!expand8<false>(nodes8, enc, r, h, stack_enc, stack_enter, sp)) {
+        if (!expand8<ANY>(nodes8, enc, r, h, stack_enc, stack_enter, sp)) {
             ok = false;
             sp = 0;
             return -1;
@@ -953,11 +927,15 @@ __device__ __forceinline__ int next_leaf8(const float4* __restrict__ nodes8,
     return -1;
 }
 
-// K11's and K12's walk: next_leaf8 per lane, the leaf tests by the whole
-// warp under the (t, tri) rule (leaf_round, warp_leaf<false, true>).
+// The 8-wide walks: next_leaf8 per lane, the leaf tests by the whole
+// warp (leaf_round). K11 and K12 (ANY = false) under the (t, tri) rule
+// (warp_leaf<false, true>); K13 (ANY = true) with K3's any-hit test
+// (warp_leaf<true>): an owner with a hit sets h.tri and its stack is
+// emptied, so it pops nothing more while the warp finishes the others.
 // Every thread of the warp calls it, a lane without a ray with h.t = 0
 // (it never enters the root), and stays to the end: each _sync takes the
 // full mask. Sets *err on stack overflow.
+template <bool ANY>
 __device__ void warp_walk8(const float* __restrict__ slabs, int rows,
                            const float4* __restrict__ nodes8, const Ray& r,
                            float t_min, Hit& h, int* __restrict__ err) {
@@ -969,9 +947,9 @@ __device__ void warp_walk8(const float* __restrict__ slabs, int rows,
     bool ok = true;
     for (;;) {
         const int leaf =
-            next_leaf8(nodes8, r, h, stack_enc, stack_enter, sp, ok);
-        if (!leaf_round<false, true, false>(slabs, rows, leaf, r, t_min, h,
-                                            sp, nullptr))
+            next_leaf8<ANY>(nodes8, r, h, stack_enc, stack_enter, sp, ok);
+        if (!leaf_round<ANY, !ANY, false>(slabs, rows, leaf, r, t_min, h, sp,
+                                          nullptr))
             break;
     }
     if (!ok) atomicExch(err, 1);
@@ -990,7 +968,7 @@ __global__ void closest8_kernel(const float* __restrict__ slabs, int rows,
     Ray r;
     Hit h;
     load_lane(ray_o, ray_d, t_max, R, k, r, h);
-    warp_walk8(slabs, rows, nodes8, r, t_min, h, err);
+    warp_walk8<false>(slabs, rows, nodes8, r, t_min, h, err);
     if (k >= R) return;
     float* o = out + 8 * (size_t)k;
     o[0] = h.t;
@@ -1013,12 +991,13 @@ __global__ void closest8_full_kernel(const float* __restrict__ slabs,
     Ray r;
     Hit h;
     load_lane(ray_o, ray_d, t_max, R, k, r, h);
-    warp_walk8(slabs, rows, nodes8, r, t_min, h, err);
+    warp_walk8<false>(slabs, rows, nodes8, r, t_min, h, err);
     if (k < R)
         write_full(slabs, rows, h.t, h.tri, h.u, h.v, out + 16 * (size_t)k);
 }
 
-// K13: (R,) occlusion, a hit being t_min < t < t_max.
+// K13: (R,) occlusion, a hit being t_min < t < t_max. A lane past R
+// (h.t = 0) only takes part in the walk.
 __global__ void any8_kernel(const float* __restrict__ slabs, int rows,
                             const float4* __restrict__ nodes8,
                             const float* __restrict__ ray_o,
@@ -1026,14 +1005,12 @@ __global__ void any8_kernel(const float* __restrict__ slabs, int rows,
                             const float* __restrict__ t_max, int R,
                             float t_min, uint8_t* __restrict__ occ,
                             int* __restrict__ err) {
-    int k = blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= R) return;
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
     Ray r;
-    load_ray(ray_o, ray_d, k, r);
-    Hit h = {t_max[k], 0.0f, 0.0f, -1};
-    if (h.t > 0.0f && !walk8(slabs, rows, nodes8, r, t_min, h))
-        atomicExch(err, 1);
-    occ[k] = h.tri >= 0 ? 1 : 0;
+    Hit h;
+    load_lane(ray_o, ray_d, t_max, R, k, r, h);
+    warp_walk8<true>(slabs, rows, nodes8, r, t_min, h, err);
+    if (k < R) occ[k] = h.tri >= 0 ? 1 : 0;
 }
 
 inline int blocks(int n) { return (n + BLOCK - 1) / BLOCK; }

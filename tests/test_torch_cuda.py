@@ -817,11 +817,35 @@ def test_bvh8_closest_takes_the_lowest_copy_on_ties_on_card(cuda, t_max):
     assert bool((got[:, 0] == (5.0 if hit else t_max)).all())
 
 
-def test_bvh8_stack_overflow_raises_on_card(cuda):
+@pytest.mark.parametrize("t_max", [float("inf"), 5.0])
+def test_bvh8_any_on_ties_on_card(cuda, t_max):
+    """K13 on testing.make_tie_scene under testing.tie_nodes8 (100 rays:
+    the last block's lanes past R take part in the warp walk): every ray
+    meets the copies at t = 5, so every ray is occluded at t_max inf and
+    none at t_max 5 (t = 5 is not below it); the occlusion equals the
+    plain version's and K3's on the BVH2 tree."""
+    slabs, bounds, meta, o, d, _ = make_tie_scene(100)
+    nodes8 = tie_nodes8(bounds, meta)
+    slabs, bounds, meta, nodes8, o, d = (
+        torch.as_tensor(a, device=cuda)
+        for a in (slabs, bounds, meta, nodes8, o, d))
+    t = torch.full((100,), t_max, device=cuda)
+    occ = tb.trace_any_bvh8(slabs, nodes8, o, d, 0.1, t)
+    tb.check_stack_overflow(cuda)
+    assert bool((occ == (t_max > 5.0)).all())
+    assert torch.equal(occ, tb.trace_any_bvh8_plain(slabs, nodes8, o, d, 0.1,
+                                                    t))
+    assert torch.equal(occ, tb.trace_any_bvh(slabs, bounds, meta, o, d, 0.1,
+                                             t))
+
+
+@pytest.mark.parametrize("kernel", ["K11", "K13"])
+def test_bvh8_stack_overflow_raises_on_card(cuda, kernel):
     """A 20-level chain of 8-wide nodes whose first slot is the next node
     and whose other seven are leaves, every box around the ray: each
     level leaves 7 entries on the stack, 7 * 19 + 8 > STACK8_CAP, so the
-    walk sets the overflow flag and check_stack_overflow raises."""
+    walk sets the overflow flag and check_stack_overflow raises. K13's
+    slabs hold triangles off the rays, so no hit ends its walk early."""
     fn, (sc, cam, _) = entry(cuda, scene="plate", n_clusters=8, width=32,
                              height=32)
     depth = 20
@@ -834,9 +858,16 @@ def test_bvh8_stack_overflow_raises_on_card(cuda):
     nodes8[-1, 0, 6] = -8.0  # the last node's first slot: cluster 7
     o = torch.zeros((4, 3), device=cuda)
     d = torch.tensor([[0.0, 0.0, 1.0]] * 4, device=cuda)
-    tb.trace_closest_bvh8(sc["geom"]["packed9"],
-                          torch.as_tensor(nodes8, device=cuda), o, d, 1e-4,
-                          float("inf"))
+    nodes8 = torch.as_tensor(nodes8, device=cuda)
+    if kernel == "K11":
+        tb.trace_closest_bvh8(sc["geom"]["packed9"], nodes8, o, d, 1e-4,
+                              float("inf"))
+    else:
+        misses = torch.zeros((8, 9, 128), device=cuda)
+        misses[:, 0:3] = 50.0  # v0 off the rays (x = y = 0)
+        misses[:, 3] = misses[:, 7] = 1.0  # e1 = x, e2 = y
+        occ = tb.trace_any_bvh8(misses, nodes8, o, d, 0.1, float("inf"))
+        assert not bool(occ.any())
     with pytest.raises(RuntimeError, match="stack overflow"):
         tb.check_stack_overflow(cuda)
     tb.check_stack_overflow(cuda)  # cleared
