@@ -161,8 +161,30 @@ entry points of the experiments and scripts (X1-X3). Phases:
    ops/plucker.tf32_agreement's border, t within rtol 1e-5 plus the
    bound of a reordered sum) and at one block against Möller (the
    script's bar: 99.95% of pairs, t within rtol 1e-2), with times,
-   bounds and the yardstick torch.matmul of the Plücker products.
+   bounds and the yardstick torch.matmul of the Plücker products;
+16. pt options: on the blend/mask scene, 3 bounces, alpha_rounds 2 (entry's
+   default there): (i) entry(mode="pt"), the stochastic alpha retrace
+   through K4 after the primary and every bounce trace; (ii) the same with
+   ibl=True (the procedural sky, 256^2 faces, lighting the misses); (iii)
+   pt_render_sample(use_dof=True), aperture DOF_APERTURE focused at the
+   grid's center, thin-lens primary rays traced by K4 (K1 must not
+   launch); each 2 warm-up + 8 timed frames with launches, rays, memory
+   and a profile, K4 against its plain version and the lockstep plain
+   walk on the first alpha retrace's rays (i) and the thin-lens primary
+   rays (iii), each 1080p frame with the plain versions against the
+   kernels' frame, and 64x64 frames on the card against the CPU for (i)-
+   (iii), under bounce_tracer "leafmajor" and without BVH arrays (K8);
+17. post chain: build_ibl timed once; the culled deferred frame of the
+   blend/mask scene with 1024 lights and the CLI's full chain (ibl,
+   use_taa, use_bloom, use_dof, use_particles), bloom multi_res and fft;
+   each 2 warm-up + 8 timed frames with the TAA history and particles
+   carried, launches, memory, device ms of each post pass alone on its
+   recorded inputs (skybox, transparent, bloom, particles, TAA, DoF, CUDA
+   events) and a profile; the plain-version frame against the kernels'
+   frame; 64x64 frames on the card against the CPU over 3 frames with the
+   state carried.
 
+The script's whole run time is printed before the kernels line.
 Every launch count is set to 0 just before a path is driven and read
 just after; a kernel of the path that never launched fails the run, and
 so does a frame that launched a measurement form or called
@@ -309,6 +331,30 @@ RESTIR_CELLS = {
                          ("trace_closest_flat_full", "trace_any_flat")),
 }
 PT_FLAT_PATH = ("trace_closest_flat_full", "trace_any_flat")
+# phase 16: the path tracer's options on the blend/mask scene, alpha_rounds
+# 2 (entry's default there): label -> (entry options, the kernels the frame
+# runs); K4 retraces, and under use_dof traces the thin-lens primary rays
+# in K1's place (K1 must not launch)
+PT_OPTION_CELLS = {
+    "pt alpha": ({}, PT_PATH + ("trace_closest_bvh_full",)),
+    "pt alpha ibl": ({"ibl": True, "env_res": 256},
+                     PT_PATH + ("trace_closest_bvh_full",)),
+    "pt alpha dof": (None, ("trace_closest_bvh_full", "trace_closest_bvh",
+                            "trace_any_bvh")),
+}
+# thin-lens DoF of phase 16: the aperture, and the focus at the grid's
+# center seen from the camera (make_plate_scene(2048)'s eye lies 3.9 units
+# from the grid's near corner, 18.7 from its center, 36.5 from its far
+# corner): the near plates blur over 10 pixels, the far ones about 2
+DOF_APERTURE = 0.1
+# phase 17: the CLI's full chain on the culled deferred frame of the
+# blend/mask scene (transparent pass, alpha discard), bloom both ways
+POST_FLAGS = {"mode": "deferred", "use_culling": True, "ibl": True,
+              "env_res": 256, "use_taa": True, "use_bloom": True,
+              "use_dof": True, "use_particles": True, **ALPHA}
+POST_PASSES = ("skybox", "transparent_pass", "bloom_multi_res", "bloom_fft",
+               "simulate", "render_particles", "taa_resolve",
+               "depth_of_field")
 # label -> (entry options, the kernels the frame runs) under
 # config.policy.bounce_tracer = "leafmajor"
 LEAFMAJOR_CELLS = {
@@ -937,6 +983,8 @@ def plain_paths():
          as_plain(tf.trace_closest_flat_full_plain)),
         (pt, "trace_closest_flat_full",
          as_plain(tf.trace_closest_flat_full_plain)),
+        (pt, "trace_closest_bvh_full",
+         as_plain(tb.trace_closest_bvh_full_plain)),
         (tb, "trace_closest_bvh", as_plain(tb.trace_closest_bvh_plain)),
         (tf, "trace_closest_flat", as_plain(tf.trace_closest_flat_plain)),
         (tb, "trace_any_bvh", as_plain(tb.trace_any_bvh_plain)),
@@ -2968,6 +3016,275 @@ def run_world(smi, dev):
     return records, launches, world
 
 
+def dof_camera(scene, cam):
+    """cam with DOF_APERTURE and the focus at the distance from the eye to
+    the center of the scene's cluster bounds; also the blur diameter in
+    pixels (at H rows) of a surface 5 units from the eye."""
+    frame = scene["frame"]
+    center = (frame["wc_aabb_min_w"].amin(0) + frame["wc_aabb_max_w"].amax(
+        0)) / 2
+    focus = float((cam["eye"] - center).norm())
+    tan_half = 1.0 / abs(float(cam["camera_to_clip"][1, 1]))
+    near_px = DOF_APERTURE * abs(5.0 - focus) / 5.0 / (
+        2 * focus * tan_half) * H
+    out = dict(cam)
+    out["aperture_diameter"] = torch.tensor(DOF_APERTURE,
+                                            device=cam["eye"].device)
+    out["focus_distance"] = torch.tensor(focus, device=cam["eye"].device)
+    return out, focus, near_px
+
+
+def display_lut(device):
+    """entry()'s display LUT (the synthetic one) on device."""
+    from prosper_tpu_torch.ops.tonemap import pack_lut_quads, synthetic_lut
+
+    return torch.as_tensor(pack_lut_quads(synthetic_lut()), device=device)
+
+
+def dof_frame_fn(lut, width, height, device, alpha_rounds=2):
+    """The path tracer's thin-lens frame call: pt_render_sample(use_dof=
+    True), accumulated and tone mapped as pt_entry does (pt_entry has no
+    DoF switch, as in the JAX package)."""
+    from prosper_tpu_torch.ops.tonemap import tone_map
+    from prosper_tpu_torch.render import pt
+
+    def fn(scene, cam, frame_index, state=None):
+        sample, n = pt.pt_render_sample(
+            scene, cam, width, height, frame_index, BOUNCES, use_dof=True,
+            alpha_rounds=alpha_rounds, return_stats=True, device=device)
+        sample = sample.reshape(height, width, 3)
+        if state is None:
+            state = (torch.zeros_like(sample),
+                     torch.zeros((height, width), device=sample.device))
+        color, count = pt.pt_accumulate(state[0], state[1], sample)
+        return tone_map(color, lut, 1.0, 1.0), (color, count), n
+    return fn
+
+
+def check_k4_set(label, scene, rays):
+    """K4 against its plain version on one whole ray set (o, d, t_min,
+    t_max), and against the lockstep plain walk on the same rays, as
+    phase 3 compares it -> (ok, record)."""
+    from prosper_tpu_torch.ops import trace_bvh as tb
+
+    geom, frame = scene["geom"], scene["frame"]
+    o, d, t_min, t_max = rays
+    t_max = tb.as_tmax(t_max, o.shape[0], o.device)
+    args = (geom["packed_full"], frame["bvh_bounds"], frame["bvh_meta"],
+            o, d, float(t_min), t_max)
+    want, plain_ms = timed_call(
+        lambda: tb.trace_closest_bvh_full_plain(*args))
+    got = tb.trace_closest_bvh_full(*args)
+    tb.check_stack_overflow(o.device)
+    ok, counts, err = compare_rows(got, want, list(range(2, 13)))
+    ms = device_ms(lambda: tb.trace_closest_bvh_full(*args), 5)
+    b = bound(nbytes(*args[:6], got),
+              closest_ops(leaf_boxes(scene), o, d, want, t_max))
+    live = int((t_max > float(t_min)).sum())
+    print(f"K4 {label}: ok={ok} {live} live rays; {counts}; {ms:.3f} ms, "
+          f"plain {plain_ms:.1f} ms, bound {b['bound_ms']:.3f} ms "
+          f"({b['bound_by']})")
+    twins = walk_twins(f"K4 {label}", args[0], args[1:3],
+                       (o, d, float(t_min), t_max), got)
+    ok &= twins["walk_rows_equal"]
+    return ok, {"max_abs_err": err, "rays": int(got.shape[0]),
+                "live_rays": live, "ms": ms, "plain_ms": plain_ms, **twins,
+                **b}
+
+
+def first_k4_rays(fn, scene, cam, state=None):
+    """Run one frame with the path tracer's K4 recorded -> the rays of its
+    first call (o, d, t_min, t_max)."""
+    from prosper_tpu_torch.render import pt
+
+    with recording(pt, "trace_closest_bvh_full") as calls:
+        fn(scene, cam, 0, state)
+    torch.cuda.synchronize()
+    if not calls:
+        raise RuntimeError("the frame made no K4 call")
+    (_, _, _, o, d, t_min, t_max), _ = calls[0]
+    return o, d, t_min, t_max
+
+
+def run_pt_options(smi, dev):
+    """Phase 16 -> (K4's records on the thin-lens primary rays and the
+    first alpha retrace, launches per kernel over the three frames)."""
+    from prosper_tpu_torch import config
+    from prosper_tpu_torch import entry as port_entry
+    from prosper_tpu_torch.ops import ibl
+
+    phase("pt options")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env = ibl.procedural_sky(256, device=dev)
+    torch.cuda.synchronize()
+    sky_s = time.perf_counter() - t0
+    print(f"procedural_sky(256) {sky_s:.3f} s on the card")
+    launches, records = {}, {}
+    base = dict(scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
+                max_bounces=BOUNCES, **ALPHA)
+    for cell, (kw, path) in PT_OPTION_CELLS.items():
+        label = f"{cell} {W}x{H} bounces={BOUNCES}"
+        fn, (scene, cam, _) = port_entry.entry(dev, **base, **(kw or {}))
+        if kw is None:  # thin-lens DoF: pt_render_sample(use_dof=True)
+            cam, focus, near_px = dof_camera(scene, cam)
+            print(f"{label}: aperture {DOF_APERTURE}, focus distance "
+                  f"{focus:.3f}; a surface 5 units away blurs over "
+                  f"{near_px:.1f} pixels")
+            fn = dof_frame_fn(display_lut(dev), W, H, dev)
+        ms_frame, counts, img, state, rays = drive(fn, scene, cam, path,
+                                                   label, smi)
+        if kw is None and read_counts()["trace_primary_bvh_full"] != 0:
+            raise RuntimeError(f"{label}: K1 launched under use_dof")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        rays_frame = sum(int(r) for r in rays) / TIMED
+        print(f"{label}: ms/frame {ms_frame:.3f} rays/frame "
+              f"{rays_frame:.0f} Mrays/s {rays_frame / ms_frame / 1e3:.3f}; "
+              f"card: {smi}")
+        breakdown(fn, scene, cam, WARMUP + TIMED)
+        if cell == "pt alpha":
+            ok, rec = check_k4_set(f"{label}: first alpha retrace", scene,
+                                   first_k4_rays(fn, scene, cam))
+            records["pt_alpha_retrace"] = rec
+        elif kw is None:
+            ok, rec = check_k4_set(f"{label}: thin-lens primary rays", scene,
+                                   first_k4_rays(fn, scene, cam))
+            records["pt_thin_lens_primary"] = rec
+        else:
+            ok = True
+        if not ok:
+            raise RuntimeError(f"{label}: K4 disagrees with its plain version")
+
+        # the 1080p frame with the plain versions against the kernels'
+        img_k, _, n_k = fn(scene, cam, WARMUP)
+        out = []
+        with plain_paths():
+            plain_ms = elapsed_ms(lambda: out.append(fn(scene, cam, WARMUP)))
+        print(f"{label} frame with the plain versions: ms/frame "
+              f"{plain_ms:.1f} (with the kernels {ms_frame:.3f}); card: {smi}")
+        frames_agree(f"{label} kernels vs plain versions", (img_k, n_k),
+                     (out[0][0], out[0][2]))
+
+    # 64x64 frames on the card against the CPU: the three options, and the
+    # alpha retrace under leafmajor and without BVH arrays (K8)
+    small = dict(scene="plate", n_clusters=64, width=64, height=64,
+                 max_bounces=BOUNCES, **ALPHA)
+    for cell, kw in (("alpha", {}), ("alpha ibl", {"ibl": True}),
+                     ("dof", None), ("alpha leafmajor", {}),
+                     ("alpha bvh=False", {"bvh": False})):
+        got = []
+        for d in (dev, "cpu"):
+            with policy("bounce_tracer", "leafmajor" if "leafmajor" in cell
+                        else config.policy.bounce_tracer):
+                fn64, (sc, cm, _) = port_entry.entry(d, **small, **(kw or {}))
+                if kw is None:
+                    cm, _, _ = dof_camera(sc, cm)
+                    fn64 = dof_frame_fn(display_lut(d), 64, 64, d)
+                img64, _, n = fn64(sc, cm, 1)
+            got.append((img64, n))
+        frames_agree(f"pt {cell} plate-64 64x64 cuda vs cpu", *got)
+    return records, launches
+
+
+def post_pass_ms(fn, scene, cam, state):
+    """Run one frame with the post passes of render/deferred.py recorded,
+    then time each pass alone on its recorded inputs (CUDA events, 3
+    calls) -> {pass: ms}."""
+    from prosper_tpu_torch.render import deferred
+
+    with contextlib.ExitStack() as stack:
+        calls = {name: stack.enter_context(recording(deferred, name))
+                 for name in POST_PASSES}
+        fn(scene, cam, WARMUP + TIMED, state)
+    torch.cuda.synchronize()
+    out = {}
+    for name in POST_PASSES:
+        if calls[name]:
+            args, kw = calls[name][0]
+            real = getattr(deferred, name)
+            out[name] = device_ms(lambda: real(*args, **kw), 3)
+    return out
+
+
+def run_post(smi, dev):
+    """Phase 17 -> launches per kernel over the two frames."""
+    from prosper_tpu_torch import entry as port_entry
+    from prosper_tpu_torch.ops import ibl
+
+    phase("post chain")
+    env = ibl.procedural_sky(256, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps = ibl.build_ibl(env)
+    torch.cuda.synchronize()
+    print(f"build_ibl: {time.perf_counter() - t0:.3f} s on the card (LUT "
+          f"{tuple(maps['brdf_lut'].shape)}, irradiance "
+          f"{tuple(maps['irradiance'].shape)}, {len(maps['radiance_mips'])} "
+          f"radiance mips from {tuple(maps['radiance_mips'][0].shape)}); "
+          f"card: {smi}")
+    # the 64x64 frames' maps, made on the card and taken by both devices
+    # (the full maps take about a minute on the CPU)
+    small_maps = ibl.build_ibl(ibl.procedural_sky(32, device=dev))
+
+    def maps_on(env_):
+        return {k: ([m.to(env_.device) for m in v] if isinstance(v, list)
+                    else v.to(env_.device)) for k, v in small_maps.items()}
+
+    launches = {}
+    for tech in ("multi_res", "fft"):
+        label = f"deferred culled blend/mask full chain bloom={tech} {W}x{H}"
+        fn, (scene, cam, _) = port_entry.entry(
+            dev, scene="plate", n_clusters=N_CLUSTERS, width=W, height=H,
+            scatter_lights=N_LIGHTS, bloom_technique=tech, **POST_FLAGS)
+        ms_frame, counts, img, state, drawn = drive(
+            fn, scene, cam, DEFERRED_PATH[True], label, smi)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        drawn = [int(x) for x in drawn]
+        live = int((state["particles"]["position_lifetime"][:, 3] >= 0).sum())
+        print(f"{label}: drawn meshlets per timed frame {min(drawn)}-"
+              f"{max(drawn)}; live particles {live}")
+        passes = post_pass_ms(fn, scene, cam, state)
+        print(f"{label}: device ms per post pass, each alone on its inputs: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in passes.items())
+              + f"; card: {smi}")
+        breakdown(fn, scene, cam, WARMUP + TIMED, state)
+
+        # the 1080p frame with the plain versions against the kernels', both
+        # from the same carried state
+        img_k, _, n_k = fn(scene, cam, WARMUP + TIMED, state)
+        out = []
+        with plain_paths():
+            plain_ms = elapsed_ms(
+                lambda: out.append(fn(scene, cam, WARMUP + TIMED, state)))
+        print(f"{label} frame with the plain versions: ms/frame "
+              f"{plain_ms:.1f} (with the kernels {ms_frame:.3f}); card: {smi}")
+        frames_agree(f"{label} kernels vs plain versions", (img_k, n_k),
+                     (out[0][0], out[0][2]))
+
+        # 64x64 frames on the card against the CPU over three frames, the
+        # state carried
+        runs = []
+        with patched((port_entry, "build_ibl", maps_on)):
+            for d in (dev, "cpu"):
+                fn64, (sc, cm, _) = port_entry.entry(
+                    d, scene="plate", n_clusters=64, width=64, height=64,
+                    scatter_lights=100, bloom_technique=tech,
+                    **{**POST_FLAGS, "env_res": 32})
+                st, frames = None, []
+                for i in range(3):
+                    img64, st, n = fn64(sc, cm, i, st)
+                    frames.append((img64, n))
+                runs.append(frames)
+        for i, (a, b) in enumerate(zip(*runs)):
+            frames_agree(f"{label} plate-64 64x64 frame {i} cuda vs cpu", a, b)
+    return launches
+
+
+T_START = time.perf_counter()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: no GPU")
@@ -3029,13 +3346,25 @@ def main() -> int:
     world_records, world_launches, world = run_world(smi, dev)
     print(f"world phases: {time.perf_counter() - t0:.1f} s")
     records.update(world_records)
+    t0 = time.perf_counter()
+    k4_sets, opt_launches = run_pt_options(smi, dev)
+    print(f"pt options phases: {time.perf_counter() - t0:.1f} s")
+    for where, rec in k4_sets.items():  # K4 on the new ray sets
+        records["trace_closest_bvh_full"][where] = rec
+        records["trace_closest_bvh_full"]["max_abs_err"] = max(
+            records["trace_closest_bvh_full"]["max_abs_err"],
+            rec["max_abs_err"])
+    t0 = time.perf_counter()
+    post_launches = run_post(smi, dev)
+    print(f"post chain phases: {time.perf_counter() - t0:.1f} s")
     for where, recs in world.items():  # K1-K4 on the World's rays
         for name, rec in recs.items():
             records[name][where] = rec
             records[name]["max_abs_err"] = max(
                 records[name]["max_abs_err"], rec.get("max_abs_err", 0.0))
     for counts in (pt_launches, fwd_launches, restir_launches,
-                   pt_flat_launches, lm_launches, world_launches):
+                   pt_flat_launches, lm_launches, world_launches,
+                   opt_launches, post_launches):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     kernels = []
@@ -3047,6 +3376,7 @@ def main() -> int:
             "library_ms": None, **rec,
         })
     print(f"card: {smi}")
+    print(f"chip_smoke.py run time: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,11 @@ CPU) and the camera, and returns the frame call of one mode:
 
 - "pt": render one sample, accumulate, tone map;
 - "deferred": G-buffer (with two-phase culling when use_culling),
-  clustered shading, the transparent pass, tone map; the state threads
-  the HiZ pyramid;
+  clustered shading, the transparent pass, the post chain (use_taa,
+  use_bloom with bloom_technique "multi_res" or "fft", use_dof,
+  use_particles; the JAX CLI's --taa, --bloom, --bloom-technique, --dof,
+  --particles), tone map; the state threads the HiZ pyramid, the TAA
+  history, the particles and the FFT bloom kernel;
 - "forward": primary visibility, forward shading, the transparent pass,
   tone map, or a debug AOV (draw_type);
 - "restir": ReSTIR DI (G-buffer, initial reservoirs, spatial reuse, one
@@ -27,6 +30,19 @@ material blends, two alpha-discard rounds when one is not opaque.
 
     fn, args = entry(scene="scenes/helmet.gltf", width=1920, height=1080,
                      mode="deferred", use_culling=True)
+
+ibl=True (the CLI's --ibl, cli.py:321-329) builds the environment
+procedural_sky(env_res) and its IBL maps (ops/ibl.build_ibl, start-up
+work) on the device: the path tracer takes the environment for its
+misses, the deferred frame the IBL term, the skybox and the transparent
+pass's IBL. lut_path names a Tony McMapface DDS (the reference's
+res/texture/tony_mc_mapface.dds) for the display transform; without it
+the synthetic LUT stands in.
+
+    fn, args = entry(scene="plate", n_clusters=2048, width=1920,
+                     height=1080, mode="deferred", use_culling=True,
+                     scatter_lights=1024, ibl=True, use_taa=True,
+                     use_bloom=True, use_dof=True, use_particles=True)
 
 A scene given as a path to a .gltf or .glb file is loaded through
 scene/world.py `World` (its caches next to the file) at time 0, its images
@@ -68,7 +84,8 @@ from __future__ import annotations
 
 import torch
 
-from .ops.tonemap import pack_lut_quads, synthetic_lut
+from .ops.ibl import build_ibl, procedural_sky
+from .ops.tonemap import load_tony_mc_mapface, pack_lut_quads, synthetic_lut
 from .render.deferred import deferred_entry
 from .render.forward import forward_entry
 from .render.pt import pt_entry
@@ -104,7 +121,11 @@ def entry(device="cuda", scene: str = "test", n_clusters: int = 4,
           scatter_lights: int = 0, blend_every: int = 0,
           mask_every: int = 0, bvh: bool = True,
           use_transparent: bool | None = None,
-          alpha_rounds: int | None = None, draw_type: int = 0):
+          alpha_rounds: int | None = None, draw_type: int = 0,
+          use_taa: bool = False, use_bloom: bool = False,
+          bloom_technique: str = "multi_res", use_dof: bool = False,
+          use_particles: bool = False, ibl: bool = False, env_res: int = 256,
+          lut_path: str | None = None):
     """Returns (fn, example_args) with fn(scene, cam, frame_index,
     state=None) -> (image (H, W, 3), state, stat) and example_args =
     (scene tensors, camera tensors, 0). stat is the ray count in "pt"
@@ -119,9 +140,20 @@ def entry(device="cuda", scene: str = "test", n_clusters: int = 4,
     > 0 scatters that many point lights, blend_every and mask_every give
     plates blend and mask materials (testing.make_plate_scene).
     bvh=False leaves the BVH node arrays out of the frame, so every trace
-    takes the flat kernels."""
+    takes the flat kernels. The post flags apply to "deferred" mode, ibl
+    to "pt" and "deferred"; other modes refuse them."""
     if mode not in ("pt", "deferred", "forward", "restir"):
         raise ValueError(f"unknown mode {mode!r}")
+    post = [k for k, on in (("use_taa", use_taa), ("use_bloom", use_bloom),
+                            ("use_dof", use_dof),
+                            ("use_particles", use_particles),
+                            ("ibl", ibl and mode not in ("pt", "deferred")))
+            if on]
+    if post and mode != "deferred":
+        raise ValueError(f"{', '.join(post)}: not an option of mode "
+                         f"{mode!r}")
+    if ibl and env_res < 2:
+        raise ValueError(f"env_res must be >= 2, got {env_res}")
     extra = {}
     if scatter_lights or blend_every or mask_every:
         if scene != "plate":
@@ -145,7 +177,15 @@ def entry(device="cuda", scene: str = "test", n_clusters: int = 4,
     scene_t = from_numpy_scene(static, frame, arena, device)
     cam = camera_tensors(cam_fn(width, height), device)
     # the display LUT of the reference is not in the repo: a synthetic one
-    lut = torch.as_tensor(pack_lut_quads(synthetic_lut()), device=device)
+    # unless lut_path names it
+    lut = torch.as_tensor(load_tony_mc_mapface(lut_path) if lut_path
+                          else pack_lut_quads(synthetic_lut()), device=device)
+    env = ibl_data = None
+    if ibl:
+        env = procedural_sky(env_res, device=device)
+        if mode == "deferred":  # the path tracer reads the environment alone
+            ibl_data = build_ibl(env)
+            ibl_data["env"] = env
 
     if mode == "pt":
         def fn(scene_t, cam, frame_index, state=None):
@@ -153,7 +193,7 @@ def entry(device="cuda", scene: str = "test", n_clusters: int = 4,
                 scene=scene_t, cam=cam, lut=lut, width=width, height=height,
                 device=device, max_bounces=max_bounces,
                 frame_index=frame_index, state=state, return_stats=True,
-                alpha_rounds=alpha_rounds,
+                alpha_rounds=alpha_rounds, env=env,
             )
     elif mode == "deferred":
         n_all = torch.tensor(scene_t["geom"]["packed_full"].shape[0])
@@ -163,7 +203,10 @@ def entry(device="cuda", scene: str = "test", n_clusters: int = 4,
                 scene=scene_t, cam=cam, lut=lut, width=width, height=height,
                 device=device, state=state, use_culling=use_culling,
                 use_transparent=use_transparent, alpha_rounds=alpha_rounds,
-                frame_index=frame_index,
+                frame_index=frame_index, use_taa=use_taa,
+                use_bloom=use_bloom, bloom_technique=bloom_technique,
+                use_dof=use_dof, use_particles=use_particles,
+                ibl_data=ibl_data,
             )
             return img, state, state["draw_stats"].get("drawn_meshlets",
                                                        n_all)

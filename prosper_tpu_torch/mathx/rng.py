@@ -1,7 +1,8 @@
 """PCG hashes and the stateful PT sample stream.
 
 Counterpart of prosper_tpu/mathx/rng.py (`pcg`, `pcg3d`, `rng_to01`,
-`make_state`, `rnd01`, `rnd2d01`, `uint_to_color`), bit-exact with it.
+`make_state`, `rnd01`, `rnd2d01`, `rnd3d01`, `uint_to_color`,
+`radical_inverse2`, `hammersley`), bit-exact with it.
 
 torch has no usable uint32 arithmetic on the CPU (`+`, `>>` and `<<`
 raise), so u32 words are carried as int64 tensors holding values in
@@ -78,6 +79,11 @@ def rnd2d01(state: torch.Tensor):
     return state, rng_to01(state[..., :2])
 
 
+def rnd3d01(state: torch.Tensor):
+    state = pcg3d(state)
+    return state, rng_to01(state[..., :3])
+
+
 def uint_to_color(x) -> torch.Tensor:
     """Pastel debug hash color of u32 words (random.glsl:30-40): three
     10-bit fields of pcg(x), each over 1023."""
@@ -85,3 +91,21 @@ def uint_to_color(x) -> torch.Tensor:
     rgb = torch.stack([(xr >> 20) & 0x3FF, (xr >> 10) & 0x3FF, xr & 0x3FF],
                       dim=-1)
     return rgb.to(torch.float32) / 1023.0
+
+
+def radical_inverse2(i) -> torch.Tensor:
+    """Base-2 radical inverse of u32 words by bit reversal
+    (random.glsl:71-74)."""
+    i = as_u32(i)
+    rev = torch.zeros_like(i)
+    for shift in range(32):
+        rev = rev | (((i >> shift) & 1) << (31 - shift))
+    return rev.to(torch.float32) * 2.32830643653896e-10
+
+
+def hammersley(i, n: int) -> torch.Tensor:
+    """Point i of the n-point Hammersley set: (..., 2) (i / n, the
+    radical inverse of i)."""
+    i = as_u32(i)
+    return torch.stack([i.to(torch.float32) / float(n),
+                        radical_inverse2(i)], dim=-1)

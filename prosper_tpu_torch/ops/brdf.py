@@ -7,7 +7,8 @@ prosper_tpu/render/pt.py imports from it (pt.py:40-51) — `saturate`,
 `eval_brdf_times_nol`, `orthonormal_basis`, `cosine_sample_hemisphere`,
 `cosine_hemisphere_pdf`, `sample_visible_trowbridge_reitz`,
 `visible_trowbridge_reitz_pdf` (brdf.glsl:9-88 and sampling.glsl of the
-reference). All functions are batched over (..., 3) tensors.
+reference), and for ops/ibl.py `schlick_fresnel_with_roughness` (:41) and
+`importance_sample_ibl_trowbridge_reitz` (:170). All functions are batched over (..., 3) tensors.
 """
 
 from __future__ import annotations
@@ -43,6 +44,12 @@ def trowbridge_reitz(NoH, alpha):
 
 def schlick_fresnel(VoH, f0):
     return f0 + (1.0 - f0) * torch.pow(1.0 - VoH, 5.0)[..., None]
+
+
+def schlick_fresnel_with_roughness(VoH, f0, roughness):
+    return f0 + (
+        torch.maximum((1.0 - roughness)[..., None], f0) - f0
+    ) * torch.pow(1.0 - VoH, 5.0)[..., None]
 
 
 def schlick_trowbridge_reitz(NoL, NoV, alpha):
@@ -164,3 +171,32 @@ def visible_trowbridge_reitz_pdf(ve, le, alpha):
         / ve[..., 2]
     )
     return vndf / (4.0 * NoV)
+
+
+def _cross(a, b):
+    return torch.stack([
+        a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
+    ], dim=-1)
+
+
+def importance_sample_ibl_trowbridge_reitz(xi, alpha, n):
+    """UE4 split-sum GGX half-vector sampling (sampling.glsl:97-113)."""
+    phi = 2.0 * _PI * xi[..., 0]
+    cos_t = torch.sqrt(
+        (1.0 - xi[..., 1]) / (1.0 + (alpha * alpha - 1.0) * xi[..., 1]))
+    sin_t = torch.sqrt(1.0 - cos_t * cos_t)
+    h = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t],
+                    dim=-1)
+    z_up = torch.zeros_like(n)
+    z_up[..., 2] = 1.0
+    x_up = torch.zeros_like(n)
+    x_up[..., 0] = 1.0
+    up = torch.where((torch.abs(n[..., 2]) < 0.999)[..., None], z_up, x_up)
+    tx = _cross(up, n)
+    tx = tx / _norm(tx)
+    ty = _cross(n, tx)
+    ty = ty / _norm(ty)
+    out = tx * h[..., 0:1] + ty * h[..., 1:2] + n * h[..., 2:3]
+    return out / _norm(out)

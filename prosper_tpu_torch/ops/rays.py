@@ -1,10 +1,12 @@
 """Camera rays and the self-intersection offset.
 
-Counterpart of prosper_tpu/ops/rays.py (`pinhole_rays`, `offset_ray`),
-ray.glsl:15-43 and :81-105 of the reference.
+Counterpart of prosper_tpu/ops/rays.py (`pinhole_rays`,
+`thin_lens_rays`, `offset_ray`), ray.glsl:15-105 of the reference.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -26,6 +28,29 @@ def pinhole_rays(cam: dict, uv: torch.Tensor):
     )
     d = d / (d * d).sum(-1, keepdim=True).sqrt()
     o = cam["eye"].expand(d.shape)
+    return o, d
+
+
+def thin_lens_rays(cam: dict, uv: torch.Tensor, lens_u: torch.Tensor):
+    """Thin-lens depth-of-field rays (ray.glsl:46-79); lens_u (..., 2)
+    uniforms pick the point on the aperture disk."""
+    o0, d0 = pinhole_rays(cam, uv)
+    fwd = -cam["world_to_camera"][2, :3]
+    theta = lens_u[..., 0] * 2.0 * math.pi
+    radius = lens_u[..., 1]
+    u = torch.cos(theta) * torch.sqrt(radius)
+    v = torch.sin(theta) * torch.sqrt(radius)
+    focal_length = cam["focal_length"]
+    focus_point = o0 + d0 * (
+        cam["focus_distance"] / (d0 * fwd).sum(-1, keepdim=True))
+    f_stop = focal_length / cam["aperture_diameter"]
+    coc_radius = focal_length / (2.0 * f_stop)
+    lens_pos_cam = torch.stack(
+        [u * coc_radius, v * coc_radius, torch.zeros_like(u)], dim=-1)
+    c2w = cam["camera_to_world"]
+    o = lens_pos_cam @ c2w[:3, :3].T + c2w[:3, 3]
+    d = focus_point - o
+    d = d / (d * d).sum(-1, keepdim=True).sqrt()
     return o, d
 
 

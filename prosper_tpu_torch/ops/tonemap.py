@@ -1,9 +1,11 @@
 """Display transform: exposure -> HSV contrast -> 3D LUT -> gamma.
 
 Counterpart of prosper_tpu/ops/tonemap.py (`tone_map`, `pack_lut_quads`,
-`sample_lut_trilinear`), tone_map.comp:17-60 of the reference. The Tony
-McMapface LUT ships with the reference checkout, not with this repo;
-callers pass any (48, 48, 48, 3) LUT through pack_lut_quads.
+`sample_lut_trilinear`, `load_tony_mc_mapface`), tone_map.comp:17-60 of
+the reference. The Tony McMapface LUT (tony_mc_mapface.dds, R9G9B9E5)
+ships with the reference checkout, not with this repo: load_tony_mc_mapface
+reads it from a path, and callers without it pass synthetic_lut() or any
+(48, 48, 48, 3) LUT through pack_lut_quads.
 """
 
 from __future__ import annotations
@@ -11,9 +13,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..io.dds import read_dds
 from ..mathx.color import hsv_to_rgb, rgb_to_hsv
 
 LUT_DIMS = 48
+
+
+def load_tony_mc_mapface(path: str) -> np.ndarray:
+    """The Tony McMapface DDS at path -> its packed (48**3, 24) float32
+    LUT (pack_lut_quads)."""
+    lut = read_dds(path).mips[0]
+    if lut.shape != (LUT_DIMS, LUT_DIMS, LUT_DIMS, 3):
+        raise ValueError(f"{path}: not a {LUT_DIMS}^3 RGB LUT: {lut.shape}")
+    return pack_lut_quads(lut.astype(np.float32))
 
 
 def pack_lut_quads(lut: np.ndarray) -> np.ndarray:

@@ -183,7 +183,8 @@ def _cull_and_trace(scene, cam, o, d, width, height, prev_hiz, tracer):
 
 def render_gbuffer(scene: dict, cam: dict, width: int, height: int,
                    use_culling: bool = False, prev_hiz: list | None = None,
-                   alpha_rounds: int = 0, aniso_taps: int = 1) -> dict:
+                   alpha_rounds: int = 0, aniso_taps: int = 1,
+                   lod_bias: float = 0.0) -> dict:
     """Trace the primary rays and produce the G-buffer dict (flat R = W*H,
     row-major): albedo_roughness (R, 4), normal_metallic (R, 4), velocity
     (R, 2), depth, z_cam (-inf without a surface), position_ws, valid,
@@ -214,9 +215,9 @@ def render_gbuffer(scene: dict, cam: dict, width: int, height: int,
     check_stack_overflow(dev)
 
     hit = unpack_hit16(h16)
-    # ray-cone mip selection (lodBias is 0 without TAA, which the port
-    # does not have; Renderer.cpp:709-715)
-    cone = {"alpha": pixel_cone_alpha(cam, height), "bias": 0.0,
+    # ray-cone mip selection (lodBias -1 under TAA, else 0;
+    # Renderer.cpp:709-715)
+    cone = {"alpha": pixel_cone_alpha(cam, height), "bias": lod_bias,
             "aniso_taps": aniso_taps}
     surface = evaluate_surface_from_attrs(scene["arena"], o, d, hit,
                                           cone=cone,

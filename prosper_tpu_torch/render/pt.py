@@ -20,9 +20,19 @@ bounce rays with t_min 1e-4, as the JAX package passes on that path;
 primary rays stay on K1. On CUDA tensors the kernels run; on CPU
 tensors their plain versions do.
 
-RNG order matches pt.py:14-16 call for call: uv jitter (1 advance), then
-per bounce light pick (1, masked), bounce pick (1), bounce direction (1),
-roulette (1, from bounce 2 on).
+The options follow the JAX package's kernel path (pt.py:173-191):
+use_dof makes thin-lens primary rays here and traces them with K4 (K8
+without BVH arrays) at t_min 0; alpha_rounds > 0 runs the stochastic
+alpha retrace (pt.py:235-272) through K4 (K8) after the primary trace
+and after every bounce trace (K2 + attrs_from_hit_rows, K8, or the
+leaf-major closest_full); env, packed once a frame, lights the primary
+misses and, times the throughput, every bounce miss (pt.py:625-631,
+:743-751).
+
+RNG order matches pt.py:14-16 call for call: uv jitter (1 advance),
+the lens draw under use_dof (1), then per bounce light pick (1,
+masked), bounce pick (1), bounce direction (1), roulette (1, from
+bounce 2 on).
 
 The wavefront runs densely over every pixel, with dead rays disabled by
 t_max = 0, as the JAX code does inside each tile. The JAX package's
@@ -52,8 +62,10 @@ from ..ops.brdf import (
     saturate,
     visible_trowbridge_reitz_pdf,
 )
-from ..ops.rays import offset_ray, pinhole_rays
+from ..ops.ibl import pack_cubemap_rows, sample_cubemap
+from ..ops.rays import offset_ray, pinhole_rays, thin_lens_rays
 from ..ops.slabs import attrs_from_hit_rows, unpack_hit8, unpack_hit16
+from ..ops.texture import sample_alpha_packed
 from ..ops.tonemap import tone_map
 from ..ops.trace import (
     frame_bvh,
@@ -66,6 +78,7 @@ from ..ops.trace_bvh import (
     check_stack_overflow,
     primary_cam_vec,
     trace_closest_bvh,
+    trace_closest_bvh_full,
     trace_primary_bvh_full,
 )
 from ..ops.trace_flat import trace_closest_flat_full
@@ -77,6 +90,7 @@ ROULETTE_START_BOUNCE = 1  # reference UI default (RtReference.hpp)
 SHADOW_T_MIN = 0.1  # main.rgen shadow() tMin
 BOUNCE_T_MIN = 0.0  # the t_min pt.py passes for primary and bounce traces
 LEAFMAJOR_BOUNCE_T_MIN = 1e-4  # bounce t_min on the leaf-major path (:712)
+ALPHA_T_MIN = 0.0  # the alpha retrace's t_min (pt.py:259)
 
 
 def _dot(a, b):
@@ -95,35 +109,50 @@ def _pixel_layouts(width: int, height: int, device: str):
     )
 
 
-def _unsupported(use_dof, env, alpha_rounds):
-    if use_dof:
-        raise NotImplementedError(
-            "use_dof=True needs thin-lens rays (ops/rays.thin_lens_rays) "
-            "traced with trace_closest_bvh_full: ROADMAP.md queue 1, item "
-            "'PT options'"
-        )
-    if env is not None:
-        raise NotImplementedError(
-            "env needs ops/ibl.sample_cubemap: ROADMAP.md queue 1, item "
-            "'PT options'"
-        )
-    if alpha_rounds:
-        raise NotImplementedError(
-            "alpha_rounds > 0 needs sample_alpha_packed and the alpha "
-            "retrace: ROADMAP.md queue 1, item 'PT options'"
-        )
-
-
-def primary_streams(cam: dict, px, py, width: int, height: int, frame_index):
-    """Per-pixel RNG state after the uv jitter, and the pinhole primary
-    ray (main.rgen:227-240) that shading uses."""
+def primary_streams(cam: dict, px, py, width: int, height: int, frame_index,
+                    use_dof: bool = False):
+    """Per-pixel RNG state after the uv jitter (and, under use_dof, the
+    lens draw), and the primary ray (main.rgen:227-240): pinhole, or
+    thin-lens under use_dof."""
     st = prng.make_state(px, py, frame_index)
     st, jitter = prng.rnd2d01(st)
     res = torch.tensor([float(width), float(height)], dtype=torch.float32,
                        device=px.device)
     uvj = (torch.stack([px, py], dim=-1).to(torch.float32) + jitter) / res
-    o, d = pinhole_rays(cam, uvj)
+    if use_dof:
+        st, lens = prng.rnd2d01(st)
+        o, d = thin_lens_rays(cam, uvj, lens)
+    else:
+        o, d = pinhole_rays(cam, uvj)
     return st, o, d
+
+
+def alpha_retrace(arena: dict, closest_full, alpha_rounds: int, state, o, d,
+                  tmax, hit: dict) -> dict:
+    """The stochastic any-hit retrace (scene.rahit; pt.py:235-272): a hit
+    that the mask test rejects, or whose blend alpha lies below the ray's
+    uniform pcg(state.x ^ state.z) (drawn without advancing the stream),
+    is traced again from just past it through closest_full(o, d, t_min,
+    t_max) -> full hit dict, up to alpha_rounds times; the distance
+    skipped is added back to t."""
+    au = prng.rng_to01(prng.pcg(state[..., 0] ^ state[..., 2]))
+    t_off = torch.zeros_like(hit["t"])
+    o_cur, tmax_cur = o, tmax
+    for _ in range(alpha_rounds):
+        a = sample_alpha_packed(arena, hit["material"], hit["uv"])
+        ignore = (hit["tri"] >= 0) & ((a == 0.0) | ((a > 0.0) & (au > a)))
+        adv = torch.where(ignore, hit["t"] * (1.0 + 1e-4) + 1e-5, 0.0)
+        o_cur = o_cur + d * adv[..., None]
+        tmax_cur = torch.where(ignore, torch.clamp_min(tmax_cur - adv, 0.0),
+                               0.0)
+        t_off = t_off + adv
+        hit2 = closest_full(o_cur.contiguous(), d.contiguous(), ALPHA_T_MIN,
+                            tmax_cur)
+        hit = {k: torch.where(ignore.reshape(ignore.shape + (1,) * (
+            v.dim() - 1)), hit2[k], v) for k, v in hit.items()}
+    hit = dict(hit)
+    hit["t"] = hit["t"] + t_off
+    return hit
 
 
 def _shade_and_bounce(scene, bounce, state, color, throughput, active,
@@ -236,16 +265,40 @@ def _shade_and_bounce(scene, bounce, state, color, throughput, active,
     return state, color, throughput, active, ray_o, ray_d, need_shadow
 
 
+def _closest_full_fn(geom: dict, frame: dict):
+    """fn(o, d, t_min, t_max) -> full hit dict: K4 on a frame with BVH
+    arrays, K8 without (the JAX package's kernel-path trace_closest_fn,
+    pt.py:181-193)."""
+    bvh = frame_bvh(frame)
+    if bvh is not None:
+        def fn(o, d, t_min, t_max):
+            return unpack_hit16(trace_closest_bvh_full(
+                geom["packed_full"], *bvh, o, d, t_min, t_max))
+    else:
+        def fn(o, d, t_min, t_max):
+            return unpack_hit16(trace_closest_flat_full(
+                geom["packed_full"], frame["wc_aabb_min_w"],
+                frame["wc_aabb_max_w"], o, d, t_min, t_max))
+    return fn
+
+
 def pt_trace_pixels(scene: dict, cam: dict, px, py, pix_cols, width: int,
                     height: int, frame_index: int, max_bounces: int = 3,
-                    clamp_indirect: bool = False):
+                    clamp_indirect: bool = False, use_dof: bool = False,
+                    env=None, alpha_rounds: int = 0):
     """Path-trace the pixels (px, py) -> ((R, 3) color, ray count).
 
     pix_cols: the (T, 3, 256) layout of the same pixels
-    (ops/trace_bvh.pack_pixels_np). The ray count is pt.py's: one primary
-    ray per pixel, plus every shadow ray, plus every bounce ray traced
-    (pt.py:554, :804-808). Raises if a trace kernel overflowed its node
-    stack (one wait for the frame's kernels)."""
+    (ops/trace_bvh.pack_pixels_np). use_dof: thin-lens primary rays, made
+    here and traced by K4 (K8 without BVH arrays) instead of K1's
+    in-kernel raygen. env: an environment cubemap, (6, S, S, 3) or its
+    pack_cubemap_rows rows, lighting primary and bounce misses.
+    alpha_rounds > 0: the stochastic alpha retrace after the primary
+    trace and after every bounce trace. The ray count is pt.py's: one
+    primary ray per pixel, plus every shadow ray, plus every bounce ray
+    traced (pt.py:554, :804-808); retraces are not counted. Raises if a
+    trace kernel overflowed its node stack (one wait for the frame's
+    kernels)."""
     frame, geom = scene["frame"], scene["geom"]
     bvh = frame_bvh(frame)
     wc_min, wc_max = frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]
@@ -254,23 +307,37 @@ def pt_trace_pixels(scene: dict, cam: dict, px, py, pix_cols, width: int,
         _, any_fn = make_tracer(geom["packed9"], wc_min, wc_max, bvh=bvh)
     else:
         any_fn = bounce_tr["any"]
+    closest_full = _closest_full_fn(geom, frame)
+    if env is not None and env.dim() != 2:
+        env = pack_cubemap_rows(env)  # once a frame, not once a bounce
+
+    def with_alpha(state, o, d, tmax, hit):
+        if not alpha_rounds:
+            return hit
+        return alpha_retrace(scene["arena"], closest_full, alpha_rounds,
+                             state, o, d, tmax, hit)
+
     R0 = px.shape[0]
     state, ray_o, ray_d = primary_streams(
-        cam, px, py, width, height, frame_index
+        cam, px, py, width, height, frame_index, use_dof
     )
-    if bvh is not None:
+    tmax0 = torch.full((R0,), float("inf"), dtype=torch.float32,
+                       device=px.device)
+    if bvh is not None and not use_dof:
         cam_vec = primary_cam_vec(cam, width, height, device=px.device)
-        h16 = trace_primary_bvh_full(
+        hit = unpack_hit16(trace_primary_bvh_full(
             geom["packed_full"], *bvh, pix_cols, cam_vec, int(frame_index),
             BOUNCE_T_MIN,
-        )[:R0]
+        )[:R0])
     else:
-        h16 = trace_closest_flat_full(
-            geom["packed_full"], wc_min, wc_max, ray_o.contiguous(),
-            ray_d.contiguous(), BOUNCE_T_MIN, float("inf"),
-        )
-    hit = unpack_hit16(h16)
-    color = torch.zeros((R0, 3), dtype=torch.float32, device=px.device)
+        hit = closest_full(ray_o.contiguous(), ray_d.contiguous(),
+                           BOUNCE_T_MIN, tmax0)
+    hit = with_alpha(state, ray_o, ray_d, tmax0, hit)
+    if env is not None:
+        color = torch.where((hit["tri"] < 0)[:, None],
+                            sample_cubemap(env, ray_d), 0.0)
+    else:
+        color = torch.zeros((R0, 3), dtype=torch.float32, device=px.device)
     throughput = torch.ones_like(color)
     active = hit["tri"] >= 0
     n_rays = torch.tensor(R0, dtype=torch.int64, device=px.device)
@@ -285,21 +352,24 @@ def pt_trace_pixels(scene: dict, cam: dict, px, py, pix_cols, width: int,
         if b + 1 < max_bounces:
             n_rays = n_rays + active.sum()
             tmax = torch.where(active, float("inf"), 0.0)
+            o, d = ray_o.contiguous(), ray_d.contiguous()
             if bounce_tr is not None:
-                hit = bounce_tr["closest_full"](
-                    ray_o.contiguous(), ray_d.contiguous(),
-                    LEAFMAJOR_BOUNCE_T_MIN, tmax)
+                hit = bounce_tr["closest_full"](o, d, LEAFMAJOR_BOUNCE_T_MIN,
+                                                tmax)
             elif bvh is not None:
-                h8 = trace_closest_bvh(
-                    geom["packed_full"], *bvh, ray_o.contiguous(),
-                    ray_d.contiguous(), BOUNCE_T_MIN, tmax,
-                )
+                h8 = trace_closest_bvh(geom["packed_full"], *bvh, o, d,
+                                       BOUNCE_T_MIN, tmax)
                 hit = attrs_from_hit_rows(geom["attr_rows"], unpack_hit8(h8))
             else:
-                hit = unpack_hit16(trace_closest_flat_full(
-                    geom["packed_full"], wc_min, wc_max, ray_o.contiguous(),
-                    ray_d.contiguous(), BOUNCE_T_MIN, tmax,
-                ))
+                hit = closest_full(o, d, BOUNCE_T_MIN, tmax)
+            hit = with_alpha(state, o, d, tmax, hit)
+            if env is not None:
+                sky = torch.where((active & (hit["tri"] < 0))[:, None],
+                                  throughput * sample_cubemap(env, ray_d),
+                                  0.0)
+                if clamp_indirect:  # every bounce trace is bounce >= 1
+                    sky = torch.clamp(sky, 0.0, 2.0)
+                color = color + sky
     check_stack_overflow(px.device)
     return color, n_rays
 
@@ -313,13 +383,15 @@ def pt_render_sample(scene: dict, cam: dict, width: int, height: int,
     pixel order (+ the int64 ray count when return_stats).
 
     scene: scene/convert.from_numpy_scene output on `device`; cam:
-    camera uniforms (numpy or tensors). width must be a multiple of 16."""
-    _unsupported(use_dof, env, alpha_rounds)
+    camera uniforms (numpy or tensors); env, use_dof, alpha_rounds: see
+    pt_trace_pixels. width must be a multiple of 16."""
     dev = check_device(scene, device)
     px, py, cols, inv16 = _pixel_layouts(width, height, str(dev))
+    if env is not None:
+        env = torch.as_tensor(env, dtype=torch.float32, device=dev)
     color, n_rays = pt_trace_pixels(
         scene, camera_tensors(cam, dev), px, py, cols, width, height,
-        frame_index, max_bounces, clamp_indirect,
+        frame_index, max_bounces, clamp_indirect, use_dof, env, alpha_rounds,
     )
     color = permute16(color, inv16)
     if return_stats:
@@ -338,7 +410,9 @@ def pt_entry(*, scene, cam, lut, width, height, device, exposure=1.0,
              env=None, alpha_rounds=0, return_stats=False):
     """PT mode: render one sample, accumulate it into state (None starts
     anew), tone map. Returns (image (H, W, 3), (accumulated color, sample
-    count)), and the ray count third when return_stats."""
+    count)), and the ray count third when return_stats. env lights the
+    misses (the CLI's --ibl); there is no DoF switch here, as in the JAX
+    package's pt_entry (pt_render_sample takes use_dof)."""
     sample, n_rays = pt_render_sample(
         scene, cam, width, height, frame_index, max_bounces, env=env,
         alpha_rounds=alpha_rounds, return_stats=True, device=device,

@@ -14,14 +14,16 @@ BVH arrays, K8 over the masked AABBs without (render/gbuffer.
 full_tracer). The rays are the G-buffer's (ops/trace_bvh.gbuffer_rays),
 so a blend surface that the deferred G-buffer drew as opaque lies at
 exactly the G-buffer's depth and is not blended again, as in the JAX
-package. Its tile compaction (`tile_apply`) is a TPU device and is not
-carried; image-based lighting (`ibl_data`) is not ported.
+package. With ibl_data the blend surface also takes the IBL term
+(ops/ibl.eval_ibl, transparent.py:143-146). The JAX package's tile
+compaction (`tile_apply`) is a TPU device and is not carried.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.ibl import eval_ibl
 from ..ops.slabs import unpack_hit16
 from ..ops.trace_bvh import gbuffer_rays
 from .gbuffer import _row_pixels, full_tracer
@@ -43,11 +45,6 @@ def transparent_pass(scene: dict, cam: dict, hdr: torch.Tensor,
     """Alpha-blend the nearest blend-material surface over hdr (H, W, 3)
     where its view-space z is nearer than opaque_z_cam (R,), row-major
     (-inf without an opaque surface). Returns the blended (H, W, 3)."""
-    if ibl_data is not None:
-        raise NotImplementedError(
-            "ibl_data needs ops/ibl.py: ROADMAP.md queue 1, items "
-            "'Deferred' and 'Post chain'"
-        )
     dev = hdr.device
     R = width * height
     cols = _row_pixels(width, height, str(dev))
@@ -66,7 +63,12 @@ def transparent_pass(scene: dict, cam: dict, hdr: torch.Tensor,
                                          surface["position_ws"], 0.0)
     z_cam = torch.where(valid, z_cam, float("-inf"))
     color = shade_direct(surface, scene["frame"]["lights"], cam, z_cam, valid,
-                         width, height).reshape(height, width, 3)
+                         width, height)
+    if ibl_data is not None:
+        # a miss's surface is not finite: masked before the blend
+        color = torch.where(valid[:, None],
+                            color + eval_ibl(surface, ibl_data), 0.0)
+    color = color.reshape(height, width, 3)
     a = torch.clamp(surface["alpha"], 0.0, 1.0)
     blend = torch.where(valid, a, 0.0).reshape(height, width, 1)
     return hdr * (1.0 - blend) + color * blend

@@ -44,10 +44,11 @@ from prosper_tpu_torch.scene.camera import (
     CameraParameters,
     CameraTransform,
 )
-from prosper_tpu_torch.scene.convert import camera_tensors
+from prosper_tpu_torch.scene.convert import camera_tensors, from_numpy_scene
 from prosper_tpu_torch.testing import (
     PAIR_LAYOUTS,
     make_pair_layout,
+    make_plate_scene,
     make_tie_scene,
     tie_nodes8,
 )
@@ -1755,3 +1756,87 @@ def test_flat_any_walk_near_the_list_limit_on_card(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         tf.trace_any_flat(over, torch.cat([mn, mn[:4]]),
                           torch.cat([mx, mx[:4]]), o, d, 0.1, t_max)
+
+
+def _small_ibl(monkeypatch):
+    """entry's build_ibl at test sizes (the full maps take about a minute
+    on the CPU side)."""
+    from prosper_tpu_torch import entry as entry_mod
+    from prosper_tpu_torch.ops import ibl
+
+    monkeypatch.setattr(entry_mod, "build_ibl", lambda env: {
+        "brdf_lut": ibl.integrate_specular_brdf(32, 64, device=env.device),
+        "irradiance": ibl.sample_irradiance(env, 8),
+        "radiance_mips": ibl.prefilter_radiance(env, 16, n_samples=32)})
+
+
+def _pt_dof_frame(dev, width, alpha_rounds=2):
+    """A thin-lens PT sample of the blend/mask plate scene (aperture 0.1,
+    focused at 18 units) -> (color (H, W, 3), ray count)."""
+    static, frame, arena, cam_fn = make_plate_scene(
+        64, 0, blend_every=8, mask_every=8)
+    scene = from_numpy_scene(static, frame, arena, dev)
+    cam = {**cam_fn(width, width), "aperture_diameter": np.float32(0.1),
+           "focus_distance": np.float32(18.0)}
+    c, n = pt.pt_render_sample(scene, cam, width, width, 1, 3, use_dof=True,
+                               alpha_rounds=alpha_rounds, return_stats=True,
+                               device=dev)
+    return c.reshape(width, width, 3), n
+
+
+@pytest.mark.parametrize("kind", ["alpha", "alpha_ibl", "alpha_no_bvh",
+                                  "alpha_leafmajor", "dof"])
+def test_pt_option_frames_on_card_match_cpu(cuda, kind, monkeypatch):
+    """The path tracer's options on the card against the CPU, 64x64 on the
+    blend/mask plate scene, alpha_rounds 2 (entry's default there): the
+    retrace through K4 (K8 without BVH arrays; after the hybrid under
+    leafmajor), the procedural sky as environment, and thin-lens DoF
+    through K4. Equal ray counts, at most 1% of pixels off by more than
+    1e-3."""
+    if kind == "alpha_leafmajor":
+        from prosper_tpu_torch import config
+
+        monkeypatch.setattr(config.policy, "bounce_tracer", "leafmajor")
+    out = []
+    for dev in (cuda, "cpu"):
+        if kind == "dof":
+            img, n = _pt_dof_frame(dev, 64)
+        else:
+            fn, (sc, cam, _) = entry(
+                dev, scene="plate", n_clusters=64, width=64, height=64,
+                max_bounces=3, blend_every=8, mask_every=8,
+                ibl=kind == "alpha_ibl", env_res=32,
+                bvh=kind != "alpha_no_bvh")
+            img, _, n = fn(sc, cam, 1)
+        out.append((img.cpu(), int(n)))
+    (img_g, n_g), (img_c, n_c) = out
+    assert n_g == n_c
+    assert bool(torch.isfinite(img_g).all())
+    off = ((img_g - img_c).abs() > 1e-3).any(dim=-1).float().mean()
+    assert float(off) <= 0.01
+
+
+@pytest.mark.parametrize("tech", ["multi_res", "fft"])
+def test_post_chain_frames_on_card_match_cpu(cuda, tech, monkeypatch):
+    """The culled deferred frame of the blend/mask plate scene with the
+    CLI's full chain (IBL, TAA, bloom, DoF, particles), three frames with
+    the state carried, on the card against the CPU: equal drawn meshlets,
+    at most 1% of pixels off by more than 1e-3 in every frame."""
+    _small_ibl(monkeypatch)
+    kw = dict(scene="plate", n_clusters=64, width=64, height=64,
+              mode="deferred", use_culling=True, scatter_lights=100,
+              blend_every=8, mask_every=8, ibl=True, env_res=32,
+              use_taa=True, use_bloom=True, bloom_technique=tech,
+              use_dof=True, use_particles=True)
+    runs = []
+    for dev in (cuda, "cpu"):
+        fn, (sc, cam, _) = entry(dev, **kw)
+        state, frames = None, []
+        for i in range(3):
+            img, state, drawn = fn(sc, cam, i, state)
+            frames.append((img.cpu(), int(drawn)))
+        runs.append(frames)
+    for (img_g, n_g), (img_c, n_c) in zip(*runs):
+        assert n_g == n_c
+        off = ((img_g - img_c).abs() > 1e-3).any(dim=-1).float().mean()
+        assert float(off) <= 0.01

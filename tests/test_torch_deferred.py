@@ -270,10 +270,30 @@ def test_two_frames_thread_the_hiz(case):
 
 
 def test_unported_options_raise(case):
+    """The post chain and IBL, which raised before they were ported, now
+    render: each option gives a finite frame that differs from the plain
+    one (tests/test_torch_post.py and test_torch_ibl.py hold them against
+    JAX); an unknown bloom technique raises."""
     scene, tcam = case[3]
     lut = pack_lut_quads(synthetic_lut())
+    # a wide aperture, so that DoF blurs
+    tcam = {**tcam, "aperture_diameter": torch.tensor(0.5),
+            "focus_distance": torch.tensor(6.0)}
+    run = partial(deferred_entry, scene=scene, cam=tcam, lut=lut, width=W,
+                  height=H, device="cpu")
+    plain, _ = run()
+    from tests.test_torch_ibl import small_ibl
+    from prosper_tpu_torch.ops.ibl import procedural_sky
+
     for kw in ({"use_taa": True}, {"use_bloom": True}, {"use_dof": True},
-               {"use_particles": True}, {"ibl_data": {}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            deferred_entry(scene=scene, cam=tcam, lut=lut, width=W, height=H,
-                           device="cpu", **kw)
+               {"use_particles": True},
+               {"ibl_data": small_ibl(procedural_sky(4))}):
+        img, state = run(**kw)
+        assert bool(torch.isfinite(img).all())
+        if "use_particles" in kw:  # the emitters may all lie out of view
+            pool = state["particles"]["position_lifetime"]
+            assert int((pool[:, 3] >= 0).sum()) >= 1
+        elif "use_taa" not in kw:  # a still camera: TAA keeps the frame
+            assert float((img - plain).abs().amax()) > 1e-3, kw
+    with pytest.raises(ValueError, match="bloom_technique"):
+        run(use_bloom=True, bloom_technique="gaussian")

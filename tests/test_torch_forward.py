@@ -322,8 +322,16 @@ def test_transparent_pass_matches_jax(case, branch):
     _frames_close(got.numpy(), want)
     blended = (got - hdr).abs().amax(-1) > 1e-6
     assert 0.01 < float(blended.float().mean()) < 0.5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transparent_pass(port[branch], tcam, hdr, z, W, H, ibl_data={})
+    # the IBL term, which raised before it was ported, lights the blend
+    # surfaces (tests/test_torch_ibl.py holds it against JAX)
+    from tests.test_torch_ibl import small_ibl
+    from prosper_tpu_torch.ops.ibl import procedural_sky
+
+    lit = transparent_pass(port[branch], tcam, hdr, z, W, H,
+                           ibl_data=small_ibl(procedural_sky(4)))
+    assert bool(torch.isfinite(lit).all())
+    assert float((lit - got)[blended].abs().amax()) > 1e-3
+    assert torch.equal(lit[~blended], got[~blended])
 
 
 def test_transparent_k4_branch_matches_pallas(case):

@@ -131,13 +131,22 @@ def test_frame_matches_jax_kernel_path(port_t_min):
 
 
 def test_unported_options_raise():
-    static, frame, arena, cam_fn = testing.make_test_scene(4)
+    """The options that raised before they were ported now render: each
+    of use_dof, env and alpha_rounds gives a finite frame that differs
+    from the plain one (tests/test_torch_pt_options.py holds them against
+    JAX). A scene on another device than the one asked for still
+    raises."""
+    static, frame, arena, cam_fn = testing.make_plate_scene(
+        27, 1, blend_every=4, mask_every=4)
     scene = from_numpy_scene(static, frame, arena, "cpu")
-    cam = cam_fn(16, 16)
-    for kw in ({"use_dof": True}, {"env": torch.ones(6, 2, 2, 3)},
-               {"alpha_rounds": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.pt_render_sample(scene, cam, 16, 16, 0, device="cpu", **kw)
+    cam = {**cam_fn(16, 16), "aperture_diameter": np.float32(0.5),
+           "focus_distance": np.float32(6.0)}
+    plain = pt.pt_render_sample(scene, cam, 16, 16, 0, device="cpu")
+    sky = torch.from_numpy(np.full((6, 2, 2, 3), 0.5, np.float32))
+    for kw in ({"use_dof": True}, {"env": sky}, {"alpha_rounds": 2}):
+        got = pt.pt_render_sample(scene, cam, 16, 16, 0, device="cpu", **kw)
+        assert bool(torch.isfinite(got).all())
+        assert float((got - plain).abs().amax()) > 1e-3, kw
     with pytest.raises(ValueError, match="not on"):
         pt.pt_render_sample(scene, cam, 16, 16, 0, device="meta")
 

@@ -185,10 +185,14 @@ def test_port_never_imports_jax():
     path-traced frame without BVH arrays, one under the leaf-major
     bounce tracer, a deferred frame of a glTF scene written by
     testing.write_plate_gltf and loaded through scene/world.py (glTF,
-    native mesh pipeline, textures with mips), and the measurement entry
-    points of prosper_tpu_torch.experiments and .scripts at a small size
-    pulls in no JAX, nothing of prosper_tpu and nothing of the repo's
-    experiments/ or scripts/."""
+    native mesh pipeline, textures with mips), a path-traced frame with
+    its three options (thin-lens DoF, the procedural sky as environment,
+    the stochastic alpha retrace) and deferred frames with the CLI's full
+    post chain (IBL, TAA, bloom both ways, DoF, particles, culling;
+    the IBL maps at test sizes), and the measurement entry points of
+    prosper_tpu_torch.experiments and .scripts at a small size pulls in
+    no JAX, nothing of prosper_tpu and nothing of the repo's experiments/
+    or scripts/."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "torch.set_num_threads(2)\n"
@@ -225,6 +229,33 @@ def test_port_never_imports_jax():
         "                 height=32, mode='pt')\n"
         "img, _, n = fn(*args)\n"
         "assert img.shape == (32, 32, 3) and int(n) > 32 * 32\n"
+        "config.policy.bounce_tracer = 'packet'\n"
+        "import prosper_tpu_torch.entry as E\n"
+        "from prosper_tpu_torch.ops import ibl\n"
+        "E.build_ibl = lambda env: {\n"
+        "    'brdf_lut': ibl.integrate_specular_brdf(8, 16),\n"
+        "    'irradiance': ibl.sample_irradiance(env, 4),\n"
+        "    'radiance_mips': ibl.prefilter_radiance(env, 8, n_samples=8)}\n"
+        "fn, args = entry('cpu', scene='plate', n_clusters=16, width=32,\n"
+        "                 height=32, mode='pt', blend_every=8,\n"
+        "                 mask_every=8, ibl=True, env_res=8)\n"
+        "img, _, n = fn(*args)\n"
+        "assert img.shape == (32, 32, 3) and int(n) > 32 * 32\n"
+        "from prosper_tpu_torch.render import pt\n"
+        "c = pt.pt_render_sample(args[0], args[1], 32, 32, 0, 2,\n"
+        "    use_dof=True, env=ibl.procedural_sky(8), alpha_rounds=2,\n"
+        "    device='cpu')\n"
+        "assert c.shape == (32 * 32, 3) and bool(torch.isfinite(c).all())\n"
+        "for tech in ('multi_res', 'fft'):\n"
+        "    fn, args = entry('cpu', scene='plate', n_clusters=16, width=32,\n"
+        "        height=32, mode='deferred', use_culling=True, ibl=True,\n"
+        "        env_res=8, use_taa=True, use_bloom=True, use_dof=True,\n"
+        "        use_particles=True, bloom_technique=tech, scatter_lights=16)\n"
+        "    img, state, drawn = fn(*args)\n"
+        "    img, state, drawn = fn(args[0], args[1], 1, state)\n"
+        "    assert img.shape == (32, 32, 3) and int(drawn) > 0\n"
+        "    assert state['taa_history'] is not None\n"
+        "    assert state['particles'] is not None\n"
         "import tempfile\n"
         "from prosper_tpu_torch import testing\n"
         "path = testing.write_plate_gltf(tempfile.mkdtemp(), n_clusters=8,\n"
