@@ -11,8 +11,9 @@ culling, the forward renderer with its transparent pass and alpha-mask
 discard, ReSTIR DI under its three tracer configurations, the path
 tracer and ReSTIR under the leaf-major bounce tracer, and the glTF
 scene path: the plate scene written as a glTF file, loaded through
-World, rendered, and traced by the 8-wide kernels, and the measurement
-entry points of the experiments and scripts (X1-X3). Phases:
+World, rendered, and traced by the 8-wide kernels, the measurement
+entry points of the experiments and scripts (X1-X3), and the port's
+command line in every mode on that file. Phases:
 
 1. device: CUDA, nvcc and the card's name and power limit;
 2. build: compile csrc/trace_bvh.cu, csrc/shade_tiles.cu,
@@ -182,7 +183,27 @@ entry points of the experiments and scripts (X1-X3). Phases:
    recorded inputs (skybox, transparent, bloom, particles, TAA, DoF, CUDA
    events) and a profile; the plain-version frame against the kernels'
    frame; 64x64 frames on the card against the CPU over 3 frames with the
-   state carried.
+   state carried;
+18. cli: the port's command line (prosper_tpu_torch/app/cli.py) on the
+   World file written anew (phase 13's plates: 262,144 triangles, 1024
+   point lights, textured) at 1080p, 4 frames a run: `python -m
+   prosper_tpu_torch.app.cli render <plates.gltf> --mode pt
+   --max-bounces 3 --profile --profile-device --dump-debug ...` as a
+   process of its own (on the kernels this process built), then through
+   main(argv) in this process deferred (--profile --profile-device),
+   deferred --culling, deferred --ibl --taa --bloom --dof --autofocus
+   --particles, forward, restir, restir --any-tracer dense, pt
+   --bounce-tracer leafmajor --orbit-camera and deferred --streaming (10
+   frames), each with --profile (its host scopes a frame, the pass table
+   of its last frame and that frame's launches by kernel from
+   utils/dispatch_count.count_dispatches); each run's wall ms/frame and
+   launches of the port's kernels; the pt and deferred dumps against
+   entry(scene=<plates.gltf>)'s frames 0-3 (max abs diff 0), with
+   entry()'s ms/frame and the breakdown of the frame the CLI profiled;
+   the deferred pass table's gbuffer, light_clustering, shading and
+   tonemap against that breakdown's busy time (within 10%); the streamed
+   deferred frame against the loaded one (max abs diff 0), after the log
+   says streaming finished.
 
 The script's whole run time is printed before the kernels line.
 Every launch count is set to 0 just before a path is driven and read
@@ -197,6 +218,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -801,15 +823,22 @@ def breakdown(fn, scene, cam, frame_index, state=None, top=12):
     """One frame under torch.profiler: device time by kernel, the port's
     CUDA kernels' share and each one's time a launch, and the device's
     idle share of the frame's wall time (profiling adds host overhead, so
-    the idle share is an upper bound)."""
+    the idle share is an upper bound). Returns the frame's wall and busy
+    ms and its launches (the device rows' count, copies included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from prosper_tpu_torch.utils.profiler import PASS_SCOPES
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = elapsed_ms(lambda: fn(scene, cam, frame_index, state))
+    # the render passes' record_function ranges on the device timeline
+    # are not kernels
     rows = sorted(
         ((e.key, e.device_time_total / 1e3, e.count)
-         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+         for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+         and e.key not in PASS_SCOPES
+         and not getattr(e, "is_user_annotation", False)),
         key=lambda r: -r[1],
     )
     busy = sum(r[1] for r in rows)
@@ -825,6 +854,8 @@ def breakdown(fn, scene, cam, frame_index, state=None, top=12):
         f"{name[:60]} {ms:.3f} ms / {count} = {ms / count:.4f} ms a launch"
         for name, ms, count in rows
         if any(k in name for k in PORT_KERNEL_SYMBOLS)))
+    return {"wall_ms": wall, "busy_ms": busy,
+            "launches": sum(r[2] for r in rows)}
 
 
 def drive(fn, scene, cam, path, label, smi):
@@ -3282,6 +3313,250 @@ def run_post(smi, dev):
     return launches
 
 
+# phase 18: the port's CLI on the World file, label -> (its flags, the
+# kernels the run must launch); "pt" runs as its own process, the rest
+# through main(argv) in this one
+CLI_FRAMES = 4
+CLI_STREAM_FRAMES = 10
+CLI_RUNS = {
+    "pt": (["--mode", "pt", "--max-bounces", str(BOUNCES), "--profile",
+            "--profile-device"], PT_PATH),
+    "deferred": (["--mode", "deferred", "--profile", "--profile-device"],
+                 DEFERRED_PATH[False]),
+    "deferred culled": (["--mode", "deferred", "--culling", "--profile"],
+                        DEFERRED_PATH[True]),
+    "deferred post": (["--mode", "deferred", "--ibl", "--taa", "--bloom",
+                       "--dof", "--autofocus", "--particles", "--profile"],
+                      DEFERRED_PATH[False]),
+    "forward": (["--mode", "forward", "--profile"],
+                ("trace_closest_bvh", "shade_clustered_tiles")),
+    "restir": (["--mode", "restir", "--profile"],
+               ("trace_primary_bvh_full", "trace_any_bvh")),
+    "restir dense": (["--mode", "restir", "--any-tracer", "dense",
+                      "--profile"],
+                     ("trace_primary_bvh_full", "trace_any_bvh_dense")),
+    "pt leafmajor orbit": (["--mode", "pt", "--bounce-tracer", "leafmajor",
+                            "--orbit-camera", "--profile"],
+                           LEAFMAJOR_CELLS["pt leafmajor"][1]),
+    "deferred streaming": (["--mode", "deferred", "--streaming", "--frames",
+                            str(CLI_STREAM_FRAMES), "--profile"],
+                           DEFERRED_PATH[False]),
+}
+# the symbols of the PT kernels among the CLI process's launches by name
+CLI_PT_SYMBOLS = {"trace_primary_bvh_full": "primary_kernel",
+                  "trace_closest_bvh": "warp_closest_kernel<false>",
+                  "trace_any_bvh": "warp_any_kernel"}
+# the deferred pass table's four passes sum to within this share of the
+# profiled entry() frame's busy time
+PASS_SUM_TOL = 0.10
+
+
+class LogLines(logging.Handler):
+    """Collects the port's log messages."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines, self.records = [], []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+        self.records.append(record)
+
+
+def cli_frames_ms(log: list[str]) -> str:
+    """The CLI's ms/frame summary line from its log."""
+    return next(ln for ln in log if " ms/frame wall" in ln)
+
+
+def pass_rows(out: str) -> dict:
+    """{pass: ms} from the CLI's per-pass table."""
+    from prosper_tpu_torch.utils.profiler import OTHER, PASS_SCOPES
+
+    rows = {}
+    for ln in out.splitlines():
+        parts = ln.rsplit(None, 1)
+        if len(parts) == 2 and parts[0].strip() in PASS_SCOPES + (OTHER,):
+            rows[parts[0].strip()] = float(parts[1])
+    return rows
+
+
+def run_cli_main(label, argv, smi):
+    """main(argv) of prosper_tpu_torch.app.cli in this process, with its
+    standard output and log captured and printed, and config.policy
+    restored after. Returns (stdout, log lines, launches per kernel)."""
+    import dataclasses
+    import io
+
+    from prosper_tpu_torch import config
+    from prosper_tpu_torch.app import cli
+    from prosper_tpu_torch.utils import logger as _  # its handler and level
+
+    saved = dataclasses.replace(config.policy)
+    handler = LogLines()
+    logger = logging.getLogger("prosper_tpu_torch")
+    logger.addHandler(handler)
+    out = io.StringIO()
+    reset_counts()
+    t0, t_wall = time.perf_counter(), time.time()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    finally:
+        logger.removeHandler(handler)
+        config.policy = saved
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    print(out.getvalue().rstrip())
+    frames_done = next(r.created for r in handler.records
+                       if " ms/frame wall" in r.getMessage())
+    print(f"cli {label}: exit {rc} in {seconds:.1f} s (frames done at "
+          f"{frames_done - t_wall:.1f} s); {cli_frames_ms(handler.lines)}; "
+          f"card: {smi}")
+    if rc != 0:
+        raise RuntimeError(f"cli {label}: main() returned {rc}")
+    return out.getvalue(), handler.lines, launches
+
+
+def entry_frames(dev, path, frames, **kw):
+    """entry(scene=path)'s frame call run for frames 0..frames-1 ->
+    (last image, last state, ms/frame of frames 1.. on the host clock, the
+    frame call, scene, camera)."""
+    from prosper_tpu_torch import entry as port_entry
+
+    fn, (scene, cam, _) = port_entry.entry(dev, scene=path, width=W,
+                                           height=H, **kw)
+    img, state, _ = fn(scene, cam, 0, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, frames):
+        img, state, _ = fn(scene, cam, i, state)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / max(frames - 1, 1)
+    return img, state, ms, fn, scene, cam
+
+
+def same_frame(label, got: np.ndarray, want: np.ndarray) -> None:
+    """Bit for bit: max abs diff 0."""
+    err = float(np.abs(got.astype(np.float64) - want.astype(np.float64)).max())
+    print(f"{label}: shape {got.shape} vs {want.shape}, max abs diff {err}")
+    if got.shape != want.shape or err != 0.0:
+        raise RuntimeError(f"{label}: the frames differ")
+
+
+def run_cli(smi, dev):
+    """Phase 18 -> launches per kernel over the in-process CLI runs."""
+    import shutil
+    import tempfile
+
+    from prosper_tpu_torch import testing
+    from prosper_tpu_torch.ops import trace_flat as tf
+
+    phase("cli")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    launches = {}
+    try:
+        path = testing.write_plate_gltf(tmp, N_CLUSTERS,
+                                        n_instanced=WORLD_INSTANCED,
+                                        scatter_lights=N_LIGHTS)
+        common = ["render", path, "--width", str(W), "--height", str(H),
+                  "--frames", str(CLI_FRAMES), "--out",
+                  os.path.join(tmp, "frame.png")]
+        dumps = {}
+        for label, (flags, kernels) in CLI_RUNS.items():
+            dump = os.path.join(tmp, label.replace(" ", "_") + ".png")
+            argv = common + flags + ["--dump-debug", dump]
+            if label == "pt":
+                # the module entry point as a process of its own, on the
+                # kernels this process built
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [sys.executable, "-m", "prosper_tpu_torch.app.cli",
+                     *argv], capture_output=True, text=True, timeout=600,
+                    cwd=os.path.dirname(os.path.abspath(__file__)))
+                print(proc.stdout.rstrip())
+                log = [ln.removeprefix("[I] ")
+                       for ln in proc.stderr.splitlines()]
+                print(f"cli {label} (python -m prosper_tpu_torch.app.cli): "
+                      f"exit {proc.returncode} in "
+                      f"{time.perf_counter() - t0:.1f} s; "
+                      f"{cli_frames_ms(log) if proc.returncode == 0 else ''}"
+                      f"; card: {smi}")
+                if proc.returncode != 0:
+                    print(proc.stderr[-4000:])
+                    raise RuntimeError("cli pt: the process failed")
+                by_name = next(ln for ln in proc.stdout.splitlines()
+                               if ln.startswith("by name: "))
+                missing = [k for k, sym in CLI_PT_SYMBOLS.items()
+                           if sym not in by_name]
+                out = proc.stdout
+            else:
+                walk_calls = tf.flat_walk_counts.calls
+                out, log, counts = run_cli_main(label, argv, smi)
+                missing = [k for k in kernels if counts[k] <= 0]
+                stray = [k for k in MEASUREMENT_FORMS if counts[k] != 0]
+                if stray or tf.flat_walk_counts.calls != walk_calls:
+                    raise RuntimeError(f"cli {label}: a measurement form ran")
+                for k, n in counts.items():
+                    launches[k] = launches.get(k, 0) + n
+                print(f"cli {label}: launches of the port's kernels "
+                      + str({k: n for k, n in counts.items() if n}))
+                if label == "deferred streaming":
+                    done = [ln for ln in log if "streaming finished" in ln]
+                    print(f"cli {label}: {done}")
+                    if not done:
+                        raise RuntimeError("cli streaming: not finished in "
+                                           f"{CLI_STREAM_FRAMES} frames")
+            if missing:
+                raise RuntimeError(f"cli {label}: kernels of the path never "
+                                   f"launched: {missing}")
+            img = np.load(dump + ".npy")
+            print(f"cli {label}: last frame {img.shape} finite="
+                  f"{bool(np.isfinite(img).all())} mean={img.mean():.5f}")
+            if not (np.isfinite(img).all() and (img > 0).any()
+                    and img.shape == (H, W, 3)):
+                raise RuntimeError(f"cli {label}: the frame is not finite "
+                                   "and non-zero")
+            dumps[label] = (img, out)
+
+        # the CLI's frames against entry()'s for the same frames
+        for label, kw in (("pt", {"max_bounces": BOUNCES}),
+                          ("deferred", {"mode": "deferred"})):
+            img, state, ms, fn, scene, cam = entry_frames(dev, path,
+                                                          CLI_FRAMES, **kw)
+            same_frame(f"cli {label} vs entry() frame {CLI_FRAMES - 1}",
+                       dumps[label][0], img.cpu().numpy())
+            print(f"entry() {label}: {ms:.3f} ms/frame on the host clock, "
+                  f"frames 1-{CLI_FRAMES - 1}; card: {smi}")
+            # the frame the CLI's --profile ran again: the last index,
+            # from the state after it
+            prof = breakdown(fn, scene, cam, CLI_FRAMES - 1, state)
+            out = dumps[label][1]
+            count = next(ln for ln in out.splitlines()
+                         if " per frame: " in ln)
+            print(f"cli {label}: {count}; breakdown of entry()'s frame: "
+                  f"{prof['launches']} device rows (copies included)")
+            if label == "deferred":
+                rows = pass_rows(out)
+                four = sum(rows.get(k, 0.0) for k in (
+                    "gbuffer", "light_clustering", "shading", "tonemap"))
+                share = four / prof["busy_ms"]
+                print(f"cli deferred pass table {rows}: gbuffer + "
+                      f"light_clustering + shading + tonemap {four:.3f} ms, "
+                      f"{share:.3f} of entry()'s busy {prof['busy_ms']:.3f} "
+                      f"ms; card: {smi}")
+                if abs(share - 1.0) > PASS_SUM_TOL:
+                    raise RuntimeError("cli deferred: the pass table does "
+                                       "not add up to the frame")
+        same_frame("cli deferred streaming vs deferred",
+                   dumps["deferred streaming"][0], dumps["deferred"][0])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"cli phase: {time.perf_counter() - t_phase:.1f} s; card: {smi}")
+    return launches
+
+
 T_START = time.perf_counter()
 
 
@@ -3357,6 +3632,7 @@ def main() -> int:
     t0 = time.perf_counter()
     post_launches = run_post(smi, dev)
     print(f"post chain phases: {time.perf_counter() - t0:.1f} s")
+    cli_launches = run_cli(smi, dev)
     for where, recs in world.items():  # K1-K4 on the World's rays
         for name, rec in recs.items():
             records[name][where] = rec
@@ -3364,7 +3640,7 @@ def main() -> int:
                 records[name]["max_abs_err"], rec.get("max_abs_err", 0.0))
     for counts in (pt_launches, fwd_launches, restir_launches,
                    pt_flat_launches, lm_launches, world_launches,
-                   opt_launches, post_launches):
+                   opt_launches, post_launches, cli_launches):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     kernels = []

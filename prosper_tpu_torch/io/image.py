@@ -1,8 +1,8 @@
 """Image file IO through PIL, imported where it is used.
 
-Counterpart of prosper_tpu/io/image.py `load_image_rgba8` and
-`write_png`: the stb-load analog of the reference's texture path and the
-headless frame output.
+Counterpart of prosper_tpu/io/image.py `load_image_rgba8`, `write_png`
+and `write_npy`: the stb-load analog of the reference's texture path and
+the headless frame output.
 """
 
 from __future__ import annotations
@@ -27,3 +27,8 @@ def write_png(path: str, img) -> None:
         img = np.clip(np.asarray(img, np.float32), 0.0, 1.0)
         img = (img * 255.0 + 0.5).astype(np.uint8)
     Image.fromarray(img).save(path)
+
+
+def write_npy(path: str, img) -> None:
+    """Raw array dump (the TextureDebug equivalent)."""
+    np.save(path, np.asarray(img))

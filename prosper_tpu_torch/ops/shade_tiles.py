@@ -133,12 +133,14 @@ def build_tile_light_lists(cam: dict, lights: dict, width: int, height: int):
 
 
 def tile_inputs(surface: dict, lights: dict, cam: dict, z_cam, valid,
-                width: int, height: int) -> dict:
+                width: int, height: int, light_lists=None) -> dict:
     """The kernel's inputs from a shading surface and the frame's lights:
     chan (13, R) G-buffer planes, rows (1 + P + S, 12) packed light rows,
-    the tile lists, ints (2,) i32 [point_count, min(spot_count, 128)],
-    scal (8,) f32 [near, far, log(far / near), eye.xyz, 0, 0]."""
-    lists, counts, lvz = build_tile_light_lists(cam, lights, width, height)
+    the tile lists (light_lists, build_tile_light_lists' output, when the
+    caller made them), ints (2,) i32 [point_count, min(spot_count,
+    128)], scal (8,) f32 [near, far, log(far / near), eye.xyz, 0, 0]."""
+    lists, counts, lvz = light_lists or build_tile_light_lists(
+        cam, lights, width, height)
     pos, n, alb = surface["position_ws"], surface["normal_ws"], surface["albedo"]
     chan = torch.stack([
         pos[:, 0], pos[:, 1], pos[:, 2], n[:, 0], n[:, 1], n[:, 2],

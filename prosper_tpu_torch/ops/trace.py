@@ -2,8 +2,8 @@
 kernels.
 
 Counterpart of prosper_tpu/ops/trace.py: `world_triangles` (:383),
-`prepare_geometry` (:82), `make_tracer` (:33), `bounce_policy` and
-`make_bounce_tracer` (:162-217), `frame_bvh` (:220),
+`prepare_geometry` (:82), `GeometryCache` (:126), `make_tracer` (:33),
+`bounce_policy` and `make_bounce_tracer` (:162-217), `frame_bvh` (:220),
 `block_pixel_order` (:227), `block_inverse16` (:343) and `permute16`
 (:355). The pixel orders are numpy and cached per resolution, as
 render/pt.py `_packed_pixels` caches them.
@@ -54,6 +54,33 @@ def prepare_geometry(static_scene: dict, frame: dict) -> dict:
         "packed_full": packed_full,
         "attr_rows": attr_rows_from_packed(packed_full),
     }
+
+
+class GeometryCache:
+    """Host-side pacing of prepare_geometry, the static BLAS + per-frame
+    TLAS of the reference: the geometry is recomputed only when the
+    instance transforms change (animation); otherwise the same device
+    tensors come back."""
+
+    def __init__(self) -> None:
+        self._key = None
+        self._val = None
+
+    def get(self, static_scene: dict, transforms, normal_transforms) -> dict:
+        """static_scene: the static tensors on their device; transforms
+        (I, 3, 4) and normal_transforms (I, 3, 3): a World frame's numpy
+        arrays, compared on the host."""
+        transforms = np.asarray(transforms, np.float32)
+        normal_transforms = np.asarray(normal_transforms, np.float32)
+        key = (transforms.tobytes(), normal_transforms.tobytes())
+        if self._val is None or key != self._key:
+            dev = static_scene["wt_p0"].device
+            frame = {"transforms": torch.as_tensor(transforms, device=dev),
+                     "normal_transforms": torch.as_tensor(normal_transforms,
+                                                          device=dev)}
+            self._val = prepare_geometry(static_scene, frame)
+            self._key = key
+        return self._val
 
 
 def frame_bvh(frame: dict):

@@ -15,11 +15,18 @@ history is the frame itself), depth of field (ops/dof.py) and the tone
 map. The state threads the preserve()d resources from frame to frame:
 the HiZ pyramid of the culled G-buffer, the TAA history, the particle
 pool, the FFT bloom kernel (made once) and the depth.
+
+The passes run under torch.profiler.record_function scopes named as the
+JAX package's jax.named_scope passes (deferred.py:155-274): gbuffer,
+light_clustering (the tile light lists, made here and handed to the
+shading), shading, skybox, transparent, bloom, particles, taa, dof and
+tonemap, which utils/profiler.profile_passes reads.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from ..mathx.packing import signed_oct_decode
 from ..ops.bloom import bloom_fft, bloom_multi_res, fft_dim, generate_kernel
@@ -32,11 +39,12 @@ from ..ops.particles import (
     spawn_emitters,
 )
 from ..ops.rays import pinhole_rays
+from ..ops.shade_tiles import build_tile_light_lists
 from ..ops.taa import taa_resolve
 from ..ops.tonemap import tone_map
 from ..scene.convert import camera_tensors, check_device
 from .gbuffer import render_gbuffer
-from .shading import shade_direct
+from .shading import has_local_lights, shade_direct
 from .transparent import transparent_pass
 
 BLOOM_TECHNIQUES = ("multi_res", "fft")
@@ -44,9 +52,11 @@ PARTICLE_DT = 1.0 / 60.0
 
 
 def shade_deferred(gbuf: dict, lights: dict, cam: dict, width: int,
-                   height: int, ibl_data: dict | None = None):
+                   height: int, ibl_data: dict | None = None,
+                   light_lists=None):
     """Clustered deferred shading of the flat G-buffer (+ IBL) -> (R, 3)
-    linear color, zero where no surface was hit."""
+    linear color, zero where no surface was hit. light_lists: the tile
+    lists, when the caller made them."""
     normal = signed_oct_decode(gbuf["normal_metallic"][:, :3])
     pos = gbuf["position_ws"]
     inv_view = cam["eye"] - pos
@@ -62,7 +72,7 @@ def shade_deferred(gbuf: dict, lights: dict, cam: dict, width: int,
         "NoV": torch.clamp((normal * inv_view).sum(-1), 0.0, 1.0),
     }
     color = shade_direct(surface, lights, cam, gbuf["z_cam"], gbuf["valid"],
-                         width, height)
+                         width, height, light_lists)
     if ibl_data is not None:
         color = torch.where(gbuf["valid"][:, None],
                             color + eval_ibl(surface, ibl_data), 0.0)
@@ -99,41 +109,56 @@ def render_deferred(scene: dict, cam: dict, lut, width: int, height: int,
     if bloom_technique not in BLOOM_TECHNIQUES:
         raise ValueError(f"unknown bloom_technique {bloom_technique!r}; "
                          f"expected one of {BLOOM_TECHNIQUES}")
-    gbuf = render_gbuffer(scene, cam, width, height, use_culling=use_culling,
-                          prev_hiz=prev_hiz,
-                          lod_bias=-1.0 if use_taa else 0.0,
-                          alpha_rounds=alpha_rounds, aniso_taps=aniso_taps)
-    color = shade_deferred(gbuf, scene["frame"]["lights"], cam, width,
-                           height, ibl_data)
+    lights = scene["frame"]["lights"]
+    with record_function("gbuffer"):
+        gbuf = render_gbuffer(scene, cam, width, height,
+                              use_culling=use_culling, prev_hiz=prev_hiz,
+                              lod_bias=-1.0 if use_taa else 0.0,
+                              alpha_rounds=alpha_rounds,
+                              aniso_taps=aniso_taps)
+    with record_function("light_clustering"):
+        light_lists = (build_tile_light_lists(cam, lights, width, height)
+                       if has_local_lights(lights) else None)
+    with record_function("shading"):
+        color = shade_deferred(gbuf, lights, cam, width, height, ibl_data,
+                               light_lists)
     if ibl_data is not None and "env" in ibl_data:
-        color = torch.where(gbuf["valid"][:, None], color,
-                            skybox(ibl_data["env"], cam, width, height))
+        with record_function("skybox"):
+            color = torch.where(gbuf["valid"][:, None], color,
+                                skybox(ibl_data["env"], cam, width, height))
     hdr = color.reshape(height, width, 3)
     depth = gbuf["depth"].reshape(height, width)
     if use_transparent:
         # ForwardRenderer::recordTransparent's slot (Renderer.cpp:494-500)
-        hdr = transparent_pass(scene, cam, hdr, gbuf["z_cam"], width, height,
-                               ibl_data)
+        with record_function("transparent"):
+            hdr = transparent_pass(scene, cam, hdr, gbuf["z_cam"], width,
+                                   height, ibl_data)
     if use_bloom:
-        if bloom_technique == "fft":
-            hdr = bloom_fft(hdr, kernel_image=bloom_kernel)
-        else:
-            hdr = bloom_multi_res(hdr)
+        with record_function("bloom"):
+            if bloom_technique == "fft":
+                hdr = bloom_fft(hdr, kernel_image=bloom_kernel)
+            else:
+                hdr = bloom_multi_res(hdr)
     new_particles = None
     if use_particles:
-        new_particles = simulate(particle_state, PARTICLE_DT, frame_index)
-        hdr = render_particles(new_particles, hdr, depth, cam)
+        with record_function("particles"):
+            new_particles = simulate(particle_state, PARTICLE_DT,
+                                     frame_index)
+            hdr = render_particles(new_particles, hdr, depth, cam)
     new_history = None
     if use_taa:
-        velocity = gbuf["velocity"].reshape(height, width, 2)
-        prev = hdr if taa_history is None else taa_history
-        hdr = taa_resolve(hdr, prev, velocity, depth)
+        with record_function("taa"):
+            velocity = gbuf["velocity"].reshape(height, width, 2)
+            prev = hdr if taa_history is None else taa_history
+            hdr = taa_resolve(hdr, prev, velocity, depth)
         new_history = hdr
     if use_dof:
-        view_depth = torch.clamp_min(
-            -gbuf["z_cam"].reshape(height, width), 1e-3)
-        hdr = depth_of_field(hdr, view_depth, cam)
-    img = tone_map(hdr, lut, exposure, contrast)
+        with record_function("dof"):
+            view_depth = torch.clamp_min(
+                -gbuf["z_cam"].reshape(height, width), 1e-3)
+            hdr = depth_of_field(hdr, view_depth, cam)
+    with record_function("tonemap"):
+        img = tone_map(hdr, lut, exposure, contrast)
     aux = {
         "taa_history": new_history,
         "particles": new_particles,

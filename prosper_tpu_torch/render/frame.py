@@ -5,7 +5,7 @@ a function f(*, scene, cam, lut, width, height, device, state, ...) ->
 (image, state), each with its own options. The port has all four modes
 of the JAX package: forward (`_forward_entry`, frame.py:16-41; its
 debug draw types included), the path tracer, the deferred renderer and
-ReSTIR DI.
+ReSTIR DI. app/cli.py calls them, each with the options it has.
 """
 
 from __future__ import annotations

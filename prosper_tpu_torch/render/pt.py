@@ -39,6 +39,11 @@ t_max = 0, as the JAX code does inside each tile. The JAX package's
 tile compaction (ops/compact.tile_apply), coherence sort keys, primary
 tile mask and TPU row layouts change only the order and extent of work,
 not results, and are not carried over.
+
+The passes run under torch.profiler.record_function scopes named as the
+JAX package's jax.named_scope passes, primary_trace (pt.py:575),
+wavefront (:826), accumulate and tonemap (:918-921), which
+utils/profiler.profile_passes reads.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import config
 from ..mathx import rng as prng
@@ -318,58 +324,62 @@ def pt_trace_pixels(scene: dict, cam: dict, px, py, pix_cols, width: int,
                              state, o, d, tmax, hit)
 
     R0 = px.shape[0]
-    state, ray_o, ray_d = primary_streams(
-        cam, px, py, width, height, frame_index, use_dof
-    )
-    tmax0 = torch.full((R0,), float("inf"), dtype=torch.float32,
-                       device=px.device)
-    if bvh is not None and not use_dof:
-        cam_vec = primary_cam_vec(cam, width, height, device=px.device)
-        hit = unpack_hit16(trace_primary_bvh_full(
-            geom["packed_full"], *bvh, pix_cols, cam_vec, int(frame_index),
-            BOUNCE_T_MIN,
-        )[:R0])
-    else:
-        hit = closest_full(ray_o.contiguous(), ray_d.contiguous(),
-                           BOUNCE_T_MIN, tmax0)
-    hit = with_alpha(state, ray_o, ray_d, tmax0, hit)
-    if env is not None:
-        color = torch.where((hit["tri"] < 0)[:, None],
-                            sample_cubemap(env, ray_d), 0.0)
-    else:
-        color = torch.zeros((R0, 3), dtype=torch.float32, device=px.device)
-    throughput = torch.ones_like(color)
-    active = hit["tri"] >= 0
-    n_rays = torch.tensor(R0, dtype=torch.int64, device=px.device)
-    for b in range(max_bounces):
-        (state, color, throughput, new_active, ray_o, ray_d,
-         need_shadow) = _shade_and_bounce(
-            scene, b, state, color, throughput, active, ray_o, ray_d, hit,
-            clamp_indirect, any_fn,
+    with record_function("primary_trace"):
+        state, ray_o, ray_d = primary_streams(
+            cam, px, py, width, height, frame_index, use_dof
         )
-        n_rays = n_rays + need_shadow.sum()
-        active = new_active
-        if b + 1 < max_bounces:
-            n_rays = n_rays + active.sum()
-            tmax = torch.where(active, float("inf"), 0.0)
-            o, d = ray_o.contiguous(), ray_d.contiguous()
-            if bounce_tr is not None:
-                hit = bounce_tr["closest_full"](o, d, LEAFMAJOR_BOUNCE_T_MIN,
-                                                tmax)
-            elif bvh is not None:
-                h8 = trace_closest_bvh(geom["packed_full"], *bvh, o, d,
-                                       BOUNCE_T_MIN, tmax)
-                hit = attrs_from_hit_rows(geom["attr_rows"], unpack_hit8(h8))
-            else:
-                hit = closest_full(o, d, BOUNCE_T_MIN, tmax)
-            hit = with_alpha(state, o, d, tmax, hit)
-            if env is not None:
-                sky = torch.where((active & (hit["tri"] < 0))[:, None],
-                                  throughput * sample_cubemap(env, ray_d),
-                                  0.0)
-                if clamp_indirect:  # every bounce trace is bounce >= 1
-                    sky = torch.clamp(sky, 0.0, 2.0)
-                color = color + sky
+        tmax0 = torch.full((R0,), float("inf"), dtype=torch.float32,
+                           device=px.device)
+        if bvh is not None and not use_dof:
+            cam_vec = primary_cam_vec(cam, width, height, device=px.device)
+            hit = unpack_hit16(trace_primary_bvh_full(
+                geom["packed_full"], *bvh, pix_cols, cam_vec,
+                int(frame_index), BOUNCE_T_MIN,
+            )[:R0])
+        else:
+            hit = closest_full(ray_o.contiguous(), ray_d.contiguous(),
+                               BOUNCE_T_MIN, tmax0)
+        hit = with_alpha(state, ray_o, ray_d, tmax0, hit)
+        if env is not None:
+            color = torch.where((hit["tri"] < 0)[:, None],
+                                sample_cubemap(env, ray_d), 0.0)
+        else:
+            color = torch.zeros((R0, 3), dtype=torch.float32,
+                                device=px.device)
+        throughput = torch.ones_like(color)
+        active = hit["tri"] >= 0
+        n_rays = torch.tensor(R0, dtype=torch.int64, device=px.device)
+    with record_function("wavefront"):
+        for b in range(max_bounces):
+            (state, color, throughput, new_active, ray_o, ray_d,
+             need_shadow) = _shade_and_bounce(
+                scene, b, state, color, throughput, active, ray_o, ray_d,
+                hit, clamp_indirect, any_fn,
+            )
+            n_rays = n_rays + need_shadow.sum()
+            active = new_active
+            if b + 1 < max_bounces:
+                n_rays = n_rays + active.sum()
+                tmax = torch.where(active, float("inf"), 0.0)
+                o, d = ray_o.contiguous(), ray_d.contiguous()
+                if bounce_tr is not None:
+                    hit = bounce_tr["closest_full"](
+                        o, d, LEAFMAJOR_BOUNCE_T_MIN, tmax)
+                elif bvh is not None:
+                    h8 = trace_closest_bvh(geom["packed_full"], *bvh, o, d,
+                                           BOUNCE_T_MIN, tmax)
+                    hit = attrs_from_hit_rows(geom["attr_rows"],
+                                              unpack_hit8(h8))
+                else:
+                    hit = closest_full(o, d, BOUNCE_T_MIN, tmax)
+                hit = with_alpha(state, o, d, tmax, hit)
+                if env is not None:
+                    sky = torch.where(
+                        (active & (hit["tri"] < 0))[:, None],
+                        throughput * sample_cubemap(env, ray_d), 0.0)
+                    if clamp_indirect:  # every bounce trace is bounce >= 1
+                        sky = torch.clamp(sky, 0.0, 2.0)
+                    color = color + sky
     check_stack_overflow(px.device)
     return color, n_rays
 
@@ -424,9 +434,11 @@ def pt_entry(*, scene, cam, lut, width, height, device, exposure=1.0,
             torch.zeros((height, width), dtype=torch.float32,
                         device=sample.device),
         )
-    color, count = pt_accumulate(state[0], state[1], sample)
-    lut = torch.as_tensor(lut, dtype=torch.float32, device=sample.device)
-    img = tone_map(color, lut, exposure, contrast)
+    with record_function("accumulate"):
+        color, count = pt_accumulate(state[0], state[1], sample)
+    with record_function("tonemap"):
+        lut = torch.as_tensor(lut, dtype=torch.float32, device=sample.device)
+        img = tone_map(color, lut, exposure, contrast)
     if return_stats:
         return img, (color, count), n_rays
     return img, (color, count)

@@ -34,6 +34,11 @@ config.policy.bounce_tracer is "leafmajor" on a frame with BVH arrays
 else through ops/trace.make_tracer's: K3 or, under
 config.policy.any_tracer = "dense", K10 on frames with BVH arrays, K7
 without.
+
+The passes run under torch.profiler.record_function scopes named as the
+JAX package's jax.named_scope passes (restir.py:359-461, pt.py:918-921):
+gbuffer, ris_initial, spatial_shade, accumulate and tonemap, which
+utils/profiler.profile_passes reads.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import math
 from functools import lru_cache
 
 import torch
+from torch.profiler import record_function
 
 from ..mathx import rng as prng
 from ..mathx.color import luminance
@@ -260,26 +266,29 @@ def render_restir(scene: dict, cam: dict, width: int, height: int,
     node stack."""
     frame = scene["frame"]
     dev = scene["geom"]["packed_full"].device
-    gbuf = render_gbuffer(scene, cam, width, height,
-                          alpha_rounds=alpha_rounds)
-    surface = dict(gbuf["surface"])
-    # linear depth from the non-linear buffer, as the comp shaders do
-    c2c = cam["camera_to_clip"]
-    lin = -c2c[2, 3] / (gbuf["depth"] + c2c[2, 2])
-    surface["linear_depth"] = lin
+    with record_function("gbuffer"):
+        gbuf = render_gbuffer(scene, cam, width, height,
+                              alpha_rounds=alpha_rounds)
+        surface = dict(gbuf["surface"])
+        # linear depth from the non-linear buffer, as the comp shaders do
+        c2c = cam["camera_to_clip"]
+        lin = -c2c[2, 3] / (gbuf["depth"] + c2c[2, 2])
+        surface["linear_depth"] = lin
     px, py = _pixel_coords(width, height, str(dev))
     lights = frame["lights"]
     valid = gbuf["valid"]
 
-    li0, ucw0 = initial_reservoirs(surface, lights, px, py, frame_index)
-    li0 = torch.where(valid, li0, -1)
-    neigh_rows = pack_neighbor_rows(
-        {"linear_depth": lin, "normal_metallic": gbuf["normal_metallic"]},
-        li0, ucw0)
-    li1, ucw1 = spatial_reuse(surface, lights, neigh_rows, px, py, width,
-                              height, frame_index)
-    color, traced = restir_shade(surface, lights, li1, ucw1,
-                                 shadow_tracer(scene, width, height))
+    with record_function("ris_initial"):
+        li0, ucw0 = initial_reservoirs(surface, lights, px, py, frame_index)
+        li0 = torch.where(valid, li0, -1)
+        neigh_rows = pack_neighbor_rows(
+            {"linear_depth": lin, "normal_metallic": gbuf["normal_metallic"]},
+            li0, ucw0)
+    with record_function("spatial_shade"):
+        li1, ucw1 = spatial_reuse(surface, lights, neigh_rows, px, py, width,
+                                  height, frame_index)
+        color, traced = restir_shade(surface, lights, li1, ucw1,
+                                     shadow_tracer(scene, width, height))
     check_stack_overflow(dev)
     return color, traced.sum()
 
@@ -296,13 +305,16 @@ def restir_entry(*, scene, cam, lut, width, height, device="cuda",
     color, n_shadow = render_restir(scene, camera_tensors(cam, dev), width,
                                     height, frame_index, alpha_rounds)
     sample = color.reshape(height, width, 3)
-    if state is None:
-        acc = sample
-        count = torch.ones((height, width), dtype=torch.float32, device=dev)
-    else:
-        acc, count = pt_accumulate(state[0], state[1], sample)
-    lut = torch.as_tensor(lut, dtype=torch.float32, device=dev)
-    img = tone_map(acc, lut, exposure, contrast)
+    with record_function("accumulate"):
+        if state is None:
+            acc = sample
+            count = torch.ones((height, width), dtype=torch.float32,
+                               device=dev)
+        else:
+            acc, count = pt_accumulate(state[0], state[1], sample)
+    with record_function("tonemap"):
+        lut = torch.as_tensor(lut, dtype=torch.float32, device=dev)
+        img = tone_map(acc, lut, exposure, contrast)
     if return_stats:
         return img, (acc, count), n_shadow
     return img, (acc, count)

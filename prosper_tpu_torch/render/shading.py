@@ -33,15 +33,24 @@ def eval_directional_light(surface: dict, lights: dict):
     )
 
 
+def has_local_lights(lights: dict) -> bool:
+    """Whether the frame's light arrays have point or spot slots, which
+    the clustered tile kernel shades."""
+    return bool(lights["point_position"].shape[0]
+                or lights["spot_position"].shape[0])
+
+
 def shade_direct(surface: dict, lights: dict, cam: dict, z_cam, valid,
-                 width: int, height: int):
+                 width: int, height: int, light_lists=None):
     """The sun and the clustered point and spot lights (K5, per 32x32
     froxel tile) at each pixel's surface -> (R, 3) linear color, zero
-    where valid is False."""
+    where valid is False. light_lists: the tile lists, when the caller
+    made them (ops/shade_tiles.build_tile_light_lists)."""
     color = eval_directional_light(surface, lights)
-    if lights["point_position"].shape[0] or lights["spot_position"].shape[0]:
+    if has_local_lights(lights):
         color = color + shade_clustered_tiles(
-            tile_inputs(surface, lights, cam, z_cam, valid, width, height),
+            tile_inputs(surface, lights, cam, z_cam, valid, width, height,
+                        light_lists),
             width, height)
     return torch.where(valid[:, None], color, 0.0)
 

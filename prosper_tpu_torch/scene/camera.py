@@ -1,7 +1,7 @@
 """Camera uniforms in numpy.
 
 Counterpart of prosper_tpu/scene/camera.py (`Camera`, `look_at`,
-`uniforms`) over the port's copy of mathx/transforms.py. A copy, because
+`end_frame`, `uniforms`) over the port's copy of mathx/transforms.py. A copy, because
 the JAX package's camera module imports jax through mathx.
 
 Right-handed lookAt, reverse-z glTF projection with the Halton(2,3) TAA
@@ -105,6 +105,15 @@ class Camera:
         if self._prev_world_to_camera is None:
             self._prev_world_to_camera = self._world_to_camera.copy()
             self._prev_camera_to_clip = self._camera_to_clip.copy()
+
+    def end_frame(self) -> None:
+        """Rotate the previous-frame state (Camera::endFrame): this
+        frame's matrices and jitter become the previous ones, and the
+        Halton index advances (the next update() takes its jitter)."""
+        self._prev_world_to_camera = self._world_to_camera.copy()
+        self._prev_camera_to_clip = self._camera_to_clip.copy()
+        self._previous_jitter = self._current_jitter.copy()
+        self._jitter_index = (self._jitter_index + 1) % len(HALTON_23)
 
     def uniforms(self) -> dict[str, np.ndarray]:
         """CameraUniforms dict, the same keys and values as the JAX

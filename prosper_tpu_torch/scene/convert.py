@@ -17,13 +17,25 @@ from ..ops.texture import pack_material_tables
 from ..ops.trace import prepare_geometry
 
 
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy array on `device`. To the card through pinned memory with
+    a non-blocking copy on the current stream, so an upload between two
+    frames does not wait for the frame still in flight."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.as_tensor(a, device=device)
+    a = np.asarray(a)
+    return torch.from_numpy(a.copy(order="C")).pin_memory().to(
+        device, non_blocking=True)
+
+
 def _tensor(a, device):
     a = np.asarray(a)
     if a.dtype == np.uint32:  # u32 words ride as int64 (no torch u32 ops)
         a = a.astype(np.int64)
     elif a.dtype == np.float64:
         a = a.astype(np.float32)
-    return torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return to_device(np.ascontiguousarray(a), device)
 
 
 # World.frame_arrays keys that stay on the host: the BVH2 depth (an int,
@@ -45,11 +57,26 @@ def from_numpy_scene(static: dict, frame: dict, arena: dict, device) -> dict:
     keys are left out; arena gains "mat_f32" / "mat_i32" and "one_mip",
     a bool: every texture has one mip (render/surface.py then samples an
     isotropic cone's base mip directly)."""
-    device = torch.device(device)
-    static_t = {
-        k: _tensor(v, device) for k, v in static.items() if k != "materials"
+    static_t = static_tensors(static, device)
+    frame_t = frame_tensors(frame, device)
+    return {
+        "static": static_t,
+        "frame": frame_t,
+        "arena": arena_tensors(arena, static["materials"], device),
+        "geom": prepare_geometry(static_t, frame_t),
     }
-    frame_t = {
+
+
+def static_tensors(static: dict, device) -> dict:
+    """A scene's static arrays on `device`, the material table left out
+    (arena_tensors packs it)."""
+    return {k: _tensor(v, device) for k, v in static.items()
+            if k != "materials"}
+
+
+def frame_tensors(frame: dict, device) -> dict:
+    """A frame's arrays on `device`, its HOST_ONLY keys left out."""
+    return {
         k: (
             {kk: _tensor(vv, device) for kk, vv in v.items()}
             if isinstance(v, dict)
@@ -57,23 +84,23 @@ def from_numpy_scene(static: dict, frame: dict, arena: dict, device) -> dict:
         )
         for k, v in frame.items() if k not in HOST_ONLY
     }
+
+
+def arena_tensors(arena: dict, materials: dict, device) -> dict:
+    """The texture arena on `device` with the packed material tables
+    ("mat_f32", "mat_i32") and "one_mip"."""
     arena_t = {k: _tensor(v, device) for k, v in arena.items()}
     arena_t["one_mip"] = bool((np.asarray(arena["n_mips"]) <= 1).all())
-    mat_f32, mat_i32 = pack_material_tables(static["materials"], arena)
+    mat_f32, mat_i32 = pack_material_tables(materials, arena)
     arena_t["mat_f32"] = _tensor(mat_f32, device)
     arena_t["mat_i32"] = _tensor(mat_i32, device)
-    return {
-        "static": static_t,
-        "frame": frame_t,
-        "arena": arena_t,
-        "geom": prepare_geometry(static_t, frame_t),
-    }
+    return arena_t
 
 
 def camera_tensors(cam: dict, device) -> dict:
     """Camera uniforms (numpy or tensors) -> float32 tensors on device."""
     return {
-        k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+        k: to_device(np.asarray(v, np.float32), device)
         if not isinstance(v, torch.Tensor) else v.to(device, torch.float32)
         for k, v in cam.items()
     }

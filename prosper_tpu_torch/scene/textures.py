@@ -12,9 +12,11 @@ neutral 1 px default texture (WorldData.cpp:726-755). Mip chains are a
 CPU; the BC7 encode is replaced by packed RGBA8). ops/texture.py samples
 the arena.
 
-The streaming arena (`build_streaming_arena`, `arena_write`) raises
-NotImplementedError: ROADMAP.md queue 1, item "App and utils"
-(scene/streaming.py).
+The streaming arena (`build_streaming_arena`, :269-352) has the same
+layout, taken from the image headers, with every texture's rows filled
+by its neutral color; its jobs decode and mip one image each on the
+loading worker (scene/streaming.py), and `arena_write` writes a finished
+chunk over its rows of the arena tensor on the device.
 """
 
 from __future__ import annotations
@@ -240,13 +242,126 @@ def build_texture_arena(
     )
 
 
-def build_streaming_arena(*args, **kwargs):
-    raise NotImplementedError(
-        "streaming textures (build_streaming_arena): ROADMAP.md queue 1, "
-        "item 'App and utils' (scene/streaming.py)")
+def image_dims(doc: GltfDocument, index: int, max_dim: int | None):
+    """(h, w) that an image decodes to, read from its header (PIL) with
+    decode_image's max_dim rescale; a missing or unreadable file gives
+    the 1 px neutral."""
+    import os
+
+    from PIL import Image, UnidentifiedImageError
+
+    img_spec = doc.images[index]
+    try:
+        if img_spec.uri is not None:
+            path = os.path.join(doc.base_dir, img_spec.uri)
+            if not os.path.exists(path):
+                return 1, 1
+            with Image.open(path) as im:
+                w, h = im.size
+        elif img_spec.data is not None:
+            with Image.open(io.BytesIO(img_spec.data)) as im:
+                w, h = im.size
+        else:
+            return 1, 1
+    except (OSError, UnidentifiedImageError):
+        return 1, 1
+    if max_dim is not None and max(w, h) > max_dim:
+        scale = max_dim / max(h, w)
+        w, h = max(int(w * scale), 1), max(int(h * scale), 1)
+    return h, w
 
 
-def arena_write(*args, **kwargs):
-    raise NotImplementedError(
-        "streaming textures (arena_write): ROADMAP.md queue 1, item 'App "
-        "and utils' (scene/streaming.py)")
+def _predicted_mip_dims(h: int, w: int) -> list[tuple[int, int]]:
+    """The mip dims generate_mips produces (halving until the smaller
+    side reaches 1), at most MAX_MIPS."""
+    dims = [(h, w)]
+    while min(h, w) > 1 and len(dims) < MAX_MIPS:
+        h, w = max(h // 2, 1), max(w // 2, 1)
+        dims.append((h, w))
+    return dims
+
+
+def build_streaming_arena(
+    doc: GltfDocument,
+    max_dim: int | None = None,
+    scene_path: str | None = None,
+):
+    """The streaming texture arena: build_texture_arena's layout from the
+    image headers, each texture's rows filled with its neutral color.
+    Returns (arena, jobs): each job decodes and mips one image (on the
+    loading worker) and returns a LoadedTexture whose packed quads
+    arena_write puts over the neutral rows (DeferredLoadingContext::
+    loadNextTexture and its per-frame adoption,
+    DeferredLoadingContext.cpp:929-1029)."""
+    from .streaming import LoadedTexture
+
+    color_spaces = doc.image_color_spaces()
+    wrap_modes = doc.image_wrap_modes()
+    n_tex = len(doc.images) + 1
+    table = np.zeros((n_tex, MAX_MIPS, 4), np.int32)
+    n_mips = np.zeros(n_tex, np.int32)
+
+    offset = 0
+    spans: list[tuple[int, int, np.ndarray]] = []  # (offset, rows, fill)
+
+    def layout(slot: int, h: int, w: int, srgb: bool, fill_rgba: np.ndarray,
+               wrap=(0, 0)):
+        flags = (1 if srgb else 0) | (wrap[0] << 1) | (wrap[1] << 3)
+        nonlocal offset
+        dims = _predicted_mip_dims(h, w)
+        n_mips[slot] = len(dims)
+        start = offset
+        for m, (mh, mw) in enumerate(dims):
+            table[slot, m] = (offset, mw, mh, flags)
+            offset += mh * mw
+        for m in range(len(dims), MAX_MIPS):
+            table[slot, m] = table[slot, len(dims) - 1]
+        fill = pack_rgba8(fill_rgba.reshape(1, 1, 4))[0]
+        spans.append((start, offset - start, fill))
+        return start
+
+    layout(0, 1, 1, False, np.full(4, 255, np.uint8))
+    starts = []
+    for i in range(len(doc.images)):
+        h, w = image_dims(doc, i, max_dim)
+        starts.append(layout(i + 1, h, w, color_spaces[i] == "srgb",
+                             neutral_image(doc, i)[0, 0], wrap_modes[i]))
+
+    data = np.empty((offset, 4), np.uint32)
+    for start, rows, fill in spans:
+        data[start : start + rows] = fill
+    # the default slot holds its real (white) content from the start
+    data[0:1] = pack_rgba8_quads(np.full((1, 1, 4), 255, np.uint8))
+
+    def make_job(i: int, start: int):
+        def job():
+            mips = image_mips_cached(doc, i, max_dim,
+                                     color_spaces[i] == "srgb",
+                                     neutral_image(doc, i), scene_path)
+            chunk = np.concatenate(
+                [pack_rgba8_quads(m) for m in mips]).astype(np.uint32)
+            return LoadedTexture(image_index=i, offset=start, chunk=chunk)
+
+        return job
+
+    jobs = [make_job(i, starts[i]) for i in range(len(doc.images))]
+    return TextureArena(data=data, table=table, n_mips=n_mips), jobs
+
+
+def arena_write(data, chunk: np.ndarray, offset: int):
+    """Adopt a streamed texture: write its packed quads (rows, 4) u32
+    over rows [offset, offset + rows) of the arena tensor `data` (the u32
+    words widened to int64, as scene/convert.py uploads them), in place,
+    on the current stream after the frames already queued; the rest of
+    the arena is not copied. Returns `data`."""
+    import torch
+
+    rows = chunk.shape[0]
+    if offset < 0 or offset + rows > data.shape[0]:
+        raise ValueError(f"chunk rows [{offset}, {offset + rows}) outside "
+                         f"the arena's {data.shape[0]}")
+    src = torch.from_numpy(np.asarray(chunk).astype(np.int64))
+    if data.device.type == "cuda":
+        src = src.pin_memory()
+    data[offset : offset + rows].copy_(src, non_blocking=True)
+    return data

@@ -16,9 +16,12 @@ buildAccelerationStructures; World.cpp:349-575 of the reference):
   (positions f16, normals and tangents 10-10-10-2 snorm, uv f16),
   whatever the cache state, so rendering does not depend on the cache.
 - Materials, lights and the camera are SoA dicts.
-
-Streaming (World(streaming=True)) raises NotImplementedError: ROADMAP.md
-queue 1, item "App and utils" (scene/streaming.py).
+- World(streaming=True) lays the arenas out from the glTF headers with
+  placeholder meshes (tri_count 0, degenerate triangles: invisible to
+  rays and to the culler); start_streaming launches scene/streaming.py's
+  worker, and poll_streaming adopts finished meshes into the host arrays
+  between frames, after which the caller uploads static_scene_arrays()
+  again (streaming_dirty).
 """
 
 from __future__ import annotations
@@ -40,7 +43,12 @@ from . import animation as anim
 from .camera import Camera, CameraParameters, CameraTransform
 from .gltf import GltfDocument, load_gltf
 from .lights import LightArrays, light_uniforms, load_lights
-from .meshlets import CLUSTER_TRI_PAD, MeshClusters, build_clusters
+from .meshlets import (
+    CLUSTER_TRI_PAD,
+    MAX_MESHLET_TRIANGLES,
+    MeshClusters,
+    build_clusters,
+)
 from .scene_graph import SceneGraph, build_scene_graph, update_scene
 
 _log = logging.getLogger(__name__)
@@ -243,6 +251,57 @@ def dequantize_mesh_arrays(a: dict) -> dict:
     return out
 
 
+def _placeholder_mesh(prim) -> MeshData:
+    """A streamed primitive before its adoption: the cluster count that
+    build_clusters will give (ceil(T / 124): every cluster full but the
+    last), no triangles in any cluster, zero vertices. Unloaded meshes
+    are invisible: tri_count 0 and degenerate triangles, the
+    meshletCount == 0 gate."""
+    n_tris = len(prim.indices) // 3
+    n_cl = max(1, -(-n_tris // MAX_MESHLET_TRIANGLES))
+    nv = len(prim.positions)
+    return MeshData(
+        clusters=MeshClusters(
+            tri_vidx=np.zeros((n_tris, 3), np.uint32),
+            cluster_offset=(np.arange(n_cl)
+                            * MAX_MESHLET_TRIANGLES).astype(np.uint32),
+            cluster_count=np.zeros(n_cl, np.uint32),
+            aabb_min=np.zeros((n_cl, 3), np.float32),
+            aabb_max=np.zeros((n_cl, 3), np.float32),
+            cone_apex=np.zeros((n_cl, 3), np.float32),
+            cone_axis=np.tile(np.array([[0, 0, 1.0]], np.float32),
+                              (n_cl, 1)),
+            cone_cutoff=np.ones(n_cl, np.float32),
+            sphere_radius=np.zeros(n_cl, np.float32),
+        ),
+        positions=np.zeros((nv, 3), np.float32),
+        normals=np.zeros((nv, 3), np.float32),
+        tangents=np.zeros((nv, 4), np.float32),
+        uv0=np.zeros((nv, 2), np.float32),
+        material=prim.material + 1,
+    )
+
+
+def _load_prim_arrays(path: str, mi: int, pi: int, prim,
+                      use_cache: bool) -> dict:
+    """A primitive's processed arrays through the versioned mesh cache
+    (DeferredLoadingContext readCache/writeCache analog)."""
+    from .caches import load_mesh_cache, mesh_cache_path, save_mesh_cache
+
+    arrays = None
+    cpath = mesh_cache_path(path, mi, pi) if use_cache else None
+    if cpath:
+        arrays = load_mesh_cache(cpath)
+    if arrays is None:
+        arrays = _process_prim(prim)
+        if cpath:
+            try:
+                save_mesh_cache(cpath, arrays)
+            except OSError:
+                pass  # read-only scene dir: skip caching
+    return arrays
+
+
 def _mesh_from_arrays(a: dict, material: int) -> MeshData:
     if "positions_f16" in a:
         a = dequantize_mesh_arrays(a)
@@ -277,10 +336,6 @@ class World:
         streaming: bool = False,
         instance_grid: int = 1,
     ) -> None:
-        if streaming:
-            raise NotImplementedError(
-                "World(streaming=True): ROADMAP.md queue 1, item 'App and "
-                "utils' (scene/streaming.py)")
         _log.info("Loading world %s", path)
         self.path = path
         self.doc: GltfDocument = load_gltf(path)
@@ -292,24 +347,23 @@ class World:
         # (one "mesh" per glTF primitive, WorldData::loadModels), going
         # through the versioned mesh cache (DeferredLoadingContext
         # readCache/writeCache analog).
-        from .caches import load_mesh_cache, mesh_cache_path, save_mesh_cache
-
+        self.streaming = streaming
+        self._streaming_ctx = None
+        self._adopted_textures = []
+        self.streaming_dirty = False
+        self._use_cache = use_cache
         self.meshes: list[MeshData] = []
         self.model_first_mesh: list[int] = []  # per glTF mesh: first flat index
+        self._prim_refs = []  # (flat mesh index, glTF mesh, primitive, prim)
         for mi, gltf_mesh in enumerate(self.doc.meshes):
             self.model_first_mesh.append(len(self.meshes))
             for pi, prim in enumerate(gltf_mesh.primitives):
-                arrays = None
-                cpath = mesh_cache_path(path, mi, pi) if use_cache else None
-                if cpath:
-                    arrays = load_mesh_cache(cpath)
-                if arrays is None:
-                    arrays = _process_prim(prim)
-                    if cpath:
-                        try:
-                            save_mesh_cache(cpath, arrays)
-                        except OSError:
-                            pass  # read-only scene dir: skip caching
+                if streaming:
+                    # a layout-only mesh, its geometry adopted later
+                    self._prim_refs.append((len(self.meshes), mi, pi, prim))
+                    self.meshes.append(_placeholder_mesh(prim))
+                    continue
+                arrays = _load_prim_arrays(path, mi, pi, prim, use_cache)
                 self.meshes.append(_mesh_from_arrays(arrays, prim.material + 1))
         self.model_first_mesh.append(len(self.meshes))
 
@@ -448,12 +502,16 @@ class World:
 
         n_real = 0
         c_global = 0
+        # flat mesh -> [(its first world cluster, instance)], where
+        # poll_streaming writes an adopted mesh
+        self._mesh_slots: dict[int, list[tuple[int, int]]] = {}
         for d in range(len(di.mesh)):
             mesh_idx = int(di.mesh[d])
             inst = int(di.model_instance[d])
             mesh = self.meshes[mesh_idx]
             cl = mesh.clusters
             voff = int(self.mesh_vertex_offset[mesh_idx])
+            self._mesh_slots.setdefault(mesh_idx, []).append((c_global, inst))
             for local_c in range(len(cl.cluster_offset)):
                 s = int(cl.cluster_offset[local_c])
                 cnt = int(cl.cluster_count[local_c])
@@ -582,6 +640,90 @@ class World:
             "lights": light_uniforms(la),
             "scene_camera": st.camera,
         }
+
+    # ------------------------------------------------------------------
+    # Asset streaming (DeferredLoadingContext analog)
+
+    def start_streaming(self, texture_jobs=None) -> None:
+        """Launch the background loading worker (World::startFrame on the
+        first frame). texture_jobs (textures.build_streaming_arena's)
+        stream after the meshes (loadNextTexture's order)."""
+        if not self.streaming or self._streaming_ctx is not None:
+            return
+        from .streaming import LoadedMesh, StreamingContext
+
+        def make_job(flat_idx, mi, pi, prim):
+            def job():
+                return LoadedMesh(
+                    mesh_index=flat_idx,
+                    arrays=_load_prim_arrays(self.path, mi, pi, prim,
+                                             self._use_cache))
+
+            return job
+
+        jobs = [make_job(*ref) for ref in self._prim_refs]
+        self._streaming_ctx = StreamingContext(jobs, texture_jobs or [])
+        self._streaming_ctx.start()
+        self._adopted_textures = []
+
+    def take_adopted_textures(self) -> list:
+        """The LoadedTexture items adopted by poll_streaming since the last
+        call (the pollTextureWorker handoff); the caller writes them into
+        its arena (textures.arena_write)."""
+        out = self._adopted_textures
+        self._adopted_textures = []
+        return out
+
+    def poll_streaming(self, budget: int | None = None) -> int:
+        """Adopt finished meshes into the host arrays (pollMeshWorker) and
+        queue finished textures for take_adopted_textures. Returns the
+        number adopted; sets streaming_dirty when a mesh changed the
+        static arrays."""
+        if self._streaming_ctx is None:
+            return 0
+        from .streaming import MAX_ADOPTIONS_PER_FRAME, LoadedTexture
+
+        polled = self._streaming_ctx.poll(budget or MAX_ADOPTIONS_PER_FRAME)
+        self._adopted_textures.extend(
+            i for i in polled if isinstance(i, LoadedTexture))
+        adopted = [i for i in polled if not isinstance(i, LoadedTexture)]
+        pad = CLUSTER_TRI_PAD
+        for item in adopted:
+            mesh_idx = item.mesh_index
+            mesh = _mesh_from_arrays(item.arrays,
+                                     self.meshes[mesh_idx].material)
+            self.meshes[mesh_idx] = mesh
+            cl = mesh.clusters
+            voff = int(self.mesh_vertex_offset[mesh_idx])
+            nv = mesh.vertex_count
+            self.a_packed[voff : voff + nv, 0:3] = mesh.normals
+            self.a_packed[voff : voff + nv, 3:7] = mesh.tangents
+            self.a_packed[voff : voff + nv, 7:9] = mesh.uv0
+            for c_base, _inst in self._mesh_slots.get(mesh_idx, []):
+                for local_c in range(len(cl.cluster_offset)):
+                    s0 = int(cl.cluster_offset[local_c])
+                    cnt = int(cl.cluster_count[local_c])
+                    tris = cl.tri_vidx[s0 : s0 + cnt]
+                    base = (c_base + local_c) * pad
+                    self.wt_p0[base : base + cnt] = mesh.positions[tris[:, 0]]
+                    self.wt_p1[base : base + cnt] = mesh.positions[tris[:, 1]]
+                    self.wt_p2[base : base + cnt] = mesh.positions[tris[:, 2]]
+                    self.wt_aidx[base : base + cnt] = tris + np.uint32(voff)
+                    cg = c_base + local_c
+                    self.wc_aabb_min_obj[cg] = cl.aabb_min[local_c]
+                    self.wc_aabb_max_obj[cg] = cl.aabb_max[local_c]
+                    self.wc_sphere_center[cg] = cl.cone_apex[local_c]
+                    self.wc_sphere_radius[cg] = cl.sphere_radius[local_c]
+                    self.wc_cone_axis[cg] = cl.cone_axis[local_c]
+                    self.wc_cone_cutoff[cg] = cl.cone_cutoff[local_c]
+                    self.wc_tri_count[cg] = cnt
+        if adopted:
+            self.streaming_dirty = True
+        return len(polled)
+
+    @property
+    def streaming_done(self) -> bool:
+        return self._streaming_ctx is None or self._streaming_ctx.done
 
     def make_camera(
         self, resolution: tuple[int, int], apply_jitter: bool = False

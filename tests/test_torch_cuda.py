@@ -1840,3 +1840,28 @@ def test_post_chain_frames_on_card_match_cpu(cuda, tech, monkeypatch):
         assert n_g == n_c
         off = ((img_g - img_c).abs() > 1e-3).any(dim=-1).float().mean()
         assert float(off) <= 0.01
+
+
+@pytest.mark.parametrize("mode", ["pt", "deferred", "forward", "restir"])
+def test_cli_frames_on_card_match_cpu(cuda, mode, tmp_path):
+    """The port's CLI at 64x64 on the card (--platform gpu, the kernels)
+    against the same run with --platform cpu (the plain versions): at
+    most 0.5% of the pixels off by more than 1e-3 + 1e-3 |want|."""
+    from prosper_tpu_torch import testing
+    from prosper_tpu_torch.app import cli
+
+    path = testing.write_plate_gltf(tmp_path / "scene", 64, n_instanced=8,
+                                    scatter_lights=100)
+    frames = []
+    for platform in ("gpu", "cpu"):
+        dump = str(tmp_path / f"{platform}.png")
+        assert cli.main(["render", path, "--platform", platform, "--mode",
+                         mode, "--width", "64", "--height", "64",
+                         "--frames", "3", "--out",
+                         str(tmp_path / f"{platform}_out.png"),
+                         "--dump-debug", dump]) == 0
+        frames.append(np.load(dump + ".npy"))
+    got, want = frames
+    assert got.shape == want.shape == (64, 64, 3)
+    off = (np.abs(got - want) > 1e-3 + 1e-3 * np.abs(want)).any(-1)
+    assert off.mean() <= 0.005, off.mean()

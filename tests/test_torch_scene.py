@@ -179,13 +179,15 @@ def test_hit_row_round_trip_equals_jax():
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port and rendering a CPU path-traced,
+    """Importing every module of the port (its CLI, utilities and
+    streaming included) and rendering a CPU path-traced,
     a CPU deferred and a CPU forward frame (the transparent pass and alpha
     discard on a frame without BVH arrays), two CPU ReSTIR frames, a
     path-traced frame without BVH arrays, one under the leaf-major
     bounce tracer, a deferred frame of a glTF scene written by
     testing.write_plate_gltf and loaded through scene/world.py (glTF,
-    native mesh pipeline, textures with mips), a path-traced frame with
+    native mesh pipeline, textures with mips) and the same file through
+    the CLI (streamed, profiled), a path-traced frame with
     its three options (thin-lens DoF, the procedural sky as environment,
     the stochastic alpha retrace) and deferred frames with the CLI's full
     post chain (IBL, TAA, bloom both ways, DoF, particles, culling;
@@ -265,6 +267,11 @@ def test_port_never_imports_jax():
         "img, state, drawn = fn(*args)\n"
         "assert img.shape == (32, 32, 3) and int(drawn) > 0\n"
         "assert int(args[0]['arena']['n_mips'].max()) > 1\n"
+        "from prosper_tpu_torch.app import cli\n"
+        "out = tempfile.mkdtemp() + '/frame.png'\n"
+        "assert cli.main(['render', path, '--platform', 'cpu', '--mode',\n"
+        "    'deferred', '--streaming', '--profile', '--width', '32',\n"
+        "    '--height', '32', '--frames', '2', '--out', out]) == 0\n"
         "from prosper_tpu_torch.scripts import bench_visit_breakdown as bvb\n"
         "rec, _ = bvb.main(path, 'cpu', 32, 32)\n"
         "v, need = rec['leaf_visits'], rec['leaves_before_hit']\n"

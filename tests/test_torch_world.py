@@ -29,6 +29,7 @@ Tolerances:
 """
 
 import os
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -317,8 +318,21 @@ def test_feature_scene_is_what_it_claims(tmp_path):
 
 
 def test_world_refuses_streaming(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        World(_tiny(tmp_path), streaming=True)
+    """A streamed World shows no geometry before its worker delivers (the
+    meshletCount == 0 gate), then the loaded World's arrays
+    (tests/test_torch_streaming.py holds the streaming path against
+    JAX's)."""
+    path = _tiny(tmp_path)
+    w = World(path, streaming=True, use_cache=False)
+    assert (w.wc_tri_count == 0).all() and not w.wt_p0.any()
+    w.start_streaming()
+    deadline = time.monotonic() + 60
+    while not w.streaming_done and time.monotonic() < deadline:
+        w.poll_streaming()
+        time.sleep(0.01)
+    assert w.streaming_done and w.streaming_dirty
+    _assert_tree_equal(w.static_scene_arrays(),
+                       World(path, use_cache=False).static_scene_arrays())
 
 
 def _jdev(tree):
