@@ -12,8 +12,9 @@ discard, ReSTIR DI under its three tracer configurations, the path
 tracer and ReSTIR under the leaf-major bounce tracer, and the glTF
 scene path: the plate scene written as a glTF file, loaded through
 World, rendered, and traced by the 8-wide kernels, the measurement
-entry points of the experiments and scripts (X1-X3), and the port's
-command line in every mode on that file. Phases:
+entry points of the experiments and scripts (X1-X3), the port's
+command line in every mode on that file, and PT, ReSTIR and deferred
+frames split into pixel bands over ranks sharing the card. Phases:
 
 1. device: CUDA, nvcc and the card's name and power limit;
 2. build: compile csrc/trace_bvh.cu, csrc/shade_tiles.cu,
@@ -201,9 +202,25 @@ command line in every mode on that file. Phases:
    entry(scene=<plates.gltf>)'s frames 0-3 (max abs diff 0), with
    entry()'s ms/frame and the breakdown of the frame the CLI profiled;
    the deferred pass table's gbuffer, light_clustering, shading and
-   tonemap against that breakdown's busy time (within 10%); the streamed
-   deferred frame against the loaded one (max abs diff 0), after the log
-   says streaming finished.
+   tonemap, taken from that breakdown's trace, against its busy time
+   (within 10%), and the CLI's pass table naming the same passes; the
+   streamed deferred frame against the loaded one (max abs diff 0), after
+   the log says streaming finished;
+19. sharded frames (prosper_tpu_torch/render/distributed.py): on
+   plate-2048 with 1024 scattered lights, K1's G-buffer form on one
+   deferred band (rows 288-575 of 4 bands: band-local cols and a cam_vec
+   with the band's y_offset) against its plain version and the lockstep
+   plain walk, and its rows against the full frame's rows of the same
+   pixels (bit for bit), the band's tile lists against the full frame's
+   tile rows and K5 on them against its plain version (as phase 3);
+   then 4 gloo ranks on the one card (run_ranks, exchanges staged
+   through host memory) render the PT (3 bounces), ReSTIR and deferred
+   frames, over all 4 ranks and over ranks 0-1, each one warm-up and 3
+   timed frames, held to this process's one-rank frame (colour max abs
+   diff 0, ray and shadow-ray counts equal), with ms/frame beside the
+   one-rank frame's, the bytes each rank sends and the time of the
+   frame's collectives alone; each kernel of the three paths must
+   launch in the ranks.
 
 The script's whole run time is printed before the kernels line.
 Every launch count is set to 0 just before a path is driven and read
@@ -824,7 +841,8 @@ def breakdown(fn, scene, cam, frame_index, state=None, top=12):
     CUDA kernels' share and each one's time a launch, and the device's
     idle share of the frame's wall time (profiling adds host overhead, so
     the idle share is an upper bound). Returns the frame's wall and busy
-    ms and its launches (the device rows' count, copies included)."""
+    ms, its launches (the device rows' count, copies included) and the
+    trace's events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -855,7 +873,7 @@ def breakdown(fn, scene, cam, frame_index, state=None, top=12):
         for name, ms, count in rows
         if any(k in name for k in PORT_KERNEL_SYMBOLS)))
     return {"wall_ms": wall, "busy_ms": busy,
-            "launches": sum(r[2] for r in rows)}
+            "launches": sum(r[2] for r in rows), "events": prof.events()}
 
 
 def drive(fn, scene, cam, path, label, smi):
@@ -1165,24 +1183,25 @@ def k5_calls(fn, scene, cam, frame_index=0, state=None):
     return calls
 
 
-def check_k5(label, inp):
-    """K5 on one W x H G-buffer's whole inputs against its plain version
-    (within K5_RTOL / K5_ATOL), and its walk form against the plain walk
-    counts (exactly) -> (ok, record). The record holds the times of both
-    forms, the plain version's and the bound, and per pixel with a
-    surface the means of: its tile's list length, the entries its color
-    needs (up to its 128th visible light), the entries its warp walks,
-    the lights it shades and its warp's shading union (the entries at
-    which some lane of the warp shades)."""
+def check_k5(label, inp, height=H):
+    """K5 on one W x height G-buffer's whole inputs against its plain
+    version (within K5_RTOL / K5_ATOL), and its walk form against the
+    plain walk counts (exactly) -> (ok, record). The record holds the
+    times of both forms, the plain version's and the bound, and per
+    pixel with a surface the means of: its tile's list length, the
+    entries its color needs (up to its 128th visible light), the entries
+    its warp walks, the lights it shades and its warp's shading union
+    (the entries at which some lane of the warp shades)."""
     from prosper_tpu_torch.ops import shade_tiles as tst
 
     (want, cnt, needed), plain_ms = timed_call(
-        lambda: tst.shade_clustered_tiles_plain(inp, W, H, return_counts=True))
-    got = tst.shade_clustered_tiles(inp, W, H)
+        lambda: tst.shade_clustered_tiles_plain(inp, W, height,
+                                                return_counts=True))
+    got = tst.shade_clustered_tiles(inp, W, height)
     diff = (got - want).abs()
     out_of_tol = int((diff > K5_ATOL + K5_RTOL * want.abs()).sum())
-    walk_want = tst.shade_walk_counts_plain(inp, W, H)
-    walk = tst.shade_walk_counts(inp, W, H)
+    walk_want = tst.shade_walk_counts_plain(inp, W, height)
+    walk = tst.shade_walk_counts(inp, W, height)
     walk_eq = bool(torch.equal(walk, walk_want))
     valid = inp["chan"][12] > 0
     n_valid = int(valid.sum())
@@ -1193,7 +1212,7 @@ def check_k5(label, inp):
     spots = int(inp["ints"][1]) * n_valid
     ops = (LIST_LIGHT_OPS * listed + POINT_LIGHT_OPS * shaded
            + SPOT_LIGHT_OPS * spots)
-    tile = tst._walk_setup(inp, W, H)[0]
+    tile = tst._walk_setup(inp, W, height)[0]
     union = walk_want[valid, 2]
     walk_rec = {
         "list_mean": float(inp["counts"][tile][valid].float().mean()),
@@ -1206,15 +1225,18 @@ def check_k5(label, inp):
                                       .float().mean()),
     }
     ok = out_of_tol == 0 and walk_eq
-    rec = {"max_abs_err": float(diff.max()), "pixels": W * H,
+    rec = {"max_abs_err": float(diff.max()), "pixels": W * height,
            "with_surface": n_valid,
-           "ms": device_ms(lambda: tst.shade_clustered_tiles(inp, W, H), 5),
-           "walk_form_ms": device_ms(lambda: tst.shade_walk_counts(inp, W, H),
+           "ms": device_ms(
+               lambda: tst.shade_clustered_tiles(inp, W, height), 5),
+           "walk_form_ms": device_ms(
+               lambda: tst.shade_walk_counts(inp, W, height),
                                      5),
            "plain_ms": plain_ms, **walk_rec,
            **bound(nbytes(*inp.values(), got), ops)}
     rec["shading_share"] = 1.0 - rec["walk_form_ms"] / rec["ms"]
-    print(f"K5 {label}: ok={ok} pixels {W * H} with a surface {n_valid}; "
+    print(f"K5 {label}: ok={ok} pixels {W * height} with a surface "
+          f"{n_valid}; "
           f"lights per tile {int(inp['counts'].min())}-"
           f"{int(inp['counts'].max())}; needed z-slab tests {listed}, shaded "
           f"point lights {shaded}, spot evaluations {spots}; channels out of "
@@ -3347,8 +3369,13 @@ CLI_PT_SYMBOLS = {"trace_primary_bvh_full": "primary_kernel",
                   "trace_closest_bvh": "warp_closest_kernel<false>",
                   "trace_any_bvh": "warp_any_kernel"}
 # the deferred pass table's four passes sum to within this share of the
-# profiled entry() frame's busy time
+# busy time of the profiled frame whose trace they come from (entry()'s).
+# The CLI's table is of another run of that frame, whose kernel times
+# differed from entry()'s by 1.0% and 5.5% in two runs of this script on
+# an H100, so the CLI's table is held to naming the same passes and its
+# time is printed beside the frame's.
 PASS_SUM_TOL = 0.10
+DEFERRED_PASSES = ("gbuffer", "light_clustering", "shading", "tonemap")
 
 
 class LogLines(logging.Handler):
@@ -3451,6 +3478,7 @@ def run_cli(smi, dev):
 
     from prosper_tpu_torch import testing
     from prosper_tpu_torch.ops import trace_flat as tf
+    from prosper_tpu_torch.utils.profiler import pass_table
 
     phase("cli")
     t_phase = time.perf_counter()
@@ -3539,13 +3567,19 @@ def run_cli(smi, dev):
                   f"{prof['launches']} device rows (copies included)")
             if label == "deferred":
                 rows = pass_rows(out)
-                four = sum(rows.get(k, 0.0) for k in (
-                    "gbuffer", "light_clustering", "shading", "tonemap"))
+                same = dict(pass_table(prof["events"], 1, dev))
+                cli_four = sum(rows.get(k, 0.0) for k in DEFERRED_PASSES)
+                four = sum(same.get(k, 0.0) for k in DEFERRED_PASSES)
                 share = four / prof["busy_ms"]
-                print(f"cli deferred pass table {rows}: gbuffer + "
-                      f"light_clustering + shading + tonemap {four:.3f} ms, "
-                      f"{share:.3f} of entry()'s busy {prof['busy_ms']:.3f} "
-                      f"ms; card: {smi}")
+                print(f"cli deferred pass table {rows}: the four passes "
+                      f"{cli_four:.3f} ms, {cli_four / prof['busy_ms']:.3f} "
+                      f"of entry()'s busy; entry()'s pass table "
+                      f"{ {k: round(v, 3) for k, v in same.items()} }: the "
+                      f"four passes {four:.3f} ms, {share:.3f} of its busy "
+                      f"{prof['busy_ms']:.3f} ms; card: {smi}")
+                if set(rows) != set(same):
+                    raise RuntimeError("cli deferred: the CLI's pass table "
+                                       "names other passes than entry()'s")
                 if abs(share - 1.0) > PASS_SUM_TOL:
                     raise RuntimeError("cli deferred: the pass table does "
                                        "not add up to the frame")
@@ -3555,6 +3589,268 @@ def run_cli(smi, dev):
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"cli phase: {time.perf_counter() - t_phase:.1f} s; card: {smi}")
     return launches
+
+
+# phase 19: sharded frames. Gloo ranks on the one card (their exchanges
+# staged through host memory), 4 then 2 of them (a group of ranks 0-1),
+# each mode one warm-up and SHARDED_FRAMES timed frames at frame index
+# SHARDED_FRAME_INDEX on plate-2048 with 1024 lights; the deferred band
+# whose K1 and K5 calls are held to their plain versions in this process
+SHARDED_RANKS = (4, 2)
+SHARDED_FRAMES = 3
+SHARDED_FRAME_INDEX = 1
+SHARDED_PATHS = {"pt": PT_PATH,
+                 "restir": ("trace_primary_bvh_full", "trace_any_bvh"),
+                 "deferred": DEFERRED_PATH[False]}
+SHARDED_BAND = 1  # of 4: rows 288-575
+
+
+def sharded_scene(device):
+    """plate-2048 with 1024 scattered lights on device, and its camera."""
+    from prosper_tpu_torch import testing
+    from prosper_tpu_torch.scene.convert import (
+        camera_tensors,
+        from_numpy_scene,
+    )
+
+    static, frame, arena, cam_fn = testing.make_plate_scene(
+        N_CLUSTERS, 0, scatter_lights=N_LIGHTS)
+    return (from_numpy_scene(static, frame, arena, device),
+            camera_tensors(cam_fn(W, H), device))
+
+
+def sharded_frame(group, scene, cam, mode, device):
+    """One sharded frame -> (colour, ray count or None)."""
+    from prosper_tpu_torch.render import distributed as rd
+
+    if mode == "pt":
+        return rd.pt_render_sharded(group, scene, cam, W, H,
+                                    SHARDED_FRAME_INDEX, BOUNCES,
+                                    device=device)
+    if mode == "restir":
+        return rd.restir_render_sharded(group, scene, cam, W, H,
+                                        SHARDED_FRAME_INDEX, device=device)
+    return rd.deferred_render_sharded(group, scene, cam, W, H,
+                                      device=device), None
+
+
+def single_frame(scene, cam, mode, device):
+    """The same frame on one rank -> (colour, ray count or None)."""
+    from prosper_tpu_torch.ops.shade_tiles import build_tile_light_lists
+    from prosper_tpu_torch.render import pt, restir
+    from prosper_tpu_torch.render.deferred import shade_deferred
+    from prosper_tpu_torch.render.gbuffer import render_gbuffer
+
+    if mode == "pt":
+        return pt.pt_render_sample(scene, cam, W, H, SHARDED_FRAME_INDEX,
+                                   BOUNCES, return_stats=True, device=device)
+    if mode == "restir":
+        return restir.render_restir(scene, cam, W, H, SHARDED_FRAME_INDEX)
+    lights = scene["frame"]["lights"]
+    gbuf = render_gbuffer(scene, cam, W, H)
+    return shade_deferred(gbuf, lights, cam, W, H, None,
+                          build_tile_light_lists(cam, lights, W, H)), None
+
+
+def frames_ms(fn) -> tuple:
+    """(last output, wall ms a frame) of SHARDED_FRAMES calls of fn after
+    one warm-up, the card synchronised (and the ranks met, by fn's last
+    collective) before and after."""
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SHARDED_FRAMES):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / SHARDED_FRAMES
+
+
+def exchange_ms(group, mode, n, device) -> float:
+    """Wall ms of a sharded frame's collectives alone (exchanged_bytes'
+    tensors, zeros, on the card, staged as the frame stages them)."""
+    from prosper_tpu_torch.render import distributed as rd
+
+    sent = exchanged_bytes(mode, n)
+    colour = torch.zeros(sent["colour"] // 4, device=device)
+    count = torch.zeros((), dtype=torch.int64, device=device)
+    halo = torch.zeros((rd.band_rows("restir", H, n), W * 8), device=device)
+
+    def collectives():
+        rd.all_gather_cat(colour, group)
+        if "count" in sent:
+            rd.all_reduce_sum(count, group)
+        if "halo" in sent:
+            rd.halo_rows(halo, group)
+
+    return frames_ms(collectives)[1]
+
+
+def sharded_rank(rank, group, device):
+    """A rank of phase 19 (4 ranks, gloo, all on one card): every mode
+    over all four ranks, then over ranks 0-1, then its collectives
+    alone. Launch counts are reset before the first frame and read
+    after the last. Returns the counts and, on rank 0, each run's
+    gathered colour, ray count, wall ms a frame and ms of its
+    collectives."""
+    import torch.distributed as tdist
+
+    from prosper_tpu_torch.render.distributed import SHARDED_MODES
+
+    t0 = time.perf_counter()
+    scene, cam = sharded_scene(device)
+    setup_s = time.perf_counter() - t0
+    pair = tdist.new_group([0, 1])
+    runs = {}
+    reset_counts()
+    for n, grp in zip(SHARDED_RANKS, (group, pair)):
+        for mode in SHARDED_MODES:
+            if rank < n:
+                (color, stat), ms = frames_ms(
+                    lambda: sharded_frame(grp, scene, cam, mode, device))
+                if rank == 0:
+                    runs[(n, mode)] = (color.cpu().numpy(),
+                                       None if stat is None else int(stat),
+                                       ms)
+            tdist.barrier(group)
+    launches = read_counts()
+    for n, grp in zip(SHARDED_RANKS, (group, pair)):
+        for mode in SHARDED_MODES:
+            if rank < n:
+                ms = exchange_ms(grp, mode, n, device)
+                if rank == 0:
+                    runs[(n, mode)] += (ms,)
+            tdist.barrier(group)
+    return {"launches": launches, "runs": runs, "setup_s": setup_s}
+
+
+def exchanged_bytes(mode: str, n: int) -> dict:
+    """Bytes each rank sends in one sharded frame: its band's colour
+    (float32 RGB, all_gather), for ReSTIR its halo slab (8 float32 a
+    pixel: halo_slab_rows of its band) and the summed counts (int64),
+    from render/distributed.py's band rules."""
+    from prosper_tpu_torch.render.distributed import band_rows, halo_slab_rows
+
+    if mode == "pt":
+        return {"colour": W * H // n * 12, "count": 8}
+    band = band_rows(mode, H, n)
+    if mode == "restir":
+        return {"colour": band * W * 12, "count": 8,
+                "halo": sum(halo_slab_rows(band)) * W * 32}
+    return {"colour": band * W * 12}
+
+
+def check_band_kernels(scene, cam):
+    """K1's G-buffer form on one deferred band (its band-local cols and a
+    cam_vec with the band's y_offset) and K5 on that band's tile lists,
+    each against its plain version as phase 3 holds them; the band's K1
+    rows also against the full frame's rows of the same pixels, bit for
+    bit -> (ok, K1 record, K5 record)."""
+    from prosper_tpu_torch.ops import shade_tiles as tst
+    from prosper_tpu_torch.ops import trace_bvh as tb
+    from prosper_tpu_torch.render import gbuffer, shading
+    from prosper_tpu_torch.render.deferred import shade_deferred
+    from prosper_tpu_torch.render.distributed import band_rows
+
+    dev = scene["geom"]["packed_full"].device
+    band_h = band_rows("deferred", H, SHARDED_RANKS[0])
+    y0 = SHARDED_BAND * band_h
+    jitter = cam["current_jitter"]
+    cols = gbuffer._row_pixels(W, band_h, str(dev))
+    vec = tb.primary_cam_vec(cam, W, H, pixel_jitter=jitter, device=dev,
+                             y_offset=y0)
+    ok, k1, _ = check_primary(f"band rows {y0}-{y0 + band_h - 1} "
+                              "(G-buffer form, y_offset)", scene, cols, vec,
+                              0, gbuffer.GBUFFER_T_MIN)
+    frame = scene["frame"]
+    bvh = (scene["geom"]["packed_full"], frame["bvh_bounds"],
+           frame["bvh_meta"])
+    band_rows = tb.trace_primary_bvh_full(*bvh, cols, vec, 0,
+                                          gbuffer.GBUFFER_T_MIN)
+    full = tb.trace_primary_bvh_full(
+        *bvh, gbuffer._row_pixels(W, H, str(dev)),
+        tb.primary_cam_vec(cam, W, H, pixel_jitter=jitter, device=dev), 0,
+        gbuffer.GBUFFER_T_MIN)
+    tb.check_stack_overflow(dev)
+    same = bool(torch.equal(band_rows[:W * band_h],
+                            full[y0 * W:(y0 + band_h) * W]))
+    print(f"K1 band rows vs the full frame's rows {y0}-{y0 + band_h - 1}: "
+          f"equal {same}")
+    ok &= same
+    k1["rows_equal_full_frame"] = same
+    gbuf = gbuffer.render_gbuffer(scene, cam, W, band_h, y_offset=y0,
+                                  full_height=H)
+    lights = frame["lights"]
+    lists = tst.build_tile_light_lists(cam, lights, W, band_h, y_offset=y0,
+                                       full_height=H)
+    full_lists = tst.build_tile_light_lists(cam, lights, W, H)
+    fx, _ = tst.tile_grid(W, H)
+    tiles = slice(y0 // 32 * fx, (y0 + band_h) // 32 * fx)
+    lists_same = all(torch.equal(a, b[tiles]) for a, b in
+                     zip(lists[:2], full_lists[:2]))
+    print(f"K5 band tile lists vs the full frame's tile rows: equal "
+          f"{lists_same}")
+    with recording(shading, "shade_clustered_tiles") as calls:
+        shade_deferred(gbuf, lights, cam, W, band_h, None, lists,
+                       y_offset=y0, full_height=H)
+    k5_ok, k5 = check_k5(f"band rows {y0}-{y0 + band_h - 1}",
+                         calls[0][0][0], height=band_h)
+    return ok and lists_same and k5_ok, k1, k5
+
+
+def run_sharded(smi, dev):
+    """Phase 19 -> (K1 and K5 band records, launches per kernel of the
+    ranks' sharded frames)."""
+    from prosper_tpu_torch.render.distributed import SHARDED_MODES, run_ranks
+
+    phase("sharded frames")
+    t_phase = time.perf_counter()
+    scene, cam = sharded_scene(dev)
+    ok, k1, k5 = check_band_kernels(scene, cam)
+    if not ok:
+        raise RuntimeError("a band kernel disagrees with its plain version")
+    single = {}
+    for mode in SHARDED_MODES:
+        (color, stat), ms = frames_ms(
+            lambda: single_frame(scene, cam, mode, dev))
+        single[mode] = (color.cpu().numpy(),
+                        None if stat is None else int(stat), ms)
+    del scene
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs = run_ranks(sharded_rank, SHARDED_RANKS[0], backend="gloo",
+                     devices=[str(dev)] * SHARDED_RANKS[0], threads=2)
+    print(f"{SHARDED_RANKS[0]} gloo ranks on {dev}: "
+          f"{time.perf_counter() - t0:.1f} s, of it the scene per rank "
+          + ", ".join(f"{o['setup_s']:.1f}" for o in outs) + " s")
+    launches = {}
+    for o in outs:
+        for k, n in o["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    missing = sorted({k for p in SHARDED_PATHS.values() for k in p
+                      if launches.get(k, 0) <= 0})
+    stray = [k for k in MEASUREMENT_FORMS if launches.get(k, 0)]
+    print("sharded frames: launches of the port's kernels over the ranks "
+          + str({k: n for k, n in launches.items() if n}))
+    if missing or stray:
+        raise RuntimeError(f"sharded frames: kernels never launched "
+                           f"{missing}, measurement forms launched {stray}")
+    for (n, mode), (color, stat, ms, ex_ms) in outs[0]["runs"].items():
+        want, want_stat, single_ms = single[mode]
+        err = float(np.abs(color.astype(np.float64) - want).max())
+        sent = exchanged_bytes(mode, n)
+        print(f"sharded {mode} {W}x{H} over {n} gloo ranks on one card: "
+              f"{ms:.3f} ms/frame (one rank {single_ms:.3f}; its "
+              f"collectives alone {ex_ms:.3f} ms); max abs diff "
+              f"to the one-rank frame {err}; "
+              + (f"rays {stat} vs {want_stat}; " if stat is not None else "")
+              + f"bytes sent per rank {sent} (all ranks "
+              f"{n * sum(sent.values())}); card: {smi}")
+        if color.shape != want.shape or err != 0.0 or stat != want_stat:
+            raise RuntimeError(f"sharded {mode} over {n} ranks differs from "
+                               "the one-rank frame")
+    print(f"sharded frames phase: {time.perf_counter() - t_phase:.1f} s; "
+          f"card: {smi}")
+    return k1, k5, launches
 
 
 T_START = time.perf_counter()
@@ -3633,6 +3929,12 @@ def main() -> int:
     post_launches = run_post(smi, dev)
     print(f"post chain phases: {time.perf_counter() - t0:.1f} s")
     cli_launches = run_cli(smi, dev)
+    k1_band, k5_band, sharded_launches = run_sharded(smi, dev)
+    for name, rec in (("trace_primary_bvh_full", k1_band),
+                      ("shade_clustered_tiles", k5_band)):
+        records[name]["sharded_band"] = rec
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           rec["max_abs_err"])
     for where, recs in world.items():  # K1-K4 on the World's rays
         for name, rec in recs.items():
             records[name][where] = rec
@@ -3640,7 +3942,8 @@ def main() -> int:
                 records[name]["max_abs_err"], rec.get("max_abs_err", 0.0))
     for counts in (pt_launches, fwd_launches, restir_launches,
                    pt_flat_launches, lm_launches, world_launches,
-                   opt_launches, post_launches, cli_launches):
+                   opt_launches, post_launches, cli_launches,
+                   sharded_launches):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     kernels = []

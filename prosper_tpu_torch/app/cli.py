@@ -12,8 +12,17 @@ the port's own:
   when torch sees none; --platform cpu renders on the CPU (every kernel
   wrapper then runs its plain version). Nothing falls back from one to
   the other, and a kernel that fails to build or launch stops the run.
-- --devices N > 1 exits 2: the sharded frame (prosper_tpu/render/
-  distributed.py) is not ported (ROADMAP.md queue 1, item 4).
+- --devices N > 1 renders pt, restir and deferred frames in pixel bands
+  over N ranks that this process starts (render/distributed.py,
+  torch.multiprocessing spawn): NCCL ranks, one card each, under
+  --platform gpu, which exits 2 where torch sees fewer than N cards;
+  gloo ranks on the CPU under --platform cpu, where N is not bounded,
+  as the JAX package's virtual CPU devices are not. Each rank loads the
+  scene file; rank 0 logs and writes the images. Another mode exits 2;
+  --taa, --bloom, --dof, --particles and --culling are dropped with the
+  JAX CLI's log line, and --streaming with one of its own (each rank
+  would adopt the streamed meshes at another frame). Nothing falls back
+  to fewer ranks or to the CPU.
 - The JAX CLI takes its default scene (FlightHelmet) and its display LUT
   (Tony McMapface) from the reference checkout at a fixed path; the
   port takes the same files (DEFAULT_SCENE_REL, TONY_LUT_REL) from the
@@ -67,6 +76,8 @@ _MODE_FLAGS = {
     "particles": ("deferred",), "culling": ("deferred",),
     "autofocus": ("deferred",), "ibl": ("pt", "deferred"),
 }
+# the flags --devices N > 1 drops, as the JAX CLI does (cli.py:298-311)
+_SHARDED_DROPS = ("taa", "bloom", "dof", "particles", "culling")
 
 
 def _load_toml_defaults(path: str | None) -> dict:
@@ -176,8 +187,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     r.add_argument(
         "--devices", type=int, default=0, metavar="N",
-        help="shard the frame over N devices: not ported (exits 2 for N > "
-        "1; ROADMAP.md queue 1, item 4); 0 or 1 = one device",
+        help="shard pt, restir and deferred frames over N ranks in pixel "
+        "bands (gpu: N cards, NCCL; cpu: N gloo processes); 0 or 1 = one "
+        "device",
     )
     r.add_argument(
         "--watch",
@@ -326,6 +338,37 @@ def _short(kernel: str) -> str:
     return name.split("(", 1)[0][:60]
 
 
+def _sharded_checks(args) -> int:
+    """The JAX CLI's checks of --devices N > 1 (prosper_tpu/app/cli.py:
+    274-315) -> an exit code, 0 to go on; drops the flags the sharded
+    modes do not take, with its log line."""
+    import torch
+
+    from ..render.distributed import SHARDED_MODES
+    from ..utils.logger import log_error, log_info
+
+    n = args.devices
+    # N gloo ranks on the CPU are always possible, as JAX's virtual CPU
+    # devices are; on the card each NCCL rank takes a card of its own
+    have = torch.cuda.device_count() if args.platform == "gpu" else n
+    if have < n:
+        log_error("--devices %d but torch sees %d CUDA devices", n, have)
+        return 2
+    if args.mode not in SHARDED_MODES:
+        log_error("--devices does not support mode %r (sharded modes: %s)",
+                  args.mode, sorted(SHARDED_MODES))
+        return 2
+    dropped = [f"--{flag}" for flag in _SHARDED_DROPS if getattr(args, flag)]
+    if dropped:
+        log_info("sharded mode ignores post/culling flags: %s",
+                 " ".join(dropped))
+    if args.streaming:
+        log_info("sharded mode loads the scene whole: --streaming ignored")
+    for flag in _SHARDED_DROPS + ("streaming",):
+        setattr(args, flag, False)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     """Run the command line (argv without the program name; None: the
     process's); returns the exit code."""
@@ -333,13 +376,8 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv_list)
     _merge_toml(args, argv_list)
 
-    from ..utils.logger import log_error, log_info
+    from ..utils.logger import log_error
 
-    if args.devices > 1:
-        log_error("--devices %d: the sharded frame (render/distributed.py) "
-                  "is not ported to PyTorch (ROADMAP.md queue 1, item 4)",
-                  args.devices)
-        return 2
     if args.scene is None:
         log_error("no scene: give a glTF file, or name the reference "
                   "checkout in $%s", REFERENCE_ENV)
@@ -350,6 +388,10 @@ def main(argv: list[str] | None = None) -> int:
     if args.ibl and args.env_res < 2:
         log_error("--env-res must be >= 2, got %d", args.env_res)
         return 2
+    if args.devices > 1:
+        rc = _sharded_checks(args)
+        if rc:
+            return rc
 
     import torch
 
@@ -357,7 +399,55 @@ def main(argv: list[str] | None = None) -> int:
         log_error("--platform gpu: torch sees no CUDA device (pass "
                   "--platform cpu to render on the CPU)")
         return 1
-    dev = torch.device("cuda" if args.platform == "gpu" else "cpu")
+    if args.devices > 1:
+        from ..render.distributed import run_ranks
+
+        n = args.devices
+        gpu = args.platform == "gpu"
+        rc = run_ranks(
+            _render_rank, n, args, backend="nccl" if gpu else "gloo",
+            devices=[f"cuda:{r}" for r in range(n)] if gpu else ["cpu"] * n,
+            threads=None if gpu else max(1, torch.get_num_threads() // n),
+        )[0]
+    else:
+        rc = _render(args, torch.device("cuda" if args.platform == "gpu"
+                                        else "cpu"))
+    if args.watch:
+        # the hot-reload loop: wait for a source edit, then run this render
+        # again in a new process (App::recompileShaders, App.cpp:235-307)
+        from ..utils.logger import log_info
+
+        pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        snap = _source_mtimes(pkg_root)
+        log_info("watching %s for changes...", pkg_root)
+        while _source_mtimes(pkg_root) == snap:
+            time.sleep(0.5)
+        log_info("source changed; reloading")
+        os.execv(sys.executable,
+                 [sys.executable, "-m", "prosper_tpu_torch.app.cli"]
+                 + argv_list)
+    return rc
+
+
+def _render_rank(rank, group, device, args) -> int:
+    """A rank of the sharded CLI: the frame loop over the group, quiet
+    but for rank 0, which logs and writes the images."""
+    import logging
+
+    from ..utils import logger  # noqa: F401  (sets up the logger first)
+
+    if rank:
+        logging.getLogger("prosper_tpu_torch").setLevel(logging.WARNING)
+    return _render(args, device, group)
+
+
+def _render(args, dev, group=None) -> int:
+    """The frame loop on device dev: one rank's frames (group None), or
+    this rank's part of frames sharded over group -> the exit code."""
+    import torch
+
+    from ..utils.logger import log_info
+
     _apply_policy(args)
 
     from ..io.image import write_png
@@ -425,7 +515,13 @@ def main(argv: list[str] | None = None) -> int:
             ibl_data["env"] = env
         log_info("IBL generated")
 
-    render_fn = render_modes()[args.mode]
+    if group is None:
+        render_fn = render_modes()[args.mode]
+    else:
+        from ..render.distributed import sharded_render_modes
+
+        render_fn = sharded_render_modes(group)[args.mode]
+    main_rank = group is None or torch.distributed.get_rank(group) == 0
     opts = _mode_options(args, world, env, ibl_data)
     profiler = Profiler(sync_device=False, device=dev)
     base_eye = np.array(cam_obj.transform.eye, np.float32)
@@ -506,7 +602,7 @@ def main(argv: list[str] | None = None) -> int:
         drain(2)
         cam_obj.end_frame()
         report = profiler.end_frame()
-        if args.profile:
+        if args.profile and main_rank:
             print(report.table())
         if args.fps_limit > 0:
             # the frame cap (App.cpp capFramerate analog)
@@ -521,6 +617,8 @@ def main(argv: list[str] | None = None) -> int:
              (t_end - starts[0]) * 1e3 / args.frames, steady)
 
     last_f = args.frames - 1
+    # every rank runs the profiled frame (its collectives); rank 0 prints
+    say = print if main_rank else (lambda *a: None)
     if args.profile:
         # the per-pass device table (Profiler.hpp:19-327's per-pass GPU
         # queries) and the launches of the last frame, run again under
@@ -533,16 +631,16 @@ def main(argv: list[str] | None = None) -> int:
             run(last_f, state)
         rows = pass_table(counted["events"], 1, dev)
         what = "device ms" if dev.type == "cuda" else "cpu ms"
-        print(f"{'pass':<28}{what:>12}")
+        say(f"{'pass':<28}{what:>12}")
         for name, ms in rows:
-            print(f"{name:<28}{ms:>12.3f}")
-        print(f"{'frame total':<28}{sum(ms for _, ms in rows):>12.3f}")
+            say(f"{name:<28}{ms:>12.3f}")
+        say(f"{'frame total':<28}{sum(ms for _, ms in rows):>12.3f}")
         what = "kernel launches" if dev.type == "cuda" else "ATen calls"
-        print(f"{what} per frame: {counted['n']}")
+        say(f"{what} per frame: {counted['n']}")
         by_short = Counter()
         for name, n in counted["by_name"].items():
             by_short[_short(name)] += n
-        print("by name: " + "; ".join(
+        say("by name: " + "; ".join(
             f"{name} {n}" for name, n in by_short.most_common()))
 
     if args.profile_device:
@@ -550,10 +648,12 @@ def main(argv: list[str] | None = None) -> int:
 
         ops = profile_device_ops(lambda: run(last_f, state)[0], runs=1,
                                  device=dev)
-        print(f"{'device op':<70}{'ms':>10}")
+        say(f"{'device op':<70}{'ms':>10}")
         for name, ms in ops:
-            print(f"{name[:70]:<70}{ms:>10.3f}")
+            say(f"{name[:70]:<70}{ms:>10.3f}")
 
+    if not main_rank:
+        return 0
     host_img = img.cpu().numpy()
     write_png(args.out, host_img)
     log_info("wrote %s", args.out)
@@ -562,19 +662,6 @@ def main(argv: list[str] | None = None) -> int:
 
         dump_texture(host_img, args.dump_debug)
         log_info("dumped %s(.npy)", args.dump_debug)
-
-    if args.watch:
-        # the hot-reload loop: wait for a source edit, then run this render
-        # again in a new process (App::recompileShaders, App.cpp:235-307)
-        pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        snap = _source_mtimes(pkg_root)
-        log_info("watching %s for changes...", pkg_root)
-        while _source_mtimes(pkg_root) == snap:
-            time.sleep(0.5)
-        log_info("source changed; reloading")
-        os.execv(sys.executable,
-                 [sys.executable, "-m", "prosper_tpu_torch.app.cli"]
-                 + argv_list)
     return 0
 
 

@@ -69,7 +69,8 @@ def tile_grid(width: int, height: int) -> tuple[int, int]:
     return _cdiv(width, TILE_PX), _cdiv(height, TILE_PX)
 
 
-def build_tile_light_lists(cam: dict, lights: dict, width: int, height: int):
+def build_tile_light_lists(cam: dict, lights: dict, width: int, height: int,
+                           y_offset: int = 0, full_height: int | None = None):
     """Per-tile point-light lists from the froxel side-plane tests
     (light_clustering.comp:67-99), the z test left to the kernel.
 
@@ -77,7 +78,17 @@ def build_tile_light_lists(cam: dict, lights: dict, width: int, height: int):
     with T in (ty, tx) row-major order: each list holds the visible
     lights in ascending index order, then the others; counts the visible
     ones; light_vz each light's view-space z. All on the camera's
-    device, with no host wait."""
+    device, with no host wait.
+
+    y_offset, full_height: the tiles of a band of `height` rows from
+    absolute row y_offset (a multiple of the 32 px tile) of a
+    full_height frame; the froxel planes are the full frame's, so the
+    band's lists are the full frame's rows of tiles. The kernel reads
+    them as any frame's lists."""
+    if y_offset % TILE_PX:
+        raise ValueError(f"y_offset must be a multiple of {TILE_PX}, got "
+                         f"{y_offset}")
+    full_h = height if full_height is None else full_height
     fx, fy = tile_grid(width, height)
     c2c = cam["camera_to_clip"]
     w2c = cam["world_to_camera"]
@@ -86,9 +97,10 @@ def build_tile_light_lists(cam: dict, lights: dict, width: int, height: int):
 
     # Python scalars, not tensors from lists: those are host-to-device
     # copies, which wait for the device (the sizes are exact in float32)
-    scale_x, scale_y = width / (2.0 * TILE_PX), height / (2.0 * TILE_PX)
+    scale_x, scale_y = width / (2.0 * TILE_PX), full_h / (2.0 * TILE_PX)
     cx = torch.arange(fx, dtype=f32, device=dev)
-    cy = torch.arange(fy, dtype=f32, device=dev)
+    # absolute froxel rows
+    cy = torch.arange(fy, dtype=f32, device=dev) + y_offset // TILE_PX
     bias_x = scale_x - cx
     bias_y = scale_y - cy
     m00 = c2c[0, 0] * scale_x
@@ -133,14 +145,16 @@ def build_tile_light_lists(cam: dict, lights: dict, width: int, height: int):
 
 
 def tile_inputs(surface: dict, lights: dict, cam: dict, z_cam, valid,
-                width: int, height: int, light_lists=None) -> dict:
+                width: int, height: int, light_lists=None, y_offset: int = 0,
+                full_height: int | None = None) -> dict:
     """The kernel's inputs from a shading surface and the frame's lights:
     chan (13, R) G-buffer planes, rows (1 + P + S, 12) packed light rows,
     the tile lists (light_lists, build_tile_light_lists' output, when the
-    caller made them), ints (2,) i32 [point_count, min(spot_count,
-    128)], scal (8,) f32 [near, far, log(far / near), eye.xyz, 0, 0]."""
+    caller made them, else made here for the band y_offset, full_height),
+    ints (2,) i32 [point_count, min(spot_count, 128)], scal (8,) f32
+    [near, far, log(far / near), eye.xyz, 0, 0]."""
     lists, counts, lvz = light_lists or build_tile_light_lists(
-        cam, lights, width, height)
+        cam, lights, width, height, y_offset, full_height)
     pos, n, alb = surface["position_ws"], surface["normal_ws"], surface["albedo"]
     chan = torch.stack([
         pos[:, 0], pos[:, 1], pos[:, 2], n[:, 0], n[:, 1], n[:, 2],

@@ -110,7 +110,7 @@ def pack_pixels_np(px, py, tile: int = TILE):
 
 
 def primary_cam_vec(cam: dict, width, height, pixel_jitter=None,
-                    device=None) -> torch.Tensor:
+                    device=None, y_offset: int = 0) -> torch.Tensor:
     """(1, 24) f32 camera uniforms of the primary kernel: eye | A | B | C
     | W H offx offy pcg_on | pad, with d = normalize(ux*A + uy*B + C) the
     affine per-pixel form of rays.pinhole_rays and ux = (px + pcg_on*jx
@@ -119,9 +119,12 @@ def primary_cam_vec(cam: dict, width, height, pixel_jitter=None,
     pixel_jitter=None: the path tracer's per-pixel pcg jitter (offx =
     offy = 0, pcg_on = 1). A (2,) NDC jitter (cam["current_jitter"]):
     the G-buffer's pixel centres shifted by the per-frame TAA jitter
-    (offx = 0.5 + 0.5*jx*W, offy = 0.5 - 0.5*jy*H, pcg_on = 0). Built on
-    the camera's device without a host-to-device copy (each such copy
-    waits for the device) when cam holds its tensors."""
+    (offx = 0.5 + 0.5*jx*W, offy = 0.5 - 0.5*jy*H + y_offset, pcg_on =
+    0). y_offset, in that form only, renders a band of a `height`-tall
+    frame starting at that absolute row, with band-local pixel rows in
+    the layout (render/distributed.py); `height` is then the full frame
+    height. Built on the camera's device without a host-to-device copy
+    (each such copy waits for the device) when cam holds its tensors."""
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -143,7 +146,7 @@ def primary_cam_vec(cam: dict, width, height, pixel_jitter=None,
     else:
         j = f32(pixel_jitter)
         offx = 0.5 + 0.5 * j[0] * w
-        offy = 0.5 - 0.5 * j[1] * h
+        offy = 0.5 - 0.5 * j[1] * h + y_offset
         pcg_on = const(0.0)
     tail = torch.cat([torch.stack([w, h, offx, offy, pcg_on]),
                       torch.zeros(7, dtype=torch.float32, device=dev)])
@@ -188,15 +191,16 @@ def raygen_plain(pix_cols: torch.Tensor, cam_vec: torch.Tensor,
 
 
 def gbuffer_rays(cam: dict, width: int, height: int,
-                 pix_cols: torch.Tensor, device=None):
+                 pix_cols: torch.Tensor, device=None, y_offset: int = 0):
     """The G-buffer form's uniforms (pcg_on = 0, the TAA-shifted pixel
-    centres of cam["current_jitter"]) and the rays K1 traces with them:
-    returns (cam_vec, o, d, t_max). The rays equal raygen_plain's for
-    these uniforms bit for bit (pcg_on * jitter is 0, and px + 0 is px)
-    without the cost of the jitter's hash."""
+    centres of cam["current_jitter"], a band's y_offset: see
+    primary_cam_vec) and the rays K1 traces with them: returns (cam_vec,
+    o, d, t_max). The rays equal raygen_plain's for these uniforms bit
+    for bit (pcg_on * jitter is 0, and px + 0 is px) without the cost of
+    the jitter's hash."""
     cam_vec = primary_cam_vec(cam, width, height,
                               pixel_jitter=cam["current_jitter"],
-                              device=device)
+                              device=device, y_offset=y_offset)
     return (cam_vec, *_pixel_rays(pix_cols, cam_vec, None))
 
 

@@ -53,10 +53,14 @@ PARTICLE_DT = 1.0 / 60.0
 
 def shade_deferred(gbuf: dict, lights: dict, cam: dict, width: int,
                    height: int, ibl_data: dict | None = None,
-                   light_lists=None):
+                   light_lists=None, y_offset: int = 0,
+                   full_height: int | None = None):
     """Clustered deferred shading of the flat G-buffer (+ IBL) -> (R, 3)
     linear color, zero where no surface was hit. light_lists: the tile
-    lists, when the caller made them."""
+    lists, when the caller made them. y_offset, full_height: the
+    G-buffer is `height` rows from absolute row y_offset (a multiple of
+    32) of a full_height frame; the froxel rows stay absolute, so a band
+    shades the full frame's light set (render/distributed.py)."""
     normal = signed_oct_decode(gbuf["normal_metallic"][:, :3])
     pos = gbuf["position_ws"]
     inv_view = cam["eye"] - pos
@@ -72,19 +76,23 @@ def shade_deferred(gbuf: dict, lights: dict, cam: dict, width: int,
         "NoV": torch.clamp((normal * inv_view).sum(-1), 0.0, 1.0),
     }
     color = shade_direct(surface, lights, cam, gbuf["z_cam"], gbuf["valid"],
-                         width, height, light_lists)
+                         width, height, light_lists, y_offset, full_height)
     if ibl_data is not None:
         color = torch.where(gbuf["valid"][:, None],
                             color + eval_ibl(surface, ibl_data), 0.0)
     return color
 
 
-def skybox(env, cam: dict, width: int, height: int) -> torch.Tensor:
+def skybox(env, cam: dict, width: int, height: int, y_offset: int = 0,
+           full_height: int | None = None) -> torch.Tensor:
     """The environment along each pixel center's view ray, (R, 3)
-    row-major (the SkyboxRenderer's pass)."""
+    row-major (the SkyboxRenderer's pass); y_offset, full_height: the
+    band of `height` rows from absolute row y_offset of a full_height
+    frame."""
     dev = cam["eye"].device
-    ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) / (
-        height)
+    full_h = height if full_height is None else full_height
+    ys = (torch.arange(height, dtype=torch.float32, device=dev) + y_offset
+          + 0.5) / full_h
     xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     _, vd = pinhole_rays(cam, torch.stack([gx, gy], -1).reshape(-1, 2))

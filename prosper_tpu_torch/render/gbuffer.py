@@ -23,9 +23,19 @@ over masked (inverted) AABBs in the culling phases. With alpha_rounds >
 0 the alpha-mask discard (`mask_discard_retrace`) re-traces the hits
 whose mask test fails, with K4 or K8 over every cluster.
 
+y_offset and full_height render a horizontal band of a taller frame
+(render/distributed.py): `height` rows from absolute row y_offset of a
+full_height frame, through K1's camera uniforms with the band offset
+(ops/trace_bvh.primary_cam_vec) on band-local pixel rows, so the uv rows
+are (py + y_offset + 0.5) / full_height. The ray-cone spread is the full
+frame's, pixel_cone_alpha(cam, full_height): the band's rows equal the
+full frame's. (The JAX package takes the band's own height there,
+gbuffer.py:372, so its bands sample coarser mips than its single-device
+frame on textured scenes.) Culling is not supported per band.
+
 The outputs are in row-major order: the TPU package's block16 output
-order, its tile compaction (`tile_apply`), primary tile mask and band
-y_offset serve its packets and are not carried.
+order, its tile compaction (`tile_apply`) and primary tile mask serve
+its packets and are not carried.
 """
 
 from __future__ import annotations
@@ -184,17 +194,24 @@ def _cull_and_trace(scene, cam, o, d, width, height, prev_hiz, tracer):
 def render_gbuffer(scene: dict, cam: dict, width: int, height: int,
                    use_culling: bool = False, prev_hiz: list | None = None,
                    alpha_rounds: int = 0, aniso_taps: int = 1,
-                   lod_bias: float = 0.0) -> dict:
+                   lod_bias: float = 0.0, y_offset: int = 0,
+                   full_height: int | None = None) -> dict:
     """Trace the primary rays and produce the G-buffer dict (flat R = W*H,
     row-major): albedo_roughness (R, 4), normal_metallic (R, 4), velocity
     (R, 2), depth, z_cam (-inf without a surface), position_ws, valid,
     the shading `surface`, the fresh `hiz` (culling only, else None) and
-    `draw_stats`. Raises if a trace kernel overflowed its node stack."""
+    `draw_stats`. y_offset, full_height: the band of a taller frame (see
+    the module docstring). Raises if a trace kernel overflowed its node
+    stack, and for culling on a band."""
+    full_h = height if full_height is None else full_height
+    if use_culling and (y_offset or full_h != height):
+        raise ValueError("culling is not supported per band")
     geom, frame = scene["geom"], scene["frame"]
     dev = geom["packed_full"].device
     R = width * height
     cols = _row_pixels(width, height, str(dev))
-    cam_vec, o, d, _ = gbuffer_rays(cam, width, height, cols, device=dev)
+    cam_vec, o, d, _ = gbuffer_rays(cam, width, full_h, cols, device=dev,
+                                    y_offset=y_offset)
     o, d = o[:R].contiguous(), d[:R]
 
     tracer = full_tracer(scene, width, height)
@@ -217,7 +234,7 @@ def render_gbuffer(scene: dict, cam: dict, width: int, height: int,
     hit = unpack_hit16(h16)
     # ray-cone mip selection (lodBias -1 under TAA, else 0;
     # Renderer.cpp:709-715)
-    cone = {"alpha": pixel_cone_alpha(cam, height), "bias": lod_bias,
+    cone = {"alpha": pixel_cone_alpha(cam, full_h), "bias": lod_bias,
             "aniso_taps": aniso_taps}
     surface = evaluate_surface_from_attrs(scene["arena"], o, d, hit,
                                           cone=cone,

@@ -24,8 +24,9 @@ The port runs every pass densely over the row-major frame. The JAX
 package's tile compaction (`ops/compact.tile_apply`), block16 pixel
 order and `blocks_to_rows` and the Morton light-position sort of the
 shadow rays change only the order and extent of work, not results
-(restir.py:346-351, :396-403), and are not carried; nor are
-spatial_reuse's neighbour bands of the multi-chip path.
+(restir.py:346-351, :396-403), and are not carried. spatial_reuse
+reads the whole frame's neighbour rows, or a band's rows and its halo
+(neigh_y0, neigh_rows_h; render/distributed.py).
 
 The shadow rays go, in 16x16-block order (ops/trace.traced_in_blocks),
 through the any-hit fn of ops/trace.make_bounce_tracer when
@@ -136,19 +137,24 @@ def pack_neighbor_rows(gbuf: dict, res_light, res_ucw):
 
 
 def spatial_reuse(surface: dict, lights: dict, neigh_rows, px, py,
-                  width: int, height: int, frame_index):
-    """Biased spatial reuse (spatial_reuse.comp) over the whole frame's
-    neighbour rows (pack_neighbor_rows, row-major) -> (R,) light index,
-    (R,) UCW. Reproduces the reference's quirks: a neighbour in pixel
-    row or column 0 is rejected (`lessThanEqual(p, 0)`), the valid count
-    includes neighbours whose reservoir is empty, and the RNG advances
-    only on valid samples."""
+                  width: int, height: int, frame_index, neigh_y0: int = 0,
+                  neigh_rows_h: int | None = None):
+    """Biased spatial reuse (spatial_reuse.comp) -> (R,) light index,
+    (R,) UCW. neigh_rows: the pack_neighbor_rows image, row-major, of
+    rows [neigh_y0, neigh_y0 + neigh_rows_h) of the frame (the whole
+    frame by default; a band and its halo under render/distributed.py).
+    px, py, width and height are absolute frame coordinates: the RNG
+    streams and the edge test read them. Reproduces the reference's
+    quirks: a neighbour in pixel row or column 0 is rejected
+    (`lessThanEqual(p, 0)`), the valid count includes neighbours whose
+    reservoir is empty, and the RNG advances only on valid samples."""
     state = prng.make_state(px, py, frame_index)
     R = px.shape[0]
     dev = px.device
     lin_depth = surface["linear_depth"]
     normal = surface["normal_ws"]
     safe_depth = torch.where(lin_depth != 0, lin_depth, 1.0)
+    rows_h = height if neigh_rows_h is None else neigh_rows_h
 
     samples = []
     for _ in range(SPATIAL_SAMPLES):
@@ -164,7 +170,7 @@ def spatial_reuse(surface: dict, lights: dict, neigh_rows, px, py,
             p_x = px + r[:, 0]
             p_y = py + r[:, 1]
             in_bounds = (p_x > 0) & (p_y > 0) & (p_x < width) & (p_y < height)
-            p_flat = (torch.clamp(p_y, 0, height - 1) * width
+            p_flat = (torch.clamp(p_y - neigh_y0, 0, rows_h - 1) * width
                       + torch.clamp(p_x, 0, width - 1))
             row = neigh_rows[p_flat]  # one gather per try
             depth_ok = torch.abs(1.0 - row[:, 0] / safe_depth) <= 0.1

@@ -41,16 +41,19 @@ def has_local_lights(lights: dict) -> bool:
 
 
 def shade_direct(surface: dict, lights: dict, cam: dict, z_cam, valid,
-                 width: int, height: int, light_lists=None):
+                 width: int, height: int, light_lists=None, y_offset: int = 0,
+                 full_height: int | None = None):
     """The sun and the clustered point and spot lights (K5, per 32x32
     froxel tile) at each pixel's surface -> (R, 3) linear color, zero
     where valid is False. light_lists: the tile lists, when the caller
-    made them (ops/shade_tiles.build_tile_light_lists)."""
+    made them (ops/shade_tiles.build_tile_light_lists); y_offset,
+    full_height: the band of a taller frame that the pixels are, with
+    absolute froxel rows."""
     color = eval_directional_light(surface, lights)
     if has_local_lights(lights):
         color = color + shade_clustered_tiles(
             tile_inputs(surface, lights, cam, z_cam, valid, width, height,
-                        light_lists),
+                        light_lists, y_offset, full_height),
             width, height)
     return torch.where(valid[:, None], color, 0.0)
 

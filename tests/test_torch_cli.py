@@ -26,6 +26,7 @@ from prosper_tpu_torch import config, testing
 from prosper_tpu_torch.app import cli
 from prosper_tpu_torch.ops import ibl
 from prosper_tpu_torch.ops.tonemap import pack_lut_quads, synthetic_lut
+from prosper_tpu_torch.render import distributed
 from tests.test_cli import _write_tiny_gltf
 
 torch.set_num_threads(2)
@@ -118,18 +119,22 @@ def test_draw_type_index_and_source_mtimes(tmp_path):
 
 
 @pytest.mark.parametrize("extra, no_card, want", [
-    (["--devices", "2"], False, 2),
+    (["--devices", "2", "--platform", "gpu", "--mode", "pt"], False, 2),
     (["--frames", "0", "--platform", "cpu"], False, 2),
     ([], True, 1),
     (None, False, 2),
+    (["--devices", "2", "--platform", "cpu", "--mode", "forward"], False, 2),
 ])
 def test_cli_refuses(tmp_path, monkeypatch, extra, no_card, want):
-    """--devices N > 1 exits 2 (render/distributed.py is not ported), as
-    do a frame count below 1 and no scene without a reference checkout;
-    --platform gpu without a card exits 1; none renders anything."""
+    """--devices N > 1 exits 2 under --platform gpu where torch sees fewer
+    than N cards (here: one) and in a mode without a sharded form, as do
+    a frame count below 1 and no scene without a reference checkout;
+    --platform gpu without a card exits 1; none renders anything, and
+    nothing falls back to fewer ranks or to the CPU."""
     monkeypatch.delenv(cli.REFERENCE_ENV, raising=False)
     scene = tmp_path / "tiny.gltf"
     _write_tiny_gltf(scene)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     if no_card:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = tmp_path / "frame.png"
@@ -137,6 +142,41 @@ def test_cli_refuses(tmp_path, monkeypatch, extra, no_card, want):
             else ["render", "--platform", "cpu"])
     assert cli.main(argv + ["--out", str(out)]) == want
     assert not out.exists()
+
+
+@pytest.mark.parametrize("platform, want", [
+    ("gpu", {"backend": "nccl", "devices": ["cuda:0", "cuda:1"],
+             "threads": None}),
+    ("cpu", {"backend": "gloo", "devices": ["cpu", "cpu"]}),
+])
+def test_cli_starts_the_ranks_it_is_asked_for(tmp_path, monkeypatch,
+                                              platform, want):
+    """--devices 2 starts two ranks of _render_rank on the platform's
+    devices and backend: NCCL on cuda:0 and cuda:1 under --platform gpu
+    (torch.cuda patched to see two cards; run_ranks patched, so nothing
+    runs), gloo on the CPU under --platform cpu; never one rank, never
+    the CPU for gpu."""
+    scene = tmp_path / "tiny.gltf"
+    _write_tiny_gltf(scene)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    calls = []
+
+    def run_ranks(worker, world_size, *args, **kwargs):
+        calls.append((worker, world_size, kwargs))
+        return [0] * world_size
+
+    def single_rank(*args, **kwargs):
+        raise AssertionError("--devices 2 rendered on one rank")
+
+    monkeypatch.setattr(distributed, "run_ranks", run_ranks)
+    monkeypatch.setattr(cli, "_render", single_rank)
+    assert cli.main(["render", str(scene), "--platform", platform,
+                     "--mode", "pt", "--devices", "2", "--out",
+                     str(tmp_path / "frame.png")]) == 0
+    [(worker, world_size, kwargs)] = calls
+    assert worker is cli._render_rank and world_size == 2
+    assert {k: kwargs[k] for k in want} == want
 
 
 def _png_ok(path, size):
@@ -216,3 +256,34 @@ def test_cli_frame_matches_jax_cli(plates, tmp_path, monkeypatch, mode):
     assert got.shape == want.shape == (32, 32, 3)
     off = (np.abs(got - want) > 1e-3 + 1e-3 * np.abs(want)).any(-1)
     assert off.mean() <= 0.005, off.mean()
+
+
+@pytest.mark.parametrize("mode", ["pt", "restir", "deferred"])
+def test_cli_sharded_frames_match_one_device(plates, tmp_path, caplog,
+                                             mode):
+    """--platform cpu --devices 2 (two gloo ranks) renders the frames of
+    --devices 1, within atol 1e-5 of the tone-mapped image (they are bit
+    for bit the same here). The post and culling flags are dropped with
+    the JAX CLI's log line, so the deferred image is the one without
+    them."""
+    dumps = {}
+    for n in (1, 2):
+        extra = []
+        if n == 2 and mode == "deferred":
+            extra = ["--taa", "--bloom", "--dof", "--particles", "--culling"]
+        dump = str(tmp_path / f"{n}.png")
+        with caplog.at_level("INFO", logger="prosper_tpu_torch"):
+            rc = cli.main(["render", plates, "--platform", "cpu", "--mode",
+                           mode, "--width", "32", "--height", "32",
+                           "--frames", "2", "--devices", str(n), "--out",
+                           str(tmp_path / f"{n}_out.png"), "--dump-debug",
+                           dump] + extra)
+        assert rc == 0
+        dumps[n] = np.load(dump + ".npy")
+    np.testing.assert_allclose(dumps[2], dumps[1], rtol=0, atol=1e-5)
+    _png_ok(tmp_path / "2_out.png", 32)
+    dropped = [r.getMessage() for r in caplog.records
+               if "sharded mode ignores" in r.getMessage()]
+    assert dropped == (["sharded mode ignores post/culling flags: --taa "
+                        "--bloom --dof --particles --culling"]
+                       if mode == "deferred" else [])
