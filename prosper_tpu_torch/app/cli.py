@@ -466,7 +466,7 @@ def _render(args, dev, group=None) -> int:
         build_texture_arena,
     )
     from ..scene.world import World
-    from ..utils.profiler import Profiler
+    from ..utils.profiler import gprofiler
     from ..utils.timer import Timer
 
     ignored = [f"--{flag}" for flag, modes in _MODE_FLAGS.items()
@@ -523,7 +523,6 @@ def _render(args, dev, group=None) -> int:
         render_fn = sharded_render_modes(group)[args.mode]
     main_rank = group is None or torch.distributed.get_rank(group) == 0
     opts = _mode_options(args, world, env, ibl_data)
-    profiler = Profiler(sync_device=False, device=dev)
     base_eye = np.array(cam_obj.transform.eye, np.float32)
     base_target = np.array(cam_obj.transform.target, np.float32)
     focus_readback = TextureReadback()
@@ -546,68 +545,73 @@ def _render(args, dev, group=None) -> int:
         while len(inflight) >= limit:
             f0, done, t00 = inflight.popleft()
             if done is not None:
-                done.synchronize()
+                with gprofiler.wait("cli.frames_in_flight"):
+                    done.synchronize()
             log_info("frame %d: %.1f ms", f0,
                      (time.perf_counter() - t00) * 1e3)
 
-    for f in range(args.frames):
-        profiler.start_frame()
-        starts.append(time.perf_counter())
-        if args.orbit_camera and f > 0:
-            _orbit(cam_obj, base_eye, base_target, f, args.frames)
-        if args.streaming:
-            with profiler.scope("streaming"):
-                if f == 0:
-                    world.start_streaming(texture_jobs)
-                was_done = world.streaming_done
-                if world.poll_streaming():
-                    # textures: in-place writes over their neutral rows,
-                    # queued after the frames in flight
-                    for tex in world.take_adopted_textures():
-                        arena_write(arena_t["data"], tex.chunk, tex.offset)
-                    if world.streaming_dirty:
-                        # meshes: fresh static tensors, fresh geometry
-                        static = static_tensors(world.static_scene_arrays(),
-                                                dev)
-                        world.streaming_dirty = False
-                        geom_cache = GeometryCache()
-                if world.streaming_done and not was_done:
-                    log_info("streaming finished before frame %d", f)
-        if args.autofocus:
-            # the depth pick queued a frame ago (App.cpp:607-631)
-            d = focus_readback.poll()
-            if d is not None:
-                cam_obj.parameters.focus_distance = focus_from_depth(
-                    float(d), cam_obj.uniforms())
-        t_anim = args.time + (f / 60.0 if args.animate else 0.0)
-        with profiler.scope("frame_arrays"):
-            frame = world.frame_arrays(t_anim)
-        with profiler.scope("upload"):
-            scene = {"static": static, "frame": frame_tensors(frame, dev),
-                     "arena": arena_t,
-                     "geom": geom_cache.get(static, frame["transforms"],
-                                            frame["normal_transforms"])}
-            cam = camera_tensors(cam_obj.uniforms(), dev)
-        t0 = time.perf_counter()
-        with profiler.scope("render"):
-            img, state = run(f, state)
-        done = None
-        if dev.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
-        inflight.append((f, done, t0))
-        if args.autofocus and isinstance(state, dict) \
-                and state.get("depth") is not None:
-            focus_readback.queue(state["depth"], (0.5, 0.5))
-        drain(2)
-        cam_obj.end_frame()
-        report = profiler.end_frame()
-        if args.profile and main_rank:
-            print(report.table())
-        if args.fps_limit > 0:
-            # the frame cap (App.cpp capFramerate analog)
-            time.sleep(max(0.0, 1.0 / args.fps_limit
-                           - (time.perf_counter() - starts[-1])))
+    # --profile: the host spans of every frame (utils/profiler.py)
+    with gprofiler.recording(args.profile):
+        for f in range(args.frames):
+            gprofiler.start_frame(f)
+            starts.append(time.perf_counter())
+            if args.orbit_camera and f > 0:
+                _orbit(cam_obj, base_eye, base_target, f, args.frames)
+            if args.streaming:
+                with gprofiler.host("streaming"):
+                    if f == 0:
+                        world.start_streaming(texture_jobs)
+                    was_done = world.streaming_done
+                    if world.poll_streaming():
+                        # textures: in-place writes over their neutral
+                        # rows, queued after the frames in flight
+                        for tex in world.take_adopted_textures():
+                            arena_write(arena_t["data"], tex.chunk,
+                                        tex.offset)
+                        if world.streaming_dirty:
+                            # meshes: fresh static tensors, fresh geometry
+                            static = static_tensors(
+                                world.static_scene_arrays(), dev)
+                            world.streaming_dirty = False
+                            geom_cache = GeometryCache()
+                    if world.streaming_done and not was_done:
+                        log_info("streaming finished before frame %d", f)
+            if args.autofocus:
+                # the depth pick queued a frame ago (App.cpp:607-631)
+                d = focus_readback.poll()
+                if d is not None:
+                    cam_obj.parameters.focus_distance = focus_from_depth(
+                        float(d), cam_obj.uniforms())
+            t_anim = args.time + (f / 60.0 if args.animate else 0.0)
+            with gprofiler.host("frame_arrays"):
+                frame = world.frame_arrays(t_anim)
+            with gprofiler.host("upload"):
+                scene = {"static": static,
+                         "frame": frame_tensors(frame, dev),
+                         "arena": arena_t,
+                         "geom": geom_cache.get(static, frame["transforms"],
+                                                frame["normal_transforms"])}
+                cam = camera_tensors(cam_obj.uniforms(), dev)
+            t0 = time.perf_counter()
+            with gprofiler.host("render"):
+                img, state = run(f, state)
+            done = None
+            if dev.type == "cuda":
+                done = torch.cuda.Event()
+                done.record()
+            inflight.append((f, done, t0))
+            if args.autofocus and isinstance(state, dict) \
+                    and state.get("depth") is not None:
+                focus_readback.queue(state["depth"], (0.5, 0.5))
+            drain(2)
+            cam_obj.end_frame()
+            frame_spans = gprofiler.end_frame()
+            if args.profile and main_rank:
+                print(frame_spans.report().table())
+            if args.fps_limit > 0:
+                # the frame cap (App.cpp capFramerate analog)
+                time.sleep(max(0.0, 1.0 / args.fps_limit
+                               - (time.perf_counter() - starts[-1])))
     drain(1)
     t_end = time.perf_counter()
     steady = (f"; frames 1-{args.frames - 1}: "
@@ -624,9 +628,10 @@ def _render(args, dev, group=None) -> int:
         # queries) and the launches of the last frame, run again under
         # torch.profiler
         from ..utils.dispatch_count import count_dispatches
-        from ..utils.profiler import pass_table
+        from ..utils.profiler import idle_by_span, pass_table
 
         counted = {}
+        gprofiler.clear()
         with count_dispatches(counted, dev):
             run(last_f, state)
         rows = pass_table(counted["events"], 1, dev)
@@ -642,6 +647,14 @@ def _render(args, dev, group=None) -> int:
             by_short[_short(name)] += n
         say("by name: " + "; ".join(
             f"{name} {n}" for name, n in by_short.most_common()))
+        if dev.type == "cuda":
+            # the card's idle gaps in that frame, named by the innermost
+            # span open on the host at each gap's middle
+            say(f"{'device idle under span':<28}{'gaps':>8}{'ms':>12}")
+            for name, n, ms in idle_by_span(counted["events"],
+                                            counted["trace_start_ns"],
+                                            gprofiler.frames()):
+                say(f"{name:<28}{n:>8}{ms:>12.3f}")
 
     if args.profile_device:
         from ..utils.profiler import profile_device_ops

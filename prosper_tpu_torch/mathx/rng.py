@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiler import gprofiler
+
 _M32 = 0xFFFFFFFF
 
 
@@ -64,7 +66,8 @@ def make_state(px, py, frame) -> torch.Tensor:
     """Initial pcg_state = uvec3(px, py, frameIndex) (random.glsl:45)."""
     px = as_u32(px)
     py = as_u32(py).to(px.device)
-    frame = as_u32(frame).to(px.device).expand(px.shape)
+    with gprofiler.wait("rng.make_state"):  # the frame index's upload
+        frame = as_u32(frame).to(px.device).expand(px.shape)
     return torch.stack([px, py, frame], dim=-1)
 
 

@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from ..utils.profiler import gprofiler
+
 _PI = math.pi
 
 
@@ -130,12 +132,15 @@ def sample_visible_trowbridge_reitz(ve, alpha, us):
     vh = vh / _norm(vh)
     lensq = vh[..., 0] ** 2 + vh[..., 1] ** 2
     inv = 1.0 / torch.sqrt(torch.clamp_min(lensq, 1e-20))
+    with gprofiler.wait("brdf.vndf_t1"):
+        x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype,
+                              device=vh.device)
     t1 = torch.where(
         (lensq > 0.0)[..., None],
         torch.stack(
             [-vh[..., 1] * inv, vh[..., 0] * inv, torch.zeros_like(inv)], -1
         ),
-        torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype, device=vh.device),
+        x_axis,
     )
     t2 = torch.linalg.cross(vh, t1)
     r = torch.sqrt(us[..., 0])

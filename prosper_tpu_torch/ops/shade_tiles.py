@@ -41,6 +41,7 @@ import math
 
 import torch
 
+from ..utils.profiler import gprofiler
 from .clustering import (
     LIGHT_CLUSTER_DIMENSION,
     MAX_POINT_INDICES,
@@ -114,7 +115,8 @@ def build_tile_light_lists(cam: dict, lights: dict, width: int, height: int,
     zeros_y = torch.zeros_like(bias_y)
     c2 = torch.stack([zeros_y, m11.expand(fy), -bias_y, zeros_y], -1)
     c4 = torch.zeros(4, dtype=f32, device=dev)
-    c4[2] = -1.0
+    with gprofiler.wait("shade_tiles.plane_c4"):  # the -1.0 goes up
+        c4[2] = -1.0
     plane_xm = norm_plane(c4[None] - c1)
     plane_xp = norm_plane(c4[None] + c1)
     plane_ym = norm_plane(c4[None] - c2)

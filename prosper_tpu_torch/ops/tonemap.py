@@ -15,8 +15,19 @@ import torch
 
 from ..io.dds import read_dds
 from ..mathx.color import hsv_to_rgb, rgb_to_hsv
+from ..utils.profiler import gprofiler
 
 LUT_DIMS = 48
+
+
+def device_lut(lut, device) -> torch.Tensor:
+    """The display LUT as float32 on `device`. A host array goes up to
+    the card by a pageable copy, which waits for it (a wait span)."""
+    on_card = isinstance(lut, torch.Tensor) and lut.is_cuda
+    if on_card or torch.device(device).type != "cuda":
+        return torch.as_tensor(lut, dtype=torch.float32, device=device)
+    with gprofiler.wait("tonemap.lut_upload"):
+        return torch.as_tensor(lut, dtype=torch.float32, device=device)
 
 
 def load_tony_mc_mapface(path: str) -> np.ndarray:

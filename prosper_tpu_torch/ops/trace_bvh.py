@@ -69,6 +69,7 @@ import numpy as np
 import torch
 
 from ..mathx import rng as prng
+from ..utils.profiler import gprofiler
 from .intersect import moller_trumbore, safe_inv_dir, slab_enter_exit
 from .slabs import ROWS_FULL, ROWS_PLAIN
 from .trace import CLUSTER_PAD, TILE
@@ -720,18 +721,21 @@ def _overflow_flag(device: torch.device) -> torch.Tensor:
     return flag
 
 
-def check_stack_overflow(device) -> None:
+def check_stack_overflow(device, site: str = "check_stack_overflow") -> None:
     """Raise if a trace kernel launched on `device` since the last check
     overflowed its node stack (BVH2 depth > STACK_CAP - 2, or an 8-wide
     walk needing more than STACK8_CAP entries), and clear the flag. Waits
-    for those kernels; does nothing for the CPU, whose plain versions
-    keep no stack. pt_trace_pixels calls it once per frame; callers of
-    the wrappers call it after their launches."""
+    for those kernels, in a wait span named `site` (the caller's);
+    does nothing for the CPU, whose plain versions keep no stack.
+    pt_trace_pixels calls it once per frame; callers of the wrappers call
+    it after their launches."""
     device = torch.device(device)
     if device.type != "cuda":
         return
     flag = _overflow_flag(device)
-    if int(flag.item()) != 0:
+    with gprofiler.wait(site):
+        overflowed = int(flag.item()) != 0
+    if overflowed:
         flag.zero_()
         raise RuntimeError(
             f"BVH stack overflow in a trace kernel (BVH2 depth > "

@@ -16,17 +16,18 @@ map. The state threads the preserve()d resources from frame to frame:
 the HiZ pyramid of the culled G-buffer, the TAA history, the particle
 pool, the FFT bloom kernel (made once) and the depth.
 
-The passes run under torch.profiler.record_function scopes named as the
+The passes run under gprofiler.span scopes (torch.profiler.
+record_function ranges, and host spans while recording) named as the
 JAX package's jax.named_scope passes (deferred.py:155-274): gbuffer,
 light_clustering (the tile light lists, made here and handed to the
 shading), shading, skybox, transparent, bloom, particles, taa, dof and
-tonemap, which utils/profiler.profile_passes reads.
+tonemap, which utils/profiler.profile_passes reads; deferred_entry is
+the frame span.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from ..mathx.packing import signed_oct_decode
 from ..ops.bloom import bloom_fft, bloom_multi_res, fft_dim, generate_kernel
@@ -41,8 +42,9 @@ from ..ops.particles import (
 from ..ops.rays import pinhole_rays
 from ..ops.shade_tiles import build_tile_light_lists
 from ..ops.taa import taa_resolve
-from ..ops.tonemap import tone_map
+from ..ops.tonemap import device_lut, tone_map
 from ..scene.convert import camera_tensors, check_device
+from ..utils.profiler import gprofiler
 from .gbuffer import render_gbuffer
 from .shading import has_local_lights, shade_direct
 from .transparent import transparent_pass
@@ -118,54 +120,54 @@ def render_deferred(scene: dict, cam: dict, lut, width: int, height: int,
         raise ValueError(f"unknown bloom_technique {bloom_technique!r}; "
                          f"expected one of {BLOOM_TECHNIQUES}")
     lights = scene["frame"]["lights"]
-    with record_function("gbuffer"):
+    with gprofiler.span("gbuffer"):
         gbuf = render_gbuffer(scene, cam, width, height,
                               use_culling=use_culling, prev_hiz=prev_hiz,
                               lod_bias=-1.0 if use_taa else 0.0,
                               alpha_rounds=alpha_rounds,
                               aniso_taps=aniso_taps)
-    with record_function("light_clustering"):
+    with gprofiler.span("light_clustering"):
         light_lists = (build_tile_light_lists(cam, lights, width, height)
                        if has_local_lights(lights) else None)
-    with record_function("shading"):
+    with gprofiler.span("shading"):
         color = shade_deferred(gbuf, lights, cam, width, height, ibl_data,
                                light_lists)
     if ibl_data is not None and "env" in ibl_data:
-        with record_function("skybox"):
+        with gprofiler.span("skybox"):
             color = torch.where(gbuf["valid"][:, None], color,
                                 skybox(ibl_data["env"], cam, width, height))
     hdr = color.reshape(height, width, 3)
     depth = gbuf["depth"].reshape(height, width)
     if use_transparent:
         # ForwardRenderer::recordTransparent's slot (Renderer.cpp:494-500)
-        with record_function("transparent"):
+        with gprofiler.span("transparent"):
             hdr = transparent_pass(scene, cam, hdr, gbuf["z_cam"], width,
                                    height, ibl_data)
     if use_bloom:
-        with record_function("bloom"):
+        with gprofiler.span("bloom"):
             if bloom_technique == "fft":
                 hdr = bloom_fft(hdr, kernel_image=bloom_kernel)
             else:
                 hdr = bloom_multi_res(hdr)
     new_particles = None
     if use_particles:
-        with record_function("particles"):
+        with gprofiler.span("particles"):
             new_particles = simulate(particle_state, PARTICLE_DT,
                                      frame_index)
             hdr = render_particles(new_particles, hdr, depth, cam)
     new_history = None
     if use_taa:
-        with record_function("taa"):
+        with gprofiler.span("taa"):
             velocity = gbuf["velocity"].reshape(height, width, 2)
             prev = hdr if taa_history is None else taa_history
             hdr = taa_resolve(hdr, prev, velocity, depth)
         new_history = hdr
     if use_dof:
-        with record_function("dof"):
+        with gprofiler.span("dof"):
             view_depth = torch.clamp_min(
                 -gbuf["z_cam"].reshape(height, width), 1e-3)
             hdr = depth_of_field(hdr, view_depth, cam)
-    with record_function("tonemap"):
+    with gprofiler.span("tonemap"):
         img = tone_map(hdr, lut, exposure, contrast)
     aux = {
         "taa_history": new_history,
@@ -206,28 +208,29 @@ def deferred_entry(*, scene, cam, lut, width, height, device="cuda",
     for them), bloom_kernel (made once for the FFT bloom), depth, the
     HiZ pyramid that the next frame's phase-1 cull tests against, and
     the frame's draw stats. frame_index seeds the particles' noise."""
-    dev = check_device(scene, device)
-    state = dict(state) if state else {}
-    lut = torch.as_tensor(lut, dtype=torch.float32, device=dev)
-    particles = state.get("particles")
-    if use_particles and particles is None:
-        particles = spawn_scene_particles(scene["frame"]["lights"])
-    bloom_kernel = state.get("bloom_kernel")
-    if use_bloom and bloom_technique == "fft" and bloom_kernel is None:
-        # the kernel's extent is bloom_fft's half-resolution FFT extent
-        bloom_kernel = generate_kernel(
-            fft_dim(max((height + 1) // 2, 1), max((width + 1) // 2, 1)),
-            device=dev)
-    img, aux = render_deferred(
-        scene, camera_tensors(cam, dev), lut, width, height, exposure,
-        contrast, use_taa=use_taa, use_bloom=use_bloom, use_dof=use_dof,
-        taa_history=state.get("taa_history"), ibl_data=ibl_data,
-        use_culling=use_culling, prev_hiz=state.get("hiz"),
-        use_transparent=use_transparent, use_particles=use_particles,
-        bloom_technique=bloom_technique, bloom_kernel=bloom_kernel,
-        particle_state=particles, alpha_rounds=alpha_rounds,
-        aniso_taps=aniso_taps, frame_index=frame_index,
-    )
+    with gprofiler.frame("deferred", frame_index):
+        dev = check_device(scene, device)
+        state = dict(state) if state else {}
+        lut = device_lut(lut, dev)
+        particles = state.get("particles")
+        if use_particles and particles is None:
+            particles = spawn_scene_particles(scene["frame"]["lights"])
+        bloom_kernel = state.get("bloom_kernel")
+        if use_bloom and bloom_technique == "fft" and bloom_kernel is None:
+            # the kernel's extent is bloom_fft's half-resolution FFT extent
+            bloom_kernel = generate_kernel(
+                fft_dim(max((height + 1) // 2, 1), max((width + 1) // 2, 1)),
+                device=dev)
+        img, aux = render_deferred(
+            scene, camera_tensors(cam, dev), lut, width, height, exposure,
+            contrast, use_taa=use_taa, use_bloom=use_bloom, use_dof=use_dof,
+            taa_history=state.get("taa_history"), ibl_data=ibl_data,
+            use_culling=use_culling, prev_hiz=state.get("hiz"),
+            use_transparent=use_transparent, use_particles=use_particles,
+            bloom_technique=bloom_technique, bloom_kernel=bloom_kernel,
+            particle_state=particles, alpha_rounds=alpha_rounds,
+            aniso_taps=aniso_taps, frame_index=frame_index,
+        )
     state.update(aux)
     state["bloom_kernel"] = bloom_kernel
     return img, state

@@ -22,10 +22,11 @@ import torch
 from ..ops.brdf import eval_brdf_times_nol
 from ..ops.rays import pinhole_rays
 from ..ops.slabs import unpack_hit8
-from ..ops.tonemap import tone_map
+from ..ops.tonemap import device_lut, tone_map
 from ..ops.trace import block_order, frame_bvh, make_tracer
 from ..ops.trace_bvh import check_stack_overflow
 from ..scene.convert import camera_tensors, check_device
+from ..utils.profiler import gprofiler
 from .debug import DrawType, debug_color
 from .gbuffer import _masked_aabbs, mask_discard_retrace
 from .shading import (
@@ -97,7 +98,7 @@ def render_forward(scene: dict, cam: dict, lut, width: int, height: int,
     if alpha_rounds:
         rows = mask_discard_retrace(arena, static, closest, o, d, rows,
                                     alpha_rounds)
-    check_stack_overflow(dev)
+    check_stack_overflow(dev, "forward.stack_check")
     hit = unpack_hit8(rows[inverse])
     o, d = o[inverse], d[inverse]
     cone = {"alpha": pixel_cone_alpha(cam, height), "bias": 0.0,
@@ -131,12 +132,13 @@ def forward_entry(*, scene, cam, lut, width, height, device="cuda",
     keeps nothing from frame to frame: state passes through with the
     frame's "covered_pixels" count. frame_index is accepted for the mode
     table's uniform call; the frame does not read it."""
-    dev = check_device(scene, device)
-    state = dict(state) if state else {}
-    lut = torch.as_tensor(lut, dtype=torch.float32, device=dev)
-    img, state["covered_pixels"] = render_forward(
-        scene, camera_tensors(cam, dev), lut, width, height, exposure,
-        contrast, draw_type=draw_type, use_transparent=use_transparent,
-        alpha_rounds=alpha_rounds, aniso_taps=aniso_taps,
-    )
+    with gprofiler.frame("forward", frame_index):
+        dev = check_device(scene, device)
+        state = dict(state) if state else {}
+        img, state["covered_pixels"] = render_forward(
+            scene, camera_tensors(cam, dev), device_lut(lut, dev), width,
+            height, exposure, contrast, draw_type=draw_type,
+            use_transparent=use_transparent, alpha_rounds=alpha_rounds,
+            aniso_taps=aniso_taps,
+        )
     return img, state

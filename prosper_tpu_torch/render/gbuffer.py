@@ -64,6 +64,7 @@ from ..ops.trace_bvh import (
     trace_primary_bvh_full,
 )
 from ..ops.trace_flat import trace_closest_flat_full
+from ..utils.profiler import gprofiler
 from .surface import evaluate_surface_from_attrs, pixel_cone_alpha
 
 GBUFFER_T_MIN = 1e-4  # the t_min render/gbuffer.py passes (:252, :273)
@@ -229,7 +230,7 @@ def render_gbuffer(scene: dict, cam: dict, width: int, height: int,
     if alpha_rounds:
         h16 = mask_discard_retrace(scene["arena"], scene["static"], tracer(),
                                    o, d, h16, alpha_rounds)
-    check_stack_overflow(dev)
+    check_stack_overflow(dev, "gbuffer.stack_check")
 
     hit = unpack_hit16(h16)
     # ray-cone mip selection (lodBias -1 under TAA, else 0;
@@ -240,10 +241,10 @@ def render_gbuffer(scene: dict, cam: dict, width: int, height: int,
                                           cone=cone,
                                           tris_packed=geom["packed_full"])
     valid = hit["tri"] >= 0
-    # safe normal without a surface (the oct encoding of 0 is NaN);
-    # filled on the device: a tensor from a list would wait for it
+    # safe normal without a surface (the oct encoding of 0 is NaN)
     up = surface["normal_ws"].new_zeros(3)
-    up[2] = 1.0
+    with gprofiler.wait("gbuffer.safe_normal"):  # the 1.0 goes up
+        up[2] = 1.0
     surface["normal_ws"] = torch.where(valid[:, None], surface["normal_ws"],
                                        up)
     pos_safe = torch.where(valid[:, None], surface["position_ws"], 0.0)

@@ -40,10 +40,11 @@ tile compaction (ops/compact.tile_apply), coherence sort keys, primary
 tile mask and TPU row layouts change only the order and extent of work,
 not results, and are not carried over.
 
-The passes run under torch.profiler.record_function scopes named as the
+The passes run under gprofiler.span scopes (torch.profiler.
+record_function ranges, and host spans while recording) named as the
 JAX package's jax.named_scope passes, primary_trace (pt.py:575),
 wavefront (:826), accumulate and tonemap (:918-921), which
-utils/profiler.profile_passes reads.
+utils/profiler.profile_passes reads; pt_entry is the frame span.
 """
 
 from __future__ import annotations
@@ -52,7 +53,6 @@ from functools import lru_cache
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import config
 from ..mathx import rng as prng
@@ -72,7 +72,7 @@ from ..ops.ibl import pack_cubemap_rows, sample_cubemap
 from ..ops.rays import offset_ray, pinhole_rays, thin_lens_rays
 from ..ops.slabs import attrs_from_hit_rows, unpack_hit8, unpack_hit16
 from ..ops.texture import sample_alpha_packed
-from ..ops.tonemap import tone_map
+from ..ops.tonemap import device_lut, tone_map
 from ..ops.trace import (
     frame_bvh,
     make_bounce_tracer,
@@ -89,6 +89,7 @@ from ..ops.trace_bvh import (
 )
 from ..ops.trace_flat import trace_closest_flat_full
 from ..scene.convert import camera_tensors, check_device
+from ..utils.profiler import gprofiler
 from .shading import sample_light
 from .surface import evaluate_surface_from_attrs
 
@@ -122,8 +123,9 @@ def primary_streams(cam: dict, px, py, width: int, height: int, frame_index,
     thin-lens under use_dof."""
     st = prng.make_state(px, py, frame_index)
     st, jitter = prng.rnd2d01(st)
-    res = torch.tensor([float(width), float(height)], dtype=torch.float32,
-                       device=px.device)
+    with gprofiler.wait("pt.resolution"):
+        res = torch.tensor([float(width), float(height)],
+                           dtype=torch.float32, device=px.device)
     uvj = (torch.stack([px, py], dim=-1).to(torch.float32) + jitter) / res
     if use_dof:
         st, lens = prng.rnd2d01(st)
@@ -324,7 +326,7 @@ def pt_trace_pixels(scene: dict, cam: dict, px, py, pix_cols, width: int,
                              state, o, d, tmax, hit)
 
     R0 = px.shape[0]
-    with record_function("primary_trace"):
+    with gprofiler.span("primary_trace"):
         state, ray_o, ray_d = primary_streams(
             cam, px, py, width, height, frame_index, use_dof
         )
@@ -348,8 +350,9 @@ def pt_trace_pixels(scene: dict, cam: dict, px, py, pix_cols, width: int,
                                 device=px.device)
         throughput = torch.ones_like(color)
         active = hit["tri"] >= 0
-        n_rays = torch.tensor(R0, dtype=torch.int64, device=px.device)
-    with record_function("wavefront"):
+        with gprofiler.wait("pt.n_rays"):
+            n_rays = torch.tensor(R0, dtype=torch.int64, device=px.device)
+    with gprofiler.span("wavefront"):
         for b in range(max_bounces):
             (state, color, throughput, new_active, ray_o, ray_d,
              need_shadow) = _shade_and_bounce(
@@ -380,7 +383,7 @@ def pt_trace_pixels(scene: dict, cam: dict, px, py, pix_cols, width: int,
                     if clamp_indirect:  # every bounce trace is bounce >= 1
                         sky = torch.clamp(sky, 0.0, 2.0)
                     color = color + sky
-    check_stack_overflow(px.device)
+    check_stack_overflow(px.device, "pt.stack_check")
     return color, n_rays
 
 
@@ -423,22 +426,23 @@ def pt_entry(*, scene, cam, lut, width, height, device, exposure=1.0,
     count)), and the ray count third when return_stats. env lights the
     misses (the CLI's --ibl); there is no DoF switch here, as in the JAX
     package's pt_entry (pt_render_sample takes use_dof)."""
-    sample, n_rays = pt_render_sample(
-        scene, cam, width, height, frame_index, max_bounces, env=env,
-        alpha_rounds=alpha_rounds, return_stats=True, device=device,
-    )
-    sample = sample.reshape(height, width, 3)
-    if state is None:
-        state = (
-            torch.zeros_like(sample),
-            torch.zeros((height, width), dtype=torch.float32,
-                        device=sample.device),
+    with gprofiler.frame("pt", frame_index):
+        sample, n_rays = pt_render_sample(
+            scene, cam, width, height, frame_index, max_bounces, env=env,
+            alpha_rounds=alpha_rounds, return_stats=True, device=device,
         )
-    with record_function("accumulate"):
-        color, count = pt_accumulate(state[0], state[1], sample)
-    with record_function("tonemap"):
-        lut = torch.as_tensor(lut, dtype=torch.float32, device=sample.device)
-        img = tone_map(color, lut, exposure, contrast)
+        sample = sample.reshape(height, width, 3)
+        if state is None:
+            state = (
+                torch.zeros_like(sample),
+                torch.zeros((height, width), dtype=torch.float32,
+                            device=sample.device),
+            )
+        with gprofiler.span("accumulate"):
+            color, count = pt_accumulate(state[0], state[1], sample)
+        with gprofiler.span("tonemap"):
+            img = tone_map(color, device_lut(lut, sample.device), exposure,
+                           contrast)
     if return_stats:
         return img, (color, count), n_rays
     return img, (color, count)

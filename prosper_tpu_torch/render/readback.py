@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiler import gprofiler
+
 
 def _texel(shape, uv) -> tuple[int, int]:
     h, w = shape[:2]
@@ -46,7 +48,8 @@ class TextureReadback:
             return None
         host, done = self._pending
         if done is not None:
-            done.synchronize()
+            with gprofiler.wait("readback.poll"):
+                done.synchronize()
         self._pending = None
         return host.numpy()
 

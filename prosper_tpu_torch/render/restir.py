@@ -36,10 +36,11 @@ else through ops/trace.make_tracer's: K3 or, under
 config.policy.any_tracer = "dense", K10 on frames with BVH arrays, K7
 without.
 
-The passes run under torch.profiler.record_function scopes named as the
+The passes run under gprofiler.span scopes (torch.profiler.
+record_function ranges, and host spans while recording) named as the
 JAX package's jax.named_scope passes (restir.py:359-461, pt.py:918-921):
 gbuffer, ris_initial, spatial_shade, accumulate and tonemap, which
-utils/profiler.profile_passes reads.
+utils/profiler.profile_passes reads; restir_entry is the frame span.
 """
 
 from __future__ import annotations
@@ -48,13 +49,12 @@ import math
 from functools import lru_cache
 
 import torch
-from torch.profiler import record_function
 
 from ..mathx import rng as prng
 from ..mathx.color import luminance
 from ..mathx.packing import signed_oct_decode
 from ..ops.brdf import eval_brdf_times_nol
-from ..ops.tonemap import tone_map
+from ..ops.tonemap import device_lut, tone_map
 from ..ops.trace import (
     frame_bvh,
     make_bounce_tracer,
@@ -63,6 +63,7 @@ from ..ops.trace import (
 )
 from ..ops.trace_bvh import check_stack_overflow
 from ..scene.convert import camera_tensors, check_device
+from ..utils.profiler import gprofiler
 from .gbuffer import render_gbuffer
 from .pt import pt_accumulate
 from .shading import sample_light
@@ -272,7 +273,7 @@ def render_restir(scene: dict, cam: dict, width: int, height: int,
     node stack."""
     frame = scene["frame"]
     dev = scene["geom"]["packed_full"].device
-    with record_function("gbuffer"):
+    with gprofiler.span("gbuffer"):
         gbuf = render_gbuffer(scene, cam, width, height,
                               alpha_rounds=alpha_rounds)
         surface = dict(gbuf["surface"])
@@ -284,18 +285,18 @@ def render_restir(scene: dict, cam: dict, width: int, height: int,
     lights = frame["lights"]
     valid = gbuf["valid"]
 
-    with record_function("ris_initial"):
+    with gprofiler.span("ris_initial"):
         li0, ucw0 = initial_reservoirs(surface, lights, px, py, frame_index)
         li0 = torch.where(valid, li0, -1)
         neigh_rows = pack_neighbor_rows(
             {"linear_depth": lin, "normal_metallic": gbuf["normal_metallic"]},
             li0, ucw0)
-    with record_function("spatial_shade"):
+    with gprofiler.span("spatial_shade"):
         li1, ucw1 = spatial_reuse(surface, lights, neigh_rows, px, py, width,
                                   height, frame_index)
         color, traced = restir_shade(surface, lights, li1, ucw1,
                                      shadow_tracer(scene, width, height))
-    check_stack_overflow(dev)
+    check_stack_overflow(dev, "restir.stack_check")
     return color, traced.sum()
 
 
@@ -307,20 +308,21 @@ def restir_entry(*, scene, cam, lut, width, height, device="cuda",
     mean, tone mapped. Returns (image (H, W, 3), (accumulated color,
     sample count)), and the number of shadow rays third when
     return_stats."""
-    dev = check_device(scene, device)
-    color, n_shadow = render_restir(scene, camera_tensors(cam, dev), width,
-                                    height, frame_index, alpha_rounds)
-    sample = color.reshape(height, width, 3)
-    with record_function("accumulate"):
-        if state is None:
-            acc = sample
-            count = torch.ones((height, width), dtype=torch.float32,
-                               device=dev)
-        else:
-            acc, count = pt_accumulate(state[0], state[1], sample)
-    with record_function("tonemap"):
-        lut = torch.as_tensor(lut, dtype=torch.float32, device=dev)
-        img = tone_map(acc, lut, exposure, contrast)
+    with gprofiler.frame("restir", frame_index):
+        dev = check_device(scene, device)
+        color, n_shadow = render_restir(scene, camera_tensors(cam, dev),
+                                        width, height, frame_index,
+                                        alpha_rounds)
+        sample = color.reshape(height, width, 3)
+        with gprofiler.span("accumulate"):
+            if state is None:
+                acc = sample
+                count = torch.ones((height, width), dtype=torch.float32,
+                                   device=dev)
+            else:
+                acc, count = pt_accumulate(state[0], state[1], sample)
+        with gprofiler.span("tonemap"):
+            img = tone_map(acc, device_lut(lut, dev), exposure, contrast)
     if return_stats:
         return img, (acc, count), n_shadow
     return img, (acc, count)

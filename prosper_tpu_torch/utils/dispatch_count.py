@@ -34,9 +34,11 @@ import torch
 def count_dispatches(result: dict, device="cuda"):
     """`with count_dispatches(out): ...` -> out["n"], the number of
     launches in the block, out["by_name"], a Counter by kernel (CUDA) or
-    operator (CPU) name, and out["events"], the block's torch.profiler
-    events (utils/profiler.pass_table reads them). On the card the
-    block's kernels are waited for before the count is read."""
+    operator (CPU) name, out["events"], the block's torch.profiler
+    events (utils/profiler.pass_table reads them), and
+    out["trace_start_ns"], the Unix epoch ns their times count from
+    (utils/profiler.idle_by_span lays the host spans among them). On the
+    card the block's kernels are waited for before the count is read."""
     from torch.profiler import profile
 
     from .profiler import activities, device_kernels
@@ -61,6 +63,7 @@ def count_dispatches(result: dict, device="cuda"):
             with _Count():
                 yield result
     result["events"] = prof.events()
+    result["trace_start_ns"] = prof.profiler.kineto_results.trace_start_ns()
     if device.type == "cuda":
         names.update(k.name for k in device_kernels(result["events"]))
     result["n"] = sum(names.values())

@@ -235,6 +235,15 @@ def test_cli_modes_write_png(plates, tmp_path, capsys, mode, extra):
         text = capsys.readouterr().out
         for row in ("gbuffer", "shading", "tonemap", "ATen calls per frame"):
             assert row in text
+        # each frame's host spans: the CLI's, the frame call's, its waits
+        rows = [ln.split() for ln in text.splitlines()]
+        for f in range(3):
+            assert any(ln.startswith(f"frame {f}: frame call ")
+                       for ln in text.splitlines())
+        for span in (["streaming", "host"], ["render", "host"],
+                     ["deferred", "frame"], ["gbuffer", "pass"],
+                     ["gbuffer.safe_normal", "wait"]):
+            assert sum(r[:2] == span for r in rows) == 3, span
 
 
 @pytest.mark.parametrize("mode", ["pt", "deferred"])

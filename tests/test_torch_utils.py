@@ -1,7 +1,7 @@
 """The port's host utilities on the CPU: ops/trace.GeometryCache, the
 debug dumps and lines of render/debug.py against prosper_tpu's, the frame
-protocol of utils/profiler.Profiler and the per-pass table of
-profile_passes.
+protocol of utils/profiler.Profiler's span store and the per-pass table
+of profile_passes.
 
 Exact throughout: the dumps and lines are the same numpy code; the pass
 names are the JAX package's jax.named_scope passes (read from its
@@ -109,44 +109,68 @@ def test_debug_lines_match_jax():
 
 
 def test_profiler_frame_protocol():
-    """start_frame / scope / end_frame, the one-frame-late previous(), the
-    scope cap, and sync_device's device ms on the CPU."""
-    p = prof.Profiler(sync_device=True, device="cpu")
-    assert p.previous() is None
-    p.start_frame()
-    with p.scope("a"):
-        torch.ones(1000).sum()
-    with p.scope("b"):
-        pass
-    first = p.end_frame()
-    assert [s.name for s in first.scopes] == ["a", "b"]
-    assert all(s.count == 1 and s.device_ms == s.cpu_ms >= 0
-               for s in first.scopes)
-    assert first.frame_cpu_ms >= first.scopes[0].cpu_ms
-    assert p.previous() is first
-    assert first.table().splitlines()[1].startswith("a ")
-    p.start_frame()
-    for i in range(prof.MAX_SCOPES + 3):
-        with p.scope(f"s{i}"):
-            pass
-    second = p.end_frame()
-    assert len(second.scopes) == prof.MAX_SCOPES
-    assert p.previous() is second and first.scopes[0].name == "a"
-    q = prof.Profiler(device="cpu")
-    q.start_frame()
-    with q.scope("host"):
-        pass
-    assert q.end_frame().scopes[0].device_ms == 0.0
+    """start_frame / spans / end_frame while recording: the frame's
+    spans with their kinds, parents and frame index, its report (host
+    self ms by span, waits by site) and table, the span cap; outside
+    recording no frame is kept."""
+    p = prof.Profiler()
+    p.start_frame(0)
+    assert p.end_frame() is None and p.frames() == []
+    with p.recording():
+        p.start_frame(7)
+        with p.host("render"):
+            with p.frame("deferred", 7):
+                with p.span("gbuffer"):
+                    with p.wait("gbuffer.stack_check"):
+                        torch.ones(1000).sum()
+                with p.span("shading"):
+                    pass
+        first = p.end_frame()
+        assert [(s.name, s.kind, s.parent) for s in first.spans] == [
+            ("render", "host", -1), ("deferred", "frame", 0),
+            ("gbuffer", "pass", 1), ("gbuffer.stack_check", "wait", 2),
+            ("shading", "pass", 1)]
+        assert {s.index for s in first.spans} == {7}
+        assert {s.frame for s in first.spans} == {first.id}
+        rep = first.report()
+        assert rep.index == 7 and rep.frame_ms == first.spans[1].ns / 1e6
+        assert rep.waits == {"gbuffer.stack_check":
+                             (1, first.spans[3].ns / 1e6)}
+        assert sum(rep.self_ms.values()) == pytest.approx(
+            first.spans[0].ns / 1e6)
+        table = rep.table().splitlines()
+        assert table[0].startswith("frame 7:")
+        assert table[2].split() == ["render", "host",
+                                    f"{rep.self_ms['render', 'host']:.3f}"]
+        p.start_frame(8)
+        for i in range(prof.MAX_SCOPES + 3):
+            with p.host(f"s{i}"):
+                pass
+        second = p.end_frame()
+    assert len(second.spans) == prof.MAX_SCOPES
+    assert p.frames() == [first, second] and second.id == first.id + 1
+    p.start_frame(9)
+    assert p.end_frame() is None
 
 
 def test_profiler_trace_writes_chrome_json(tmp_path):
-    p = prof.Profiler(device="cpu")
-    p.start_trace(str(tmp_path / "trace"))
-    with torch.profiler.record_function("gbuffer"):
-        torch.ones(64).cumsum(0)
-    p.stop_trace()
-    text = (tmp_path / "trace" / "trace.json").read_text()
+    """Spans recorded under a torch.profiler session: a pass span opens
+    its record_function range (in the chrome trace beside the operators
+    it ran), the frame and wait spans open none."""
+    p = prof.Profiler()
+    with torch.profiler.profile() as trace:
+        with p.frame("pt", 3):
+            with p.span("gbuffer"):
+                with p.wait("pt.n_rays"):
+                    torch.ones(64).cumsum(0)
+    trace.export_chrome_trace(str(tmp_path / "trace.json"))
+    text = (tmp_path / "trace.json").read_text()
     assert '"gbuffer"' in text and "cumsum" in text
+    assert '"pt"' not in text and "pt.n_rays" not in text
+    (frame,) = p.frames()
+    assert [(s.name, s.kind) for s in frame.spans] == [
+        ("pt", "frame"), ("gbuffer", "pass"), ("pt.n_rays", "wait")]
+    assert frame.index == 3
 
 
 @pytest.mark.parametrize("mode, module, kw, needed", [
