@@ -18,9 +18,10 @@ frames split into pixel bands over ranks sharing the card. Phases:
 
 1. device: CUDA, nvcc and the card's name and power limit;
 2. build: compile csrc/trace_bvh.cu, csrc/shade_tiles.cu,
-   csrc/trace_flat.cu, csrc/trace_leafmajor.cu, csrc/trace_wavefront.cu
-   and csrc/bench_kernels.cu for sm_90a, one nvcc each, in parallel
-   (timed), and print the ptxas line (registers, stack frame, spills)
+   csrc/trace_flat.cu, csrc/trace_leafmajor.cu, csrc/trace_wavefront.cu,
+   csrc/bench_kernels.cu and csrc/restir_spatial.cu for sm_90a, one nvcc
+   each, in parallel (timed), and print the ptxas line (registers, stack
+   frame, spills)
    of K1-K4 and X3a (the warp walk; K2 and X3a are
    warp_closest_kernel<false> and <true>), K10 and K9 (the dense cull),
    K10's cull form, K5 and K5's walk form, K6, K8 and K7 (the flat warp
@@ -32,8 +33,9 @@ frames split into pixel bands over ranks sharing the card. Phases:
    (loop_nested_kernel<4>, the script's inner trip count fixed at
    compile time, and <0>, read at run time), X1 (walk_kernel<true>
    from shared memory, walk_kernel<false> from device memory and the
-   repack_kernel that feeds it) and K11-K13 (closest8_kernel,
-   closest8_full_kernel and any8_kernel on the 8-wide warp walk);
+   repack_kernel that feeds it), K11-K13 (closest8_kernel,
+   closest8_full_kernel and any8_kernel on the 8-wide warp walk) and
+   ReSTIR's spatial reuse (spatial_reuse_kernel);
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the whole inputs of one frame, with kernel and plain times and
    the bound (the least time an H100 could take for the same work):
@@ -86,10 +88,16 @@ frames split into pixel bands over ranks sharing the card. Phases:
    timed beside K10), K7 on the second against its plain version and
    K3 (with the means of trace_flat.flat_walk_counts at t_hit = t_max:
    tile list length, and the listed clusters a live ray enters before
-   t_max), K3 on both;
+   t_max), K3 on both; the spatial reuse kernel (csrc/restir_spatial.cu)
+   against its plain twin on the whole inputs of one 1080p ReSTIR frame
+   and of a 64x64 one, and on the 64x64 one's with half its point lights
+   made spot lights (light index equal on 99.99% of the pixels; where it
+   agrees, a UCW that is not finite equal to the twin's and the others
+   within rtol 1e-5; some pixels picking a lit spot light), timed
+   beside its twin;
 9. restir: ReSTIR DI with BVH arrays under config.policy.any_tracer
-   "stack" (K1, K3) and "dense" (K1, K10), and without BVH arrays (K8,
-   K7); each 2 warm-up + 8 timed frames with launch counts, shadow-ray
+   "stack" (K1, spatial reuse, K3) and "dense" (K1, spatial reuse, K10),
+   and without BVH arrays (K8, spatial reuse, K7); each 2 warm-up + 8 timed frames with launch counts, shadow-ray
    counts, memory and a profile of one frame, the 1080p frame with the
    plain versions against the kernels' frame, and 64x64 CUDA frames
    against CPU frames;
@@ -262,6 +270,7 @@ SOURCES = {
     "trace_leafmajor": "prosper_tpu_torch/csrc/trace_leafmajor.cu",
     "trace_wavefront": "prosper_tpu_torch/csrc/trace_wavefront.cu",
     "bench_kernels": "prosper_tpu_torch/csrc/bench_kernels.cu",
+    "restir_spatial": "prosper_tpu_torch/csrc/restir_spatial.cu",
 }
 # kernel -> (source, the Pallas kernel it replaces)
 KERNELS = {
@@ -303,6 +312,9 @@ KERNELS = {
     "loop_nested": ("bench_kernels", "scripts/bench_loop_overhead.py:88"),
     "loop_cond": ("bench_kernels", "scripts/bench_loop_overhead.py:113"),
     "loop_vec": ("bench_kernels", "scripts/bench_loop_overhead.py:143"),
+    # the JAX package's spatial_reuse is jnp, not a pallas_call
+    "spatial_reuse": ("restir_spatial",
+                      "none (prosper_tpu/render/restir.py:127 is jnp)"),
 }
 # phase 15: the kernels the measurement entry points run
 EXPERIMENT_PATH = ("walk_leaves", "trace_closest_bvh_visits",
@@ -318,7 +330,8 @@ PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
 # X3b (x2_moller_kernel<1>, the X2 Möller loop under X3b's chain), X3d's
 # two instances (the inner trip count 4 fixed at compile time, and read
 # at run time), X1 (its walk from shared and from device memory, and
-# the repack the second reads) and K11-K13 (the 8-wide warp walk)
+# the repack the second reads), K11-K13 (the 8-wide warp walk) and
+# ReSTIR's spatial reuse
 PTXAS_KERNELS = tuple(("trace_bvh", k) for k in (
     "warp_closest_kernel<false>", "warp_closest_kernel<true>",
     "warp_any_kernel", "primary_kernel", "closest_full_kernel",
@@ -338,7 +351,8 @@ PTXAS_KERNELS = tuple(("trace_bvh", k) for k in (
     ("trace_wavefront", k) for k in ("walk_kernel<true>",
                                      "walk_kernel<false>", "repack_kernel")
 ) + tuple(("trace_bvh", k) for k in ("closest8_kernel", "closest8_full_kernel",
-                                     "any8_kernel"))
+                                     "any8_kernel")) + (
+    ("restir_spatial", "spatial_reuse_kernel"),)
 # the measurement forms of K5 and K10, which no frame may launch; nor may
 # a frame call trace_flat.flat_walk_counts, the walk counts of K6 and K8,
 # or trace_bvh.dense_walk_counts, K9's
@@ -362,12 +376,14 @@ FORWARD_CELLS = {
 # label -> (entry options, config.policy.any_tracer, the kernels the
 # frame runs)
 RESTIR_CELLS = {
-    "restir bvh stack": ({}, "stack",
-                         ("trace_primary_bvh_full", "trace_any_bvh")),
-    "restir bvh dense": ({}, "dense",
-                         ("trace_primary_bvh_full", "trace_any_bvh_dense")),
+    "restir bvh stack": ({}, "stack", ("trace_primary_bvh_full",
+                                       "spatial_reuse", "trace_any_bvh")),
+    "restir bvh dense": ({}, "dense", ("trace_primary_bvh_full",
+                                       "spatial_reuse",
+                                       "trace_any_bvh_dense")),
     "restir bvh=False": ({"bvh": False}, "stack",
-                         ("trace_closest_flat_full", "trace_any_flat")),
+                         ("trace_closest_flat_full", "spatial_reuse",
+                          "trace_any_flat")),
 }
 PT_FLAT_PATH = ("trace_closest_flat_full", "trace_any_flat")
 # phase 16: the path tracer's options on the blend/mask scene, alpha_rounds
@@ -401,8 +417,8 @@ LEAFMAJOR_CELLS = {
                      ("trace_primary_bvh_full", "run_pairs",
                       "trace_closest_bvh", "trace_any_bvh")),
     "restir leafmajor": ({"mode": "restir", "scatter_lights": N_LIGHTS},
-                         ("trace_primary_bvh_full", "run_pairs",
-                          "trace_any_bvh")),
+                         ("trace_primary_bvh_full", "spatial_reuse",
+                          "run_pairs", "trace_any_bvh")),
 }
 PORT_KERNEL_SYMBOLS = ("primary_kernel", "warp_closest_kernel",
                        "warp_any_kernel", "closest_full_kernel",
@@ -413,7 +429,8 @@ PORT_KERNEL_SYMBOLS = ("primary_kernel", "warp_closest_kernel",
                        "repack_kernel",
                        "x2_moller_kernel", "x2_plucker_kernel",
                        "loop_flat_kernel", "loop_nested_kernel",
-                       "loop_cond_kernel", "loop_vec_kernel")
+                       "loop_cond_kernel", "loop_vec_kernel",
+                       "spatial_reuse_kernel")
 # the glTF World scene: plate-2048's plates, the last 64 as instances
 WORLD_INSTANCED = 64
 # trace kernel vs plain: hit/miss and occlusion equal; tri equal unless
@@ -441,6 +458,16 @@ FP32_OPS_PER_S = 67e12
 # count (later tests cannot change the color); one shaded point light
 # (attenuation, light_contrib, accumulation); one spot light.
 MOLLER_OPS = 53
+# ReSTIR's spatial reuse (csrc/restir_spatial.cu): one try (pcg3d, the
+# disk offset with sqrtf, sinf and cosf, the bounds, the neighbour row's
+# depth test, oct decode and normal test) and one pHat (the light's
+# falloff, the BRDF with powf, the luminance, the resampling step); the
+# bound counts the fewest a pixel makes, one try and one pHat a sample
+SPATIAL_TRY_OPS, SPATIAL_PHAT_OPS, SPATIAL_SAMPLES = 120, 150, 5
+# spatial reuse kernel vs plain: the light index equal on this share of
+# the pixels at least (both round every operation alike; a pHat or a
+# test an ulp apart could flip one), the UCW within this rtol where equal
+SPATIAL_SAME_MIN, SPATIAL_RTOL = 0.9999, 1e-5
 LANES = 128  # triangles per cluster slab
 # Phase 15. One slab test (csrc/ray_common.cuh slab_enter: 6 subtractions,
 # 6 products, 6 min/max, 3 max for the entry, 2 min for the exit, 2
@@ -588,9 +615,10 @@ def all_kernels():
     from prosper_tpu_torch.ops import trace_bvh as tb
     from prosper_tpu_torch.ops import trace_flat as tf
     from prosper_tpu_torch.ops import trace_leafmajor as lm
+    from prosper_tpu_torch.render import restir
 
     return (tb.KERNELS + tst.KERNELS + tf.KERNELS + lm.KERNELS + tw.KERNELS
-            + bk.KERNELS)
+            + bk.KERNELS + restir.KERNELS)
 
 
 def reset_counts() -> None:
@@ -1019,7 +1047,7 @@ def plain_paths():
     from prosper_tpu_torch.ops import trace_bvh as tb
     from prosper_tpu_torch.ops import trace_flat as tf
     from prosper_tpu_torch.ops import trace_leafmajor as lm
-    from prosper_tpu_torch.render import gbuffer, pt, shading
+    from prosper_tpu_torch.render import gbuffer, pt, restir, shading
 
     return patched(
         (gbuffer, "trace_primary_bvh_full", tb.trace_primary_bvh_full_plain),
@@ -1040,6 +1068,7 @@ def plain_paths():
         (tb, "trace_any_bvh_dense", as_plain(tb.trace_any_bvh_dense_plain)),
         (tf, "trace_any_flat", as_plain(tf.trace_any_flat_plain)),
         (shading, "shade_clustered_tiles", tst.shade_clustered_tiles_plain),
+        (restir, "spatial_reuse", restir.spatial_reuse_plain),
     )
 
 
@@ -1777,13 +1806,95 @@ def endpoint_order(o, d, t_max):
     return torch.argsort(torch.where(live, key, 1 << 20))
 
 
+def capture_spatial_call(fn, scene, cam):
+    """Run one ReSTIR frame; keep the whole arguments of its
+    spatial_reuse call."""
+    from prosper_tpu_torch.render import restir
+
+    calls = []
+    real = restir.spatial_reuse
+
+    def rec(*args):
+        calls.append(args)
+        return real(*args)
+
+    with patched((restir, "spatial_reuse", rec)):
+        fn(scene, cam, 0)
+    torch.cuda.synchronize()
+    if len(calls) != 1:
+        raise RuntimeError(f"a ReSTIR frame made {len(calls)} spatial_reuse "
+                           "calls")
+    return calls[0]
+
+
+def check_spatial_call(label, args):
+    """The spatial reuse kernel on one frame's inputs against its plain
+    twin -> (ok, record)."""
+    from prosper_tpu_torch.render import restir
+
+    (li_p, ucw_p), plain_ms = timed_call(
+        lambda: restir.spatial_reuse_plain(*args))
+    li, ucw = restir.spatial_reuse(*args)
+    same = li == li_p
+    share = float(same.float().mean())
+    # where the index agrees: a UCW that is not finite on either side must
+    # be the twin's (NaN on both, or the same infinity); the others are
+    # held to the relative tolerance
+    finite = same & ucw.isfinite() & ucw_p.isfinite()
+    odd = same & ~finite & ~(ucw.isnan() & ucw_p.isnan()) & (ucw != ucw_p)
+    diff = (ucw - ucw_p)[finite].abs()
+    rel = diff / ucw_p[finite].abs().clamp_min(1e-30)
+    surface, lights, neigh, px, py = args[:5]
+    R = px.shape[0]
+    rec = {"pixels": R, "index_equal_share": share,
+           "index_mismatch": int((~same).sum()),
+           "ucw_bit_equal": int((ucw[same] == ucw_p[same]).sum()),
+           "ucw_nonfinite_mismatch": int(odd.sum()),
+           "max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+           "ucw_max_rel_err": float(rel.max()) if rel.numel() else 0.0,
+           "found": int((li_p >= 0).sum())}
+    ok = (share >= SPATIAL_SAME_MIN and rec["ucw_nonfinite_mismatch"] == 0
+          and rec["ucw_max_rel_err"] <= SPATIAL_RTOL)
+    planes = [surface[k] for k in ("linear_depth", "normal_ws",
+                                   "position_ws", "inv_view_ray", "albedo",
+                                   "roughness", "metallic")]
+    ops = R * SPATIAL_SAMPLES * (SPATIAL_TRY_OPS + SPATIAL_PHAT_OPS)
+    rec.update(ms=device_ms(lambda: restir.spatial_reuse(*args), 10),
+               plain_ms=plain_ms,
+               **bound(nbytes(*planes, px, py, neigh, lights["packed_rows"],
+                              li, ucw), ops))
+    print(f"{label}: ok={ok} {rec}")
+    return ok, rec
+
+
+def with_spot_lights(args):
+    """A spatial_reuse call's arguments with the odd point lights made
+    spot lights aimed at surface points (testing.as_spot_rows): the
+    plate scene has none, and the kernel's pHat has a branch for them."""
+    from prosper_tpu_torch.testing import as_spot_rows
+
+    surface, lights = args[:2]
+    pos = surface["position_ws"][surface["valid"]].cpu()
+    targets = pos[torch.randperm(pos.shape[0],
+                                 generator=torch.Generator().manual_seed(2))]
+    rows = as_spot_rows(lights["packed_rows"].cpu().numpy(),
+                        int(lights["point_count"]), targets.numpy())
+    rows = torch.from_numpy(rows).to(lights["packed_rows"].device)
+    return (surface, {**lights, "packed_rows": rows}, *args[2:])
+
+
 def check_restir_kernels(fns):
     """Phase 8: the shadow rays of one ReSTIR frame with BVH arrays and
     of one without; K10 (and K3) on the first, K7 on the second, each
-    against its plain version and K3. Returns (ok, records)."""
+    against its plain version and K3; the spatial reuse kernel on the
+    first frame's inputs and a 64x64 frame's, the latter also with spot
+    lights, against its plain twin.
+    Returns (ok, records)."""
+    from prosper_tpu_torch import entry as port_entry
     from prosper_tpu_torch.ops import trace as ttrace
     from prosper_tpu_torch.ops import trace_bvh as tb
     from prosper_tpu_torch.ops import trace_flat as tf
+    from prosper_tpu_torch.render import restir
 
     fn_b, scene_b, cam_b = fns[True]
     fn_f, scene_f, cam_f = fns[False]
@@ -1806,6 +1917,27 @@ def check_restir_kernels(fns):
         "K3 ReSTIR shadow rays, BVH frame", tb.trace_any_bvh,
         tb.trace_any_bvh_plain, args_b, leaf_boxes(scene_b))
     ok_all &= ok
+    ok, spatial = check_spatial_call(
+        f"spatial reuse {W}x{H}", capture_spatial_call(fn_b, scene_b, cam_b))
+    ok_all &= ok
+    fn64, (sc64, cam64, _) = port_entry.entry(
+        o.device, scene="plate", n_clusters=64, width=64, height=64,
+        mode="restir", scatter_lights=100)
+    args64 = capture_spatial_call(fn64, sc64, cam64)
+    ok, spatial["test_64x64"] = check_spatial_call(
+        "spatial reuse plate-64 64x64", args64)
+    ok_all &= ok
+    # the spot branch of pHat: some pixels must pick a lit spot light
+    spot_args = with_spot_lights(args64)
+    ok, spot = check_spatial_call("spatial reuse plate-64 64x64, spot "
+                                  "lights", spot_args)
+    li, ucw = restir.spatial_reuse(*spot_args)
+    spot["spot_picked"] = int(((li >= 0) & (ucw > 0) & (
+        spot_args[1]["packed_rows"][li.clamp_min(0), 0] == 2.0)).sum())
+    print(f"spatial reuse, spot lights: {spot['spot_picked']} pixels pick "
+          "a lit spot light")
+    ok_all &= ok and spot["spot_picked"] > 0
+    spatial["test_64x64_spot"] = spot
 
     func, args_f = capture_shadow_rays(fn_f, scene_f, cam_f)
     if func is not tf.trace_any_flat:
@@ -1831,7 +1963,7 @@ def check_restir_kernels(fns):
               f"mismatches {mism}")
         ok_all &= mism == 0
     return ok_all, {"trace_any_flat": k7, "trace_any_bvh_dense": k10,
-                    "trace_any_bvh": k3}
+                    "spatial_reuse": spatial, "trace_any_bvh": k3}
 
 
 def run_restir(smi, dev):
@@ -1847,13 +1979,15 @@ def run_restir(smi, dev):
             mode="restir", scatter_lights=N_LIGHTS, bvh=bvh)
         fns[bvh] = (fn, scene, cam)
     ok, records = check_restir_kernels(fns)
-    print("kernel, plain and bound times on one frame's shadow rays: "
+    print("kernel, plain and bound times on one frame's shadow rays and "
+          "spatial reuse inputs: "
           + ", ".join(f"{k} {r['ms']:.3f} vs {r['plain_ms']:.1f} ms, bound "
                       f"{r['bound_ms']:.3f} ms ({r['bound_by']})"
                       for k, r in records.items()) + f"; card: {smi}")
     if not ok:
         raise RuntimeError("an any-hit kernel disagrees with its plain "
-                           "version or with K3")
+                           "version or with K3, or the spatial reuse "
+                           "kernel with its plain twin")
 
     phase("restir")
     launches = {}
@@ -3353,10 +3487,9 @@ CLI_RUNS = {
     "forward": (["--mode", "forward", "--profile"],
                 ("trace_closest_bvh", "shade_clustered_tiles")),
     "restir": (["--mode", "restir", "--profile"],
-               ("trace_primary_bvh_full", "trace_any_bvh")),
+               RESTIR_CELLS["restir bvh stack"][2]),
     "restir dense": (["--mode", "restir", "--any-tracer", "dense",
-                      "--profile"],
-                     ("trace_primary_bvh_full", "trace_any_bvh_dense")),
+                      "--profile"], RESTIR_CELLS["restir bvh dense"][2]),
     "pt leafmajor orbit": (["--mode", "pt", "--bounce-tracer", "leafmajor",
                             "--orbit-camera", "--profile"],
                            LEAFMAJOR_CELLS["pt leafmajor"][1]),
@@ -3600,7 +3733,7 @@ SHARDED_RANKS = (4, 2)
 SHARDED_FRAMES = 3
 SHARDED_FRAME_INDEX = 1
 SHARDED_PATHS = {"pt": PT_PATH,
-                 "restir": ("trace_primary_bvh_full", "trace_any_bvh"),
+                 "restir": RESTIR_CELLS["restir bvh stack"][2],
                  "deferred": DEFERRED_PATH[False]}
 SHARDED_BAND = 1  # of 4: rows 288-575
 

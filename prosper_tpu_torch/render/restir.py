@@ -26,7 +26,9 @@ order and `blocks_to_rows` and the Morton light-position sort of the
 shadow rays change only the order and extent of work, not results
 (restir.py:346-351, :396-403), and are not carried. spatial_reuse
 reads the whole frame's neighbour rows, or a band's rows and its halo
-(neigh_y0, neigh_rows_h; render/distributed.py).
+(neigh_y0, neigh_rows_h; render/distributed.py). On CUDA tensors it runs
+as one hand-written kernel, csrc/restir_spatial.cu, one thread per
+pixel; spatial_reuse_plain is its plain twin, which CPU tensors take.
 
 The shadow rays go, in 16x16-block order (ops/trace.traced_in_blocks),
 through the any-hit fn of ops/trace.make_bounce_tracer when
@@ -45,7 +47,9 @@ utils/profiler.profile_passes reads; restir_entry is the frame span.
 
 from __future__ import annotations
 
+import ctypes
 import math
+import operator
 from functools import lru_cache
 
 import torch
@@ -137,13 +141,15 @@ def pack_neighbor_rows(gbuf: dict, res_light, res_ucw):
     ], dim=-1)
 
 
-def spatial_reuse(surface: dict, lights: dict, neigh_rows, px, py,
-                  width: int, height: int, frame_index, neigh_y0: int = 0,
-                  neigh_rows_h: int | None = None):
+def spatial_reuse_plain(surface: dict, lights: dict, neigh_rows, px, py,
+                        width: int, height: int, frame_index,
+                        neigh_y0: int = 0, neigh_rows_h: int | None = None):
     """Biased spatial reuse (spatial_reuse.comp) -> (R,) light index,
-    (R,) UCW. neigh_rows: the pack_neighbor_rows image, row-major, of
-    rows [neigh_y0, neigh_y0 + neigh_rows_h) of the frame (the whole
-    frame by default; a band and its halo under render/distributed.py).
+    (R,) UCW, in plain PyTorch: the twin of csrc/restir_spatial.cu,
+    which spatial_reuse runs on CPU tensors. neigh_rows: the
+    pack_neighbor_rows image, row-major, of rows [neigh_y0, neigh_y0 +
+    neigh_rows_h) of the frame (the whole frame by default; a band and
+    its halo under render/distributed.py).
     px, py, width and height are absolute frame coordinates: the RNG
     streams and the edge test read them. Reproduces the reference's
     quirks: a neighbour in pixel row or column 0 is rejected
@@ -208,6 +214,76 @@ def spatial_reuse(surface: dict, lights: dict, neigh_rows, px, py,
         0.0,
     )
     return out_light, out_ucw
+
+
+# the C entry point's arguments before the stream (cuda_build.launch)
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+             + [ctypes.c_int] * 4 + [ctypes.c_uint32] + [ctypes.c_void_p] * 2)
+# the surface planes the kernel reads: key, trailing shape
+_SURFACE_PLANES = (("linear_depth", ()), ("normal_ws", (3,)),
+                   ("position_ws", (3,)), ("inv_view_ray", (3,)),
+                   ("albedo", (3,)), ("roughness", ()), ("metallic", ()))
+
+
+def _spatial_kernel(surface: dict, lights: dict, neigh_rows, px, py,
+                    width: int, height: int, frame_index: int, neigh_y0: int,
+                    rows_h: int):
+    """Check the inputs and launch csrc/restir_spatial.cu -> (R,) int64
+    light index, (R,) f32 UCW."""
+    dev = px.device
+    if dev.type != "cuda":
+        raise ValueError(f"spatial_reuse: unsupported device {dev}")
+    from ..ops import cuda_build
+    from ..ops.trace_bvh import expect_tensor
+
+    R = px.shape[0]
+    # the G-buffer's albedo is a view of a wider plane: made contiguous
+    planes = [surface[key].contiguous() for key, _ in _SURFACE_PLANES]
+    for (key, tail), t in zip(_SURFACE_PLANES, planes):
+        expect_tensor(t, key, torch.float32, dev, (R, *tail))
+    expect_tensor(px, "px", torch.int64, dev, (R,))
+    expect_tensor(py, "py", torch.int64, dev, (R,))
+    expect_tensor(neigh_rows, "neigh_rows", torch.float32, dev,
+                  (rows_h * width, 8))
+    rows = lights["packed_rows"]
+    expect_tensor(rows, "packed_rows", torch.float32, dev, (None, 12))
+    for name, t in (("neigh_rows", neigh_rows), ("packed_rows", rows)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
+    # the frame index's low 32 bits: the RNG's u32 word
+    frame = operator.index(frame_index) & 0xFFFFFFFF
+    out_light = torch.empty((R,), dtype=torch.int64, device=dev)
+    out_ucw = torch.empty((R,), dtype=torch.float32, device=dev)
+    cuda_build.launch("restir_spatial", "spatial_reuse", _ARGTYPES, dev, (
+        *(t.data_ptr() for t in planes), px.data_ptr(), py.data_ptr(), R,
+        neigh_rows.data_ptr(), rows.data_ptr(), width, height, neigh_y0,
+        rows_h, frame, out_light.data_ptr(), out_ucw.data_ptr()))
+    return out_light, out_ucw
+
+
+def spatial_reuse(surface: dict, lights: dict, neigh_rows, px, py,
+                  width: int, height: int, frame_index, neigh_y0: int = 0,
+                  neigh_rows_h: int | None = None):
+    """Biased spatial reuse -> (R,) int64 light index (-1: none), (R,)
+    f32 UCW; arguments as spatial_reuse_plain's. On CPU tensors it runs
+    spatial_reuse_plain; on CUDA tensors the kernel of
+    csrc/restir_spatial.cu (frame_index a Python int) or raises, and
+    counts its launches in `.launches`."""
+    if px.device.type == "cpu":
+        return spatial_reuse_plain(surface, lights, neigh_rows, px, py,
+                                   width, height, frame_index, neigh_y0,
+                                   neigh_rows_h)
+    out = _spatial_kernel(surface, lights, neigh_rows, px, py, width, height,
+                          frame_index, neigh_y0,
+                          height if neigh_rows_h is None else neigh_rows_h)
+    # on the wrapper itself, which a recorder patched over the module's
+    # name calls
+    KERNELS[0].launches += 1
+    return out
+
+
+spatial_reuse.launches = 0
+KERNELS = (spatial_reuse,)
 
 
 def shadow_tracer(scene: dict, width: int, height: int):

@@ -8,6 +8,8 @@ them: `static` holds the object-space triangle arena and materials,
 `arena` a 1-px white texture arena (plus an alpha checker where a plate
 scene has alpha-masked plates), and `cam_fn(w, h)` camera uniforms.
 
+`as_spot_rows` turns some of a scene's point lights into spot lights.
+
 `make_tie_scene` builds exact t ties for the closest-hit walks: one
 triangle copied into several lanes of two clusters under a two-leaf
 BVH2, with rays that visit either cluster first.
@@ -369,6 +371,26 @@ def make_plate_scene(n_clusters: int = 2048, seed: int = 0,
     eye = center + view / np.linalg.norm(view) * 0.9 * ext
     arena = _checker_arena() if alpha else _white_arena()
     return static, frame, arena, _cam_fn(eye, center)
+
+
+def as_spot_rows(rows: np.ndarray, n_points: int, targets: np.ndarray,
+                 inner: float = 0.25, outer: float = 0.7) -> np.ndarray:
+    """A copy of packed light rows (scene.lights.light_uniforms) whose
+    odd point lights 1, 3, 5, ... of the first n_points are spot lights
+    aimed at `targets` (points in world space, taken in turn), with
+    cones of `inner` and `outer` radians packed as load_lights packs a
+    glTF spot. The sun and the even points stay: sampleLight's three
+    branches all run on a scene, such as the plate scene, that has no
+    spot light."""
+    out = np.array(rows, np.float32)
+    scale = 1.0 / max(0.001, float(np.cos(inner) - np.cos(outer)))
+    idx = np.arange(1, 1 + n_points, 2)
+    aim = targets[np.arange(idx.size) % len(targets)] - out[idx, 4:7]
+    out[idx, 0] = 2.0
+    out[idx, 7] = scale
+    out[idx, 8:11] = aim / np.linalg.norm(aim, axis=1, keepdims=True)
+    out[idx, 11] = -float(np.cos(outer)) * scale
+    return out
 
 
 # The tie scene's copies of one triangle, by cluster. Cluster 0's lowest

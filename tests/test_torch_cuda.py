@@ -1865,3 +1865,142 @@ def test_cli_frames_on_card_match_cpu(cuda, mode, tmp_path):
     assert got.shape == want.shape == (64, 64, 3)
     off = (np.abs(got - want) > 1e-3 + 1e-3 * np.abs(want)).any(-1)
     assert off.mean() <= 0.005, off.mean()
+
+
+def _spatial_call(device, monkeypatch, frame_index=3, **kw):
+    """(args, kwargs) of the spatial_reuse call of one ReSTIR frame on
+    device, and that frame's launches of the kernel."""
+    from prosper_tpu_torch.render import restir
+
+    calls = []
+    real = restir.spatial_reuse
+
+    def rec(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    fn, (sc, cam, _) = entry(device, mode="restir", **kw)
+    monkeypatch.setattr(restir, "spatial_reuse", rec)
+    before = real.launches
+    fn(sc, cam, frame_index)
+    monkeypatch.setattr(restir, "spatial_reuse", real)
+    assert len(calls) == 1
+    return calls[0], real.launches - before
+
+
+SPATIAL_FRAMES = {
+    "plate64-64x64": dict(scene="plate", n_clusters=64, width=64, height=64,
+                          scatter_lights=100),
+    "plate64-64x64-nobvh": dict(scene="plate", n_clusters=64, width=64,
+                                height=64, scatter_lights=100, bvh=False),
+    "plate2048-1080p": dict(scene="plate", n_clusters=2048, width=1920,
+                            height=1080, scatter_lights=1024),
+}
+
+
+def _assert_kernel_matches_plain(args, kwargs):
+    """The kernel against its plain twin on one call's arguments: the
+    light index equal on at least 99.99% of the pixels (both round every
+    operation alike, so a pHat or a test an ulp apart is all that can
+    flip one), the UCW within rtol 1e-5 where it agrees, NaN where the
+    twin's is. -> (light index, UCW) of the kernel."""
+    from prosper_tpu_torch.render import restir
+
+    li, ucw = restir.spatial_reuse(*args, **kwargs)
+    li_p, ucw_p = restir.spatial_reuse_plain(*args, **kwargs)
+    assert li.dtype == li_p.dtype == torch.int64
+    same = (li == li_p).cpu().numpy()
+    assert same.mean() >= 0.9999, same.mean()
+    assert bool((li >= 0).any())
+    np.testing.assert_allclose(ucw.cpu().numpy()[same],
+                               ucw_p.cpu().numpy()[same], rtol=1e-5,
+                               atol=0.0, equal_nan=True)
+    return li, ucw
+
+
+@pytest.mark.parametrize("frame", sorted(SPATIAL_FRAMES))
+def test_spatial_reuse_kernel_matches_plain_on_card(cuda, frame,
+                                                    monkeypatch):
+    """The spatial reuse kernel (csrc/restir_spatial.cu) against its plain
+    twin on the card, on the inputs of one ReSTIR frame, with and
+    without BVH arrays; each frame launches the kernel once."""
+    (args, kwargs), launches = _spatial_call(cuda, monkeypatch,
+                                             **SPATIAL_FRAMES[frame])
+    assert launches == 1
+    _assert_kernel_matches_plain(args, kwargs)
+
+
+def test_spatial_reuse_kernel_spot_lights_match_plain_on_card(cuda,
+                                                              monkeypatch):
+    """The spot branch of the kernel's pHat (the angular falloff over the
+    light row's direction, scale and offset) against the twin's: the
+    64x64 frame's arguments with its odd point lights made spot lights
+    aimed at surface points; some pixels must pick a lit spot light."""
+    from prosper_tpu_torch.testing import as_spot_rows
+
+    (args, kwargs), _ = _spatial_call(cuda, monkeypatch,
+                                      **SPATIAL_FRAMES["plate64-64x64"])
+    surface, lights = args[:2]
+    pos = surface["position_ws"][surface["valid"]]
+    targets = pos[torch.randperm(pos.shape[0],
+                                 generator=torch.Generator().manual_seed(2))
+                  .to(pos.device)]
+    n_points = int(lights["point_count"])
+    rows = torch.from_numpy(as_spot_rows(
+        lights["packed_rows"].cpu().numpy(), n_points,
+        targets.cpu().numpy())).to(cuda)
+    args = (surface, {**lights, "packed_rows": rows}, *args[2:])
+    li, ucw = _assert_kernel_matches_plain(args, kwargs)
+    spot = (li >= 0) & (rows[li.clamp_min(0), 0] == 2.0) & (ucw > 0)
+    assert int(spot.sum()) > 0
+
+
+def test_spatial_reuse_kernel_band_equals_full_frame_on_card(cuda,
+                                                             monkeypatch):
+    """The kernel on a band of rows over its rows and halo (neigh_y0,
+    neigh_rows_h; zero rows past the frame's edges), as
+    render/distributed.py calls it, equals the full frame's rows of the
+    full-frame launch bit for bit."""
+    from prosper_tpu_torch.render import distributed, restir
+
+    (args, kwargs), _ = _spatial_call(cuda, monkeypatch,
+                                      **SPATIAL_FRAMES["plate64-64x64"])
+    surface, lights, rows, px, py, width, height, frame = args
+    full = restir.spatial_reuse(*args)
+    up, dn = distributed.HALO_UP, distributed.HALO_DN
+    padded = torch.cat([rows.new_zeros((up * width, 8)), rows,
+                        rows.new_zeros((dn * width, 8))])
+    for y0, band_h in ((40, 16), (0, 24), (48, 16)):
+        sel = slice(y0 * width, (y0 + band_h) * width)
+        band_s = {k: v[sel] if isinstance(v, torch.Tensor) and v.dim()
+                  and v.shape[0] == width * height else v
+                  for k, v in surface.items()}
+        neigh = padded[y0 * width:(y0 + band_h + up + dn) * width]
+        got = restir.spatial_reuse(
+            band_s, lights, neigh, px[sel], py[sel], width, height, frame,
+            neigh_y0=y0 - up, neigh_rows_h=band_h + up + dn)
+        assert torch.equal(got[0], full[0][sel])
+        assert torch.equal(got[1], full[1][sel])
+
+
+def test_spatial_reuse_kernel_checks_inputs_on_card(cuda, monkeypatch):
+    """The wrapper refuses what the kernel does not take: another dtype
+    of px, a neighbour image of the wrong height, light rows off 16-byte
+    alignment."""
+    from prosper_tpu_torch.render import restir
+
+    (args, kwargs), _ = _spatial_call(cuda, monkeypatch,
+                                      **SPATIAL_FRAMES["plate64-64x64"])
+    surface, lights, rows, px, py, width, height, frame = args
+    with pytest.raises(TypeError):
+        restir.spatial_reuse(surface, lights, rows, px.int(), py, width,
+                             height, frame)
+    with pytest.raises(ValueError):
+        restir.spatial_reuse(surface, lights, rows[:-width], px, py, width,
+                             height, frame)
+    packed = lights["packed_rows"]
+    shifted = torch.empty(packed.numel() + 1, device=cuda)[1:].view_as(packed)
+    shifted.copy_(packed)
+    with pytest.raises(ValueError, match="aligned"):
+        restir.spatial_reuse(surface, {**lights, "packed_rows": shifted},
+                             rows, px, py, width, height, frame)

@@ -8,6 +8,8 @@
   its source would cut a pointer or shift every later argument. The
   measurement forms of K5 and K10 (shade_walk_counts, dense_cull_counts)
   have entry points and launch counts of their own.
+- The spatial reuse wrapper's dispatch: its plain twin on CPU tensors,
+  the kernel's checks (which refuse what is not CUDA) elsewhere.
 - The visit order the closest-hit kernels keep on exact t ties, on
   testing.make_tie_scene: the lockstep plain walk (trace_bvh's
   trace_closest_bvh_visits_plain, each ray's own walk, which K2's and
@@ -28,9 +30,13 @@ from prosper_tpu_torch.ops import trace_bvh as tb
 from prosper_tpu_torch.ops import trace_flat as tf
 from prosper_tpu_torch.ops import trace_leafmajor as lm
 from prosper_tpu_torch.ops.cuda_build import CSRC, SOURCES
+from prosper_tpu_torch.render import restir
+from prosper_tpu_torch.render.shading import sample_light_packed
 from prosper_tpu_torch.testing import (
     CLUSTER_TRI_PAD,
     TIE_LANES,
+    as_spot_rows,
+    make_plate_scene,
     make_tie_scene,
 )
 
@@ -46,6 +52,7 @@ TABLES = {
     "trace_leafmajor": {"run_pairs": lm._ARGTYPES},
     "trace_wavefront": {"walk_leaves": tw._ARGTYPES},
     "bench_kernels": {"isect_loop": bk._ISECT_ARGS, **bk._PROBE_ARGS},
+    "restir_spatial": {"spatial_reuse": restir._ARGTYPES},
 }
 ENTRY = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
 
@@ -55,7 +62,8 @@ def _kind(param: str):
     if "*" in param:
         return ctypes.c_void_p
     ctype = param.replace("const", "").split()[0]
-    return {"int": ctypes.c_int, "float": ctypes.c_float}[ctype]
+    return {"int": ctypes.c_int, "unsigned": ctypes.c_uint32,
+            "float": ctypes.c_float}[ctype]
 
 
 def _entry_points(source: str) -> dict:
@@ -106,6 +114,66 @@ def test_measurement_forms_have_entry_points_and_counts(source):
     assert wrapper.__name__ == name and isinstance(wrapper.launches, int)
     module = {"shade_tiles": tst, "trace_bvh": tb}[source]
     assert wrapper in module.KERNELS
+
+
+def test_spatial_reuse_runs_its_twin_on_cpu_and_raises_elsewhere():
+    """spatial_reuse takes its plain twin only for CPU tensors, without a
+    launch; on any other device it goes to the kernel's checks, which
+    refuse what is not CUDA (no fallback). Its launch count is among
+    restir.KERNELS."""
+    R, W = 12, 4
+    gen = torch.Generator().manual_seed(5)
+
+    def inputs(device):
+        surface = {k: torch.rand((R, 3) if k.endswith(("_ws", "ray", "albedo"))
+                                 else (R,), generator=gen).to(device)
+                   for k in ("linear_depth", "normal_ws", "position_ws",
+                             "inv_view_ray", "albedo", "roughness",
+                             "metallic")}
+        rows = torch.zeros((2, 12))
+        rows[1, 0] = 1.0
+        lights = {"packed_rows": rows.to(device)}
+        neigh = torch.rand((R, 8), generator=gen).to(device)
+        px = torch.arange(W).repeat(R // W).to(device)
+        py = torch.arange(R // W).repeat_interleave(W).to(device)
+        return surface, lights, neigh, px, py, W, R // W, 7
+
+    assert restir.spatial_reuse in restir.KERNELS
+    before = restir.spatial_reuse.launches
+    args = inputs("cpu")
+    got = restir.spatial_reuse(*args)
+    want = restir.spatial_reuse_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert restir.spatial_reuse.launches == before
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        restir.spatial_reuse(*inputs("meta"))
+    assert restir.spatial_reuse.launches == before
+
+
+def test_as_spot_rows_light_their_targets():
+    """The spot rows the card tests give the spatial reuse kernel: the
+    odd points of the plate scene's lights become spot lights that light
+    their targets fully (irradiance = radiance / d^2) and nothing outside
+    their outer cone; the sun and the even points stay."""
+    _, frame, _, _ = make_plate_scene(16, 0, scatter_lights=9)
+    rows = frame["lights"]["packed_rows"]
+    targets = np.random.default_rng(1).uniform(-1.0, 1.0, (3, 3))
+    out = as_spot_rows(rows, 9, targets)
+    spots = np.arange(1, 10, 2)
+    assert (out[spots, 0] == 2.0).all()
+    keep = np.setdiff1d(np.arange(rows.shape[0]), spots)
+    np.testing.assert_array_equal(out[keep], rows[keep])
+    # every light keeps its radiance and position
+    np.testing.assert_array_equal(out[:, 1:7], rows[:, 1:7])
+    aim = targets[np.arange(5) % 3]
+    axis = aim - rows[spots, 4:7]
+    # the target, and a point behind the light: outside the cone
+    for where, lit in ((aim, True), (rows[spots, 4:7] - axis, False)):
+        _, _, irr = sample_light_packed(_t(out), _t(spots),
+                                        _t(where.astype(np.float32)))
+        d2 = ((where - rows[spots, 4:7]) ** 2).sum(-1, keepdims=True)
+        want = rows[spots, 1:4] / d2 if lit else np.zeros((5, 3))
+        np.testing.assert_allclose(irr.numpy(), want, rtol=1e-4)
 
 
 def _t(a):
