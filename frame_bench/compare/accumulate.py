@@ -15,10 +15,12 @@ program's acc_k. The numbers, each the largest over the compared frames:
 
 - pixels_off: the share of pixels whose read-back sample differs from
   the reference's in some channel by more than pixel_atol * (the frame's
-  mean |sample|) + pixel_rtol * |reference| + the rounding term;
+  mean |sample|) + pixel_rtol * |reference| + the rounding term, or
+  where either sample is not finite;
 - display_off: the share of pixels whose displayed value (in [0, 1])
   differs from the reference's display transform of the program's acc_k
-  by more than display_atol in some channel;
+  by more than display_atol in some channel, or where either is not
+  finite;
 - count_off: |count - reference count| / reference count of the frame's
   own count (rays, shadow-ray pixels);
 - count_state_off: the largest |sample count in the program's state -
@@ -35,16 +37,18 @@ NUMBERS = ("pixels_off", "display_off", "count_off", "count_state_off")
 ROUNDING = 2.0 ** -22  # four half-ulps of float32
 
 
-def keep(prev_state, image, state, stat) -> dict:
+def keep(prev_state, image, state, stat, older_state=None) -> dict:
     """What the comparison keeps of one frame (references, no copies):
-    the state before it, the state and image after it, its count."""
+    the state before it, the state and image after it, its count (the
+    state before that, older_state, is not needed)."""
     return {"prev": None if prev_state is None else prev_state[0],
             "acc": state[0], "count": state[1], "image": image, "stat": stat}
 
 
 def numbers(port: dict, ref_sample: torch.Tensor, ref_count: int,
-            lut: torch.Tensor, chk: dict) -> dict:
-    """port: a kept frame on the reference's device."""
+            lut: torch.Tensor, chk: dict, ref_extra: dict | None = None) -> dict:
+    """port: a kept frame on the reference's device (ref_extra: nothing
+    the accumulating modes' references give)."""
     prev, acc = port["prev"], port["acc"]
     n = float(port["index"] + 1)
     tol = (chk["pixel_atol"] * ref_sample.abs().mean()
@@ -55,10 +59,12 @@ def numbers(port: dict, ref_sample: torch.Tensor, ref_count: int,
         sample = prev + (acc - prev) * n
         tol = tol + n * ROUNDING * torch.maximum(acc.abs(), prev.abs())
     bad = (((sample - ref_sample).abs() > tol).any(-1)
-           | ~torch.isfinite(sample).all(-1))
+           | ~torch.isfinite(sample).all(-1)
+           | ~torch.isfinite(ref_sample).all(-1))
     shown = shade.tone_map(acc, lut)
     dbad = (((port["image"] - shown).abs() > chk["display_atol"]).any(-1)
-            | ~torch.isfinite(port["image"]).all(-1))
+            | ~torch.isfinite(port["image"]).all(-1)
+            | ~torch.isfinite(shown).all(-1))
     return {
         "pixels_off": float(bad.float().mean()),
         "display_off": float(dbad.float().mean()),
@@ -67,7 +73,7 @@ def numbers(port: dict, ref_sample: torch.Tensor, ref_count: int,
     }
 
 
-def control(port: dict, sample, count, lut, dtype) -> dict:
+def control(port: dict, sample, count, extra, lut, dtype) -> dict:
     """A kept frame as the control would have made it: the control's
     sample accumulated onto the program's state before the frame with
     the reference's count, shown by the control's display transform in

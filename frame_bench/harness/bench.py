@@ -11,8 +11,10 @@ nothing else waits inside a frame.
 from __future__ import annotations
 
 import gc
+import shutil
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -69,7 +71,9 @@ class Cell:
         self.wl, self.seed, self.device = wl, int(seed), device
         self.width, self.height = int(cfg["width"]), int(cfg["height"])
         t0 = time.perf_counter()
-        self.inputs = spec.generator(cfg["generator"]).make(cfg, seed)
+        gen = spec.generator(cfg["generator"],
+                             Path(wl.get("bench_dir", spec.BENCH_DIR)))
+        self.inputs = gen.make(cfg, seed)
         self.inputs_s = time.perf_counter() - t0
         from frame_bench.inputs.camera import camera_path
 
@@ -82,10 +86,14 @@ class Cell:
         self.scene = program.build_scene(self.inputs, opts["bvh"], device)
         sync(device)
         self.scene_setup_s = time.perf_counter() - t0
+        self.n_clusters = int(self.scene["static"]["wc_tri_count"].shape[0])
+        if "scene_dir" in self.inputs:  # the glTF form's file, now read
+            shutil.rmtree(self.inputs["scene_dir"], ignore_errors=True)
         self.cams = [program.camera(c, device) for c in self.cam_np]
         self.fn = program.frame_call(opts, self.width, self.height, device)
         self.compare = spec.comparison(wl["check"]["kind"])
-        self.state = None
+        self.state = self.older = None
+        self.clusters = None
         self.index = 0
         self.marks = Marks(device)
         self.in_flight = int(wl.get("frames_in_flight", 2))
@@ -95,16 +103,26 @@ class Cell:
         it (references, no copies)."""
         self.marks.wait(self.in_flight)
         i = self.index
-        prev = self.state
+        older, prev = self.older, self.state
         img, self.state, stat = self.fn(self.scene, self.cams[i % len(self.cams)],
                                         i, self.state)
         self.marks.mark()
         self.index += 1
-        return dict(self.compare.keep(prev, img, self.state, stat), index=i)
+        kept = self.compare.keep(prev, img, self.state, stat, older)
+        if len(self.cams) == 1:  # the pyramids matter to a moving camera alone
+            for k in ("older_hiz", "prev_hiz", "hiz"):
+                kept.pop(k, None)
+        else:  # and it alone holds a state two frames back
+            self.older = prev
+        return dict(kept, index=i)
 
     def free(self):
-        """Drop the program's scene, frame call and state."""
-        self.scene = self.fn = self.state = self.cams = None
+        """Drop the program's scene, frame call and state, keeping its
+        partition into clusters (program.clusters), which the reference
+        of a glTF scene reads."""
+        if self.scene is not None:
+            self.clusters = program.clusters(self.scene)
+        self.scene = self.fn = self.state = self.older = self.cams = None
         gc.collect()
         if torch.device(self.device).type == "cuda":
             torch.cuda.empty_cache()
@@ -140,37 +158,74 @@ def window(cell: Cell, seconds: float | None, frames: int | None) -> dict:
             "stats": [float(s) for s in stats], "kept": kept}
 
 
+def _to(v, device):
+    """A kept value (a tensor, a list of them, or neither) on `device`."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    if isinstance(v, list):
+        return [_to(x, device) for x in v]
+    return v
+
+
 def reference_numbers(wl: dict, inputs: dict, cam_np: list, width: int,
                       height: int, frames: list[dict], device,
-                      control_dtype=None) -> list[dict]:
+                      control_dtype=None, clusters=None,
+                      notes=None) -> list[dict]:
     """The comparison's numbers of each kept frame (on `device`); with
     control_dtype, those of the control: the reference computed in that
-    dtype put in the program's place."""
+    dtype put in the program's place. clusters: the program's
+    (program.clusters), which the reference of a glTF scene checks and
+    lays its triangles out in; the clusters' sizes are added to `notes`."""
     from frame_bench.ref import shade
-    from frame_bench.ref.trace import Triangles
+    from frame_bench.ref.trace import Triangles, scene_slots
 
     mode = spec.reference(wl["entry"]["mode"])
     chk = wl["check"]
     compare = spec.comparison(chk["kind"])
-    tris = Triangles(inputs["p0"], inputs["p1"], inputs["p2"], device)
-    sd = shade.SceneData(inputs, device)
+    slots = scene_slots(inputs, clusters)
+    if slots["cluster_vertices"] is not None and notes is not None:
+        notes.append(f"clusters: {len(slots['count'])}, at most "
+                     f"{int(slots['count'].max())} triangles and "
+                     f"{slots['cluster_vertices']} vertices a cluster "
+                     f"(upstream's meshlets: 124, 64)")
+    tris = Triangles.from_slots(slots, device)
+    sd = shade.SceneData(inputs, slots, device)
     sd_ctl = None if control_dtype is None else shade.SceneData(
-        inputs, device, control_dtype)
+        inputs, slots, device, control_dtype)
+    del slots
     lut = torch.as_tensor(shade.display_lut(), device=device)
     opts = {k: wl["entry"][k] for k in chk.get("reference_options", [])}
+
+    def camera_of(index):
+        return {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+                for k, v in cam_np[index % len(cam_np)].items()}
+
+    moving = len(cam_np) > 1 and bool(opts.get("use_culling"))
+
+    def render(scene_data, port, index):
+        """(sample, count, extra) of the reference. Under a moving camera
+        with culling, the frame before (from the program's pyramid of
+        the frame before that) is rendered first, and the compared frame
+        starts from the pyramid it leaves (extra["hiz_before"])."""
+        kw, before = dict(opts), {}
+        if moving and index > 0:
+            kw["prev_hiz"] = mode.pyramid(tris, scene_data, camera_of(index - 1),
+                                          width, height, index - 1,
+                                          port.get("older_hiz"))
+            before["hiz_before"] = kw["prev_hiz"]
+        got = mode.render(tris, scene_data, cam, width, height, index, **kw)
+        sample, count, extra = got if len(got) == 3 else (*got, {})
+        return sample, count, dict(extra, **before)
+
     out = []
     for f in frames:
-        cam = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
-               for k, v in cam_np[f["index"] % len(cam_np)].items()}
-        port = {k: (v.to(device) if isinstance(v, torch.Tensor) else v)
-                for k, v in f.items()}
+        cam = camera_of(f["index"])
+        port = {k: _to(v, device) for k, v in f.items()}
         if sd_ctl is not None:
-            port = compare.control(port, *mode.render(
-                tris, sd_ctl, cam, width, height, f["index"], **opts), lut,
-                control_dtype)
-        sample, count = mode.render(tris, sd, cam, width, height, f["index"],
-                                    **opts)
-        out.append(compare.numbers(port, sample, count, lut, chk))
+            port = compare.control(port, *render(sd_ctl, port, f["index"]),
+                                   lut, control_dtype)
+        sample, count, extra = render(sd, port, f["index"])
+        out.append(compare.numbers(port, sample, count, lut, chk, extra))
     return out
 
 
@@ -187,9 +242,14 @@ def warm_up(cell: Cell) -> dict:
 def compared_frames(cell: Cell, start: dict, win: dict) -> list[dict]:
     """The first warm-up frame, the drawn and the last window frame, on
     the host; then the program's state is freed."""
-    def host(f):
-        return {k: (v.detach().to("cpu", torch.float32)
-                    if isinstance(v, torch.Tensor) else v) for k, v in f.items()}
+    def host(v):
+        if isinstance(v, dict):
+            return {k: host(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [host(x) for x in v]
+        if isinstance(v, torch.Tensor):
+            return v.detach().to("cpu", torch.float32)
+        return v
 
     kept = [host(start), host(win["kept"]["drawn"]), host(win["kept"]["last"])]
     win["kept"] = None
@@ -214,7 +274,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
                    "warm-up": time.perf_counter() - t_warm}
 
     ctx = {"scene_setup_s": cell.scene_setup_s, "setup_s": setup_s,
-           "config": wl["config_data"]}
+           "config": wl["config_data"], "n_clusters": cell.n_clusters}
     if trace:
         from torch.profiler import ProfilerActivity, profile
 
@@ -237,8 +297,16 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
     kept = compared_frames(cell, start, win)
     del start
     t_ref = time.perf_counter()
-    per_frame = reference_numbers(wl, cell.inputs, cell.cam_np, cell.width,
-                                  cell.height, kept, device)
+    from frame_bench.ref.trace import ClusterError
+
+    notes = []
+    try:
+        per_frame = reference_numbers(wl, cell.inputs, cell.cam_np, cell.width,
+                                      cell.height, kept, device,
+                                      clusters=cell.clusters, notes=notes)
+    except ClusterError as e:  # every number wholly off
+        per_frame = [{k: 1.0 for k in wl["check"]["limits"]}]
+        notes.append(f"clusters refused: {e}")
     ref_s = time.perf_counter() - t_ref
     correct, checks = check.judge(check.worst(per_frame), wl["check"]["limits"])
 
@@ -259,8 +327,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
         dev["window_s"] = ctx["trace"]["window_s"]
         result["breakdown"] = ctx["trace"]["breakdown"]
     result["checks"] = checks
-    lines = ["set-up: " + "; ".join(f"{k} {v:.3f} s"
-                                    for k, v in setup_parts.items()),
+    lines = notes + ["set-up: " + "; ".join(f"{k} {v:.3f} s"
+                                            for k, v in setup_parts.items()),
              f"reference: {ref_s:.3f} s for frames "
              f"{[f['index'] for f in kept]}; per frame {per_frame}"]
     lines += [f"check {k}: {v['value']!r} (limit {v['limit']!r})"

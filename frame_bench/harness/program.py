@@ -15,13 +15,32 @@ import numpy as np
 
 
 def build_scene(inputs: dict, bvh: bool, device) -> dict:
-    """The port's scene tensors from the raw inputs: cluster boxes and
-    the BVH2 (accel/bvh.py), the packed light rows (scene/lights.py),
-    then scene/convert.from_numpy_scene (upload, slabs, material
-    tables). The plate scene's arrays as testing.make_plate_scene lays
-    them out."""
-    from prosper_tpu_torch.accel.bvh import build_bvh, pack_nodes
+    """The port's scene tensors from a generator's inputs, in either of
+    its two forms.
+
+    The glTF form ("gltf": a file's path): the port's glTF path, as
+    entry(scene=path) takes it (entry.gltf_scene: World, its texture
+    arena, its frame arrays), with no cache read or written, then
+    scene/convert.from_numpy_scene; the BVH arrays dropped without bvh.
+
+    The plate form (the arrays p0, p1, p2, aidx, a_packed, ...): cluster
+    boxes and the BVH2 (accel/bvh.py), the packed light rows
+    (scene/lights.py), then from_numpy_scene (upload, slabs, material
+    tables), laid out as testing.make_plate_scene lays them out: cluster
+    c's 128 triangles at rows [128 c, 128 c + 128), one identity
+    instance, the 1-texel white texture arena."""
     from prosper_tpu_torch.scene.convert import from_numpy_scene
+
+    if "gltf" in inputs:
+        from prosper_tpu_torch.entry import gltf_scene
+
+        static, frame, arena, _ = gltf_scene(inputs["gltf"], use_cache=False)
+        if not bvh:
+            frame = {k: v for k, v in frame.items()
+                     if k not in ("bvh_bounds", "bvh_meta", "bvh_nodes8")}
+        return from_numpy_scene(static, frame, arena, device)
+
+    from prosper_tpu_torch.accel.bvh import build_bvh, pack_nodes
     from prosper_tpu_torch.scene.lights import LightArrays, light_uniforms
 
     p0, p1, p2 = inputs["p0"], inputs["p1"], inputs["p2"]
@@ -70,6 +89,15 @@ def build_scene(inputs: dict, bvh: bool, device) -> dict:
         "n_mips": np.ones(1, np.int32),
     }
     return from_numpy_scene(static, frame, arena, device)
+
+
+def clusters(scene: dict) -> dict:
+    """The program's partition of the scene into clusters, on the host:
+    each cluster's triangles (wt_aidx rows, vertex rows of its attribute
+    arena; the first wc_tri_count of its 128 slots) and instance."""
+    st = scene["static"]
+    return {k: st[k].detach().cpu().numpy()
+            for k in ("wt_aidx", "wc_tri_count", "wc_instance")}
 
 
 def camera(uniforms: dict, device) -> dict:

@@ -10,6 +10,7 @@ and entries; no code changes.
 from __future__ import annotations
 
 import importlib
+import importlib.util
 import json
 from pathlib import Path
 
@@ -35,6 +36,7 @@ def cell(name: str, bench_dir: Path = BENCH_DIR) -> dict:
     wl = load_json(path)
     wl["name"] = name
     wl["config_data"] = config(wl["config"], bench_dir)
+    wl["bench_dir"] = str(bench_dir)
     return wl
 
 
@@ -63,10 +65,20 @@ def cell_metrics(bench: dict, workload: str) -> tuple[list, list]:
             [m for m in bench["per_layer"] if mine(m)])
 
 
-def generator(name: str):
-    """The scene generator module `inputs/<name>.py` (its make(config,
-    seed) gives the raw inputs)."""
-    return importlib.import_module(f"frame_bench.inputs.{name}")
+def generator(name: str, bench_dir: Path = BENCH_DIR):
+    """The scene generator module `inputs/<name>.py` of the benchmark in
+    `bench_dir` (its make(config, seed) gives the raw inputs); a module
+    of frame_bench.inputs, whose siblings it may import."""
+    if Path(bench_dir).resolve() == BENCH_DIR:
+        return importlib.import_module(f"frame_bench.inputs.{name}")
+    path = Path(bench_dir) / "inputs" / f"{name}.py"
+    found = importlib.util.spec_from_file_location(
+        f"frame_bench.inputs.{name}", path)
+    if found is None or not path.is_file():
+        raise KeyError(f"no generator file {path}")
+    mod = importlib.util.module_from_spec(found)
+    found.loader.exec_module(mod)
+    return mod
 
 
 def reader(name: str):

@@ -7,7 +7,12 @@ glTF projection, no TAA jitter; `uniforms()`), of the transforms it calls
 frustum_corners, frustum_planes). Both the program and the reference
 take the uniforms made here.
 
-Paths: "static" keeps the camera where the scene puts it.
+Paths: "static" keeps the camera where the scene puts it; {"kind":
+"orbit", "deg_per_frame": d} turns the eye about the vertical axis
+through the target, at the scene's eye distance and height, through
+360 / d positions, position 0 being the scene's eye. Each position's
+prev_world_to_clip is the previous position's world_to_clip, position
+n - 1's for position 0, so the cycle closes.
 """
 
 from __future__ import annotations
@@ -131,10 +136,35 @@ def uniforms(eye, target, width: int, height: int) -> dict:
     }
 
 
+def orbit_eyes(eye, target, deg_per_frame: float) -> np.ndarray:
+    """The eyes of an orbit: (n, 3) float32, n = 360 / deg_per_frame (a
+    whole number), eye k turned by k * deg_per_frame degrees about the
+    vertical axis through the target (counter-clockwise seen from
+    above)."""
+    d = float(deg_per_frame)
+    n = int(round(360.0 / d)) if d > 0 else 0
+    if n < 2 or abs(n * d - 360.0) > 1e-9 * 360.0:
+        raise ValueError(f"deg_per_frame {d!r} does not divide 360 into "
+                         f"two or more positions")
+    off = np.asarray(eye, np.float64) - np.asarray(target, np.float64)
+    a = np.radians(d * np.arange(n))
+    c, s = np.cos(a), np.sin(a)
+    eyes = np.stack([off[0] * c + off[2] * s, np.full(n, off[1]),
+                     -off[0] * s + off[2] * c], 1) + np.asarray(target,
+                                                               np.float64)
+    return eyes.astype(np.float32)
+
+
 def camera_path(path: dict, eye, target, width: int, height: int) -> list:
     """The distinct uniforms a camera path cycles through: one for
-    "static"."""
+    "static", 360 / d for "orbit" (frame i takes position i % n)."""
     kind = path.get("kind", "static")
     if kind == "static":
         return [uniforms(eye, target, width, height)]
+    if kind == "orbit":
+        cams = [uniforms(e, target, width, height)
+                for e in orbit_eyes(eye, target, path["deg_per_frame"])]
+        for k, cam in enumerate(cams):
+            cam["prev_world_to_clip"] = cams[k - 1]["world_to_clip"].copy()
+        return cams
     raise ValueError(f"unknown camera path {kind!r}")

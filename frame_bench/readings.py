@@ -53,13 +53,14 @@ def main(argv=None) -> int:
         del start
         inputs, cam_np, W, H = cell.inputs, cell.cam_np, cell.width, cell.height
         prog = bench.reference_numbers(wl, inputs, cam_np, W, H, kept,
-                                       args.device)
+                                       args.device, clusters=cell.clusters)
         line = {"workload": args.workload, "seed": seed, "size": [W, H],
                 "frames": [f["index"] for f in kept],
                 "program": check.worst(prog), "program_frames": prog}
         if args.control:
             ctl = bench.reference_numbers(wl, inputs, cam_np, W, H, kept,
-                                          args.device, torch.bfloat16)
+                                          args.device, torch.bfloat16,
+                                          clusters=cell.clusters)
             line["control"] = check.worst(ctl)
             line["control_frames"] = ctl
         line["seconds"] = time.perf_counter() - t0

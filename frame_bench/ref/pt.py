@@ -95,7 +95,7 @@ def offset_origin(p, n):
 def render(tris, sd, cam: dict, width: int, height: int, frame: int,
            max_bounces: int = 3):
     """One frame's linear colour (H, W, 3) float32 and its ray count."""
-    dev = sd.a_packed.device
+    dev = sd.device
     dt = sd.dtype
     px, py = pixels(width, height, dev)
     R = px.shape[0]

@@ -133,12 +133,14 @@ def spatial(sd, s, lin, neigh, px, py, width, height, frame):
 def render(tris, sd, cam: dict, width: int, height: int, frame: int):
     """One frame's linear colour (H, W, 3) float32 and the number of
     pixels that traced a shadow ray."""
-    dev = sd.a_packed.device
+    dev = sd.device
     px, py = pixels(width, height, dev)
     o, d = primary_rays(cam, width, height, px, py)
     t, tri, u, v = trace(tris, o, d, GBUFFER_T_MIN,
                          torch.full_like(o[:, 0], float("inf")), False)
-    s = surface(sd, o, d, t, tri, u, v)
+    # the G-buffer's ray cone sets the textures' LOD
+    s = surface(sd, o, d, t, tri, u, v,
+                cone=2.0 / (cam["camera_to_clip"][1, 1].abs() * height))
     valid = s["valid"]
     up = torch.zeros_like(s["normal"])
     up[:, 2] = 1.0

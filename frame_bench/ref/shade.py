@@ -25,29 +25,154 @@ def normalize(v):
     return v / torch.clamp_min(dot(v, v).sqrt(), 1e-20)[..., None]
 
 
-class SceneData:
-    """What shading reads of the raw inputs, on a device: vertex rows,
-    corner indices, materials, lights."""
+def srgb_to_linear(x):
+    """The sRGB transfer function's inverse (texels read as sRGB)."""
+    return torch.where(x <= 0.04045, x / 12.92,
+                       torch.pow((x + 0.055) / 1.055, 2.4))
 
-    def __init__(self, inputs: dict, device, dtype=torch.float32):
+
+def mip_chain(pixels: np.ndarray, srgb: bool) -> list[np.ndarray]:
+    """(H, W, 4) uint8 -> its mips down to a side of 1, each the 2x2 box
+    mean of the one above in linear space (alpha linear) stored back as
+    uint8, rounded half up (upstream makes the chain on the CPU,
+    Texture.cpp:166-298, and compresses it to BC7; the program keeps
+    RGBA8, as this does)."""
+    def to_srgb8(x):
+        y = np.where(x <= 0.0031308, x * 12.92,
+                     1.055 * np.maximum(x, 1e-12) ** (1 / 2.4) - 0.055)
+        return np.clip(y * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+    mips = [pixels]
+    f = pixels.astype(np.float32) / 255.0
+    if srgb:
+        rgb = f[..., :3]
+        f = np.concatenate([np.where(rgb <= 0.04045, rgb / 12.92,
+                                     ((rgb + 0.055) / 1.055) ** 2.4),
+                            f[..., 3:]], -1)
+    while min(f.shape[0], f.shape[1]) > 1:
+        h, w = f.shape[:2]
+        nh, nw = max(h // 2, 1), max(w // 2, 1)
+        f = f[: nh * 2, : nw * 2].reshape(nh, 2, nw, 2, 4).mean(axis=(1, 3))
+        if srgb:
+            m8 = np.concatenate([to_srgb8(f[..., :3]), np.clip(
+                f[..., 3:] * 255.0 + 0.5, 0, 255).astype(np.uint8)], -1)
+        else:
+            m8 = np.clip(f * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        mips.append(m8)
+    return mips
+
+
+class Texture:
+    """One image's mips on a device, as linear RGBA float32 texels
+    (sRGB decoded texel by texel, before any filter, as an sRGB view
+    reads them), sampled with REPEAT wrap."""
+
+    MAX_MIPS = 13
+
+    def __init__(self, image: dict, device):
+        px = np.asarray(image["pixels"], np.uint8)
+        if px.ndim != 3 or px.shape[2] != 4 or max(px.shape[:2]) > 2048:
+            raise NotImplementedError("textures are RGBA8 of at most 2048 "
+                                      "texels a side")
+        wrap = tuple(image.get("wrap", (10497, 10497)))
+        if wrap != (10497, 10497):
+            raise NotImplementedError("textures wrap with REPEAT only")
+        self.mips = []
+        for m in mip_chain(px, bool(image["srgb"]))[: self.MAX_MIPS]:
+            t = torch.as_tensor(m, device=device).to(torch.float32) / 255.0
+            if image["srgb"]:
+                t = torch.cat([srgb_to_linear(t[..., :3]), t[..., 3:]], -1)
+            self.mips.append(t)
+        self.log2_size = float(torch.log2(torch.tensor(
+            float(max(px.shape[:2])), dtype=torch.float32)))
+
+    def bilinear(self, m: int, uv):
+        """A bilinear tap of mip m at uv (R, 2) -> (R, 4)."""
+        tex = self.mips[m]
+        h, w = tex.shape[:2]
+
+        def axis(s, n):
+            c = s * float(n) - 0.5
+            c0 = torch.floor(c)
+            i = torch.remainder(c0.long(), n)
+            return i, torch.remainder(i + 1, n), (c - c0)[:, None]
+
+        x0, x1, fu = axis(uv[:, 0], w)
+        y0, y1, fv = axis(uv[:, 1], h)
+        return (tex[y0, x0] * (1 - fu) * (1 - fv) + tex[y0, x1] * fu * (1 - fv)
+                + tex[y1, x0] * (1 - fu) * fv + tex[y1, x1] * fu * fv)
+
+    def taps(self, mip, uv):
+        """Bilinear taps of each row's mip (R,) at uv (R, 2) -> (R, 4)."""
+        out = torch.empty((uv.shape[0], 4), dtype=torch.float32,
+                          device=uv.device)
+        for m in torch.unique(mip).tolist():
+            sel = (mip == m).nonzero().squeeze(1)
+            out[sel] = self.bilinear(m, uv[sel])
+        return out
+
+    def sample(self, uv, lod=None):
+        """Trilinear at lod (R,), log2 of the footprint in texels of a
+        unit texture (this texture adds log2 of its size), clamped to
+        its mips; the base mip's bilinear tap without a lod."""
+        if lod is None:
+            return self.bilinear(0, uv)
+        top = len(self.mips) - 1
+        lod = torch.clamp(lod + self.log2_size, 0.0, float(top))
+        m0 = torch.floor(lod).long()
+        m1 = torch.clamp_max(m0 + 1, top)
+        f = (lod - m0.to(torch.float32))[:, None]
+        return self.taps(m0, uv) * (1 - f) + self.taps(m1, uv) * f
+
+
+class SceneData:
+    """What shading reads of the inputs, on a device: each slot's corner
+    attributes, material and LOD term (trace.scene_slots), materials and
+    their textures, lights.
+
+    Materials: base colour factor times the base colour texture (sRGB),
+    roughness factor times the metallic-roughness texture's G (floored
+    at 0.05, materials.glsl), metallic factor times its B, and a
+    tangent-space normal map. A material without a texture takes the
+    factor alone (upstream's default texture, a white texel). The glTF
+    form's texture indices name its `images` (-1: none); the plate form
+    has no textures."""
+
+    def __init__(self, inputs: dict, slots: dict, device,
+                 dtype=torch.float32):
         def t(a, dt=dtype):
             return torch.as_tensor(np.asarray(a), device=device).to(dt)
 
         mats = inputs["materials"]
-        if (np.asarray(mats["alpha_mode"]) != 0).any() or any(
-                (np.asarray(mats[k]) != 0).any() for k in
-                ("base_color_tex", "metallic_roughness_tex", "normal_tex")):
-            raise NotImplementedError("the reference shades opaque, "
-                                      "untextured materials only")
+        if (np.asarray(mats["alpha_mode"]) != 0).any():
+            raise NotImplementedError("the reference shades opaque "
+                                      "materials only")
+        if "spot_position" in inputs and len(inputs["spot_position"]):
+            raise NotImplementedError("the reference shades point lights "
+                                      "and the sun only")
         self.dtype = dtype
-        self.a_packed = t(inputs["a_packed"], torch.float32)
-        self.aidx = t(inputs["aidx"], torch.int64)
-        self.tri_material = t(inputs["tri_material"], torch.int64)
+        self.device = torch.device(device)
+        keys = ("base_color_tex", "metallic_roughness_tex", "normal_tex")
+        if "gltf" in inputs:
+            self.textures = [Texture(im, device) for im in inputs["images"]]
+            self.tex_index = {k: [int(i) for i in np.asarray(mats[k])]
+                              for k in keys}
+        else:  # the plate form: every material untextured
+            if any((np.asarray(mats[k]) != 0).any() for k in keys):
+                raise NotImplementedError("the plate form's materials are "
+                                          "untextured")
+            self.textures = []
+            self.tex_index = {k: [-1] * len(np.asarray(mats[k])) for k in keys}
+        self.corner_normal = t(slots["corner_normal"], torch.float32)
+        self.corner_tangent = t(slots["corner_tangent"], torch.float32)
+        self.corner_uv = t(slots["corner_uv"], torch.float32)
+        self.tri_lod = t(slots["tri_lod"], torch.float32)
+        self.tri_material = t(slots["material"], torch.int64)
         self.base_color = t(mats["base_color_factor"])[:, :3]
-        # the 1-texel white texture: factors alone; roughness floored at
-        # 0.05 (materials.glsl)
-        self.roughness = torch.clamp_min(t(mats["roughness_factor"]), 0.05)
+        self.roughness_factor = t(mats["roughness_factor"])
         self.metallic = t(mats["metallic_factor"])
+        # with the white texel: factors alone; roughness floored at 0.05
+        self.roughness = torch.clamp_min(self.roughness_factor, 0.05)
         # light 0 is the sun, then the point lights (sampleLight order)
         self.sun_irradiance = t(inputs["sun_irradiance"])
         self.sun_l = -normalize(t(inputs["sun_direction"]))
@@ -56,29 +181,106 @@ class SceneData:
         self.point_radius = t(inputs["point_radius"])
         self.n_lights = 1 + self.point_position.shape[0]
 
+    @property
+    def textured(self) -> bool:
+        return any(i >= 0 for v in self.tex_index.values() for i in v)
 
-def surface(sd: SceneData, o, d, t, tri, u, v) -> dict:
+
+def mapped_normal(normal_ts, n, tangent, sign):
+    """A tangent-space normal -> world: its x along the tangent, y along
+    sign * cross(n, tangent), z along n (main.rgen:37-45)."""
+    b = sign[:, None] * torch.linalg.cross(n, tangent)
+    return normalize(normal_ts[:, 0:1] * tangent + normal_ts[:, 1:2] * b
+                     + normal_ts[:, 2:3] * n)
+
+
+def _materials(sd: SceneData, mat, uv, lod):
+    """Albedo, roughness, metallic and the tangent-space normal (None
+    where no material has a normal map) at each hit, sampled at the ray
+    cone's lod (None: the base mip)."""
+    dt = sd.dtype
+    albedo = sd.base_color[mat]
+    roughness = sd.roughness[mat]
+    metallic = sd.metallic[mat]
+    normal_ts, has_map = None, None
+    if not sd.textured:
+        return albedo, roughness, metallic, normal_ts, has_map
+    mr = torch.ones((mat.shape[0], 4), dtype=torch.float32, device=uv.device)
+    bc = torch.ones_like(mr)
+    nrm = torch.zeros_like(mr)
+    has_map = torch.zeros_like(mat, dtype=torch.bool)
+    for key, out in (("base_color_tex", bc), ("metallic_roughness_tex", mr),
+                     ("normal_tex", nrm)):
+        for m, ti in enumerate(sd.tex_index[key]):
+            sel = (mat == m).nonzero().squeeze(1)
+            if ti < 0 or sel.numel() == 0:
+                continue
+            out[sel] = sd.textures[ti].sample(
+                uv[sel], None if lod is None else lod[sel])
+            if key == "normal_tex":
+                has_map[sel] = True
+    albedo = torch.where(_textured(sd, "base_color_tex", mat)[:, None],
+                         bc[:, :3].to(dt) * albedo, albedo)
+    mr_on = _textured(sd, "metallic_roughness_tex", mat)
+    roughness = torch.where(mr_on, torch.clamp_min(
+        mr[:, 1].to(dt) * sd.roughness_factor[mat], 0.05), roughness)
+    metallic = torch.where(mr_on, mr[:, 2].to(dt) * metallic, metallic)
+    normal_ts = nrm[:, :3] * 2.0 - 1.0
+    return albedo, roughness, metallic, normal_ts, has_map
+
+
+def _textured(sd: SceneData, key: str, mat):
+    on = torch.tensor([i >= 0 for i in sd.tex_index[key]], device=mat.device)
+    return on[mat]
+
+
+def surface(sd: SceneData, o, d, t, tri, u, v, cone=None) -> dict:
     """The visible surface at each hit: position, shading normal (the
-    corners' unit normals blended by the barycentrics), material terms;
-    `valid` False on a miss."""
+    corners' unit normals blended by the barycentrics, then the normal
+    map along the blended tangent frame), material terms; `valid` False
+    on a miss. cone: the pixel's spread angle, which sets the textures'
+    LOD as the G-buffer's ray cone does (render/surface.py cone_lod: the
+    triangle's LOD term plus log2(t * spread / max(|cos|, 0.05)), a
+    departure from the raster's screen-space derivatives); None: the
+    base mip, as the ray-traced shaders' texture() reads it."""
     valid = tri >= 0
     tr = torch.clamp_min(tri, 0)
-    a = sd.a_packed[sd.aidx[tr]]  # (R, 3 corners, 12)
-    n_c = normalize(a[..., 0:3])
+    n_c = normalize(sd.corner_normal[tr])  # (R, 3 corners, 3)
     w = 1.0 - u - v
     n = normalize(w[:, None] * n_c[:, 0] + u[:, None] * n_c[:, 1]
                   + v[:, None] * n_c[:, 2])
     mat = sd.tri_material[tr]
     pos = o + torch.where(valid, t, 0.0)[:, None] * d
     dt = sd.dtype
+    lod = None
+    if sd.textured:
+        uv_c = sd.corner_uv[tr]
+        uv = w[:, None] * uv_c[:, 0] + u[:, None] * uv_c[:, 1] + v[:, None] * uv_c[:, 2]
+        if cone is not None:
+            t_hit = torch.where(torch.isfinite(t), t, 0.0)
+            cosd = dot(d, n).abs()
+            lod = sd.tri_lod[tr] + torch.log2(
+                torch.clamp_min(t_hit, 1e-6) * cone / torch.clamp_min(cosd, 0.05))
+    else:
+        uv = None
+    albedo, roughness, metallic, normal_ts, has_map = _materials(
+        sd, mat, uv, lod)
+    if normal_ts is not None:
+        t_c = sd.corner_tangent[tr]
+        t_c = torch.cat([normalize(t_c[..., :3]), t_c[..., 3:]], -1)
+        tan = (w[:, None] * t_c[:, 0] + u[:, None] * t_c[:, 1]
+               + v[:, None] * t_c[:, 2])
+        mapped = mapped_normal(normal_ts, n, normalize(tan[:, :3]), tan[:, 3])
+        sign = tan[:, 3]
+        n = torch.where((has_map & (sign != 0.0))[:, None], mapped, n)
     return {
         "valid": valid,
         "position": pos,
         "normal": n.to(dt),
         "view": (-d).to(dt),
-        "albedo": sd.base_color[mat],
-        "roughness": sd.roughness[mat],
-        "metallic": sd.metallic[mat],
+        "albedo": albedo,
+        "roughness": roughness,
+        "metallic": metallic,
     }
 
 
@@ -187,7 +389,8 @@ def _contrast(c: torch.Tensor, contrast: float = 1.0) -> torch.Tensor:
     chroma = v * sat
     x = chroma * (1.0 - torch.abs(torch.remainder(hue, 2.0) - 1.0))
     z = torch.zeros_like(x)
-    sector = torch.clamp(torch.floor(hue), 0, 5).long()
+    # a NaN hue (a colour that is not finite) takes sector 0
+    sector = torch.clamp(torch.nan_to_num(torch.floor(hue)), 0, 5).long()
     table = torch.stack([
         torch.stack([chroma, x, z], -1), torch.stack([x, chroma, z], -1),
         torch.stack([z, chroma, x], -1), torch.stack([z, x, chroma], -1),

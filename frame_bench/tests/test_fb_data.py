@@ -27,8 +27,12 @@ def test_every_name_is_found():
         wl = spec.cell(w["name"])
         assert wl["config"] == w["config"]
         spec.reference(wl["entry"]["mode"])
-        assert (set(wl["check"]["limits"])
-                == set(spec.comparison(wl["check"]["kind"]).NUMBERS))
+        cmp = spec.comparison(wl["check"]["kind"])
+        moving = (wl.get("camera", {}).get("kind", "static") != "static"
+                  and wl["entry"].get("use_culling", False))
+        want = set(cmp.NUMBERS) | (set(getattr(cmp, "MOVING", ()))
+                                   if moving else set())
+        assert set(wl["check"]["limits"]) == want
     for m in b["end_to_end"] + b["per_layer"]:
         ms = spec.metric(m["name"])
         assert hasattr(spec.reader(ms["reader"]), "read")

@@ -102,3 +102,15 @@ def test_refuses_when_jax_is_loaded(capsys, monkeypatch):
     monkeypatch.setitem(sys.modules, "prosper_tpu", object())
     assert run_module().report({"lines": [], "result": {}}) == 3
     assert capsys.readouterr().out == ""
+
+
+def test_frame_percentile_skips_the_traced_start():
+    """A traced window's first interval holds the profiler's start;
+    `skip` leaves it out, and without it the percentile is as before."""
+    from frame_bench.readers import frame_percentile
+
+    ctx = {"window": {"intervals_ms": [3600.0] + [40.0] * 15}}
+    assert frame_percentile.read(ctx, 95, skip=1) == 40.0
+    assert frame_percentile.read(ctx, 95) > 500.0
+    assert frame_percentile.read({"window": {"intervals_ms": [5.0]}}, 95,
+                                 skip=1) is None
