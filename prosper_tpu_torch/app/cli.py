@@ -475,8 +475,18 @@ def _render(args, dev, group=None) -> int:
         log_info("mode %s ignores %s", args.mode, " ".join(ignored))
 
     timer = Timer()
-    world = World(args.scene, use_cache=not args.no_cache,
-                  streaming=args.streaming, instance_grid=args.instance_grid)
+    # --profile: World's load recorded as a frame of its own, whose host
+    # spans (world.meshlets, one a primitive) print before the frames'
+    with gprofiler.recording(args.profile):
+        gprofiler.start_frame()
+        world = World(args.scene, use_cache=not args.no_cache,
+                      streaming=args.streaming,
+                      instance_grid=args.instance_grid)
+        load = gprofiler.end_frame()
+    if load is not None and (group is None
+                             or torch.distributed.get_rank(group) == 0):
+        print("\n".join(["scene load:"]
+                        + load.report().table().splitlines()[1:]))
     scene_path = None if args.no_cache else args.scene
     texture_jobs = []
     if args.streaming:

@@ -4,7 +4,7 @@ Counterpart of prosper_tpu/scene/caches.py without
 `enable_compile_cache` (XLA's compilation cache; the port compiles its
 kernels into build/kernels/, ops/cuda_build.py). The reference keeps
 versioned caches (mesh cache v4, DeferredLoadingContext.cpp:492-660;
-texture cache v5, Texture.cpp:78-165); here:
+texture cache v5, Texture.cpp:78-165); here, with versions of their own:
 - mesh cache: clustered and quantized mesh arrays in npz, keyed by
   (source path, mesh, primitive, mtime, version); a version mismatch or
   a stale mtime regenerates, like cacheValid;
@@ -20,7 +20,9 @@ import os
 
 import numpy as np
 
-MESH_CACHE_VERSION = 4  # v4: binned-SAH triangle clustering
+# v4: binned-SAH triangle clustering; v5: meshlets within 64 vertices
+# (scene/meshlets.py cluster_ranges), so a v4 file is not read
+MESH_CACHE_VERSION = 5
 TEXTURE_CACHE_VERSION = 1
 
 

@@ -1,21 +1,23 @@
-"""A copy of prosper_tpu/scene/meshlets.py (numpy), kept in the port so that it
-imports nothing of the JAX package.
+"""Meshlet building (numpy): the port's analog of upstream's
+meshoptimizer pipeline (DeferredLoadingContext.cpp:340-440: optimize ->
+meshlets of at most 64 vertices and 124 triangles, cone_weight 0.5; the
+limits are the reference's src/utils/Utils.hpp:18-19).
 
-Meshlet/cluster building: the TPU analog of the reference's meshoptimizer
-pipeline (DeferredLoadingContext.cpp:340-440: optimize -> meshlets 64v/124t,
-cone_weight 0.5; limits the reference's src/utils/Utils.hpp:18-19).
-
-Design note (TPU-first): clusters serve double duty here.
-1. They are the culling granularity for the meshlet draw-list pipeline
+Clusters serve double duty:
+1. They are the culling granularity of the meshlet draw-list pipeline
    (frustum/cone/HiZ tests over flat cluster arrays, SURVEY.md §7).
-2. They are the BVH leaf granularity for ray traversal: a leaf visit
-   intersects the whole 128-padded triangle tile against a ray packet with
-   dense VPU math — irregular per-triangle gathers become regular tiles.
+2. They are the BVH leaf granularity of ray traversal: a leaf visit
+   tests a cluster's 128-slot triangle tile.
 
-Instead of meshoptimizer's vertex-cache optimisation (a HW-rasteriser
-concern), we order triangles along a Morton curve of their centroids so
-clusters are spatially tight, which is what both culling and BVH quality
-actually need on TPU.
+Instead of meshoptimizer's vertex-cache optimisation (a rasteriser's
+concern), the partition is spatial, top-down, which is what culling and
+BVH quality need (`cluster_ranges`):
+- first the aligned-SAH ranges of `sah_cluster_ranges` (every cluster
+  full but one); a mesh whose ranges all hold at most 64 distinct
+  vertices keeps them, as the JAX package's builder makes them;
+- else `meshlet_ranges`, which keeps every cluster within both limits
+  and fills clusters about as a 64-vertex grid patch allows (7x7 quads,
+  98 triangles), so a mesh's clusters are then no longer all full.
 """
 
 from __future__ import annotations
@@ -28,6 +30,11 @@ import numpy as np
 MAX_MESHLET_VERTICES = 64
 MAX_MESHLET_TRIANGLES = 124
 CLUSTER_TRI_PAD = 128
+# meshlet_ranges: a node that may fit in this many clusters is sliced
+# along one axis; above it, a split's sides are estimated at this many
+# new vertices a cluster (the rest are repeated on the clusters' borders)
+SLICE_MAX = 4
+VERTS_PER_CLUSTER = 58
 
 
 def morton3d(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
@@ -62,15 +69,20 @@ class MeshClusters:
     contiguous; `tri_vidx` indexes the primitive's vertex list.
     """
 
-    tri_vidx: np.ndarray  # (T, 3) u32, Morton-reordered
+    tri_vidx: np.ndarray  # (T, 3) u32, in cluster order
     cluster_offset: np.ndarray  # (C,) u32 first-tri index
     cluster_count: np.ndarray  # (C,) u32 tri count (<= MAX_MESHLET_TRIANGLES)
+    # each cluster's triangles name <= MAX_MESHLET_VERTICES distinct vertices
     aabb_min: np.ndarray  # (C, 3) f32 object space
     aabb_max: np.ndarray  # (C, 3) f32
     cone_apex: np.ndarray  # (C, 3) f32 (bounding sphere center)
     cone_axis: np.ndarray  # (C, 3) f32 average facet normal
     cone_cutoff: np.ndarray  # (C,) f32 cos(angle)+safety, like meshopt cones
     sphere_radius: np.ndarray  # (C,) f32
+
+
+def _half_area(d: np.ndarray) -> np.ndarray:
+    return d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2] + d[..., 2] * d[..., 0]
 
 
 def sah_cluster_ranges(
@@ -88,19 +100,16 @@ def sah_cluster_ranges(
     node sorts its triangles along each axis and evaluates the EXACT SAH
     cost at every max_tris-ALIGNED cut position, picking the best
     (axis, cut): cluster count stays exactly ceil(T / max_tris) with
-    every cluster full except one — the streaming placeholders and slot
-    arenas keep their layout, and full 124-triangle leaves keep the
-    traversal kernels' Möller density — while cluster bounds become
-    near-SAH-optimal.
+    every cluster full except one, and full 124-triangle leaves keep the
+    traversal kernels' Möller density, while cluster bounds become
+    near-SAH-optimal. The ranges ignore vertex counts: `cluster_ranges`
+    keeps them only where each holds at most 64 distinct vertices.
     """
     T = len(tris)
     p0, p1, p2 = v[tris[:, 0]], v[tris[:, 1]], v[tris[:, 2]]
     cent = ((p0 + p1 + p2) / 3.0).astype(np.float32)
     tmin = np.minimum(np.minimum(p0, p1), p2).astype(np.float32)
     tmax = np.maximum(np.maximum(p0, p1), p2).astype(np.float32)
-
-    def half_area(d):
-        return d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0]
 
     order = np.arange(T)
     ranges: list[tuple[int, int]] = []
@@ -126,7 +135,7 @@ def sah_cluster_ranges(
             lmx = np.maximum.accumulate(mx, axis=0)[cuts - 1]
             rmn = np.minimum.accumulate(mn[::-1], axis=0)[::-1][cuts]
             rmx = np.maximum.accumulate(mx[::-1], axis=0)[::-1][cuts]
-            cost = half_area(np.maximum(lmx - lmn, 0.0)) * cuts + half_area(
+            cost = _half_area(np.maximum(lmx - lmn, 0.0)) * cuts + _half_area(
                 np.maximum(rmx - rmn, 0.0)
             ) * (count - cuts)
             k = int(np.argmin(cost))
@@ -142,24 +151,197 @@ def sah_cluster_ranges(
     return order, offsets, counts
 
 
+def cluster_vertex_counts(tris: np.ndarray, offsets: np.ndarray,
+                          counts: np.ndarray) -> np.ndarray:
+    """(C,) distinct vertices of each cluster of triangles `tris` (T, 3),
+    cluster c holding rows [offsets[c], offsets[c] + counts[c])."""
+    C = len(offsets)
+    if C == 0:
+        return np.zeros(0, np.int64)
+    counts = np.asarray(counts, np.int64)
+    cid = np.repeat(np.arange(C), counts)
+    rows = np.repeat(np.asarray(offsets, np.int64) - np.cumsum(counts) + counts,
+                     counts) + np.arange(len(cid))
+    v = np.asarray(tris, np.int64)[rows]
+    span = int(v.max(initial=0)) + 1
+    return np.bincount(np.unique(cid[:, None] * span + v) // span, minlength=C)
+
+
+def _repeats(flat: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """For each position of `flat`, the position of the same value before
+    it and after it, -1 where there is none."""
+    o = np.argsort(flat, kind="stable")
+    same = flat[o][1:] == flat[o][:-1]
+    prev = np.full(len(flat), -1, np.int64)
+    nxt = np.full(len(flat), -1, np.int64)
+    prev[o[1:][same]] = o[:-1][same]
+    nxt[o[:-1][same]] = o[1:][same]
+    return prev, nxt
+
+
+def _distinct_prefix_suffix(sub: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """For a run of n triangles (n, 3): (n + 1,) distinct vertices of the
+    first i triangles, and (n + 1,) of the triangles from i on."""
+    prev, nxt = _repeats(sub.reshape(-1))
+    firsts = (prev < 0).reshape(-1, 3).sum(1)
+    lasts = (nxt < 0).reshape(-1, 3).sum(1)
+    return (np.concatenate([[0], np.cumsum(firsts)]),
+            np.concatenate([np.cumsum(lasts[::-1])[::-1], [0]]))
+
+
+def _greedy_slices(sub: np.ndarray, k_max: int, max_tris: int,
+                   max_verts: int) -> list[int] | None:
+    """Cuts of a triangle run (n, 3) into its longest runs within both
+    limits, front to back: the fewest contiguous pieces (a piece's
+    distinct vertices only grow with its length). None past k_max
+    pieces."""
+    n = len(sub)
+    prev, _ = _repeats(sub.reshape(-1))
+    cuts = [0]
+    while cuts[-1] < n:
+        if len(cuts) > k_max:
+            return None
+        p = cuts[-1]
+        hi = min(n, p + max_tris)
+        # distinct vertices of [p, p + m) for m = 1 .. hi - p
+        seen = np.cumsum(prev[3 * p:3 * hi] < 3 * p)[2::3]
+        cuts.append(p + max(int(np.searchsorted(seen, max_verts, "right")), 1))
+    return cuts
+
+
+def meshlet_ranges(
+    v: np.ndarray,
+    tris: np.ndarray,
+    max_tris: int = MAX_MESHLET_TRIANGLES,
+    max_verts: int = MAX_MESHLET_VERTICES,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A top-down partition whose every cluster holds at most max_tris
+    triangles and max_verts distinct vertices; (order, offsets, counts)
+    as sah_cluster_ranges gives them.
+
+    A node within both limits is a cluster. Each other node sorts its
+    triangles along each axis by centroid (stable) and:
+    - where it may fit in SLICE_MAX clusters (its triangles over
+      max_tris and its vertices over max_verts, rounded up, at most
+      SLICE_MAX), is cut along the axis that gives the fewest greedy
+      slices (`_greedy_slices`, at most SLICE_MAX; ties: the smaller
+      summed SAH cost), each slice a cluster;
+    - else is cut in two, each side keeping at least an eighth of the
+      triangles, where the clusters the two sides need, by the estimate
+      max(ceil(triangles / max_tris), ceil(vertices /
+      VERTS_PER_CLUSTER)), add up least; ties: the smaller SAH cost.
+    VERTS_PER_CLUSTER stands below max_verts for the vertices that the
+    borders between clusters repeat. The eighth keeps the depth
+    logarithmic: where a cut through the middle repeats many vertices (a
+    cloud of separate plates), the estimate alone would peel one small
+    piece off at a time. A 64x64-quad grid averages 85 triangles a
+    cluster; 7x7-quad patches, the densest that 64 vertices of a grid
+    allow, hold 98. Deterministic: stable sorts and no randomness."""
+    T = len(tris)
+    p0, p1, p2 = v[tris[:, 0]], v[tris[:, 1]], v[tris[:, 2]]
+    cent = ((p0 + p1 + p2) / 3.0).astype(np.float32)
+    tmin = np.minimum(np.minimum(p0, p1), p2).astype(np.float32)
+    tmax = np.maximum(np.maximum(p0, p1), p2).astype(np.float32)
+
+    order = np.arange(T)
+    ranges: list[tuple[int, int]] = []
+    stack = [(0, T)]
+    while stack:
+        s, e = stack.pop()
+        n = e - s
+        idx = order[s:e]
+        sub = tris[idx]
+        nv = len(np.unique(sub))
+        if n <= max_tris and nv <= max_verts:
+            ranges.append((s, e))
+            continue
+        sorts = [np.argsort(cent[idx, axis], kind="stable") for axis in range(3)]
+        if max(-(-n // max_tris), -(-nv // max_verts)) <= SLICE_MAX:
+            best = None  # ((pieces, cost), axis, cuts)
+            for axis, srt in enumerate(sorts):
+                cuts = _greedy_slices(sub[srt], SLICE_MAX, max_tris, max_verts)
+                if cuts is None:
+                    continue
+                mn, mx = tmin[idx][srt], tmax[idx][srt]
+                cost = sum(float(_half_area(mx[a:b].max(0) - mn[a:b].min(0)))
+                           * (b - a) for a, b in zip(cuts[:-1], cuts[1:]))
+                if best is None or (len(cuts), cost) < best[0]:
+                    best = ((len(cuts), cost), axis, cuts)
+            if best is not None:
+                _, axis, cuts = best
+                order[s:e] = idx[sorts[axis]]
+                ranges.extend((s + a, s + b) for a, b in zip(cuts[:-1], cuts[1:]))
+                continue
+        # cuts in the middle three quarters: every split sheds an eighth
+        cut = np.arange(max(1, n // 8), n - n // 8)
+        best = None  # ((clusters, cost), axis, mid)
+        for axis, srt in enumerate(sorts):
+            mn, mx = tmin[idx][srt], tmax[idx][srt]
+            lmn = np.minimum.accumulate(mn, axis=0)[cut - 1]
+            lmx = np.maximum.accumulate(mx, axis=0)[cut - 1]
+            rmn = np.minimum.accumulate(mn[::-1], axis=0)[::-1][cut]
+            rmx = np.maximum.accumulate(mx[::-1], axis=0)[::-1][cut]
+            cost = _half_area(np.maximum(lmx - lmn, 0.0)) * cut + _half_area(
+                np.maximum(rmx - rmn, 0.0)) * (n - cut)
+            pre, suf = _distinct_prefix_suffix(sub[srt])
+            need = (np.maximum(-(-cut // max_tris),
+                               -(-pre[cut] // VERTS_PER_CLUSTER))
+                    + np.maximum(-(-(n - cut) // max_tris),
+                                 -(-suf[cut] // VERTS_PER_CLUSTER)))
+            k = int(np.argmin(np.where(need == need.min(), cost, np.inf)))
+            key = (int(need[k]), float(cost[k]))
+            if best is None or key < best[0]:
+                best = (key, axis, int(cut[k]))
+        _, axis, mid = best
+        order[s:e] = idx[sorts[axis]]
+        stack.append((s + mid, e))
+        stack.append((s, s + mid))
+    ranges.sort()
+    offsets = np.array([s for s, _ in ranges], np.uint32)
+    counts = np.array([e - s for s, e in ranges], np.uint32)
+    return order, offsets, counts
+
+
+def cluster_ranges(
+    v: np.ndarray, tris: np.ndarray
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The mesh's partition into meshlets, (order, offsets, counts): the
+    aligned-SAH ranges where each holds at most 64 distinct vertices (the
+    JAX package's partition, bit for bit), else meshlet_ranges. World
+    lays its arenas out from these counts, a streamed mesh's placeholder
+    included."""
+    v = np.asarray(v, np.float32)
+    tris = np.asarray(tris).reshape(-1, 3).astype(np.uint32)
+    order, offsets, counts = sah_cluster_ranges(v, tris, MAX_MESHLET_TRIANGLES)
+    if cluster_vertex_counts(tris[order], offsets, counts).max(
+            initial=0) <= MAX_MESHLET_VERTICES:
+        return order, offsets, counts
+    return meshlet_ranges(v, tris)
+
+
 def build_clusters(
     positions: np.ndarray,
     indices: np.ndarray,
-    max_tris: int = MAX_MESHLET_TRIANGLES,
+    ranges: tuple[np.ndarray, np.ndarray, np.ndarray] | None = None,
 ) -> MeshClusters:
-    """Cluster a triangle mesh into spatially-coherent meshlets.
+    """Cluster a triangle mesh into meshlets of at most 124 triangles and
+    64 distinct vertices.
 
-    Triangle partition is binned-SAH (sah_cluster_ranges); per-cluster
-    bounds come from the native C++ pipeline (cpp/asset_pipeline.cpp)
-    when built, numpy otherwise."""
+    The partition is cluster_ranges' (or `ranges`, its result for this
+    mesh); per-cluster bounds come from the native C++ pipeline
+    (cpp/asset_pipeline.cpp) when built, numpy otherwise, by one rule:
+    the box's centre, the farthest vertex from it, the normalised sum of
+    the facet normals and the cutoff sqrt(1 - min_dot^2)."""
     from . import native
 
     tris = indices.reshape(-1, 3).astype(np.uint32)
     v = positions.astype(np.float32)
+    if ranges is None:
+        ranges = cluster_ranges(v, tris)
+    order, offsets, counts = ranges
+    tris = tris[order]
 
     if native.available():
-        order, offsets, counts = sah_cluster_ranges(v, tris, max_tris)
-        tris = tris[order]
         bounds = native.cluster_bounds(v, tris, offsets, counts)
         aabb_min, aabb_max, center, radius, axis, cutoff = bounds
         return MeshClusters(
@@ -174,8 +356,6 @@ def build_clusters(
             sphere_radius=radius,
         )
 
-    order, offsets, counts = sah_cluster_ranges(v, tris, max_tris)
-    tris = tris[order]
     p0, p1, p2 = v[tris[:, 0]], v[tris[:, 1]], v[tris[:, 2]]
 
     n_clusters = len(offsets)

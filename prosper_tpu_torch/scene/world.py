@@ -6,9 +6,11 @@ per-frame updates (updateAnimations -> updateScene -> updateBuffers ->
 buildAccelerationStructures; World.cpp:349-575 of the reference):
 
 - Geometry is flattened per DrawInstance into padded 128-triangle
-  cluster slots of one arena; positions stay in object space and the
-  trace slabs put them in world space each frame (ops/slabs.py), the
-  "TLAS rebuilt every frame" of World.cpp:749-802.
+  cluster slots of one arena, a tile a meshlet of at most 124 triangles
+  and 64 distinct vertices (scene/meshlets.py; so a tile is not always
+  full, and meshlet_counters says how full); positions stay in object
+  space and the trace slabs put them in world space each frame
+  (ops/slabs.py), the "TLAS rebuilt every frame" of World.cpp:749-802.
 - A cluster BVH is rebuilt per frame on the host from conservatively
   transformed cluster AABBs, packed as the BVH2 node arrays and as the
   8-wide table (accel/bvh.py).
@@ -16,12 +18,17 @@ buildAccelerationStructures; World.cpp:349-575 of the reference):
   (positions f16, normals and tangents 10-10-10-2 snorm, uv f16),
   whatever the cache state, so rendering does not depend on the cache.
 - Materials, lights and the camera are SoA dicts.
-- World(streaming=True) lays the arenas out from the glTF headers with
-  placeholder meshes (tri_count 0, degenerate triangles: invisible to
-  rays and to the culler); start_streaming launches scene/streaming.py's
-  worker, and poll_streaming adopts finished meshes into the host arrays
-  between frames, after which the caller uploads static_scene_arrays()
-  again (streaming_dirty).
+- A primitive's meshlets are made in a host span "world.meshlets"
+  (utils/profiler.py), recorded where a frame is recorded on the
+  thread that opened it.
+- World(streaming=True) lays the arenas out from each primitive's
+  partition into meshlets (made at construction, and handed to its
+  adoption) with placeholder meshes (tri_count 0, degenerate triangles:
+  invisible to rays and to the culler), so an adopted mesh fills exactly
+  the clusters its placeholder reserved; start_streaming launches
+  scene/streaming.py's worker, and poll_streaming adopts finished meshes
+  into the host arrays between frames, after which the caller uploads
+  static_scene_arrays() again (streaming_dirty).
 """
 
 from __future__ import annotations
@@ -39,15 +46,17 @@ from ..accel.bvh import (
     pack_nodes8,
     transform_aabbs,
 )
+from ..utils.profiler import gprofiler
 from . import animation as anim
 from .camera import Camera, CameraParameters, CameraTransform
 from .gltf import GltfDocument, load_gltf
 from .lights import LightArrays, light_uniforms, load_lights
 from .meshlets import (
     CLUSTER_TRI_PAD,
-    MAX_MESHLET_TRIANGLES,
     MeshClusters,
     build_clusters,
+    cluster_ranges,
+    cluster_vertex_counts,
 )
 from .scene_graph import SceneGraph, build_scene_graph, update_scene
 
@@ -65,9 +74,13 @@ class MeshData:
     uv0: np.ndarray  # (V, 2) f32
     material: int  # flat material index (0 = default)
     vertex_count: int = 0
+    cluster_vertices: np.ndarray | None = None  # (C,) distinct vertices
 
     def __post_init__(self) -> None:
         self.vertex_count = len(self.positions)
+        cl = self.clusters
+        self.cluster_vertices = cluster_vertex_counts(
+            cl.tri_vidx, cl.cluster_offset, cl.cluster_count)
 
 
 def _default_tangents(normals: np.ndarray) -> np.ndarray:
@@ -154,11 +167,12 @@ class DrawInstances:
     material: np.ndarray  # (D,) u32
 
 
-def _process_prim(prim) -> dict:
+def _process_prim(prim, ranges=None) -> dict:
     """Heavy mesh processing (the loadNextMesh pipeline analog): normal/
-    tangent generation, Morton clustering, bounds — native C++ when the
-    asset-pipeline library is built (cpp/asset_pipeline.cpp). Returns
-    plain arrays for caching."""
+    tangent generation, meshlets (the partition, or `ranges`, the one a
+    streamed mesh's placeholder was laid out from), bounds — native C++
+    when the asset-pipeline library is built (cpp/asset_pipeline.cpp).
+    Returns plain arrays for caching."""
     from . import native
 
     tris = prim.indices.reshape(-1, 3).astype(np.uint32)
@@ -182,7 +196,8 @@ def _process_prim(prim) -> dict:
         if prim.uv0 is not None
         else np.zeros((len(prim.positions), 2), np.float32)
     )
-    cl = build_clusters(prim.positions, prim.indices)
+    with gprofiler.host("world.meshlets"):
+        cl = build_clusters(prim.positions, prim.indices, ranges)
     return quantize_mesh_arrays({
         "positions": prim.positions.astype(np.float32),
         "normals": normals.astype(np.float32),
@@ -251,20 +266,21 @@ def dequantize_mesh_arrays(a: dict) -> dict:
     return out
 
 
-def _placeholder_mesh(prim) -> MeshData:
-    """A streamed primitive before its adoption: the cluster count that
-    build_clusters will give (ceil(T / 124): every cluster full but the
-    last), no triangles in any cluster, zero vertices. Unloaded meshes
-    are invisible: tri_count 0 and degenerate triangles, the
-    meshletCount == 0 gate."""
+def _placeholder_mesh(prim, ranges) -> MeshData:
+    """A streamed primitive before its adoption: the clusters of its
+    partition `ranges` (meshlets.cluster_ranges of its positions and
+    indices, which its adoption builds again from), so the arenas are
+    laid out as the adopted mesh fills them, with no triangle in any
+    cluster and zero vertices. Unloaded meshes are invisible: tri_count
+    0 and degenerate triangles, the meshletCount == 0 gate."""
     n_tris = len(prim.indices) // 3
-    n_cl = max(1, -(-n_tris // MAX_MESHLET_TRIANGLES))
+    offsets = ranges[1]
+    n_cl = len(offsets)
     nv = len(prim.positions)
     return MeshData(
         clusters=MeshClusters(
             tri_vidx=np.zeros((n_tris, 3), np.uint32),
-            cluster_offset=(np.arange(n_cl)
-                            * MAX_MESHLET_TRIANGLES).astype(np.uint32),
+            cluster_offset=offsets,
             cluster_count=np.zeros(n_cl, np.uint32),
             aabb_min=np.zeros((n_cl, 3), np.float32),
             aabb_max=np.zeros((n_cl, 3), np.float32),
@@ -283,9 +299,10 @@ def _placeholder_mesh(prim) -> MeshData:
 
 
 def _load_prim_arrays(path: str, mi: int, pi: int, prim,
-                      use_cache: bool) -> dict:
+                      use_cache: bool, ranges=None) -> dict:
     """A primitive's processed arrays through the versioned mesh cache
-    (DeferredLoadingContext readCache/writeCache analog)."""
+    (DeferredLoadingContext readCache/writeCache analog); `ranges`: its
+    partition, where already made."""
     from .caches import load_mesh_cache, mesh_cache_path, save_mesh_cache
 
     arrays = None
@@ -293,7 +310,7 @@ def _load_prim_arrays(path: str, mi: int, pi: int, prim,
     if cpath:
         arrays = load_mesh_cache(cpath)
     if arrays is None:
-        arrays = _process_prim(prim)
+        arrays = _process_prim(prim, ranges)
         if cpath:
             try:
                 save_mesh_cache(cpath, arrays)
@@ -354,14 +371,18 @@ class World:
         self._use_cache = use_cache
         self.meshes: list[MeshData] = []
         self.model_first_mesh: list[int] = []  # per glTF mesh: first flat index
-        self._prim_refs = []  # (flat mesh index, glTF mesh, primitive, prim)
+        # (flat mesh index, glTF mesh, primitive, prim, its partition)
+        self._prim_refs = []
         for mi, gltf_mesh in enumerate(self.doc.meshes):
             self.model_first_mesh.append(len(self.meshes))
             for pi, prim in enumerate(gltf_mesh.primitives):
                 if streaming:
                     # a layout-only mesh, its geometry adopted later
-                    self._prim_refs.append((len(self.meshes), mi, pi, prim))
-                    self.meshes.append(_placeholder_mesh(prim))
+                    with gprofiler.host("world.meshlets"):
+                        ranges = cluster_ranges(prim.positions, prim.indices)
+                    self._prim_refs.append((len(self.meshes), mi, pi, prim,
+                                            ranges))
+                    self.meshes.append(_placeholder_mesh(prim, ranges))
                     continue
                 arrays = _load_prim_arrays(path, mi, pi, prim, use_cache)
                 self.meshes.append(_mesh_from_arrays(arrays, prim.material + 1))
@@ -458,14 +479,36 @@ class World:
         )
         self.animation_end_time = anim.animations_end_time(self.animation_channels)
 
+        m = self.meshlet_counters
         _log.info(
-            "World: %d meshes, %d draw instances, %d world clusters, %d tris (padded %d)",
+            "World: %d meshes, %d draw instances, %d world clusters, %d tris "
+            "(padded %d); meshlets: %d built, %d tiles of %d slots, at most "
+            "%d vertices, %d min and %.1f mean triangles a cluster",
             len(self.meshes),
             len(self.draw_instances.mesh),
             self.n_world_clusters,
             self.n_real_tris,
             self.n_world_tris,
+            m["meshlets"], m["tiles"], CLUSTER_TRI_PAD, m["max_vertices"],
+            m["min_triangles"], m["mean_triangles"],
         )
+
+    def _count_meshlets(self) -> None:
+        """meshlet_counters of the scene as built: "meshlets" (clusters
+        built, once a mesh), "triangles" (real ones, once an instance),
+        "tiles" (the arena's 128-slot tiles, a world cluster each),
+        "max_vertices" (the most distinct vertices of a cluster),
+        "min_triangles" and "mean_triangles" of a world cluster."""
+        tri = self.wc_tri_count
+        self.meshlet_counters = {
+            "meshlets": sum(len(m.cluster_vertices) for m in self.meshes),
+            "triangles": int(tri.sum()),
+            "tiles": int(self.n_world_clusters),
+            "max_vertices": max((int(m.cluster_vertices.max(initial=0))
+                                 for m in self.meshes), default=0),
+            "min_triangles": int(tri.min()) if len(tri) else 0,
+            "mean_triangles": float(tri.sum() / max(len(tri), 1)),
+        }
 
     # ------------------------------------------------------------------
     def _build_world_tri_arena(self) -> None:
@@ -554,6 +597,7 @@ class World:
         # per-tri instance/material (cluster-uniform, broadcast to slots)
         self.wt_instance = np.repeat(wc_instance, pad)
         self.wt_material = np.repeat(wc_material, pad)
+        self._count_meshlets()
 
     # ------------------------------------------------------------------
     def static_scene_arrays(self) -> dict[str, np.ndarray]:
@@ -652,12 +696,12 @@ class World:
             return
         from .streaming import LoadedMesh, StreamingContext
 
-        def make_job(flat_idx, mi, pi, prim):
+        def make_job(flat_idx, mi, pi, prim, ranges):
             def job():
                 return LoadedMesh(
                     mesh_index=flat_idx,
                     arrays=_load_prim_arrays(self.path, mi, pi, prim,
-                                             self._use_cache))
+                                             self._use_cache, ranges))
 
             return job
 
@@ -692,8 +736,14 @@ class World:
             mesh_idx = item.mesh_index
             mesh = _mesh_from_arrays(item.arrays,
                                      self.meshes[mesh_idx].material)
-            self.meshes[mesh_idx] = mesh
             cl = mesh.clusters
+            if len(cl.cluster_offset) != len(
+                    self.meshes[mesh_idx].clusters.cluster_offset):
+                raise ValueError(
+                    f"mesh {mesh_idx}: {len(cl.cluster_offset)} clusters "
+                    "adopted where its placeholder laid out "
+                    f"{len(self.meshes[mesh_idx].clusters.cluster_offset)}")
+            self.meshes[mesh_idx] = mesh
             voff = int(self.mesh_vertex_offset[mesh_idx])
             nv = mesh.vertex_count
             self.a_packed[voff : voff + nv, 0:3] = mesh.normals
@@ -719,6 +769,7 @@ class World:
                     self.wc_tri_count[cg] = cnt
         if adopted:
             self.streaming_dirty = True
+            self._count_meshlets()
         return len(polled)
 
     @property

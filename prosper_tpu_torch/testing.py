@@ -655,8 +655,8 @@ def write_plate_gltf(directory, n_clusters: int = 2048, seed: int = 0,
     transforms that place the remaining plates (a reflected plate takes
     the scale (-1, 1, 1)). The triangles equal make_plate_scene's up to
     float rounding: n_clusters * 128 in all, 262,144 at 2048. World cuts
-    them into clusters of at most 124: 1984 static plates fill 2048
-    clusters exactly, and each instance adds two.
+    them into meshlets of at most 124 triangles and 64 vertices, so a
+    plate (81 vertices) spans two clusters or more.
 
     Materials: the rough dielectric of the plate scene on "plates", with
     a sRGB base color texture and a linear metallic-roughness texture;

@@ -9,9 +9,11 @@ GPU timestamp scopes, at most 512 a frame, shown as a per-scope table):
   span has a name, a kind ("frame": a mode's frame call; "pass": a
   render pass, which also opens the torch.profiler.record_function
   range of its name that the device tables below read; "wait": a call
-  that blocks the host on the device, named after its site; "host": the
-  CLI's work around the frame call), its start and end in ns, its
-  parent and its frame's identifier and index. Times are on torch.
+  that blocks the host on the device, named after its site; "host": host
+  work around the frame call, the CLI's and World's "world.meshlets"),
+  its start and end in ns, its parent and its frame's identifier and
+  index; only the thread that opened a frame records spans in it (a
+  streaming worker's are dropped). Times are on torch.
   profiler's trace clock, the Unix epoch in ns (an event at t us of a
   trace lies at kineto_results.trace_start_ns() + 1000 t), from a
   monotonic clock with an offset fixed when the store is made, so a span
@@ -50,6 +52,7 @@ Usage (or inside a torch.profiler session):
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from collections import defaultdict, deque
 from dataclasses import dataclass
@@ -179,6 +182,7 @@ class Profiler:
         self._frame: Frame | None = None
         self._open: list[int] = []
         self._next_id = 0
+        self._thread = None  # the thread whose spans the open frame records
 
     def _recording(self) -> bool:
         return self._enabled or _autograd_profiler._is_profiler_enabled
@@ -203,6 +207,7 @@ class Profiler:
             self.end_frame()
         if self._recording():
             self._frame = Frame(self._next_id, index, [])
+            self._thread = threading.get_ident()
             self._next_id += 1
 
     def end_frame(self) -> Frame | None:
@@ -253,15 +258,16 @@ class Profiler:
         return _Span(self, site, "wait")
 
     def host(self, name: str):
-        """Host work around the frame call (the CLI's)."""
+        """Host work around the frame call (the CLI's, World's)."""
         if self._frame is None:
             return _NULL
         return _Span(self, name, "host")
 
     def _push(self, name: str, kind: str) -> tuple:
         frame = self._frame
-        if frame is None or len(frame.spans) >= MAX_SCOPES:
-            return None, -1
+        if (frame is None or len(frame.spans) >= MAX_SCOPES
+                or threading.get_ident() != self._thread):
+            return None, -1  # spans of another thread would break nesting
         parent = self._open[-1] if self._open else -1
         frame.spans.append(Span(name, kind, self._clock() + self._epoch, 0,
                                 parent, frame.id, frame.index))

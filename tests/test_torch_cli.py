@@ -244,6 +244,11 @@ def test_cli_modes_write_png(plates, tmp_path, capsys, mode, extra):
                      ["deferred", "frame"], ["gbuffer", "pass"],
                      ["gbuffer.safe_normal", "wait"]):
             assert sum(r[:2] == span for r in rows) == 3, span
+        # the load's host spans: each primitive's meshlets (made at load
+        # for a streamed World's placeholders)
+        load = text.split("scene load:")[1].split("frame 0:")[0]
+        assert sum(ln.split()[:2] == ["world.meshlets", "host"]
+                   for ln in load.splitlines()) == 1
 
 
 @pytest.mark.parametrize("mode", ["pt", "deferred"])

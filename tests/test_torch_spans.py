@@ -100,6 +100,27 @@ def test_frame_span_nests_under_a_frame_the_caller_opened():
     assert p.frames() == [frame] and frame.index == 4
 
 
+def test_spans_of_another_thread_are_not_recorded():
+    """A worker thread's span (a streamed mesh's world.meshlets) while
+    the main thread's frame is open is dropped; the main thread's spans
+    nest as before."""
+    import threading
+
+    p = prof.Profiler()
+    with p.recording():
+        p.start_frame(0)
+        with p.host("streaming"):
+            worker = threading.Thread(
+                target=lambda: p.host("world.meshlets").__enter__())
+            worker.start()
+            worker.join()
+            with p.host("upload"):
+                pass
+        frame = p.end_frame()
+    assert [(s.name, s.kind, s.parent) for s in frame.spans] == [
+        ("streaming", "host", -1), ("upload", "host", 0)]
+
+
 def test_ring_keeps_the_last_64_frames():
     p = prof.Profiler()
     with p.recording():

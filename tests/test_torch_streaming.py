@@ -110,6 +110,35 @@ def test_streaming_world_matches_jax(tmp_path, name):
                            f"streamed frame/{where}")
 
 
+def test_placeholders_reserve_the_adopted_clusters(tmp_path):
+    """On 8x8-quad plates, whose meshlets are not 124-triangle ranges,
+    each placeholder reserves the clusters its adoption fills, so the
+    arena's layout does not move; streamed to the end, the World equals
+    the loaded one."""
+    from prosper_tpu_torch import testing
+
+    path = testing.write_plate_gltf(tmp_path, n_clusters=27, n_instanced=3,
+                                    scatter_lights=8)
+    full = World(path, use_cache=False)
+    tw = World(path, use_cache=False, streaming=True)
+    assert [len(m.clusters.cluster_count) for m in tw.meshes] == [
+        len(m.clusters.cluster_count) for m in full.meshes]
+    assert any(len(m.clusters.cluster_count) * 124 > len(m.clusters.tri_vidx)
+               + 124 for m in full.meshes)  # more than ceil(T / 124)
+    layout = ("wc_instance", "wc_material", "wt_instance", "wt_material")
+    before = {k: v for k, v in tw.static_scene_arrays().items() if k in layout}
+    assert (tw.wc_tri_count == 0).all()
+    tw.start_streaming()
+    assert _poll_until_done(tw) == len(tw.meshes)
+    for k, v in before.items():
+        np.testing.assert_array_equal(tw.static_scene_arrays()[k], v, k)
+    _assert_tree_equal(tw.static_scene_arrays(), full.static_scene_arrays(),
+                       "streamed")
+    _assert_tree_equal(tw.frame_arrays(0.0), full.frame_arrays(0.0),
+                       "streamed frame")
+    assert tw.meshlet_counters == full.meshlet_counters
+
+
 @pytest.mark.parametrize("name", ["features", "features_glb"])
 def test_streaming_arena_matches_jax(tmp_path, name):
     """The table, mip counts, neutral contents and every job's (offset,

@@ -298,6 +298,53 @@ def test_world_equals_jax(tmp_path, name, use_cache, instance_grid):
         _compare_worlds(again, jw, path_t, path_j, True)
 
 
+def test_world_counts_its_meshlets_in_a_recording(tmp_path, caplog):
+    """A World built in a recorded frame: a host span world.meshlets a
+    primitive, and meshlet_counters of the scene it built (in its load
+    log line): every cluster within upstream's limits."""
+    import logging
+
+    from prosper_tpu_torch.utils.profiler import gprofiler
+
+    path = testing.write_plate_gltf(tmp_path, n_clusters=27, n_instanced=3,
+                                    scatter_lights=8)
+    with caplog.at_level(logging.INFO), gprofiler.recording():
+        gprofiler.start_frame(0)
+        world = World(path, use_cache=False)
+        frame = gprofiler.end_frame()
+    spans = [s for s in frame.spans if s.name == "world.meshlets"]
+    assert len(spans) == len(world.meshes) == 2
+    assert all(s.kind == "host" and s.end_ns > s.start_ns for s in spans)
+    m = world.meshlet_counters
+    assert m["tiles"] == world.n_world_clusters
+    assert m["triangles"] == world.n_real_tris == 27 * 128
+    assert m["meshlets"] == sum(len(x.clusters.cluster_count)
+                                for x in world.meshes)
+    assert 0 < m["max_vertices"] <= 64
+    assert 0 < m["min_triangles"] <= m["mean_triangles"] <= 124
+    assert m["mean_triangles"] == world.n_real_tris / world.n_world_clusters
+    assert f"at most {m['max_vertices']} vertices" in caplog.text
+
+
+def test_mesh_cache_of_an_older_version_is_not_read(tmp_path):
+    """A version-4 file at a mesh's cache path (clusters by the old rule)
+    is neither read nor trusted: the World regenerates, equal to one
+    built without the cache."""
+    from prosper_tpu_torch.scene import caches
+
+    path = testing.write_plate_gltf(tmp_path, n_clusters=27, n_instanced=3,
+                                    scatter_lights=8)
+    assert caches.MESH_CACHE_VERSION == 5
+    cpath = caches.mesh_cache_path(path, 0, 0)
+    np.savez(cpath, __version__=4, cluster_count=np.full(3, 124, np.uint32))
+    assert caches.load_mesh_cache(cpath) is None
+    cached = World(path, use_cache=True)
+    fresh = World(path, use_cache=False)
+    _assert_tree_equal(cached.static_scene_arrays(),
+                       fresh.static_scene_arrays(), "static")
+    assert set(caches.load_mesh_cache(cpath)) >= {"cluster_count", "tri_vidx"}
+
+
 def test_feature_scene_is_what_it_claims(tmp_path):
     """The feature scene exercises what the module docstring lists."""
     path = write_feature_scene(tmp_path)
