@@ -19,9 +19,9 @@ frames split into pixel bands over ranks sharing the card. Phases:
 1. device: CUDA, nvcc and the card's name and power limit;
 2. build: compile csrc/trace_bvh.cu, csrc/shade_tiles.cu,
    csrc/trace_flat.cu, csrc/trace_leafmajor.cu, csrc/trace_wavefront.cu,
-   csrc/bench_kernels.cu and csrc/restir_spatial.cu for sm_90a, one nvcc
-   each, in parallel (timed), and print the ptxas line (registers, stack
-   frame, spills)
+   csrc/bench_kernels.cu, csrc/restir_spatial.cu and csrc/restir_initial.cu
+   for sm_90a, one nvcc each, in parallel (timed), and print the ptxas
+   line (registers, stack frame, spills)
    of K1-K4 and X3a (the warp walk; K2 and X3a are
    warp_closest_kernel<false> and <true>), K10 and K9 (the dense cull),
    K10's cull form, K5 and K5's walk form, K6, K8 and K7 (the flat warp
@@ -35,7 +35,8 @@ frames split into pixel bands over ranks sharing the card. Phases:
    from shared memory, walk_kernel<false> from device memory and the
    repack_kernel that feeds it), K11-K13 (closest8_kernel,
    closest8_full_kernel and any8_kernel on the 8-wide warp walk) and
-   ReSTIR's spatial reuse (spatial_reuse_kernel);
+   ReSTIR's spatial reuse (spatial_reuse_kernel) and initial reservoirs
+   (ris_initial_kernel);
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the whole inputs of one frame, with kernel and plain times and
    the bound (the least time an H100 could take for the same work):
@@ -94,10 +95,15 @@ frames split into pixel bands over ranks sharing the card. Phases:
    made spot lights (light index equal on 99.99% of the pixels; where it
    agrees, a UCW that is not finite equal to the twin's and the others
    within rtol 1e-5; some pixels picking a lit spot light), timed
-   beside its twin;
+   beside its twin; the initial reservoirs kernel (csrc/restir_initial.cu)
+   against its plain twin on the same 1080p frame's inputs and on the
+   64x64 one's with spot lights (the neighbour rows bit for bit; some
+   pixels keeping a lit spot light), timed beside its twin, with its
+   bound;
 9. restir: ReSTIR DI with BVH arrays under config.policy.any_tracer
-   "stack" (K1, spatial reuse, K3) and "dense" (K1, spatial reuse, K10),
-   and without BVH arrays (K8, spatial reuse, K7); each 2 warm-up + 8 timed frames with launch counts, shadow-ray
+   "stack" (K1, initial reservoirs, spatial reuse, K3) and "dense" (K1,
+   initial reservoirs, spatial reuse, K10), and without BVH arrays (K8,
+   initial reservoirs, spatial reuse, K7); each 2 warm-up + 8 timed frames with launch counts, shadow-ray
    counts, memory and a profile of one frame, the 1080p frame with the
    plain versions against the kernels' frame, and 64x64 CUDA frames
    against CPU frames;
@@ -271,6 +277,7 @@ SOURCES = {
     "trace_wavefront": "prosper_tpu_torch/csrc/trace_wavefront.cu",
     "bench_kernels": "prosper_tpu_torch/csrc/bench_kernels.cu",
     "restir_spatial": "prosper_tpu_torch/csrc/restir_spatial.cu",
+    "restir_initial": "prosper_tpu_torch/csrc/restir_initial.cu",
 }
 # kernel -> (source, the Pallas kernel it replaces)
 KERNELS = {
@@ -312,9 +319,13 @@ KERNELS = {
     "loop_nested": ("bench_kernels", "scripts/bench_loop_overhead.py:88"),
     "loop_cond": ("bench_kernels", "scripts/bench_loop_overhead.py:113"),
     "loop_vec": ("bench_kernels", "scripts/bench_loop_overhead.py:143"),
-    # the JAX package's spatial_reuse is jnp, not a pallas_call
+    # the JAX package's spatial_reuse and initial_reservoirs are jnp, not
+    # pallas_calls
     "spatial_reuse": ("restir_spatial",
                       "none (prosper_tpu/render/restir.py:127 is jnp)"),
+    "initial_neighbor_rows": ("restir_initial",
+                              "none (prosper_tpu/render/restir.py:67 is "
+                              "jnp)"),
 }
 # phase 15: the kernels the measurement entry points run
 EXPERIMENT_PATH = ("walk_leaves", "trace_closest_bvh_visits",
@@ -331,7 +342,7 @@ PT_PATH = ("trace_primary_bvh_full", "trace_closest_bvh", "trace_any_bvh")
 # two instances (the inner trip count 4 fixed at compile time, and read
 # at run time), X1 (its walk from shared and from device memory, and
 # the repack the second reads), K11-K13 (the 8-wide warp walk) and
-# ReSTIR's spatial reuse
+# ReSTIR's spatial reuse and initial reservoirs
 PTXAS_KERNELS = tuple(("trace_bvh", k) for k in (
     "warp_closest_kernel<false>", "warp_closest_kernel<true>",
     "warp_any_kernel", "primary_kernel", "closest_full_kernel",
@@ -352,7 +363,8 @@ PTXAS_KERNELS = tuple(("trace_bvh", k) for k in (
                                      "walk_kernel<false>", "repack_kernel")
 ) + tuple(("trace_bvh", k) for k in ("closest8_kernel", "closest8_full_kernel",
                                      "any8_kernel")) + (
-    ("restir_spatial", "spatial_reuse_kernel"),)
+    ("restir_spatial", "spatial_reuse_kernel"),
+    ("restir_initial", "ris_initial_kernel"))
 # the measurement forms of K5 and K10, which no frame may launch; nor may
 # a frame call trace_flat.flat_walk_counts, the walk counts of K6 and K8,
 # or trace_bvh.dense_walk_counts, K9's
@@ -375,14 +387,15 @@ FORWARD_CELLS = {
 }
 # label -> (entry options, config.policy.any_tracer, the kernels the
 # frame runs)
+RESTIR_PASSES = ("initial_neighbor_rows", "spatial_reuse")
 RESTIR_CELLS = {
     "restir bvh stack": ({}, "stack", ("trace_primary_bvh_full",
-                                       "spatial_reuse", "trace_any_bvh")),
+                                       *RESTIR_PASSES, "trace_any_bvh")),
     "restir bvh dense": ({}, "dense", ("trace_primary_bvh_full",
-                                       "spatial_reuse",
+                                       *RESTIR_PASSES,
                                        "trace_any_bvh_dense")),
     "restir bvh=False": ({"bvh": False}, "stack",
-                         ("trace_closest_flat_full", "spatial_reuse",
+                         ("trace_closest_flat_full", *RESTIR_PASSES,
                           "trace_any_flat")),
 }
 PT_FLAT_PATH = ("trace_closest_flat_full", "trace_any_flat")
@@ -417,7 +430,7 @@ LEAFMAJOR_CELLS = {
                      ("trace_primary_bvh_full", "run_pairs",
                       "trace_closest_bvh", "trace_any_bvh")),
     "restir leafmajor": ({"mode": "restir", "scatter_lights": N_LIGHTS},
-                         ("trace_primary_bvh_full", "spatial_reuse",
+                         ("trace_primary_bvh_full", *RESTIR_PASSES,
                           "run_pairs", "trace_any_bvh")),
 }
 PORT_KERNEL_SYMBOLS = ("primary_kernel", "warp_closest_kernel",
@@ -430,7 +443,7 @@ PORT_KERNEL_SYMBOLS = ("primary_kernel", "warp_closest_kernel",
                        "x2_moller_kernel", "x2_plucker_kernel",
                        "loop_flat_kernel", "loop_nested_kernel",
                        "loop_cond_kernel", "loop_vec_kernel",
-                       "spatial_reuse_kernel")
+                       "spatial_reuse_kernel", "ris_initial_kernel")
 # the glTF World scene: plate-2048's plates, the last 64 as instances
 WORLD_INSTANCED = 64
 # trace kernel vs plain: hit/miss and occlusion equal; tri equal unless
@@ -468,6 +481,10 @@ SPATIAL_TRY_OPS, SPATIAL_PHAT_OPS, SPATIAL_SAMPLES = 120, 150, 5
 # the pixels at least (both round every operation alike; a pHat or a
 # test an ulp apart could flip one), the UCW within this rtol where equal
 SPATIAL_SAME_MIN, SPATIAL_RTOL = 0.9999, 1e-5
+# ReSTIR's initial reservoirs (csrc/restir_initial.cu): one candidate
+# (two pcg3d advances and conversions, the pick, one pHat as above, the
+# streaming step), 5 a pixel
+INITIAL_CANDIDATE_OPS, INITIAL_CANDIDATES = 190, 5
 LANES = 128  # triangles per cluster slab
 # Phase 15. One slab test (csrc/ray_common.cuh slab_enter: 6 subtractions,
 # 6 products, 6 min/max, 3 max for the entry, 2 min for the exit, 2
@@ -1069,6 +1086,7 @@ def plain_paths():
         (tf, "trace_any_flat", as_plain(tf.trace_any_flat_plain)),
         (shading, "shade_clustered_tiles", tst.shade_clustered_tiles_plain),
         (restir, "spatial_reuse", restir.spatial_reuse_plain),
+        (restir, "initial_neighbor_rows", restir.initial_neighbor_rows_plain),
     )
 
 
@@ -1806,24 +1824,23 @@ def endpoint_order(o, d, t_max):
     return torch.argsort(torch.where(live, key, 1 << 20))
 
 
-def capture_spatial_call(fn, scene, cam):
-    """Run one ReSTIR frame; keep the whole arguments of its
-    spatial_reuse call."""
+def capture_restir_call(fn, scene, cam, name="spatial_reuse"):
+    """Run one ReSTIR frame; keep the whole arguments of its call of
+    restir.<name> (spatial_reuse or initial_neighbor_rows)."""
     from prosper_tpu_torch.render import restir
 
     calls = []
-    real = restir.spatial_reuse
+    real = getattr(restir, name)
 
     def rec(*args):
         calls.append(args)
         return real(*args)
 
-    with patched((restir, "spatial_reuse", rec)):
+    with patched((restir, name, rec)):
         fn(scene, cam, 0)
     torch.cuda.synchronize()
     if len(calls) != 1:
-        raise RuntimeError(f"a ReSTIR frame made {len(calls)} spatial_reuse "
-                           "calls")
+        raise RuntimeError(f"a ReSTIR frame made {len(calls)} {name} calls")
     return calls[0]
 
 
@@ -1867,8 +1884,42 @@ def check_spatial_call(label, args):
     return ok, rec
 
 
+def check_initial_call(label, args):
+    """The initial reservoirs kernel on one frame's inputs against its
+    plain twin -> (ok, record): every column of every neighbour row bit
+    for bit (NaN where the twin's is NaN)."""
+    from prosper_tpu_torch.render import restir
+
+    want, plain_ms = timed_call(
+        lambda: restir.initial_neighbor_rows_plain(*args))
+    got = restir.initial_neighbor_rows(*args)
+    nan = got.isnan()
+    bits = (got.view(torch.int32) == want.view(torch.int32)) | (
+        nan & want.isnan())
+    surface, lights, nm, valid, px, py = args[:6]
+    R = px.shape[0]
+    li = got[:, 4]
+    rec = {"pixels": R, "rows_bit_equal": int(bits.all(-1).sum()),
+           "columns_off": [int((~bits[:, c]).sum()) for c in range(8)],
+           "max_abs_err": float((got - want).abs().nan_to_num(0.0).max()),
+           "kept": int((li >= 0).sum()),
+           "spot_kept": int(((li >= 0) & (got[:, 5] > 0) & (
+               lights["packed_rows"][li.long().clamp_min(0), 0]
+               == 2.0)).sum())}
+    ok = rec["rows_bit_equal"] == R
+    planes = [surface[k] for k in ("linear_depth", "normal_ws",
+                                   "position_ws", "inv_view_ray", "albedo",
+                                   "roughness", "metallic")]
+    rec.update(ms=device_ms(lambda: restir.initial_neighbor_rows(*args), 10),
+               plain_ms=plain_ms,
+               **bound(nbytes(*planes, nm, valid, px, py, got),
+                       R * INITIAL_CANDIDATES * INITIAL_CANDIDATE_OPS))
+    print(f"{label}: ok={ok} {rec}")
+    return ok, rec
+
+
 def with_spot_lights(args):
-    """A spatial_reuse call's arguments with the odd point lights made
+    """A ReSTIR pass's arguments with the odd point lights made
     spot lights aimed at surface points (testing.as_spot_rows): the
     plate scene has none, and the kernel's pHat has a branch for them."""
     from prosper_tpu_torch.testing import as_spot_rows
@@ -1888,7 +1939,9 @@ def check_restir_kernels(fns):
     of one without; K10 (and K3) on the first, K7 on the second, each
     against its plain version and K3; the spatial reuse kernel on the
     first frame's inputs and a 64x64 frame's, the latter also with spot
-    lights, against its plain twin.
+    lights, against its plain twin; the initial reservoirs kernel on the
+    first frame's inputs and the 64x64 frame's with spot lights against
+    its plain twin.
     Returns (ok, records)."""
     from prosper_tpu_torch import entry as port_entry
     from prosper_tpu_torch.ops import trace as ttrace
@@ -1918,12 +1971,16 @@ def check_restir_kernels(fns):
         tb.trace_any_bvh_plain, args_b, leaf_boxes(scene_b))
     ok_all &= ok
     ok, spatial = check_spatial_call(
-        f"spatial reuse {W}x{H}", capture_spatial_call(fn_b, scene_b, cam_b))
+        f"spatial reuse {W}x{H}", capture_restir_call(fn_b, scene_b, cam_b))
+    ok_all &= ok
+    ok, initial = check_initial_call(
+        f"initial reservoirs {W}x{H}",
+        capture_restir_call(fn_b, scene_b, cam_b, "initial_neighbor_rows"))
     ok_all &= ok
     fn64, (sc64, cam64, _) = port_entry.entry(
         o.device, scene="plate", n_clusters=64, width=64, height=64,
         mode="restir", scatter_lights=100)
-    args64 = capture_spatial_call(fn64, sc64, cam64)
+    args64 = capture_restir_call(fn64, sc64, cam64)
     ok, spatial["test_64x64"] = check_spatial_call(
         "spatial reuse plate-64 64x64", args64)
     ok_all &= ok
@@ -1938,6 +1995,10 @@ def check_restir_kernels(fns):
           "a lit spot light")
     ok_all &= ok and spot["spot_picked"] > 0
     spatial["test_64x64_spot"] = spot
+    ok, initial["test_64x64_spot"] = check_initial_call(
+        "initial reservoirs plate-64 64x64, spot lights", with_spot_lights(
+            capture_restir_call(fn64, sc64, cam64, "initial_neighbor_rows")))
+    ok_all &= ok and initial["test_64x64_spot"]["spot_kept"] > 0
 
     func, args_f = capture_shadow_rays(fn_f, scene_f, cam_f)
     if func is not tf.trace_any_flat:
@@ -1963,7 +2024,8 @@ def check_restir_kernels(fns):
               f"mismatches {mism}")
         ok_all &= mism == 0
     return ok_all, {"trace_any_flat": k7, "trace_any_bvh_dense": k10,
-                    "spatial_reuse": spatial, "trace_any_bvh": k3}
+                    "spatial_reuse": spatial,
+                    "initial_neighbor_rows": initial, "trace_any_bvh": k3}
 
 
 def run_restir(smi, dev):
@@ -1979,15 +2041,15 @@ def run_restir(smi, dev):
             mode="restir", scatter_lights=N_LIGHTS, bvh=bvh)
         fns[bvh] = (fn, scene, cam)
     ok, records = check_restir_kernels(fns)
-    print("kernel, plain and bound times on one frame's shadow rays and "
-          "spatial reuse inputs: "
+    print("kernel, plain and bound times on one frame's shadow rays, "
+          "initial reservoirs and spatial reuse inputs: "
           + ", ".join(f"{k} {r['ms']:.3f} vs {r['plain_ms']:.1f} ms, bound "
                       f"{r['bound_ms']:.3f} ms ({r['bound_by']})"
                       for k, r in records.items()) + f"; card: {smi}")
     if not ok:
         raise RuntimeError("an any-hit kernel disagrees with its plain "
-                           "version or with K3, or the spatial reuse "
-                           "kernel with its plain twin")
+                           "version or with K3, or a ReSTIR pass kernel "
+                           "with its plain twin")
 
     phase("restir")
     launches = {}

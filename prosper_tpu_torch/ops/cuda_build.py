@@ -28,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("trace_bvh", "shade_tiles", "trace_flat", "trace_leafmajor",
            "trace_wavefront", "bench_kernels",
-           "restir_spatial")  # csrc/<name>.cu
+           "restir_spatial", "restir_initial")  # csrc/<name>.cu
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # --fmad=false: no a*b+c contraction, so the kernels round every
 # operation as the plain PyTorch versions do and agree with them bit for

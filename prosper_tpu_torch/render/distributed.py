@@ -77,8 +77,7 @@ from .gbuffer import render_gbuffer
 from .pt import pt_accumulate, pt_trace_pixels
 from .restir import (
     SPATIAL_RADIUS,
-    initial_reservoirs,
-    pack_neighbor_rows,
+    initial_neighbor_rows,
     restir_shade,
     shadow_tracer,
     spatial_reuse,
@@ -281,16 +280,12 @@ def restir_render_sharded(group, scene: dict, cam: dict, width: int,
                           full_height=height)
     surface = dict(gbuf["surface"])
     c2c = cam["camera_to_clip"]
-    lin = -c2c[2, 3] / (gbuf["depth"] + c2c[2, 2])
-    surface["linear_depth"] = lin
+    surface["linear_depth"] = -c2c[2, 3] / (gbuf["depth"] + c2c[2, 2])
     px = torch.arange(width, device=dev).repeat(band_h)
     py = torch.arange(y0, y0 + band_h, device=dev).repeat_interleave(width)
     lights = scene["frame"]["lights"]
-    li0, ucw0 = initial_reservoirs(surface, lights, px, py, frame_index)
-    li0 = torch.where(gbuf["valid"], li0, -1)
-    rows = pack_neighbor_rows(
-        {"linear_depth": lin, "normal_metallic": gbuf["normal_metallic"]},
-        li0, ucw0)
+    rows = initial_neighbor_rows(surface, lights, gbuf["normal_metallic"],
+                                 gbuf["valid"], px, py, frame_index)
     neigh = halo_rows(rows.reshape(band_h, width * 8), group)
     li1, ucw1 = spatial_reuse(
         surface, lights, neigh.reshape(-1, 8), px, py, width, height,

@@ -29,6 +29,10 @@ reads the whole frame's neighbour rows, or a band's rows and its halo
 (neigh_y0, neigh_rows_h; render/distributed.py). On CUDA tensors it runs
 as one hand-written kernel, csrc/restir_spatial.cu, one thread per
 pixel; spatial_reuse_plain is its plain twin, which CPU tensors take.
+The ris_initial pass (initial_reservoirs, the valid mask,
+pack_neighbor_rows) runs likewise through initial_neighbor_rows: on CUDA
+tensors csrc/restir_initial.cu writes the neighbour rows in one pass,
+on CPU tensors initial_neighbor_rows_plain composes the three steps.
 
 The shadow rays go, in 16x16-block order (ops/trace.traced_in_blocks),
 through the any-hit fn of ops/trace.make_bounce_tracer when
@@ -65,8 +69,9 @@ from ..ops.trace import (
     make_tracer,
     traced_in_blocks,
 )
-from ..ops.trace_bvh import check_stack_overflow
+from ..ops.trace_bvh import check_stack_overflow, expect_tensor
 from ..scene.convert import camera_tensors, check_device
+from ..scene.lights import MAX_POINT_LIGHTS, MAX_SPOT_LIGHTS
 from ..utils.profiler import gprofiler
 from .gbuffer import render_gbuffer
 from .pt import pt_accumulate
@@ -216,26 +221,24 @@ def spatial_reuse_plain(surface: dict, lights: dict, neigh_rows, px, py,
     return out_light, out_ucw
 
 
-# the C entry point's arguments before the stream (cuda_build.launch)
+# the C entry points' arguments before the stream (cuda_build.launch)
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 2
              + [ctypes.c_int] * 4 + [ctypes.c_uint32] + [ctypes.c_void_p] * 2)
-# the surface planes the kernel reads: key, trailing shape
+_INITIAL_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int]
+                     + [ctypes.c_void_p] * 3 + [ctypes.c_uint32]
+                     + [ctypes.c_void_p])
+# the surface planes the kernels read: key, trailing shape
 _SURFACE_PLANES = (("linear_depth", ()), ("normal_ws", (3,)),
                    ("position_ws", (3,)), ("inv_view_ray", (3,)),
                    ("albedo", (3,)), ("roughness", ()), ("metallic", ()))
 
 
-def _spatial_kernel(surface: dict, lights: dict, neigh_rows, px, py,
-                    width: int, height: int, frame_index: int, neigh_y0: int,
-                    rows_h: int):
-    """Check the inputs and launch csrc/restir_spatial.cu -> (R,) int64
-    light index, (R,) f32 UCW."""
+def _kernel_inputs(name: str, surface: dict, lights: dict, px, py):
+    """The checks both kernels make -> (the surface planes, contiguous,
+    in _SURFACE_PLANES order; the packed light rows). Raises off CUDA."""
     dev = px.device
     if dev.type != "cuda":
-        raise ValueError(f"spatial_reuse: unsupported device {dev}")
-    from ..ops import cuda_build
-    from ..ops.trace_bvh import expect_tensor
-
+        raise ValueError(f"{name}: unsupported device {dev}")
     R = px.shape[0]
     # the G-buffer's albedo is a view of a wider plane: made contiguous
     planes = [surface[key].contiguous() for key, _ in _SURFACE_PLANES]
@@ -243,15 +246,39 @@ def _spatial_kernel(surface: dict, lights: dict, neigh_rows, px, py,
         expect_tensor(t, key, torch.float32, dev, (R, *tail))
     expect_tensor(px, "px", torch.int64, dev, (R,))
     expect_tensor(py, "py", torch.int64, dev, (R,))
-    expect_tensor(neigh_rows, "neigh_rows", torch.float32, dev,
-                  (rows_h * width, 8))
     rows = lights["packed_rows"]
     expect_tensor(rows, "packed_rows", torch.float32, dev, (None, 12))
-    for name, t in (("neigh_rows", neigh_rows), ("packed_rows", rows)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: must be 16-byte aligned")
-    # the frame index's low 32 bits: the RNG's u32 word
-    frame = operator.index(frame_index) & 0xFFFFFFFF
+    _expect_aligned("packed_rows", rows)
+    return planes, rows
+
+
+def _expect_aligned(name: str, t) -> None:
+    """Raise unless t's data is 16-byte aligned (float4 loads)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+def _frame_word(frame_index) -> int:
+    """The frame index's low 32 bits: the RNG's u32 word. A Python int:
+    a tensor would make the host wait for its value."""
+    if isinstance(frame_index, torch.Tensor):
+        raise TypeError("frame_index: expected a Python int, got a tensor")
+    return operator.index(frame_index) & 0xFFFFFFFF
+
+
+def _spatial_kernel(surface: dict, lights: dict, neigh_rows, px, py,
+                    width: int, height: int, frame_index: int, neigh_y0: int,
+                    rows_h: int):
+    """Check the inputs and launch csrc/restir_spatial.cu -> (R,) int64
+    light index, (R,) f32 UCW."""
+    from ..ops import cuda_build
+
+    planes, rows = _kernel_inputs("spatial_reuse", surface, lights, px, py)
+    dev, R = px.device, px.shape[0]
+    expect_tensor(neigh_rows, "neigh_rows", torch.float32, dev,
+                  (rows_h * width, 8))
+    _expect_aligned("neigh_rows", neigh_rows)
+    frame = _frame_word(frame_index)
     out_light = torch.empty((R,), dtype=torch.int64, device=dev)
     out_ucw = torch.empty((R,), dtype=torch.float32, device=dev)
     cuda_build.launch("restir_spatial", "spatial_reuse", _ARGTYPES, dev, (
@@ -282,8 +309,78 @@ def spatial_reuse(surface: dict, lights: dict, neigh_rows, px, py,
     return out
 
 
+def initial_neighbor_rows_plain(surface: dict, lights: dict, normal_metallic,
+                                valid, px, py, frame_index):
+    """The ris_initial pass in plain PyTorch -> the (R, 8)
+    pack_neighbor_rows image the spatial reuse reads: initial_reservoirs,
+    the light index masked by `valid` (the UCW left as it is), then
+    pack_neighbor_rows over surface["linear_depth"] and normal_metallic
+    (R, 4). The twin of csrc/restir_initial.cu, which
+    initial_neighbor_rows runs on CPU tensors."""
+    li0, ucw0 = initial_reservoirs(surface, lights, px, py, frame_index)
+    li0 = torch.where(valid, li0, -1)
+    return pack_neighbor_rows(
+        {"linear_depth": surface["linear_depth"],
+         "normal_metallic": normal_metallic}, li0, ucw0)
+
+
+def _initial_kernel(surface: dict, lights: dict, normal_metallic, valid, px,
+                    py, frame_index: int):
+    """Check the inputs and launch csrc/restir_initial.cu -> (R, 8) f32
+    neighbour rows."""
+    from ..ops import cuda_build
+
+    planes, rows = _kernel_inputs("initial_neighbor_rows", surface, lights,
+                                  px, py)
+    dev, R = px.device, px.shape[0]
+    expect_tensor(normal_metallic, "normal_metallic", torch.float32, dev,
+                  (R, 4))
+    _expect_aligned("normal_metallic", normal_metallic)
+    expect_tensor(valid, "valid", torch.bool, dev, (R,))
+    # the kernel picks among the counted lights, which it counts on the
+    # device: every row scene.lights.light_uniforms lays out must be there
+    n_rows = 1 + MAX_POINT_LIGHTS + MAX_SPOT_LIGHTS
+    if rows.shape[0] < n_rows:
+        raise ValueError(f"packed_rows: expected {n_rows} rows, got "
+                         f"{rows.shape[0]}")
+    counts = (lights["point_count"], lights["spot_count"])
+    for name, t in zip(("point_count", "spot_count"), counts):
+        # a scalar: 0-d, or (1,) as a pinned upload leaves it
+        expect_tensor(t, name, torch.int32, dev)
+        if t.numel() != 1:
+            raise ValueError(f"{name}: expected one element, got "
+                             f"{tuple(t.shape)}")
+    frame = _frame_word(frame_index)
+    out = torch.empty((R, 8), dtype=torch.float32, device=dev)
+    cuda_build.launch("restir_initial", "ris_initial", _INITIAL_ARGTYPES,
+                      dev, (
+        planes[0].data_ptr(), normal_metallic.data_ptr(),
+        *(t.data_ptr() for t in planes[1:]), valid.data_ptr(),
+        px.data_ptr(), py.data_ptr(), R, rows.data_ptr(),
+        *(t.data_ptr() for t in counts), frame, out.data_ptr()))
+    return out
+
+
+def initial_neighbor_rows(surface: dict, lights: dict, normal_metallic,
+                          valid, px, py, frame_index):
+    """The ris_initial pass -> (R, 8) f32 neighbour rows; arguments as
+    initial_neighbor_rows_plain's. On CPU tensors it runs
+    initial_neighbor_rows_plain; on CUDA tensors the kernel of
+    csrc/restir_initial.cu (frame_index a Python int; the light counts
+    read on the device) or raises, and counts its launches in
+    `.launches`."""
+    if px.device.type == "cpu":
+        return initial_neighbor_rows_plain(surface, lights, normal_metallic,
+                                           valid, px, py, frame_index)
+    out = _initial_kernel(surface, lights, normal_metallic, valid, px, py,
+                          frame_index)
+    KERNELS[1].launches += 1
+    return out
+
+
 spatial_reuse.launches = 0
-KERNELS = (spatial_reuse,)
+initial_neighbor_rows.launches = 0
+KERNELS = (spatial_reuse, initial_neighbor_rows)
 
 
 def shadow_tracer(scene: dict, width: int, height: int):
@@ -355,18 +452,14 @@ def render_restir(scene: dict, cam: dict, width: int, height: int,
         surface = dict(gbuf["surface"])
         # linear depth from the non-linear buffer, as the comp shaders do
         c2c = cam["camera_to_clip"]
-        lin = -c2c[2, 3] / (gbuf["depth"] + c2c[2, 2])
-        surface["linear_depth"] = lin
+        surface["linear_depth"] = -c2c[2, 3] / (gbuf["depth"] + c2c[2, 2])
     px, py = _pixel_coords(width, height, str(dev))
     lights = frame["lights"]
-    valid = gbuf["valid"]
 
     with gprofiler.span("ris_initial"):
-        li0, ucw0 = initial_reservoirs(surface, lights, px, py, frame_index)
-        li0 = torch.where(valid, li0, -1)
-        neigh_rows = pack_neighbor_rows(
-            {"linear_depth": lin, "normal_metallic": gbuf["normal_metallic"]},
-            li0, ucw0)
+        neigh_rows = initial_neighbor_rows(surface, lights,
+                                           gbuf["normal_metallic"],
+                                           gbuf["valid"], px, py, frame_index)
     with gprofiler.span("spatial_shade"):
         li1, ucw1 = spatial_reuse(surface, lights, neigh_rows, px, py, width,
                                   height, frame_index)

@@ -14,8 +14,9 @@ equal to the lockstep plain walk's and the counting K2's bit for bit,
 ties included, and K1's and K4's rows 0-15 to the lockstep plain walk's
 (under K4's skip mask) and the counting K2's through the attribute
 interpolation, bit for bit; the 8-wide kernels, the threaded walk, the
-counting K2, the Möller loops and the loop probes equal to their plain
-versions bit for bit; the tensor-core Plücker loops agree with their TF32 plain versions on every hit off the
+counting K2, the Möller loops, the loop probes and ReSTIR's initial
+reservoirs kernel (every column of its neighbour rows) equal to their
+plain versions bit for bit; the tensor-core Plücker loops agree with their TF32 plain versions on every hit off the
 border of ops/plucker.tf32_agreement, with t within rtol 1e-5 plus the
 bound of a reordered sum where both hit, and with Möller on at least
 99.95% of (ray, triangle) pairs (experiments/bench_mxu_isect.py:89) with
@@ -2004,3 +2005,151 @@ def test_spatial_reuse_kernel_checks_inputs_on_card(cuda, monkeypatch):
     with pytest.raises(ValueError, match="aligned"):
         restir.spatial_reuse(surface, {**lights, "packed_rows": shifted},
                              rows, px, py, width, height, frame)
+
+
+def _initial_call(device, monkeypatch, frame_index=3, **kw):
+    """The arguments of the initial_neighbor_rows call of one ReSTIR
+    frame on device, and that frame's launches of the kernel."""
+    from prosper_tpu_torch.render import restir
+
+    calls = []
+    real = restir.initial_neighbor_rows
+
+    def rec(*args):
+        calls.append(args)
+        return real(*args)
+
+    fn, (sc, cam, _) = entry(device, mode="restir", **kw)
+    monkeypatch.setattr(restir, "initial_neighbor_rows", rec)
+    before = real.launches
+    fn(sc, cam, frame_index)
+    monkeypatch.setattr(restir, "initial_neighbor_rows", real)
+    assert len(calls) == 1
+    return calls[0], real.launches - before
+
+
+def _assert_bits_equal(got, want):
+    """Every element of two float32 tensors equal bit for bit (NaN where
+    the other is NaN)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    nan = got.isnan()
+    assert torch.equal(nan, want.isnan())
+    assert torch.equal(got.view(torch.int32)[~nan],
+                       want.view(torch.int32)[~nan])
+
+
+# frame indices: one, and one past 2**32 (the RNG takes its low 32 bits)
+INITIAL_FRAME_INDICES = (3, 2**32 + 17)
+
+
+@pytest.mark.parametrize("frame_index", INITIAL_FRAME_INDICES)
+@pytest.mark.parametrize("frame", ["plate64-64x64", "plate2048-1080p"])
+def test_ris_initial_kernel_matches_plain_on_card(cuda, frame, frame_index,
+                                                  monkeypatch):
+    """The initial reservoirs kernel (csrc/restir_initial.cu) against its
+    plain twin on the card, on the inputs of one ReSTIR frame: every
+    column of every neighbour row equal bit for bit; the frame launches
+    the kernel once."""
+    from prosper_tpu_torch.render import restir
+
+    args, launches = _initial_call(cuda, monkeypatch, frame_index,
+                                   **SPATIAL_FRAMES[frame])
+    assert launches == 1
+    got = restir.initial_neighbor_rows(*args)
+    want = restir.initial_neighbor_rows_plain(*args)
+    _assert_bits_equal(got, want)
+    assert bool((got[:, 4] >= 0).any())
+
+
+def test_ris_initial_kernel_spot_lights_match_plain_on_card(cuda,
+                                                            monkeypatch):
+    """The spot branch of pHat and the light count read on the device:
+    the 64x64 frame's arguments with its odd point lights made spot
+    lights aimed at surface points, and 7 counted spot lights after the
+    points (copies of the first spot rows), so every pick covers
+    1 + P + 7 lights; rows bit for bit, some pixels keeping a lit spot
+    light, some one of the 7."""
+    from prosper_tpu_torch.render import restir
+    from prosper_tpu_torch.testing import as_spot_rows
+
+    args, _ = _initial_call(cuda, monkeypatch,
+                            **SPATIAL_FRAMES["plate64-64x64"])
+    surface, lights = args[:2]
+    pos = surface["position_ws"][surface["valid"]]
+    targets = pos[torch.randperm(pos.shape[0],
+                                 generator=torch.Generator().manual_seed(3))
+                  .to(pos.device)]
+    n_points = int(lights["point_count"])
+    rows = torch.from_numpy(as_spot_rows(
+        lights["packed_rows"].cpu().numpy(), n_points,
+        targets.cpu().numpy())).to(cuda)
+    rows[1 + n_points:8 + n_points] = rows[1:15:2]
+    spots = {**lights, "packed_rows": rows,
+             "spot_count": torch.tensor(7, dtype=torch.int32, device=cuda)}
+    args = (surface, spots, *args[2:])
+    got = restir.initial_neighbor_rows(*args)
+    _assert_bits_equal(got, restir.initial_neighbor_rows_plain(*args))
+    li = got[:, 4].long()
+    kept = (li >= 0) & (got[:, 5] > 0)
+    assert int((kept & (rows[li.clamp_min(0), 0] == 2.0)).sum()) > 0
+    assert int((kept & (li > n_points)).sum()) > 0
+
+
+def test_ris_initial_kernel_band_equals_full_frame_on_card(cuda,
+                                                           monkeypatch):
+    """The kernel on a band's pixels (their absolute px, py, as
+    render/distributed.py passes them) equals the full frame's rows of
+    the full-frame launch bit for bit."""
+    from prosper_tpu_torch.render import restir
+
+    args, _ = _initial_call(cuda, monkeypatch,
+                            **SPATIAL_FRAMES["plate64-64x64"])
+    surface, lights, nm, valid, px, py, frame = args
+    full = restir.initial_neighbor_rows(*args)
+    R = px.shape[0]
+    for r0, r1 in ((40 * 64, 56 * 64), (0, 24 * 64), (48 * 64, 64 * 64),
+                   (17, 1000)):
+        band_s = {k: v[r0:r1] if isinstance(v, torch.Tensor) and v.dim()
+                  and v.shape[0] == R else v for k, v in surface.items()}
+        got = restir.initial_neighbor_rows(
+            band_s, lights, nm[r0:r1], valid[r0:r1], px[r0:r1], py[r0:r1],
+            frame)
+        _assert_bits_equal(got, full[r0:r1])
+
+
+def test_ris_initial_kernel_checks_inputs_on_card(cuda, monkeypatch):
+    """The wrapper refuses what the kernel does not take: another dtype
+    of px or of the valid mask, normal_metallic of the wrong shape or
+    off 16-byte alignment, light counts of another dtype, a light table
+    shorter than light_uniforms lays out (the counts are read on the
+    device), a frame index that is a tensor."""
+    from prosper_tpu_torch.render import restir
+
+    args, _ = _initial_call(cuda, monkeypatch,
+                            **SPATIAL_FRAMES["plate64-64x64"])
+    surface, lights, nm, valid, px, py, frame = args
+    with pytest.raises(TypeError):
+        restir.initial_neighbor_rows(surface, lights, nm, valid, px.int(),
+                                     py, frame)
+    with pytest.raises(TypeError):
+        restir.initial_neighbor_rows(surface, lights, nm, valid.float(), px,
+                                     py, frame)
+    with pytest.raises(ValueError):
+        restir.initial_neighbor_rows(surface, lights, nm[:, :3].contiguous(),
+                                     valid, px, py, frame)
+    shifted = torch.empty(nm.numel() + 1, device=cuda)[1:].view_as(nm)
+    shifted.copy_(nm)
+    with pytest.raises(ValueError, match="aligned"):
+        restir.initial_neighbor_rows(surface, lights, shifted, valid, px, py,
+                                     frame)
+    with pytest.raises(TypeError):
+        restir.initial_neighbor_rows(
+            surface, {**lights, "point_count": lights["point_count"].long()},
+            nm, valid, px, py, frame)
+    with pytest.raises(ValueError, match="rows"):
+        restir.initial_neighbor_rows(
+            surface, {**lights, "packed_rows": lights["packed_rows"][:64]},
+            nm, valid, px, py, frame)
+    with pytest.raises(TypeError):
+        restir.initial_neighbor_rows(surface, lights, nm, valid, px, py,
+                                     torch.tensor(frame, device=cuda))

@@ -8,8 +8,9 @@
   its source would cut a pointer or shift every later argument. The
   measurement forms of K5 and K10 (shade_walk_counts, dense_cull_counts)
   have entry points and launch counts of their own.
-- The spatial reuse wrapper's dispatch: its plain twin on CPU tensors,
-  the kernel's checks (which refuse what is not CUDA) elsewhere.
+- The ReSTIR wrappers' dispatch (spatial reuse, initial neighbour
+  rows): their plain twins on CPU tensors, the kernels' checks (which
+  refuse what is not CUDA) elsewhere.
 - The visit order the closest-hit kernels keep on exact t ties, on
   testing.make_tie_scene: the lockstep plain walk (trace_bvh's
   trace_closest_bvh_visits_plain, each ray's own walk, which K2's and
@@ -53,6 +54,7 @@ TABLES = {
     "trace_wavefront": {"walk_leaves": tw._ARGTYPES},
     "bench_kernels": {"isect_loop": bk._ISECT_ARGS, **bk._PROBE_ARGS},
     "restir_spatial": {"spatial_reuse": restir._ARGTYPES},
+    "restir_initial": {"ris_initial": restir._INITIAL_ARGTYPES},
 }
 ENTRY = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
 
@@ -148,6 +150,57 @@ def test_spatial_reuse_runs_its_twin_on_cpu_and_raises_elsewhere():
     with pytest.raises(ValueError, match="unsupported device meta"):
         restir.spatial_reuse(*inputs("meta"))
     assert restir.spatial_reuse.launches == before
+
+
+def test_initial_neighbor_rows_runs_its_twin_on_cpu_and_raises_elsewhere():
+    """initial_neighbor_rows takes its plain twin only for CPU tensors,
+    without a launch: the rows of initial_reservoirs, the valid mask on
+    the light index alone and pack_neighbor_rows, as render_restir
+    composed them before the kernel; on any other device it goes to the
+    kernel's checks, which refuse what is not CUDA (no fallback). Its
+    launch count is among restir.KERNELS."""
+    R, W = 12, 4
+    gen = torch.Generator().manual_seed(6)
+
+    def inputs(device):
+        surface = {k: torch.rand((R, 3) if k.endswith(("_ws", "ray", "albedo"))
+                                 else (R,), generator=gen).to(device)
+                   for k in ("linear_depth", "normal_ws", "position_ws",
+                             "inv_view_ray", "albedo", "roughness",
+                             "metallic")}
+        # the sun, a point light and a spot light, each counted
+        rows = torch.zeros((3, 12))
+        rows[0, 1:7] = torch.tensor([2.0, 2.0, 2.0, -1.0, -1.0, -1.0])
+        rows[1, :8] = torch.tensor([1.0, 5.0, 5.0, 5.0, 0.5, 0.5, 2.0, 9.0])
+        rows[2] = torch.tensor([2.0, 5.0, 5.0, 5.0, 0.5, 0.5, 2.0, 2.0,
+                                0.0, 0.0, -1.0, -0.5])
+        lights = {"packed_rows": rows.to(device),
+                  "point_count": torch.tensor(1, dtype=torch.int32,
+                                              device=device),
+                  "spot_count": torch.tensor(1, dtype=torch.int32,
+                                             device=device)}
+        nm = torch.rand((R, 4), generator=gen).to(device)
+        valid = (torch.arange(R) % 3 != 0).to(device)
+        px = torch.arange(W).repeat(R // W).to(device)
+        py = torch.arange(R // W).repeat_interleave(W).to(device)
+        return surface, lights, nm, valid, px, py, 7
+
+    assert restir.initial_neighbor_rows in restir.KERNELS
+    before = restir.initial_neighbor_rows.launches
+    args = inputs("cpu")
+    surface, lights, nm, valid, px, py, frame = args
+    got = restir.initial_neighbor_rows(*args)
+    li, ucw = restir.initial_reservoirs(surface, lights, px, py, frame)
+    assert bool((li >= 0).any())
+    want = torch.cat([surface["linear_depth"][:, None], nm[:, :3],
+                      torch.where(valid, li, -1).float()[:, None],
+                      ucw[:, None], torch.zeros((R, 2))], dim=-1)
+    assert got.shape == (R, 8) and torch.equal(got, want)
+    assert torch.equal(got, restir.initial_neighbor_rows_plain(*args))
+    assert restir.initial_neighbor_rows.launches == before
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        restir.initial_neighbor_rows(*inputs("meta"))
+    assert restir.initial_neighbor_rows.launches == before
 
 
 def test_as_spot_rows_light_their_targets():
